@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of the JAX package ``repro``.
+
+The port serves the dense tier of the continuous-batching engine on an
+NVIDIA GPU through hand-written paged-attention CUDA kernels
+(``kernels/paged_attn``); every module keeps the name of its JAX
+counterpart. It imports nothing of ``repro`` or ``jax``: the JAX package is
+the reference the port's tests hold it against.
+"""
+from repro_torch.configs import (ARCHS, AttentionRuntime, ModelConfig, ServingCfg,
+                                 get_config, smoke_config)
+from repro_torch.params import from_jax, init_params
+from repro_torch.serving.engine import ContinuousServeEngine, GenerationConfig
+from repro_torch.serving.request import RequestOutput, SamplingParams, ServeRequest
+from repro_torch.serving.scheduler import Request, SchedulerConfigError
+
+__all__ = [
+    "ARCHS", "AttentionRuntime", "ContinuousServeEngine", "GenerationConfig",
+    "ModelConfig", "Request", "RequestOutput", "SamplingParams",
+    "SchedulerConfigError", "ServeRequest", "ServingCfg", "from_jax",
+    "get_config", "init_params", "smoke_config",
+]

@@ -1,0 +1,92 @@
+"""GQA/MQA/MHA attention layer of the port, serving phases over paged arenas
+(the JAX package's ``models/attention_layer.py``). Only the dense mode is
+ported; the other modes raise ``NotImplementedError`` naming their ROADMAP
+item."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import AttentionRuntime, ModelConfig
+from repro_torch.models.layers import apply_rope, apply_rope_rows, rms_norm_vec, rope_tables
+from repro_torch.serving import paged_cache as pgc
+
+
+def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
+    """x (B, T, D) -> q (B, T, H, Dh), k/v (B, T, KV, Dh)."""
+    B, T, _ = x.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, T, H, Dh)
+    k = k.reshape(B, T, KV, Dh)
+    v = v.reshape(B, T, KV, Dh)
+    if cfg.qk_norm:
+        q = rms_norm_vec(q, p["q_norm"])
+        k = rms_norm_vec(k, p["k_norm"])
+    return q, k, v
+
+
+def _rope_qk(cfg: ModelConfig, q, k, positions_q, positions_k):
+    if cfg.pos_embedding != "rope":
+        return q, k
+    d = q.shape[-1]
+    cq, sq = rope_tables(positions_q, d, cfg.rope_theta)
+    ck, sk = rope_tables(positions_k, d, cfg.rope_theta)
+    return apply_rope(q, cq, sq), apply_rope(k, ck, sk)
+
+
+def _rope_qk_rows(cfg: ModelConfig, q, k, positions):
+    """Per-row decode rope: positions (B,), q/k (B, 1, H|KV, D)."""
+    if cfg.pos_embedding != "rope":
+        return q, k
+    cos, sin = rope_tables(positions, q.shape[-1], cfg.rope_theta)
+    return apply_rope_rows(q, cos, sin), apply_rope_rows(k, cos, sin)
+
+
+def _out(cfg: ModelConfig, p, o: torch.Tensor) -> torch.Tensor:
+    B, T = o.shape[:2]
+    return o.reshape(B, T, cfg.num_heads * cfg.head_dim) @ p["wo"]
+
+
+def _scale(cfg: ModelConfig) -> float:
+    return cfg.head_dim ** -0.5
+
+
+def init_paged_attn_cache(cfg: ModelConfig, rt: AttentionRuntime, serving,
+                          device) -> pgc.PagedDenseKVCache:
+    """Per-layer paged arena of the dense mode."""
+    if rt.mode != "dense":
+        raise pgc.unported_mode(rt.mode)
+    return pgc.init_paged_dense(serving.num_pages, serving.page_size,
+                                cfg.num_kv_heads, cfg.head_dim,
+                                dtype=cfg.param_dtype, device=device)
+
+
+def attn_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, p, x: torch.Tensor,
+                       positions: torch.Tensor, block_row: torch.Tensor,
+                       offset: int, valid: int, cache):
+    """One prompt chunk of one slot: its K/V go straight into the slot's
+    pages and its C queries attend [0, offset + valid). x (1, C, D) is the
+    normed block input at absolute ``positions``."""
+    q, k, v = _project_qkv(cfg, p, x)
+    q, k = _rope_qk(cfg, q, k, positions, positions)
+    out, cache = pgc.chunk_attend_paged(rt, cache, block_row=block_row,
+                                        offset=offset, valid=valid, q=q,
+                                        k_c=k, v_c=v, scale=_scale(cfg))
+    return _out(cfg, p, out), cache
+
+
+def attn_decode_rows(cfg: ModelConfig, rt: AttentionRuntime, p, x_t: torch.Tensor,
+                     rows: pgc.RowState, cache):
+    """One-token decode against a paged arena. x_t (B, 1, D) normed block
+    input; per-row positions are ``rows.lengths``."""
+    q, k, v = _project_qkv(cfg, p, x_t)
+    q, k = _rope_qk_rows(cfg, q, k, rows.lengths)
+    out, cache = pgc.decode_attend_paged(rt, cache, rows, q=q, k_t=k, v_t=v,
+                                         scale=_scale(cfg))
+    return _out(cfg, p, out), cache

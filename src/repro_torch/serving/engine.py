@@ -1,0 +1,495 @@
+"""Continuous-batching serving engine of the port (the JAX package's
+``ContinuousServeEngine``, ``serving/engine.py:225``).
+
+Requests are admitted into vacated slots as soon as their pages fit, their
+prompts stream into the slot's arena pages one ``prefill_chunk`` per tick
+(interleaved with the decode step), every running row decodes at its own
+position, and rows retire at EOS / stop tokens / budget and free their pages
+at once. Ticks, outputs, stats and recompute preemption follow the reference
+step for step, so greedy streams and tick counters are identical to the JAX
+engine's.
+
+The engine runs on the GPU unless ``device`` names another device. It
+refuses, with ``SchedulerConfigError``, every knob the port does not
+implement yet instead of ignoring it: tier escalation, prefix sharing,
+speculative decoding, one-shot admission (``prefill_chunk=0``), defrag, a
+device mesh, non-dense attention modes, non-token inputs, non-FIFO policies
+and sampled (``temperature > 0``) requests.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs import AttentionRuntime, ModelConfig, ServingCfg
+from repro_torch.models import model as M
+from repro_torch.params import model_defs, resolve_device, to_device
+from repro_torch.serving import paged_cache as pgc
+from repro_torch.serving.policies import derive_deadlines, make_policy, slo_of
+from repro_torch.serving.request import RequestOutput, SamplingParams, ServeRequest
+from repro_torch.serving.scheduler import Request, Scheduler, SchedulerConfigError
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0      # 0 => greedy
+    top_p: float = 1.0
+    eos_id: int = -1              # -1 => never stop early
+    seed: int = 0
+
+
+def _unported_knobs(serving: ServingCfg, rt: AttentionRuntime,
+                    cfg: ModelConfig) -> list[str]:
+    """The settings this engine refuses, each with its ROADMAP item."""
+    out = []
+    if serving.enable_escalation:
+        out.append("enable_escalation (tier escalation, ROADMAP A14)")
+    if serving.share_prefix:
+        out.append("share_prefix (prefix sharing, ROADMAP A11)")
+    if serving.spec_len > 0:
+        out.append(f"spec_len={serving.spec_len} (speculative decoding, ROADMAP A12)")
+    if serving.prefill_chunk == 0:
+        out.append("prefill_chunk=0 (one-shot admission, ROADMAP A9)")
+    if serving.defrag_every:
+        out.append(f"defrag_every={serving.defrag_every} (defrag, ROADMAP A11)")
+    if serving.policy != "fifo":
+        out.append(f"policy={serving.policy!r} (ROADMAP A10)")
+    if rt.mesh is not None:
+        out.append("mesh (multi-device serving, ROADMAP A21)")
+    if rt.mode != "dense":
+        out.append(f"mode={rt.mode!r} (ROADMAP {pgc.UNPORTED_MODES[rt.mode]})")
+    if cfg.input_kind != "tokens":
+        out.append(f"input_kind={cfg.input_kind!r} (ROADMAP A19)")
+    return out
+
+
+class _ServeState:
+    """Mutable per-session state behind ``add_request()``/``step()``: the
+    scheduler, the paged arenas, the tick clock, counters and the pending
+    outputs. ``reset`` starts a new one."""
+
+    def __init__(self, eng: "ContinuousServeEngine", gen: GenerationConfig):
+        self.gen = gen
+        self.sched = Scheduler(eng.serving, False, policy=make_policy(eng.serving.policy),
+                               share_prefix=False)
+        self.caches = M.init_paged_caches(eng.cfg, eng.rt, eng.serving, eng.device)
+        first = (self.caches["prefix"] + [c for pos in self.caches["blocks"]
+                                          for c in pos])[0]
+        self.bpt0 = pgc.bytes_per_token(first, eng.serving.page_size)
+        self.last_tok = np.zeros((eng.serving.num_slots,), np.int32)
+        self.results: dict[int, dict] = {}
+        self.outputs: list[RequestOutput] = []       # pending (undrained)
+        self.step_outputs: list[RequestOutput] = []  # this tick's events
+        self.next_rid = 0
+        self.step = 0                 # model-invocation tick clock
+        self.decode_steps = self.live_steps = self.prefill_chunks = 0
+        self.prefill_tokens = self.generated = 0
+        self.traffic = self.prefill_write_bytes = 0.0
+        self.util_peak = self.util_sum = 0.0
+        self.util_n = 0
+        self.has_deadlines = False
+        self.trace_active: list[int] = []
+        self.trace_util: list[float] = []
+        self.t0 = time.time()
+
+
+class ContinuousServeEngine:
+    """Continuous batching over block-paged arenas, driven tick by tick.
+
+    ``add_request()`` + ``step()`` is the request-centric interface (one
+    engine tick per call, returning the tick's ``RequestOutput`` events);
+    ``serve(requests, gen)`` resets the session, submits everything and
+    drains. The decode clock is the time base: a request with
+    ``arrival=t`` becomes admissible after t ticks."""
+
+    def __init__(self, cfg: ModelConfig, params, rt: Optional[AttentionRuntime] = None,
+                 serving: ServingCfg = ServingCfg(), device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.serving = serving
+        try:
+            serving.validate()
+        except ValueError as e:
+            raise SchedulerConfigError(str(e)) from None
+        rt = rt or cfg.attention
+        if (serving.use_paged_kernels is not None
+                and rt.paged_kernels != serving.use_paged_kernels):
+            rt = dataclasses.replace(rt, paged_kernels=serving.use_paged_kernels)
+        unported = _unported_knobs(serving, rt, cfg)
+        if unported:
+            raise SchedulerConfigError(
+                "not ported yet: " + "; ".join(unported))
+        model_defs(cfg)  # raises NotImplementedError for unported layer kinds
+        self.rt = rt
+        self.params = to_device(params, self.device)
+        self._n_cache_layers = sum(1 for m, _ in cfg.layer_kinds if m in ("attn", "mla"))
+        self._st: Optional[_ServeState] = None
+
+    # ------------------------------------------------------------- helpers
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.tensor(np.asarray(a), device=self.device)
+
+    def _prefill_chunk(self, req: Request, st: _ServeState):
+        """Stream the next ``prefill_chunk`` prompt tokens straight into the
+        request's arena pages; on the final chunk, take the first token from
+        the last valid position's logits. Returns (first_token | None,
+        valid tokens this chunk)."""
+        sched = st.sched
+        C = self.serving.prefill_chunk
+        off = req.length
+        valid = min(C, req.prefill_target - off)
+        chunk = req.context[off:off + valid]
+        if valid < C:  # pad with the edge token (masked everywhere)
+            chunk = np.concatenate([chunk, np.full((C - valid,), chunk[-1], np.int32)])
+        logits, _ = M.prefill_chunk_rows(
+            self.cfg, self.rt, self.params, self._tensor(chunk[None]),
+            self._tensor(sched.block_tables[req.slot]), off, valid, st.caches)
+        sched.note_chunk(req, valid)
+        if req.length < req.prefill_target:
+            return None, valid
+        sched.finish_prefill(req)
+        return int(torch.argmax(logits, dim=-1)[0]), valid
+
+    def _row_state(self, sched: Scheduler, active: np.ndarray) -> pgc.RowState:
+        return pgc.RowState(lengths=self._tensor(sched.lengths),
+                            block_table=self._tensor(sched.block_tables),
+                            active=self._tensor(active),
+                            tier=self._tensor(sched.tiers))
+
+    # ------------------------------------------------- request-centric API
+
+    def reset(self, gen: GenerationConfig = GenerationConfig()) -> None:
+        """Start a fresh serving session: new scheduler, empty arenas, empty
+        output buffer. ``gen`` supplies the session-wide ``eos_id`` and the
+        temperature of scheduler ``Request`` objects that carry no
+        SamplingParams (it must be 0: greedy)."""
+        self._st = _ServeState(self, gen)
+
+    def _ensure_state(self) -> _ServeState:
+        if self._st is None:
+            self.reset()
+        return self._st
+
+    def add_request(self, req: Union[ServeRequest, Request], *, stream=None) -> int:
+        """Submit one request to the live session. Accepts the public
+        ``ServeRequest`` or a scheduler ``Request``. Returns the request id."""
+        st = self._ensure_state()
+        if isinstance(req, ServeRequest):
+            rid = req.rid if req.rid is not None else st.next_rid
+            req = Request(rid=rid, prompt=req.prompt,
+                          max_new_tokens=req.sampling.max_tokens,
+                          arrival=req.arrival, sampling=req.sampling,
+                          slo=req.slo, stream=stream or req.stream,
+                          session_id=req.session_id)
+        elif stream is not None:
+            req.stream = stream
+        temp = req.sampling.temperature if req.sampling is not None else st.gen.temperature
+        if temp > 0.0:
+            raise SchedulerConfigError(
+                f"request {req.rid}: temperature={temp} — seeded sampling is "
+                "not ported yet (ROADMAP A6); the port serves greedy requests")
+        if (req.rid in st.results
+                or any(r.rid == req.rid for r in st.sched.queue)
+                or any(r is not None and r.rid == req.rid for r in st.sched.slots)):
+            raise SchedulerConfigError(
+                f"request id {req.rid} already in use this session "
+                "(omit ServeRequest.rid to auto-assign)")
+        st.next_rid = max(st.next_rid, req.rid + 1)
+        self._assign_deadlines(req, st)
+        st.sched.submit(req)
+        return req.rid
+
+    def _assign_deadlines(self, req: Request, st: _ServeState) -> None:
+        scale = self.serving.deadline_scale
+        sp = req.sampling
+        if sp is None:
+            if scale <= 0:
+                return
+            sp = SamplingParams(max_tokens=req.max_new_tokens)
+        req.ttft_deadline, req.deadline = derive_deadlines(
+            sp, slo_of(req), req.arrival, scale)
+        if np.isfinite(req.deadline) or np.isfinite(req.ttft_deadline):
+            st.has_deadlines = True
+
+    def has_unfinished(self) -> bool:
+        return self._st is not None and self._st.sched.has_work()
+
+    def pending_outputs(self) -> list[RequestOutput]:
+        """Drain the buffered ``RequestOutput`` events."""
+        st = self._ensure_state()
+        out, st.outputs = st.outputs, []
+        return out
+
+    def results(self) -> dict[int, dict]:
+        """Finished-request records so far: rid -> {tokens, finish_reason,
+        admitted_step, token_steps, ...}."""
+        return dict(self._st.results) if self._st is not None else {}
+
+    # ----------------------------------------------------- result plumbing
+
+    def _result_of(self, req: Request) -> dict:
+        slo = req.slo
+        return {
+            "tokens": np.asarray(req.generated, np.int32),
+            "session": req.session_id,
+            "finish_reason": req.finish_reason,
+            "arrival": req.arrival,
+            "admitted_step": req.admitted_step,
+            "first_token_step": req.first_token_step,
+            "token_steps": np.asarray(req.token_steps, np.int64),
+            "done_step": req.done_step,
+            "preemptions": req.preemptions,
+            "escalated": req.escalated,
+            "deescalations": req.deescalations,
+            "slo": slo.name if slo is not None else "standard",
+            "priority": slo.priority if slo is not None else 1,
+            "ttft_target": slo.ttft_target if slo is not None else float("inf"),
+            "itl_target": slo.itl_target if slo is not None else float("inf"),
+        }
+
+    def _finish(self, st: _ServeState, req: Request, reason: str) -> None:
+        st.sched.retire(req, st.step, reason)
+        st.results[req.rid] = self._result_of(req)
+
+    def _emit(self, st: _ServeState, req: Request, ev: RequestOutput) -> None:
+        st.step_outputs.append(ev)
+        st.outputs.append(ev)
+        if req.stream is not None:
+            req.stream(ev)
+
+    def _emit_token(self, st: _ServeState, req: Request, tok: int, tick: int,
+                    grow: bool = False) -> None:
+        """Commit one token available at ``tick``; ``grow`` extends the
+        cache bookkeeping (decode tokens). EOS, a stop token or the budget
+        retires the request here and frees its pages at once."""
+        req.generated.append(tok)
+        req.token_steps.append(tick)
+        if grow:
+            req.length += 1
+            st.sched.lengths[req.slot] += 1
+        st.last_tok[req.slot] = tok
+        st.generated += 1
+        if req.first_token_step < 0:
+            req.first_token_step = tick
+        reason = ""
+        if st.gen.eos_id >= 0 and tok == st.gen.eos_id:
+            reason = "eos"
+        elif tok in req.stop_ids:
+            reason = "stop"
+        elif req.num_generated >= req.max_new_tokens:
+            reason = "max_tokens"
+        if reason:
+            self._finish(st, req, reason)
+        self._emit(st, req, RequestOutput(rid=req.rid, token=int(tok),
+                                          index=req.num_generated - 1, step=tick,
+                                          finished=bool(reason), finish_reason=reason))
+
+    def _expire_deadlines(self, st: _ServeState) -> None:
+        """Tick-boundary deadline enforcement (finish_reason ``timeout``);
+        skipped when no request carries a finite deadline."""
+        if not st.has_deadlines:
+            return
+        sched, now = st.sched, st.step
+
+        def blown(req):
+            return (now >= req.deadline
+                    or (req.first_token_step < 0 and now >= req.ttft_deadline))
+
+        def timeout_event(req):
+            return RequestOutput(rid=req.rid, token=-1, index=req.num_generated,
+                                 step=now, finished=True, finish_reason="timeout")
+
+        for req in list(sched.occupied()):
+            if blown(req):
+                self._finish(st, req, "timeout")
+                sched.stats["timeouts"] += 1
+                self._emit(st, req, timeout_event(req))
+        for req in [r for r in sched.queue if blown(r)]:
+            sched.queue.remove(req)
+            req.state, req.done_step = "done", now
+            req.finish_reason = "timeout"
+            st.results[req.rid] = self._result_of(req)
+            sched.stats["timeouts"] += 1
+            self._emit(st, req, timeout_event(req))
+
+    # ----------------------------------------------------------------- run
+
+    def step(self) -> list[RequestOutput]:
+        """Run ONE engine tick: admissions, at most one streamed prompt
+        chunk, page growth (recompute preemption on exhaustion), and one
+        decode step + greedy sampling over the running rows. Returns this
+        tick's ``RequestOutput`` events.
+
+        Clock model (the reference's): a tick that runs the decode step
+        costs 1 and one prompt chunk rides along for free; a prefill-only
+        tick also costs 1."""
+        st = self._ensure_state()
+        st.step_outputs = []
+        sched = st.sched
+        if not sched.has_work():
+            return []
+        B = self.serving.num_slots
+
+        # 0) deadline shedding before admissions, so freed slots refill now
+        self._expire_deadlines(st)
+        if not sched.has_work():
+            return st.step_outputs
+
+        # 1) admissions into vacated slots; their prompts stream below
+        while sched.admit_next(now=st.step, step=st.step) is not None:
+            pass
+
+        # 2) chunked-prefill pump: at most ONE prompt chunk per tick
+        did_chunk = False
+        fresh_slot = -1  # row whose prefill finished THIS tick
+        if pre := sched.prefilling():
+            req = pre[0]
+            tok, valid = self._prefill_chunk(req, st)
+            did_chunk = True
+            st.prefill_chunks += 1
+            st.prefill_tokens += valid
+            st.prefill_write_bytes += valid * st.bpt0 * self._n_cache_layers
+            if tok is not None:
+                # available at the tick's end; the row decodes from next tick
+                self._emit_token(st, req, tok, st.step + 1)
+                if req.state == "running":
+                    fresh_slot = req.slot
+
+        # 3) growth: map a page for every running row's next write; out of
+        #    pages, the policy's victim (the youngest) is preempted
+        for req in sorted(sched.running(), key=lambda r: r.admitted_step):
+            if req.state != "running":
+                continue
+            while not sched.ensure_writable(req):
+                if req.length // self.serving.page_size >= self.serving.max_blocks_per_slot:
+                    self._finish(st, req, "length_cap")
+                    break
+                victim = sched.preemption_victim(exclude=req)
+                if victim is None:
+                    self._finish(st, req, "oom")
+                    break
+                sched.preempt(victim)
+
+        active = sched.active_mask()
+        if fresh_slot >= 0:
+            active[fresh_slot] = False
+
+        if not active.any():
+            if did_chunk:
+                st.step += 1     # prefill-only tick still costs a tick
+                return st.step_outputs
+            if not sched.occupied():
+                if sched.queue and sched.policy.select_admission(sched, st.step) is not None:
+                    return st.step_outputs
+                cands = sched.policy.admission_order(sched, st.step)
+                if cands and cands[0].arrival <= st.step:
+                    # empty machine and the head still does not fit: never will
+                    req = cands[0]
+                    sched.queue.remove(req)
+                    req.state, req.done_step = "done", st.step
+                    req.finish_reason = "unschedulable"
+                    st.results[req.rid] = self._result_of(req)
+                    return st.step_outputs
+                if sched.queue:  # idle: jump the clock to the next arrival
+                    nxt = (cands[0].arrival if cands
+                           else min(r.arrival for r in sched.queue))
+                    st.step = max(st.step + 1, int(np.ceil(nxt)))
+            return st.step_outputs
+
+        # 4) one decode step over per-row positions (rows still prefilling,
+        #    and a row whose last chunk landed this tick, write the null page)
+        rows = self._row_state(sched, active)
+        logits, _ = M.decode_step_rows(self.cfg, self.rt, self.params,
+                                       self._tensor(st.last_tok[:, None]), rows,
+                                       st.caches)
+        toks = torch.argmax(logits, dim=-1).cpu().numpy()
+        st.decode_steps += 1
+        st.live_steps += int(active.sum())
+        st.traffic += float(sum(sched.lengths[s] + 1.0 for s in range(B)
+                                if active[s])) * st.bpt0 * self._n_cache_layers
+        util = sched.dense_alloc.utilization
+        st.util_peak = max(st.util_peak, util)
+        st.util_sum += util
+        st.util_n += 1
+        st.trace_active.append(int(active.sum()))
+        st.trace_util.append(util)
+        st.step += 1
+        for slot in range(B):
+            if active[slot]:
+                self._emit_token(st, sched.slots[slot], int(toks[slot]), st.step,
+                                 grow=True)
+        return st.step_outputs
+
+    def stats(self) -> dict:
+        """Session counters, in the shape of the reference engine's."""
+        st = self._ensure_state()
+        sched = st.sched
+        B = self.serving.num_slots
+        wall = time.time() - st.t0
+        total_bytes = pgc.arena_bytes(st.caches)
+        return {
+            "cache_mode": self.rt.mode,
+            "tiered": False,
+            "chunked_prefill": True,
+            "prefix_sharing": False,
+            "spec_on": False,
+            "spec_accept_rate": (sched.stats["spec_accepted"]
+                                 / max(sched.stats["spec_drafted"], 1)),
+            "policy": sched.policy.name,
+            "model_shards": 1,
+            "arena_bytes_total": total_bytes,
+            "arena_bytes_per_device": float(total_bytes),
+            "interconnect_bytes": 0.0,
+            "interconnect_bytes_per_token": 0.0,
+            "decode_steps": st.decode_steps,
+            "prefill_chunks": st.prefill_chunks,
+            "prefill_tokens": st.prefill_tokens,
+            "generated_tokens": st.generated,
+            "tokens_per_step": st.generated / max(st.decode_steps, 1),
+            "slot_utilization": st.live_steps / max(st.decode_steps * B, 1),
+            "arena_utilization_mean": st.util_sum / max(st.util_n, 1),
+            "arena_utilization_peak": st.util_peak,
+            "trace_active_rows": np.asarray(st.trace_active, np.int32),
+            "trace_arena_util": np.asarray(st.trace_util, np.float64),
+            "decode_traffic_bytes": st.traffic,
+            "prefill_write_bytes": st.prefill_write_bytes,
+            "bytes_per_token_layer": st.bpt0,
+            "wall_time_s": wall,
+            "tokens_per_s": st.generated / max(wall, 1e-9),
+            "dense_pages_leaked": sched.dense_alloc.num_used,
+            "cpq_pages_leaked": 0,
+            **sched.stats,
+            **sched.arena_stats(),
+        }
+
+    def serve(self, requests: list[Union[Request, ServeRequest]],
+              gen: GenerationConfig = GenerationConfig()):
+        """Reset the session, submit every request in arrival order and
+        drain with ``step()``. Returns (results, stats)."""
+        self.reset(gen)
+        st = self._st
+        for r in sorted(requests, key=lambda r: r.arrival):
+            self.add_request(r)
+        while st.sched.has_work():
+            self.step()
+        return dict(st.results), self.stats()
+
+    def generate(self, batch: dict, gen: GenerationConfig = GenerationConfig()):
+        """One batch of equal requests: {'tokens': (B, S)} -> (tokens
+        (B, max_new) right-padded with eos or 0, stats)."""
+        prompt = np.asarray(batch["tokens"])
+        reqs = [Request(rid=i, prompt=prompt[i], max_new_tokens=gen.max_new_tokens)
+                for i in range(prompt.shape[0])]
+        results, stats = self.serve(reqs, gen)
+        pad = gen.eos_id if gen.eos_id >= 0 else 0
+        out = np.full((prompt.shape[0], gen.max_new_tokens), pad, np.int32)
+        for i in range(prompt.shape[0]):
+            t = results[i]["tokens"]
+            out[i, :len(t)] = t[:gen.max_new_tokens]
+        return out, stats
