@@ -4,22 +4,39 @@
 
 Phases, each of which fails the run (nonzero exit) on a miss:
   1. device   needs CUDA; prints the card's name and power limit
-  2. build    compiles the port's CUDA kernels with nvcc from the checkout
-  3. kernels  B1 paged_decode and B2 paged_prefill against their plain
-              PyTorch versions, bf16 and f32, on the layouts of the CPU tests
-              (permuted pages, a poisoned null page, ragged and empty rows,
-              partial last pages), at qwen1.5-0.5b's shape (KV=16, G=1,
-              Dh=64, page 16) and at a GQA shape (KV=8, G=4, Dh=128)
+  2. build    compiles the port's CUDA kernels with nvcc from the checkout,
+              one nvcc per source, all started together
+  3. kernels  every kernel against its plain PyTorch version, bf16 and f32,
+              at qwen1.5-0.5b's shape (KV=16, G=1, Dh=64, page 16) and at a
+              GQA shape (KV=8, G=4, Dh=128): B1 paged_decode and B2
+              paged_prefill on the layouts of the CPU tests (permuted pages,
+              a poisoned null page, ragged and empty rows, partial last
+              pages); B5 paged_cpq_decode and B6 paged_cpq_prefill over CPQ
+              code pages of 4 and 8 bits, L = 4 levels, with the null page's
+              levels out of range, a live row over an all-null block row,
+              and prompt chunks at offset 0, mid-prompt and with valid < C
   4. serve    full-width qwen1.5-0.5b (24 layers, vocab 151936, random
               weights from a seed) in bf16 through ContinuousServeEngine:
               8 greedy requests, prompts of 64-512 tokens, 64 new tokens
-              each; both kernels must have launched. Then times each kernel
-              at the shapes that run gave it, beside its bound, its plain
-              version and one PyTorch library call (a yardstick only)
-  5. parity   the same requests in f32 (TF32 off) with the paged kernels on
-              and off: prefill and first-decode logits within 1e-3, greedy
-              streams identical except where the plain path's top-2 logit
-              gap is below 1e-4
+              each, (a) dense, (b) mode="cpq", (c) the tiered engine
+              (enable_escalation=True, a dense arena small enough that rows
+              are admitted into and escalated to the CPQ tier). Each run
+              must launch its kernels 24 times per tick; (a) and (b) then
+              time them at the shapes the run gave them, beside their
+              bound, their plain version and one PyTorch library call (a
+              yardstick only); each run is replayed under torch.profiler
+              over a window of decode-only ticks, (a) also over a window of
+              chunk ticks
+  5. parity   the same requests in f32 (TF32 off), dense and mode="cpq",
+              with the kernels on and off: prefill and first-decode logits
+              within 1e-3, greedy streams identical except where the gather
+              path's top-2 logit gap is below 1e-4. Dense runs each path on
+              its own history; CPQ runs them in lockstep on one history (the
+              gather path writes the K/V the kernel path wrote). Reported,
+              not gated: the gather path against itself with K/V one ulp
+              apart, the K/V the two paths write on their own histories
+              layer by layer (both modes), and for CPQ the logits of the two
+              paths each on its own history
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -45,6 +62,7 @@ F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}  # kernel vs plain, max abs
 LOGIT_TOL = 1e-3            # f32 logits, kernels vs gather path (atol = rtol)
 ARGMAX_GAP = 1e-4           # top-2 gap below which a greedy tie is excused
+CPQ_LEVELS = 4              # HQE levels of the default CPQCfg
 SEED = 0
 DEVICE = "cuda"
 T0 = 0.0                    # start of the run, for phase timestamps
@@ -114,6 +132,63 @@ def sweep(ops, dtype, KV, G, Dh, page=16, nb=64, B=8, C=16):
         o = ops.paged_prefill(qc, kp, vp, row, offset, valid, scale)
         torch.cuda.synchronize()
         r = ops.paged_prefill_plain(qc, kp, vp, row, offset, valid, scale)
+        err_pre = max(err_pre, (o[0, :valid].float() - r[0, :valid].float()).abs().max().item())
+    return err_dec, err_pre
+
+
+def cpq_pool(gen, P, page, KV, D, slots, bits, L=CPQ_LEVELS):
+    """A CPQ arena on the card: ``bits``-bit codes, levels in [0, L), and
+    per-slot scale/zero tables whose levels span 1.2-3 around 0. The null
+    page 0 holds full-range codes and levels outside [0, L)."""
+    from repro_torch.serving.paged_cache import PagedCPQTensor
+
+    dev = DEVICE
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    codes = (torch.randint(0, 1 << bits, (P, page, KV, D), generator=gen, device=dev)
+             - 128).to(torch.int8)
+    codes[0] = torch.randint(-128, 128, (page, KV, D), generator=gen, device=dev).to(torch.int8)
+    level = torch.randint(0, L, (P, page, KV), generator=gen, device=dev).to(torch.int32)
+    level[0] = torch.where(rand(page, KV) < 0.5, L + 3, -2).to(torch.int32)
+    width = 1.2 + 1.8 * rand(slots, L, KV, D)
+    scale = width / ((1 << bits) - 2)
+    zero = -width / 2 + 0.1 * torch.randn((slots, L, KV, D), generator=gen, device=dev)
+    return PagedCPQTensor(codes, level, scale, zero,
+                          torch.ones((slots, KV), dtype=torch.int32, device=dev),
+                          torch.zeros((slots, KV, D), device=dev))
+
+
+def sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits, page=16, nb=64, B=8, C=16):
+    """Max abs error of B5 and B6 against their plain versions. Row 0 is
+    empty; row 1 has a live length over an all-null block row (the CPQ arm
+    of a tiered decode on a dense-tier row); the last row is long, with a
+    partial last page, and serves the prefill chunks."""
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    num_pages, lengths, bt = layout(rng, B, nb, page)
+    bt[1], lengths[1] = 0, 3 * page + 5
+    kt = cpq_pool(gen, num_pages, page, KV, Dh, B, bits)
+    vt = cpq_pool(gen, num_pages, page, KV, Dh, B, bits)
+    q = torch.randn((B, 1, KV * G, Dh), generator=gen, device=DEVICE).to(dtype)
+    bt_t = torch.tensor(bt, device=DEVICE)
+    len_t = torch.tensor(lengths, device=DEVICE)
+    scale = Dh ** -0.5
+    out = cpq_ops.paged_cpq_decode(q, kt, vt, bt_t, len_t, scale)
+    torch.cuda.synchronize()
+    ref = cpq_ops.paged_cpq_decode_plain(q, kt, vt, bt_t, len_t, scale)
+    err_dec = (out.float() - ref.float()).abs().max().item()
+    check(not out[0].any().item(), "paged_cpq_decode: an empty row is not zero")
+    err_pre = 0.0
+    row, slot = bt_t[-1], B - 1
+    for offset, valid in ((0, C), (3 * C, 5), (512, C), (int(lengths[-1]) - 3, 3)):
+        qc, k_raw, v_raw = (torch.randn((1, C, h, Dh), generator=gen, device=DEVICE).to(dtype)
+                            for h in (KV * G, KV, KV))
+        o = cpq_ops.paged_cpq_prefill(qc, kt, vt, k_raw, v_raw, slot, row, offset, valid, scale)
+        torch.cuda.synchronize()
+        r = cpq_ops.paged_cpq_prefill_plain(qc, kt, vt, k_raw, v_raw, slot, row, offset,
+                                            valid, scale)
         err_pre = max(err_pre, (o[0, :valid].float() - r[0, :valid].float()).abs().max().item())
     return err_dec, err_pre
 
@@ -211,9 +286,43 @@ def prefill_bound(q, offset, valid, Dh, Dv, KV, elt, page):
     return nbytes, flops
 
 
-def bound_of(nbytes, flops, dtype):
+def cpq_decode_bound(q, bt, lengths, kt, vt):
+    """(bytes, flops, float32 flops) one B5 call needs: the live codes and
+    levels, the scale/zero tables of every row with a live key (a row of
+    length 0 reads none), q and out once each, the block table and lengths;
+    the attention's flops in q's type and the dequantization's float32
+    multiply-adds."""
+    live = lengths.long().sum().item()
+    KV, Dh, Dv = kt.codes.shape[2], kt.codes.shape[3], vt.codes.shape[3]
+    elt = q.element_size()
+    live_rows = int((lengths > 0).sum().item())
+    tables = 2 * 4 * (kt.scale[0].numel() + vt.scale[0].numel()) * live_rows
+    nbytes = (live * KV * (Dh + Dv + 2 * 4) + tables + q.numel() * elt * (1 + Dv / Dh)
+              + bt.numel() * 4 + lengths.numel() * 4)
+    return nbytes, 2.0 * live * q.shape[2] * (Dh + Dv), 2.0 * live * KV * (Dh + Dv)
+
+
+def cpq_prefill_bound(q, k_raw, offset, valid, kt, vt):
+    """(bytes, flops, float32 flops) one B6 call needs: the slot's codes and
+    levels before ``offset``, its tables (none at offset 0, where only the
+    raw tail is attended), the chunk's raw K/V, q and out once each, the
+    mapped block-table entries."""
+    KV, Dh, Dv, page = kt.codes.shape[2], kt.codes.shape[3], vt.codes.shape[3], kt.codes.shape[1]
+    H, elt = q.shape[2], q.element_size()
+    pairs = valid * offset + sum(i + 1 for i in range(valid))
+    tables = 2 * 4 * (kt.scale[0].numel() + vt.scale[0].numel()) if offset > 0 else 0
+    nbytes = (offset * KV * (Dh + Dv + 2 * 4) + tables
+              + k_raw.numel() * elt * (1 + Dv / Dh) + q.numel() * elt * (1 + Dv / Dh)
+              + -(-offset // page) * 4)
+    return nbytes, 2.0 * pairs * H * (Dh + Dv), 2.0 * offset * KV * (Dh + Dv)
+
+
+def bound_of(nbytes, flops, dtype, f32_flops=0.0):
+    """The least time of a call: its bytes over the memory rate, or its
+    operations over the peak rate of their type, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS) * 1e3
+    t_ops = (flops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+             + f32_flops / F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -249,7 +358,7 @@ def time_kernel(rec, make) -> dict:
 
         n = len(rec.arenas)
         rows.append((graph_ms(layers) / n, cuda_ms(layers, 3) / n, graph_ms(plain),
-                     graph_ms(lib)) + bound_of(*need, sample[0].dtype))
+                     graph_ms(lib)) + bound_of(need[0], need[1], sample[0].dtype, *need[2:]))
     ms, eager, plain, lib, bound, kinds = zip(*rows)
     return dict(ms=float(np.mean(ms)), eager_ms=float(np.mean(eager)),
                 plain_ms=float(np.mean(plain)), library_ms=float(np.mean(lib)),
@@ -304,6 +413,59 @@ def prefill_case(ops, scale):
     return make
 
 
+def cpq_decode_case(cpq_ops, scale):
+    """B5 at one sampled decode call; the yardstick is
+    scaled_dot_product_attention over K/V dequantized and gathered
+    beforehand, under a length mask."""
+    from repro_torch.core.cpq import cpq_dequant
+    from repro_torch.serving.paged_cache import logical_cpq
+
+    def make(sample, k0, v0):
+        q, bt, lengths = sample
+        H, KV = q.shape[2], k0.codes.shape[2]
+        kg = cpq_dequant(logical_cpq(k0, bt), q.dtype).transpose(1, 2)   # (B, KV, N, Dh)
+        vg = cpq_dequant(logical_cpq(v0, bt), q.dtype).transpose(1, 2)
+        mask = (torch.arange(kg.shape[2], device=q.device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        qq = q.transpose(1, 2)
+        gqa = {"enable_gqa": True} if H != KV else {}
+        return (lambda k, v: cpq_ops.paged_cpq_decode(q, k, v, bt, lengths, scale),
+                lambda: cpq_ops.paged_cpq_decode_plain(q, k0, v0, bt, lengths, scale),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qq, kg, vg, attn_mask=mask, scale=scale, **gqa),
+                cpq_decode_bound(q, bt, lengths, k0, v0))
+    return make
+
+
+def cpq_prefill_case(cpq_ops, scale):
+    """B6 at one sampled chunk call; the yardstick is
+    scaled_dot_product_attention over the slot's earlier tokens,
+    dequantized and gathered beforehand, and the chunk's raw K/V, with the
+    chunk's causal mask."""
+    from repro_torch.core.cpq import cpq_dequant
+    from repro_torch.serving.paged_cache import _slot_cpq
+
+    def make(sample, k0, v0):
+        q, k_raw, v_raw, slot, row, offset, valid = sample
+        H, KV, C = q.shape[2], k0.codes.shape[2], q.shape[1]
+        kg = torch.cat([cpq_dequant(_slot_cpq(k0, row, slot), q.dtype)[:, :offset], k_raw], 1)
+        vg = torch.cat([cpq_dequant(_slot_cpq(v0, row, slot), q.dtype)[:, :offset], v_raw], 1)
+        col = torch.arange(offset + C, device=q.device)[None, :] - offset
+        tok = torch.arange(C, device=q.device)[:, None]
+        mask = (col < 0) | ((col < valid) & (col <= tok))
+        qq = q.transpose(1, 2)
+        gqa = {"enable_gqa": True} if H != KV else {}
+        return (lambda k, v: cpq_ops.paged_cpq_prefill(q, k, v, k_raw, v_raw, slot, row,
+                                                       offset, valid, scale),
+                lambda: cpq_ops.paged_cpq_prefill_plain(q, k0, v0, k_raw, v_raw, slot, row,
+                                                        offset, valid, scale),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qq, kg.transpose(1, 2), vg.transpose(1, 2), attn_mask=mask[None, None],
+                    scale=scale, **gqa),
+                cpq_prefill_bound(q, k_raw, offset, valid, k0, v0))
+    return make
+
+
 def profile_windows(make_engine, T, reqs, ticks, windows) -> list[dict]:
     """Replays the same serve (greedy, so tick i does the same work) and
     profiles the given tick windows with torch.profiler: device time by
@@ -337,104 +499,334 @@ def profile_windows(make_engine, T, reqs, ticks, windows) -> list[dict]:
                          key=lambda r: -r[1])
         busy = sum(ms for _, ms, _ in kernels)
         wall = sum(t[0] for t in ticks[lo:hi])
-        attn = sum(ms for k, ms, _ in kernels if "paged_attn" in k)
+        attn = sum(ms for k, ms, _ in kernels if "paged_attn" in k or "cpq_attn" in k)
         gemm = sum(ms for k, ms, _ in kernels if any(g in k for g in ("gemm", "nvjet", "cutlass", "xmma")))
         out.append({"ticks": [lo, hi], "decode_only_ticks": sum(1 for t in ticks[lo:hi] if not t[2]),
                     "device_busy_ms": busy, "unprofiled_wall_ms": wall,
                     "busy_share": busy / wall, "paged_attn_ms": attn, "gemm_ms": gemm,
                     "top_kernels": [{"name": k, "ms": ms, "count": n}
                                     for k, ms, n in kernels[:12]]})
-    run_to(10 ** 9)
     return out
+
+
+def log_profile(what: str, prof: list[dict]) -> None:
+    for w in prof:
+        log(f"profile {what} ticks {w['ticks']} ({w['decode_only_ticks']} decode-only): "
+            f"device busy {w['device_busy_ms']:.2f} ms of {w['unprofiled_wall_ms']:.2f} ms "
+            f"wall = {w['busy_share']:.1%}; paged attention {w['paged_attn_ms']:.2f} ms, "
+            f"GEMMs {w['gemm_ms']:.2f} ms")
+        for k in w["top_kernels"][:6]:
+            log(f"profile:   {k['ms']:8.3f} ms {k['count']:5d}x {k['name'][:100]}")
+
+
+def mid_decode_window(ticks) -> tuple[int, int]:
+    """20 ticks around the middle decode-only tick of a served run."""
+    pure = [i for i, t in enumerate(ticks) if t[3] and not t[2]]
+    return pure[len(pure) // 2 - 10], pure[len(pure) // 2 + 10]
 
 
 # -------------------------------------------------------- phase 5: parity
 
 
-def chunk_logits(M, cfg, rt, params, ctx, serving, caches, slot_row):
-    """Stream ``ctx`` through prefill_chunk_rows; returns the final chunk's
-    logits (1, V)."""
-    C = serving.prefill_chunk
-    logits = None
-    for off in range(0, len(ctx), C):
-        valid = min(C, len(ctx) - off)
-        chunk = np.concatenate([ctx[off:off + valid],
-                                np.full(C - valid, ctx[off + valid - 1], np.int32)])
-        logits, _ = M.prefill_chunk_rows(cfg, rt, params,
-                                         torch.tensor(chunk[None], device=DEVICE),
-                                         slot_row, off, valid, caches)
-    return logits
+class SharedKV:
+    """Lockstep runs on one history. While recording, every attention call
+    keeps the K/V it writes into its arena; while replaying, the matching
+    call of the second run writes those instead of its own, moved first by
+    ``nudge`` if one is given. Both runs then attend over arenas of the same
+    contents, each with its own queries."""
+
+    def __init__(self, nudge=None):
+        from repro_torch.serving import paged_cache as pgc
+
+        self.pgc, self.kv, self.record, self.nudge = pgc, [], True, nudge
+        self.decode, self.chunk = pgc.decode_attend_paged, pgc.chunk_attend_paged
+
+    def _take(self, k, v):
+        if self.record:
+            self.kv.append((k, v))
+            return k, v
+        k, v = self.kv.pop(0)
+        return (k, v) if self.nudge is None else (self.nudge(k), self.nudge(v))
+
+    def __enter__(self):
+        def decode(rt, cache, rows, *, q, k_t, v_t, scale):
+            k_t, v_t = self._take(k_t, v_t)
+            return self.decode(rt, cache, rows, q=q, k_t=k_t, v_t=v_t, scale=scale)
+
+        def chunk(rt, cache, *, k_c, v_c, **kw):
+            k_c, v_c = self._take(k_c, v_c)
+            return self.chunk(rt, cache, k_c=k_c, v_c=v_c, **kw)
+
+        self.pgc.decode_attend_paged, self.pgc.chunk_attend_paged = decode, chunk
+        return self
+
+    def __exit__(self, *exc):
+        self.pgc.decode_attend_paged, self.pgc.chunk_attend_paged = self.decode, self.chunk
+
+    def pair(self, first_fn, second_fn):
+        self.record = True
+        a = first_fn()
+        self.record = False
+        b = second_fn()
+        check(not self.kv, "parity: the two runs made different attention calls")
+        return a, b
+
+    def apart(self, first_fn, second_fn, layers: int):
+        """Both runs, each on its own history: their results and, per layer,
+        the largest difference of the K/V they wrote, over the largest
+        magnitude of the first run's."""
+        self.record, got = True, []
+        for fn in (first_fn, second_fn):
+            got.append((fn(), self.kv))
+            self.kv = []
+        (a, kv_a), (b, kv_b) = got
+        check(len(kv_a) == len(kv_b), "parity: the two runs made different attention calls")
+        diff, size = [0.0] * layers, [0.0] * layers
+        for i, (x, y) in enumerate(zip(kv_a, kv_b)):
+            for t, u in zip(x, y):
+                diff[i % layers] = max(diff[i % layers], (t - u).abs().max().item())
+                size[i % layers] = max(size[i % layers], t.abs().max().item())
+        return (a, b), [d / max(z, 1e-30) for d, z in zip(diff, size)]
 
 
-def parity(T, M, cfg, params, reqs):
+def ulp_nudges() -> dict:
+    """K/V moved one ulp: up everywhere, or up or down per element at random
+    (seeded). A min-max fit moves with a uniform shift and keeps most codes;
+    signs at random do not cancel that way."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    inf = float("inf")
+
+    def up(x):
+        return torch.nextafter(x, torch.full_like(x, inf))
+
+    def random_sign(x):
+        down = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+        return torch.nextafter(x, torch.where(down, -inf, inf).to(x.dtype))
+    return {"one_ulp_up": up, "one_ulp_random_sign": random_sign}
+
+
+def top2_gap(logits: torch.Tensor) -> torch.Tensor:
+    top2 = logits.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def gather_gaps(M, eng, gaps: dict):
+    """``eng.step`` that also files the gather path's top-2 logit gap of
+    every token it emits under (rid, index): a first token comes from the
+    tick's last prompt chunk, the decode step's tokens come in slot order."""
+    seen = {}
+    dec, pre = M.decode_step_rows, M.prefill_chunk_rows
+
+    def keep_decode(*a):
+        out = dec(*a)
+        seen["decode"] = (top2_gap(out[0]).tolist(), a[4].active.nonzero()[:, 0].tolist())
+        return out
+
+    def keep_chunk(*a):
+        out = pre(*a)
+        seen["chunk"] = top2_gap(out[0][0]).item()
+        return out
+
+    def step():
+        seen.clear()
+        M.decode_step_rows, M.prefill_chunk_rows = keep_decode, keep_chunk
+        try:
+            events = eng.step()
+        finally:
+            M.decode_step_rows, M.prefill_chunk_rows = dec, pre
+        decoded = [e for e in events if e.index > 0]
+        if decoded:
+            row_gaps, slots = seen["decode"]
+            for e, slot in zip(decoded, slots):
+                gaps[(e.rid, e.index)] = row_gaps[slot]
+        for e in events:
+            if e.index == 0:
+                gaps[(e.rid, 0)] = seen["chunk"]
+        return events
+    return step
+
+
+def first_logits(M, cfg, rt, params, reqs, small, bt):
+    """Two slots (the shortest and the longest prompt) streamed chunk by
+    chunk through prefill_chunk_rows, then one decode step: the last
+    chunk's logits of each slot (2, V) and the decode logits (2, V)."""
     from repro_torch.serving.paged_cache import RowState
 
+    caches = M.init_paged_caches(cfg, rt, small, DEVICE)
+    C = small.prefill_chunk
+    pre = []
+    for s in range(2):
+        ctx, row = reqs[s].prompt, torch.tensor(bt[s], device=DEVICE)
+        for off in range(0, len(ctx), C):
+            valid = min(C, len(ctx) - off)
+            tok = np.concatenate([ctx[off:off + valid],
+                                  np.full(C - valid, ctx[off + valid - 1], np.int32)])
+            logits, _ = M.prefill_chunk_rows(cfg, rt, 0, off == 0, params,
+                                             torch.tensor(tok[None], device=DEVICE), s, row,
+                                             off, valid, caches)
+        pre.append(logits)
+    first = torch.cat([p.argmax(-1) for p in pre]).to(torch.int32)
+    lens = [len(reqs[0].prompt), len(reqs[1].prompt)]
+    rows = RowState(lengths=torch.tensor(lens, dtype=torch.int32, device=DEVICE),
+                    block_table=torch.tensor(bt, device=DEVICE),
+                    active=torch.ones(2, dtype=torch.bool, device=DEVICE),
+                    tier=torch.zeros(2, dtype=torch.int32, device=DEVICE))
+    dec, _ = M.decode_step_rows(cfg, rt, params, first[:, None], rows, caches)
+    return torch.cat(pre), dec
+
+
+def max_diff(got) -> dict:
+    return {f"{name}_logits_max_abs_diff": (got[0][i] - got[1][i]).abs().max().item()
+            for i, name in enumerate(("prefill", "first-decode"))}
+
+
+def parity(T, M, cfg, params, reqs, mode: str) -> dict:
+    """Kernels on vs the gather path in float32 for attention ``mode``:
+    chunked-prefill and first-decode logits of two slots, then the greedy
+    streams of the served requests. Dense runs each path on its own
+    history. CPQ runs the two in lockstep on one history (SharedKV): each
+    path compresses the K/V it computed, which differ in the last ulp, and
+    4-bit codes can turn that into whole quantization steps. Beside the
+    checks, and not gated, stand the witnesses: in both modes the gather
+    path's logits against its own when the replayed K/V are moved one ulp
+    (``ulp_nudges``), the K/V that the two paths write, each on its own
+    history, compared layer by layer, and for CPQ the two paths' logits on
+    those histories."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rts = {True: T.AttentionRuntime(paged_kernels=True),
-           False: T.AttentionRuntime(paged_kernels=False)}
-    # logits: two slots (the shortest and the longest prompt) streamed
-    # chunk by chunk, then one decode step, on both paths
+    paths = (True, False)
+    rts = {fused: T.AttentionRuntime(mode=mode, paged_kernels=fused) for fused in paths}
+    lockstep = mode == "cpq"
     small = T.ServingCfg(num_slots=2, page_size=16, num_pages=80, max_blocks_per_slot=64)
     bt = np.zeros((2, 64), np.int32)
     lens = [len(reqs[0].prompt), len(reqs[1].prompt)]
     perm = np.random.default_rng(SEED).permutation(np.arange(1, 80))
     bt[0, :lens[0] // 16 + 1] = perm[:lens[0] // 16 + 1]
     bt[1, :lens[1] // 16 + 1] = perm[40:40 + lens[1] // 16 + 1]
-    got = {}
-    for fused, rt in rts.items():
-        caches = M.init_paged_caches(cfg, rt, small, DEVICE)
-        pre = [chunk_logits(M, cfg, rt, params, reqs[s].prompt, small, caches,
-                            torch.tensor(bt[s], device=DEVICE)) for s in range(2)]
-        first = torch.cat([p.argmax(-1) for p in pre]).to(torch.int32)
-        rows = RowState(lengths=torch.tensor(lens, dtype=torch.int32, device=DEVICE),
-                        block_table=torch.tensor(bt, device=DEVICE),
-                        active=torch.ones(2, dtype=torch.bool, device=DEVICE),
-                        tier=torch.zeros(2, dtype=torch.int32, device=DEVICE))
-        dec, _ = M.decode_step_rows(cfg, rt, params, first[:, None], rows, caches)
-        got[fused] = (torch.cat(pre), dec)
-        del caches
-    for i, name in enumerate(("prefill", "first-decode")):
-        a, b = got[True][i], got[False][i]
-        err = (a - b).abs().max().item()
-        log(f"parity: {name} logits max abs diff {err:.3e} (atol=rtol={LOGIT_TOL})")
-        check(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL),
-              f"parity: {name} logits differ by {err:.3e}")
+    run = {f: (lambda f=f: first_logits(M, cfg, rts[f], params, reqs, small, bt))
+           for f in paths}
+    with SharedKV() as shared:
+        own, kv_apart = shared.apart(run[True], run[False], cfg.num_layers)
+    out = {"witness": {"own_histories_kv_rel_diff_by_layer": kv_apart}}
+    log(f"parity {mode} witness, K/V written on own histories, relative difference by "
+        f"layer: {' '.join(f'{d:.1e}' for d in kv_apart)} (not gated)")
+    for what, nudge in ulp_nudges().items():
+        with SharedKV(nudge=nudge) as shared:
+            out["witness"][f"gather_vs_{what}"] = max_diff(shared.pair(run[False], run[False]))
+    if lockstep:
+        with SharedKV() as shared:
+            got = shared.pair(run[True], run[False])
+        out["witness"]["own_histories"] = max_diff(own)
+    else:
+        got = own
+    for what, d in out["witness"].items():
+        if isinstance(d, dict):
+            log(f"parity {mode} witness, {what}: prefill logits max abs diff "
+                f"{d['prefill_logits_max_abs_diff']:.3e}, first-decode "
+                f"{d['first-decode_logits_max_abs_diff']:.3e} (not gated)")
+    for i, (name, err) in enumerate(max_diff(got).items()):
+        out[name] = err
+        log(f"parity {mode}: {name} {err:.3e} (atol=rtol={LOGIT_TOL})")
+        check(torch.allclose(got[0][i], got[1][i], atol=LOGIT_TOL, rtol=LOGIT_TOL),
+              f"parity {mode}: {name} {err:.3e}")
 
     serving = T.ServingCfg(num_slots=8, page_size=16, num_pages=513,
                            max_blocks_per_slot=64)
-    streams = {}
-    for fused in (True, False):
-        eng = T.ContinuousServeEngine(cfg, params, rt=rts[fused], serving=serving,
-                                      device=DEVICE)
-        res, _ = eng.serve(make_requests(T, cfg.vocab_size), T.GenerationConfig())
-        streams[fused] = {rid: res[rid]["tokens"] for rid in res}
-        del eng
+    engs = {f: T.ContinuousServeEngine(cfg, params, rt=rts[f], serving=serving,
+                                       device=DEVICE) for f in paths}
+    for eng in engs.values():
+        eng.reset(T.GenerationConfig())
+        for r in make_requests(T, cfg.vocab_size):
+            eng.add_request(r)
+    gaps = {}
+    step = gather_gaps(M, engs[False], gaps)
+    if lockstep:
+        with SharedKV() as shared:
+            while engs[True].has_unfinished():
+                shared.pair(engs[True].step, step)
+    else:
+        while engs[True].has_unfinished():
+            engs[True].step()
+        while engs[False].has_unfinished():
+            step()
+    streams = {f: {rid: res["tokens"] for rid, res in engs[f].results().items()} for f in paths}
+    del engs
     excused = 0
-    one = T.ServingCfg(num_slots=1, page_size=16, num_pages=40, max_blocks_per_slot=64)
-    row = torch.tensor(np.where(np.arange(64) < 39, np.arange(1, 65), 0).astype(np.int32),
-                       device=DEVICE)
     for r in reqs:
         a, b = streams[True][r.rid], streams[False][r.rid]
-        check(len(a) == len(b) == r.max_new_tokens, f"parity: request {r.rid} lengths")
+        check(len(a) == len(b) == r.max_new_tokens, f"parity {mode}: request {r.rid} lengths")
         diff = np.flatnonzero(a != b)
         if not len(diff):
             continue
         t = int(diff[0])   # after a divergence the contexts differ: stop there
-        ctx = np.concatenate([r.prompt, b[:t]]).astype(np.int32)
-        caches = M.init_paged_caches(cfg, rts[False], one, DEVICE)
-        top2 = chunk_logits(M, cfg, rts[False], params, ctx, one, caches, row)[0].topk(2).values
-        gap = (top2[0] - top2[1]).item()
-        log(f"parity: request {r.rid} diverges at token {t}: kernels {a[t]} vs "
+        gap = gaps[(r.rid, t)]
+        log(f"parity {mode}: request {r.rid} diverges at token {t}: kernels {a[t]} vs "
             f"gather {b[t]}, gather top-2 gap {gap:.3e}")
-        check(gap < ARGMAX_GAP, f"parity: request {r.rid} token {t} differs at a "
+        check(gap < ARGMAX_GAP, f"parity {mode}: request {r.rid} token {t} differs at a "
               f"resolvable gap {gap:.3e}")
         excused += 1
-    log(f"parity: greedy streams identical for {len(reqs) - excused}/{len(reqs)} "
+    log(f"parity {mode}: greedy streams identical for {len(reqs) - excused}/{len(reqs)} "
         f"requests, {excused} near-tie divergences excused")
+    out["streams_identical"] = len(reqs) - excused
+    out["lockstep"] = lockstep
+    return out
 
 
 # ------------------------------------------------------------------ main
+
+
+def check_finished(results, reqs, what: str) -> None:
+    for r in reqs:
+        got = results[r.rid]
+        check(got["finish_reason"] == "max_tokens" and len(got["tokens"]) == r.max_new_tokens,
+              f"{what}: request {r.rid}: {got['finish_reason']}, {len(got['tokens'])} tokens")
+
+
+def serve_metrics(stats, ticks, wall, what: str) -> dict:
+    """Tick times of the decode-only ticks, decode and end-to-end rates."""
+    pure = [(ms, rows) for ms, rows, chunk, dec in ticks if dec and not chunk]
+    step_ms = float(np.median([ms for ms, _ in pure]))
+    rows_per = float(np.mean([rows for _, rows in pure]))
+    out = {"ticks": len(ticks), "decode_steps": stats["decode_steps"],
+           "prefill_chunks": stats["prefill_chunks"], "pure_decode_ticks": len(pure),
+           "decode_step_ms_median": step_ms,
+           "decode_step_ms_p90": float(np.percentile([ms for ms, _ in pure], 90)),
+           "rows_per_decode_step": rows_per,
+           "decode_tokens_per_s": rows_per / step_ms * 1e3,
+           "generated_tokens": stats["generated_tokens"], "serve_wall_s": wall,
+           "end_to_end_tokens_per_s": stats["generated_tokens"] / wall,
+           "arena_bytes": stats["arena_bytes_total"],
+           "bytes_per_token_layer": stats["bytes_per_token_layer"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"serve {what}: {out['ticks']} ticks ({out['decode_steps']} decode, "
+        f"{out['prefill_chunks']} prefill chunks); decode step median {step_ms:.3f} ms "
+        f"(p90 {out['decode_step_ms_p90']:.3f}) over {len(pure)} decode-only ticks at "
+        f"{rows_per:.2f} rows = {out['decode_tokens_per_s']:.1f} tokens/s; end to end "
+        f"{out['end_to_end_tokens_per_s']:.1f} tokens/s over {wall:.2f} s; arena "
+        f"{out['arena_bytes'] / 1e9:.3f} GB")
+    return out
+
+
+def serve_recorded(eng, T, reqs, recorders: dict):
+    """Serve with each kernel wrapper ``module.name`` replaced by its
+    Recorder, the launch counts set to 0 just before and read just after.
+    recorders: {name: (module, Recorder)}."""
+    for name, (mod, rec) in recorders.items():
+        setattr(mod, name, rec)
+        rec.fn.launches = 0
+    try:
+        results, stats, ticks, wall = serve_timed(eng, T, reqs)
+    finally:
+        for name, (mod, rec) in recorders.items():
+            setattr(mod, name, rec.fn)
+    return results, stats, ticks, wall, {n: rec.fn.launches for n, (_, rec) in recorders.items()}
+
+
+def log_timing(name, t, launches, per_tick) -> None:
+    log(f"{name}: {t['ms'] * 1e3:.2f} us/launch on the device, {t['eager_ms'] * 1e3:.2f} "
+        f"us launched eagerly (bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}; "
+        f"plain {t['plain_ms'] * 1e3:.1f} us, sdpa {t['library_ms'] * 1e3:.1f} us) over "
+        f"{t['samples']} sampled calls; {launches} launches, {per_tick:.0f} per tick")
 
 
 def main() -> int:
@@ -451,9 +843,11 @@ def main() -> int:
         return 1
     import repro_torch as T
     from repro_torch.kernels import build
+    from repro_torch.kernels.cpq_attn import ops as cpq_ops
     from repro_torch.kernels.paged_attn import ops
     from repro_torch.models import model as M
     from repro_torch.params import init_params, to_device
+    from repro_torch.serving import scheduler as S
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -462,13 +856,15 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()}")
-    report = {"card": smi}
+    report = {"card": smi, "profile": {}}
+    kmods = {"paged_decode": ops, "paged_prefill": ops,
+             "paged_cpq_decode": cpq_ops, "paged_cpq_prefill": cpq_ops}
 
-    # 2) build
+    # 2) build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    build.build(list(ops.SOURCES.values()))
-    for name in ops.SOURCES:
-        ops.launcher(name)
+    build.build([mod.SOURCES[name] for name, mod in kmods.items()])
+    for name, mod in kmods.items():
+        mod.launcher(name)
     report["build_s"] = time.perf_counter() - t0
     log(f"build: {report['build_s']:.1f} s")
     for name, text in build.BUILD_LOGS.items():
@@ -477,122 +873,166 @@ def main() -> int:
                 print(f"nvcc[{name}]: {line.strip()}", file=sys.stderr)
 
     # 3) kernels against their plain versions
-    errs = {"paged_decode": {}, "paged_prefill": {}}
+    errs = {name: {} for name in kmods}
     for dtype in (torch.bfloat16, torch.float32):
         for KV, G, Dh in ((16, 1, 64), (8, 4, 128)):
-            e_dec, e_pre = sweep(ops, dtype, KV, G, Dh)
             tag = f"{str(dtype).removeprefix('torch.')} KV={KV} G={G} Dh={Dh}"
-            log(f"sweep {tag}: paged_decode {e_dec:.3e}, paged_prefill {e_pre:.3e} "
-                f"(tol {TOL[dtype]})")
-            check(e_dec <= TOL[dtype], f"paged_decode {tag}: error {e_dec}")
-            check(e_pre <= TOL[dtype], f"paged_prefill {tag}: error {e_pre}")
-            errs["paged_decode"][tag] = e_dec
-            errs["paged_prefill"][tag] = e_pre
-
+            e_dec, e_pre = sweep(ops, dtype, KV, G, Dh)
+            errs["paged_decode"][tag], errs["paged_prefill"][tag] = e_dec, e_pre
+            for bits in (4, 8):
+                e_cd, e_cp = sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits)
+                btag = f"{tag} bits={bits}"
+                errs["paged_cpq_decode"][btag], errs["paged_cpq_prefill"][btag] = e_cd, e_cp
+            log(f"sweep {tag}: paged_decode {e_dec:.3e}, paged_prefill {e_pre:.3e}, "
+                f"paged_cpq_decode {e_cd:.3e}, paged_cpq_prefill {e_cp:.3e} (bits 8; "
+                f"tol {TOL[dtype]})")
+    for name, by_tag in errs.items():
+        for tag, err in by_tag.items():
+            check(err <= TOL[torch.bfloat16 if tag.startswith("bfloat16") else torch.float32],
+                  f"{name} {tag}: error {err}")
     log(f"[{time.perf_counter() - T0:.0f} s] kernels checked")
-    # 4) serve full-width qwen1.5-0.5b in bf16
+
+    # 4a) serve full-width qwen1.5-0.5b in bf16, dense
     cfg = served_config(T)
     params = init_params(cfg, SEED, DEVICE)
     serving = T.ServingCfg(num_slots=8, page_size=16, num_pages=513, max_blocks_per_slot=64)
-    eng = T.ContinuousServeEngine(cfg, params, serving=serving, device=DEVICE)
     reqs = make_requests(T, cfg.vocab_size)
     warm = T.ContinuousServeEngine(cfg, params, serving=T.ServingCfg(
         num_slots=2, page_size=16, num_pages=17, max_blocks_per_slot=8), device=DEVICE)
     warm.serve([T.Request(rid=0, prompt=reqs[0].prompt[:40], max_new_tokens=4)])
     del warm
-    dec_fn, pre_fn = ops.paged_decode, ops.paged_prefill
-    rec_dec = Recorder(dec_fn, cfg.num_layers, 10, lambda bt, ln, s: (bt.clone(), ln.clone()))
-    rec_pre = Recorder(pre_fn, cfg.num_layers, 8, lambda row, off, val, s: (row.clone(), off, val))
-    ops.paged_decode, ops.paged_prefill = rec_dec, rec_pre
-    dec_fn.launches = pre_fn.launches = 0
-    results, stats, ticks, wall = serve_timed(eng, T, reqs)
-    launches = {"paged_decode": dec_fn.launches, "paged_prefill": pre_fn.launches}
-    ops.paged_decode, ops.paged_prefill = dec_fn, pre_fn
-    for r in reqs:
-        got = results[r.rid]
-        check(got["finish_reason"] == "max_tokens" and len(got["tokens"]) == 64,
-              f"request {r.rid}: {got['finish_reason']}, {len(got['tokens'])} tokens")
-    check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
-    check(launches["paged_decode"] == cfg.num_layers * stats["decode_steps"]
-          and launches["paged_prefill"] == cfg.num_layers * stats["prefill_chunks"],
-          f"launch counts {launches} vs {stats['decode_steps']} decode ticks and "
-          f"{stats['prefill_chunks']} chunks")
-    pure = [(ms, rows) for ms, rows, chunk, dec in ticks if dec and not chunk]
-    step_ms = float(np.median([ms for ms, _ in pure]))
-    rows_per = float(np.mean([rows for _, rows in pure]))
-    serve = {"ticks": len(ticks), "decode_steps": stats["decode_steps"],
-             "prefill_chunks": stats["prefill_chunks"], "pure_decode_ticks": len(pure),
-             "decode_step_ms_median": step_ms,
-             "decode_step_ms_p90": float(np.percentile([ms for ms, _ in pure], 90)),
-             "rows_per_decode_step": rows_per,
-             "decode_tokens_per_s": rows_per / step_ms * 1e3,
-             "generated_tokens": stats["generated_tokens"], "serve_wall_s": wall,
-             "end_to_end_tokens_per_s": stats["generated_tokens"] / wall,
-             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    report["serve"] = serve
-    log(f"serve: {len(reqs)} requests, {serve['ticks']} ticks "
-        f"({serve['decode_steps']} decode, {serve['prefill_chunks']} prefill chunks); "
-        f"decode step median {step_ms:.3f} ms (p90 {serve['decode_step_ms_p90']:.3f}) over "
-        f"{len(pure)} decode-only ticks at {rows_per:.2f} rows = "
-        f"{serve['decode_tokens_per_s']:.1f} tokens/s; end to end "
-        f"{serve['end_to_end_tokens_per_s']:.1f} tokens/s over {wall:.2f} s")
-    log(f"[{time.perf_counter() - T0:.0f} s] served")
     scale = cfg.head_dim ** -0.5
-    timing = {"paged_decode": time_kernel(rec_dec, decode_case(ops, scale)),
-              "paged_prefill": time_kernel(rec_pre, prefill_case(ops, scale))}
-    per_tick = {"paged_decode": launches["paged_decode"] / stats["decode_steps"],
-                "paged_prefill": launches["paged_prefill"] / stats["prefill_chunks"]}
-    for name, t in timing.items():
-        log(f"{name}: {t['ms'] * 1e3:.2f} us/launch on the device, {t['eager_ms'] * 1e3:.2f} "
-            f"us launched eagerly (bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}; "
-            f"plain {t['plain_ms'] * 1e3:.1f} us, sdpa {t['library_ms'] * 1e3:.1f} us) over "
-            f"{t['samples']} sampled calls; {launches[name]} launches, "
-            f"{per_tick[name]:.0f} per tick")
-    del eng, rec_dec, rec_pre
-    torch.cuda.empty_cache()
-    pure_idx = [i for i, t in enumerate(ticks) if t[3] and not t[2]]
-    windows = [(40, 60), (pure_idx[len(pure_idx) // 2 - 10], pure_idx[len(pure_idx) // 2 + 10])]
-    prof = profile_windows(
-        lambda: T.ContinuousServeEngine(cfg, params, serving=serving, device=DEVICE),
-        T, make_requests(T, cfg.vocab_size), ticks, windows)
-    report["profile"] = prof
-    for w in prof:
-        log(f"profile ticks {w['ticks']} ({w['decode_only_ticks']} decode-only): device busy "
-            f"{w['device_busy_ms']:.2f} ms of {w['unprofiled_wall_ms']:.2f} ms wall = "
-            f"{w['busy_share']:.1%}; paged attention {w['paged_attn_ms']:.2f} ms, "
-            f"GEMMs {w['gemm_ms']:.2f} ms")
-        for k in w["top_kernels"][:6]:
-            log(f"profile:   {k['ms']:8.3f} ms {k['count']:5d}x {k['name'][:100]}")
-    log(f"[{time.perf_counter() - T0:.0f} s] profiled")
-    torch.cuda.empty_cache()
+    L = cfg.num_layers
+    launches, per_tick, timing, serves = {}, {}, {}, {}
 
-    log(f"[{time.perf_counter() - T0:.0f} s] kernels timed")
-    # 5) f32 parity, paged kernels on and off
+    def recorders_of(dec, pre):
+        return {dec: (kmods[dec], Recorder(getattr(kmods[dec], dec), L, 10,
+                                           lambda bt, ln, s: (bt.clone(), ln.clone()))),
+                pre: (kmods[pre], Recorder(getattr(kmods[pre], pre), L, 8, snap_of[pre]))}
+
+    snap_of = {"paged_prefill": lambda row, off, val, s: (row.clone(), off, val),
+               "paged_cpq_prefill": lambda kr, vr, slot, row, off, val, s:
+                   (kr.clone(), vr.clone(), slot, row.clone(), off, val)}
+    cases = {"paged_decode": decode_case(ops, scale), "paged_prefill": prefill_case(ops, scale),
+             "paged_cpq_decode": cpq_decode_case(cpq_ops, scale),
+             "paged_cpq_prefill": cpq_prefill_case(cpq_ops, scale)}
+    for mode, (dec, pre) in (("dense", ("paged_decode", "paged_prefill")),
+                             ("cpq", ("paged_cpq_decode", "paged_cpq_prefill"))):
+        # 4a) dense, 4b) mode="cpq"
+        eng = T.ContinuousServeEngine(cfg, params, rt=T.AttentionRuntime(mode=mode),
+                                      serving=serving, device=DEVICE)
+        recs = recorders_of(dec, pre)
+        run = make_requests(T, cfg.vocab_size)  # a served Request keeps its tokens
+        results, stats, ticks, wall, counts = serve_recorded(eng, T, run, recs)
+        check_finished(results, run, mode)
+        check(counts[dec] == L * stats["decode_steps"] and counts[pre] == L * stats["prefill_chunks"],
+              f"{mode}: launch counts {counts} vs {stats['decode_steps']} decode ticks and "
+              f"{stats['prefill_chunks']} chunks")
+        launches.update(counts)
+        per_tick[dec] = counts[dec] / stats["decode_steps"]
+        per_tick[pre] = counts[pre] / stats["prefill_chunks"]
+        serves[mode] = serve_metrics(stats, ticks, wall, mode)
+        log(f"[{time.perf_counter() - T0:.0f} s] served {mode}")
+        for name in (dec, pre):
+            timing[name] = time_kernel(recs[name][1], cases[name])
+            log_timing(name, timing[name], launches[name], per_tick[name])
+        del eng, recs
+        torch.cuda.empty_cache()
+        windows = ([(40, 60)] if mode == "dense" else []) + [mid_decode_window(ticks)]
+        report["profile"][mode] = profile_windows(
+            lambda: T.ContinuousServeEngine(cfg, params, rt=T.AttentionRuntime(mode=mode),
+                                            serving=serving, device=DEVICE),
+            T, make_requests(T, cfg.vocab_size), ticks, windows)
+        log_profile(mode, report["profile"][mode])
+        torch.cuda.empty_cache()
+        log(f"[{time.perf_counter() - T0:.0f} s] profiled {mode}")
+
+    # 4c) the tiered engine: a dense arena small enough that later requests
+    #     are admitted into the CPQ tier and running dense rows escalate
+    tiered = T.ServingCfg(num_slots=8, page_size=16, num_pages=97, max_blocks_per_slot=64,
+                          escalated_pages=513, low_watermark=0.5, critical_watermark=0.45,
+                          enable_escalation=True)
+    eng = T.ContinuousServeEngine(cfg, params, serving=tiered, device=DEVICE)
+    tiers, admit = [], S.Scheduler.admit_next
+
+    def admit_counted(sched, now, step):
+        req = admit(sched, now, step)
+        if req is not None:
+            tiers.append(req.tier)
+        return req
+
+    for name, mod in kmods.items():
+        getattr(mod, name).launches = 0
+    S.Scheduler.admit_next = admit_counted
+    run = make_requests(T, cfg.vocab_size)
+    try:
+        results, stats, ticks, wall = serve_timed(eng, T, run)
+    finally:
+        S.Scheduler.admit_next = admit
+    counts = {name: getattr(mod, name).launches for name, mod in kmods.items()}
+    check_finished(results, run, "tiered")
+    serves["tiered"] = serve_metrics(stats, ticks, wall, "tiered")
+    serves["tiered"].update(
+        escalations=stats["escalations"], cpq_admissions=int(sum(tiers)),
+        admissions=len(tiers), launches=counts,
+        dense_pages_leaked=stats["dense_pages_leaked"],
+        cpq_pages_leaked=stats["cpq_pages_leaked"],
+        serving={k: getattr(tiered, k) for k in ("num_pages", "escalated_pages",
+                                                 "low_watermark", "critical_watermark")})
+    log(f"serve tiered: {stats['escalations']} escalations, {sum(tiers)} of {len(tiers)} "
+        f"admissions into the CPQ tier, pages leaked dense {stats['dense_pages_leaked']} "
+        f"cpq {stats['cpq_pages_leaked']}; launches {counts}")
+    check(stats["escalations"] >= 1 and sum(tiers) >= 1,
+          "tiered: no escalation or no admission into the CPQ tier")
+    check(stats["dense_pages_leaked"] == 0 and stats["cpq_pages_leaked"] == 0,
+          "tiered: pages leaked")
+    check(all(n > 0 for n in counts.values()), f"tiered: a kernel never launched: {counts}")
+    check(counts["paged_decode"] == counts["paged_cpq_decode"] == L * stats["decode_steps"]
+          and counts["paged_prefill"] + counts["paged_cpq_prefill"]
+          == L * stats["prefill_chunks"],
+          f"tiered: launch counts {counts} vs {stats['decode_steps']} decode ticks and "
+          f"{stats['prefill_chunks']} chunks")
+    report["serve"] = serves
+    del eng
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - T0:.0f} s] served tiered")
+    report["profile"]["tiered"] = profile_windows(
+        lambda: T.ContinuousServeEngine(cfg, params, serving=tiered, device=DEVICE),
+        T, make_requests(T, cfg.vocab_size), ticks, [mid_decode_window(ticks)])
+    log_profile("tiered", report["profile"]["tiered"])
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - T0:.0f} s] profiled tiered")
+
+    # 5) f32 parity, kernels on and off, dense and CPQ
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = to_device(_tree_float(params), DEVICE)
     del params
-    parity(T, M, cfg32, params32, reqs)
-
+    report["parity"] = {mode: parity(T, M, cfg32, params32, reqs, mode)
+                        for mode in ("dense", "cpq")}
     log(f"[{time.perf_counter() - T0:.0f} s] parity checked")
+
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",
-                "paged_prefill": "src/repro/kernels/flash_attn/kernel.py:170"}
-    sources = {n: os.path.relpath(str(p), os.path.dirname(os.path.abspath(__file__)))
-               for n, p in ops.SOURCES.items()}
+                "paged_prefill": "src/repro/kernels/flash_attn/kernel.py:170",
+                "paged_cpq_decode": "src/repro/kernels/cpq_dequant_attn/kernel.py:281",
+                "paged_cpq_prefill": "src/repro/kernels/cpq_dequant_attn/kernel.py:213"}
+    root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
-    for name in ("paged_decode", "paged_prefill"):
+    for name, mod in kmods.items():
         t = timing[name]
+        served = "bfloat16 KV=16 G=1 Dh=64" + (" bits=4" if "cpq" in name else "")
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[name],
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(str(mod.SOURCES[name]), root),
             "replaces": replaces[name], "launches": launches[name],
             "launches_per_tick": per_tick[name],
-            "max_abs_err": errs[name]["bfloat16 KV=16 G=1 Dh=64"],
-            "max_abs_err_sweep": errs[name],
+            "max_abs_err": errs[name][served], "max_abs_err_sweep": errs[name],
             "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
             "library": "torch.nn.functional.scaled_dot_product_attention",
             "timed_samples": t["samples"]})
     report["kernels"] = kernels
+    report["run_s"] = time.perf_counter() - T0
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

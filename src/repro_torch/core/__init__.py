@@ -1,1 +1,1 @@
-"""Reference (plain PyTorch) attention."""
+"""Reference (plain PyTorch) attention and the T2 CPQ compression."""

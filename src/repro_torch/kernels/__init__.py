@@ -1,4 +1,5 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version. ``build.py`` compiles the sources in ``*/csrc`` with ``nvcc`` on
-first use; ``paged_attn/`` holds the paged-attention kernels of the main
-serving path."""
+first use; ``paged_attn/`` holds the paged-attention kernels of the dense
+tier, ``cpq_attn/`` those that attend straight over the T2 tier's int8 CPQ
+code pages."""

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, under
 ``build/repro_torch_kernels/`` at the root of the checkout, and loaded with
-``ctypes``. A library's file name carries a hash of its sources and flags, so
-an edited source is rebuilt and an unchanged one is reused. Nothing here
+``ctypes``. A library's file name carries a hash of its flags and of every
+CUDA source of the kernels package (a source may include another kernel
+family's header), so an edited source is rebuilt and an unchanged one is
+reused. Nothing here
 runs at import time: this module is imported on machines with no GPU and no
 ``nvcc``.
 """
@@ -17,11 +19,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
 BUILD_LOGS: dict[str, str] = {}  # nvcc's output (ptxas register/smem report)
 
 
@@ -38,8 +42,8 @@ def nvcc_path() -> str:
 
 def _target(source: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(source.parent.glob("*.cu*")):  # the source and its headers
-        h.update(f.name.encode())
+    for f in sorted(KERNELS_DIR.glob("*/csrc/*.cu*")):  # sources and headers
+        h.update(str(f.relative_to(KERNELS_DIR)).encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
@@ -77,3 +81,15 @@ def load(source: Path) -> ctypes.CDLL:
         (path,) = build([source])
         _loaded[key] = ctypes.CDLL(str(path))
     return _loaded[key]
+
+
+def c_function(source: Path, name: str, argtypes: list):
+    """The C entry point ``name`` of one source's library (built first if
+    needed), typed with ``argtypes`` and returning a CUDA error code."""
+    key = (str(source), name)
+    if key not in _fns:
+        fn = getattr(load(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return _fns[key]

@@ -1,0 +1,233 @@
+"""T2 attention kernels over CPQ code pages: wrappers, plain versions,
+counters.
+
+  ``paged_cpq_decode``   B5: replaces ``paged_cpq_decode_fwd``
+                         (src/repro/kernels/cpq_dequant_attn/kernel.py:281)
+  ``paged_cpq_prefill``  B6: replaces ``paged_cpq_prefill_fwd``
+                         (src/repro/kernels/cpq_dequant_attn/kernel.py:213)
+
+The wrappers take the arenas as the JAX ops do (``cpq_dequant_attn/ops.py``):
+``kt``/``vt`` are ``PagedCPQTensor``s with code pages (P, page, KV, D) int8,
+level pages (P, page, KV) int32 and per-slot scale/zero tables
+(num_slots, L, KV, D) float32. Given CPU tensors a wrapper runs its plain
+PyTorch version (``*_plain``, which the tests hold against the JAX kernels);
+given CUDA tensors it launches the hand-written CUDA kernel in ``csrc/`` on
+the current stream, or raises. It never falls back. Every launch adds one to
+the wrapper's ``launches`` counter.
+
+Semantics (the TPU kernels'): a stored code ``c8`` means ``c = c8 + 128``;
+``c == 0`` is exactly 0, else ``(c - 1) * scale[level] + zero[level]``; a
+level outside [0, L) reads scale = zero = 0. The dequantized K and V are
+rounded to bf16 and back to float32; a prefill chunk's own raw K/V is not.
+Positions at or past a row's length contribute nothing and a row of length
+0 returns zeros. Outputs are computed in float32 and returned in q's dtype.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.core.cpq import decode_codes, take_levels
+from repro_torch.kernels import build
+from repro_torch.kernels.paged_attn.ops import NEG_INF, SPLIT_TOKENS, run
+
+CSRC = Path(__file__).parent / "csrc"
+SOURCES = {"paged_cpq_decode": CSRC / "paged_cpq_decode.cu",
+           "paged_cpq_prefill": CSRC / "paged_cpq_prefill.cu"}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    # is_bf16, q, codes_k, codes_v, level_k, level_v, scale_k, zero_k,
+    # scale_v, zero_v, block_table, lengths, out, part,
+    # B, H, KV, Dh, Dv, page, nb, L, pages_per_split, scale, stream
+    "paged_cpq_decode": [_I] + [_P] * 13 + [_I] * 9 + [_F, _P],
+    # is_bf16, q, codes_k, codes_v, level_k, level_v, scale_k, zero_k,
+    # scale_v, zero_v, k_raw, v_raw, block_row, out, part,
+    # C, H, KV, Dh, Dv, page, nb, L, pages_per_split, page_splits, offset,
+    # valid, scale, stream
+    "paged_cpq_prefill": [_I] + [_P] * 14 + [_I] * 12 + [_F, _P],
+}
+
+
+def launcher(name: str):
+    """The C entry point ``<name>_launch``, building its library first."""
+    return build.c_function(SOURCES[name], f"{name}_launch", _ARGTYPES[name])
+
+
+def _check_cuda(name: str, q: torch.Tensor, kt, vt, ints: list[torch.Tensor],
+                raw: tuple = ()):
+    dev, dt = q.device, q.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors on {dev}; the kernel takes CUDA "
+                         "tensors and the plain version CPU tensors")
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: dtype {dt}; the kernel takes bfloat16 or float32")
+    want = [(q, dt), *((t, dt) for t in raw), *((t, torch.int32) for t in ints)]
+    for t in (kt, vt):
+        want += [(t.codes, torch.int8), (t.level, torch.int32),
+                 (t.scale, torch.float32), (t.zero, torch.float32)]
+    for t, kind in want:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+        if t.dtype != kind:
+            raise TypeError(f"{name}: a {t.dtype} tensor where the kernel takes {kind}")
+
+
+def _check_arenas(name: str, kt, vt, KV: int, Dh: int):
+    P, page, kv, Dk = kt.codes.shape
+    L = kt.scale.shape[1]
+    Dv = vt.codes.shape[-1]
+    if (kv != KV or Dk != Dh or tuple(vt.codes.shape[:3]) != (P, page, KV)
+            or tuple(kt.level.shape) != (P, page, KV)
+            or tuple(vt.level.shape) != (P, page, KV)
+            or tuple(kt.scale.shape[1:]) != (L, KV, Dh)
+            or tuple(kt.zero.shape) != tuple(kt.scale.shape)
+            or tuple(vt.scale.shape) != (kt.scale.shape[0], L, KV, Dv)
+            or tuple(vt.zero.shape) != tuple(vt.scale.shape)):
+        raise ValueError(
+            f"{name}: arena shapes codes {tuple(kt.codes.shape)}/{tuple(vt.codes.shape)}, "
+            f"levels {tuple(kt.level.shape)}/{tuple(vt.level.shape)}, tables "
+            f"{tuple(kt.scale.shape)}/{tuple(vt.scale.shape)}")
+    return P, page, L, Dv
+
+
+def _dequant_view(t, table_rows: slice, pages: torch.Tensor) -> torch.Tensor:
+    """Logical float32 view of a code arena through (B, nb) ``pages``,
+    rounded to bf16 like the kernels' tiles: (B, nb * page, KV, D)."""
+    B, nb = pages.shape
+    page, KV, D = t.codes.shape[1:]
+    codes = t.codes[pages].reshape(B, nb * page, KV, D)
+    level = t.level[pages].reshape(B, nb * page, KV)
+    return decode_codes(codes, take_levels(t.scale[table_rows], level),
+                        take_levels(t.zero[table_rows], level), torch.bfloat16).float()
+
+
+# ------------------------------------------------------------------ decode
+
+
+def paged_cpq_decode_plain(q, kt, vt, block_table, lengths, scale: float):
+    """Plain version of B5 (the JAX package's ``paged_cpq_decode_ref``):
+    dequantize the logical views, exact softmax in float32, zeros for empty
+    rows."""
+    B, _, H, Dh = q.shape
+    KV = kt.codes.shape[2]
+    g = H // KV
+    bt = block_table.long()
+    kl = _dequant_view(kt, slice(None), bt)
+    vl = _dequant_view(vt, slice(None), bt)
+    qg = q[:, 0].reshape(B, KV, g, Dh).float()
+    s = torch.einsum("bkgd,bnkd->bkgn", qg, kl) * scale
+    live = torch.arange(kl.shape[1], device=q.device)[None, :] < lengths[:, None]
+    s = s.masked_fill(~live[:, None, None, :], NEG_INF)
+    w = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bkgn,bnkd->bkgd", w, vl) / w.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.where((lengths > 0)[:, None, None, None], o, torch.zeros_like(o))
+    return o.reshape(B, 1, H, -1).to(q.dtype)
+
+
+def paged_cpq_decode(q, kt, vt, block_table, lengths, scale: float):
+    """Paged T2 decode. q (B, 1, H, Dh); kt/vt ``PagedCPQTensor`` arenas whose
+    tables are indexed by row (num_slots == B); block_table (B, nb) int32,
+    0 = null page; lengths (B,) int32. Returns (B, 1, H, Dv)."""
+    if q.device.type == "cpu":
+        return paged_cpq_decode_plain(q, kt, vt, block_table, lengths, scale)
+    B, T, H, Dh = q.shape
+    KV, nb = kt.codes.shape[2], block_table.shape[-1]
+    P, page, L, Dv = _check_arenas("paged_cpq_decode", kt, vt, KV, Dh)
+    if (T != 1 or H % KV or kt.scale.shape[0] != B
+            or tuple(block_table.shape) != (B, nb) or tuple(lengths.shape) != (B,)):
+        raise ValueError(
+            f"paged_cpq_decode: shapes q {tuple(q.shape)}, tables "
+            f"{tuple(kt.scale.shape)}, block_table {tuple(block_table.shape)}, "
+            f"lengths {tuple(lengths.shape)}")
+    _check_cuda("paged_cpq_decode", q, kt, vt, [block_table, lengths])
+    pps = max(1, SPLIT_TOKENS // page)
+    splits = -(-nb // pps)
+    out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
+    part = torch.empty(B * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
+    run(launcher("paged_cpq_decode"), "paged_cpq_decode", q.device,
+        int(q.dtype == torch.bfloat16), q.data_ptr(),
+        kt.codes.data_ptr(), vt.codes.data_ptr(), kt.level.data_ptr(),
+        vt.level.data_ptr(), kt.scale.data_ptr(), kt.zero.data_ptr(),
+        vt.scale.data_ptr(), vt.zero.data_ptr(), block_table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+        B, H, KV, Dh, Dv, page, nb, L, pps, float(scale))
+    paged_cpq_decode.launches += 1
+    return out
+
+
+paged_cpq_decode.launches = 0
+
+
+# ----------------------------------------------------------------- prefill
+
+
+def paged_cpq_prefill_plain(q, kt, vt, k_raw, v_raw, slot: int, block_row,
+                            offset: int, valid: int, scale: float):
+    """Plain version of B6: the slot's dequantized pages, positions
+    < ``offset``, then the chunk's raw K/V with ``col < valid`` and
+    ``col <= i`` for chunk token i; exact softmax in float32."""
+    _, C, H, Dh = q.shape
+    KV = kt.codes.shape[2]
+    g = H // KV
+    rows = slice(slot, slot + 1)
+    br = block_row.long()[None]
+    k_all = torch.cat([_dequant_view(kt, rows, br)[0], k_raw[0].float()])
+    v_all = torch.cat([_dequant_view(vt, rows, br)[0], v_raw[0].float()])
+    n = k_all.shape[0] - C
+    qg = q[0].reshape(C, KV, g, Dh).float()
+    s = torch.einsum("ckgd,nkd->ckgn", qg, k_all) * scale
+    tok = torch.arange(C, device=q.device)[:, None]
+    col = torch.arange(n + C, device=q.device)[None, :] - n
+    ok = torch.where(col < 0, col + n < offset, (col < valid) & (col <= tok))
+    s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
+    w = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("ckgn,nkd->ckgd", w, v_all) / w.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(1, C, H, -1).to(q.dtype)
+
+
+def paged_cpq_prefill(q, kt, vt, k_raw, v_raw, slot: int, block_row,
+                      offset: int, valid: int, scale: float):
+    """Chunked paged T2 prefill for one slot. q (1, C, H, Dh) roped chunk
+    queries; kt/vt ``PagedCPQTensor`` arenas; k_raw/v_raw (1, C, KV, Dh|Dv)
+    the chunk's raw roped K/V in q's dtype; slot, offset, valid host ints;
+    block_row (nb,) int32. Returns (1, C, H, Dv); rows past ``valid`` are
+    padding, never read."""
+    if q.device.type == "cpu":
+        return paged_cpq_prefill_plain(q, kt, vt, k_raw, v_raw, slot, block_row,
+                                       offset, valid, scale)
+    one, C, H, Dh = q.shape
+    KV, nb = kt.codes.shape[2], block_row.shape[0]
+    P, page, L, Dv = _check_arenas("paged_cpq_prefill", kt, vt, KV, Dh)
+    if (one != 1 or H % KV or block_row.ndim != 1
+            or tuple(k_raw.shape) != (1, C, KV, Dh) or tuple(v_raw.shape) != (1, C, KV, Dv)
+            or not 0 <= slot < kt.scale.shape[0]):
+        raise ValueError(
+            f"paged_cpq_prefill: shapes q {tuple(q.shape)}, k_raw {tuple(k_raw.shape)}, "
+            f"v_raw {tuple(v_raw.shape)}, block_row {tuple(block_row.shape)}, slot {slot}")
+    if not (offset >= 0 and 1 <= valid <= C):
+        raise ValueError(f"paged_cpq_prefill: offset={offset}, valid={valid}, C={C}")
+    k_raw, v_raw = k_raw.contiguous(), v_raw.contiguous()
+    _check_cuda("paged_cpq_prefill", q, kt, vt, [block_row], (k_raw, v_raw))
+    pps = max(1, SPLIT_TOKENS // page)
+    page_splits = -(-min(-(-offset // page), nb) // pps)
+    splits = page_splits + 1                       # + the raw chunk tail
+    out = torch.empty((1, C, H, Dv), dtype=q.dtype, device=q.device)
+    part = torch.empty(C * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
+    run(launcher("paged_cpq_prefill"), "paged_cpq_prefill", q.device,
+        int(q.dtype == torch.bfloat16), q.data_ptr(),
+        kt.codes.data_ptr(), vt.codes.data_ptr(), kt.level.data_ptr(),
+        vt.level.data_ptr(), kt.scale[slot].data_ptr(), kt.zero[slot].data_ptr(),
+        vt.scale[slot].data_ptr(), vt.zero[slot].data_ptr(), k_raw.data_ptr(),
+        v_raw.data_ptr(), block_row.data_ptr(), out.data_ptr(), part.data_ptr(),
+        C, H, KV, Dh, Dv, page, nb, L, pps, page_splits, int(offset), int(valid),
+        float(scale))
+    paged_cpq_prefill.launches += 1
+    return out
+
+
+paged_cpq_prefill.launches = 0

@@ -127,6 +127,116 @@ __device__ __forceinline__ long row_offset(long sb, long stok, int D, int b, int
   return b * sb + (r / G) * stok + (long)(kv * G + r % G) * D;
 }
 
+// Online-softmax update of one block's query rows with one staged tile of
+// n key/value tokens (kt: [n][Dh + 1], vt: [n][Dv + 1] in shared memory),
+// key positions t0 .. t0 + n - 1. With causal_offset >= 0, query row r of
+// the block (absolute row r0 + r) sees position pos iff
+// pos <= causal_offset + (r0 + r) / G. Shared state: sc [rows_per_block]
+// [tile] scratch, acc [nr][Dv], m/l/corr [nr]. Entered with the staged
+// tile visible to the block; the caller synchronizes before it restages.
+__device__ __forceinline__ void attend_tile(const Params& p, const float* qs,
+                                            const float* kt, const float* vt,
+                                            float* sc, float* acc, float* m,
+                                            float* l, float* corr, int nr, int n,
+                                            int t0, int r0, int causal_offset) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Dh = p.Dh, Dv = p.Dv, tile = p.tile;
+  const int ks = Dh + 1, vs = Dv + 1;
+  for (int i = tid; i < nr * n; i += kThreads) {
+    const int r = i / n, j = i % n;
+    float s = -INFINITY;
+    if (causal_offset < 0 || t0 + j <= causal_offset + (r0 + r) / p.G) {
+      const float* qr = qs + r * Dh;
+      const float* kr = kt + j * ks;
+      float a = 0.f;
+      for (int d = 0; d < Dh; ++d) a = fmaf(qr[d], kr[d], a);
+      s = a * p.scale;
+    }
+    sc[r * tile + j] = s;
+  }
+  __syncthreads();
+
+  // online softmax update, one warp per query row
+  for (int r = warp; r < nr; r += kThreads / 32) {
+    float mt = -INFINITY;
+    for (int j = lane; j < n; j += 32) mt = fmaxf(mt, sc[r * tile + j]);
+    for (int o = 16; o; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+    const float m_old = m[r];
+    const float m_new = fmaxf(m_old, mt);
+    const bool none = (m_new == -INFINITY);  // no live key for this row yet
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = none ? 0.f : expf(sc[r * tile + j] - m_new);
+      sc[r * tile + j] = e;
+      sum += e;
+    }
+    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      const float c = none ? 1.f : expf(m_old - m_new);
+      corr[r] = c;
+      m[r] = m_new;
+      l[r] = l[r] * c + sum;
+    }
+  }
+  __syncthreads();
+
+  for (int i = tid; i < nr * Dv; i += kThreads) {
+    const int r = i / Dv, d = i % Dv;
+    const float* w = sc + r * tile;
+    float a = acc[i] * corr[r];
+    for (int j = 0; j < n; ++j) a = fmaf(w[j], vt[j * vs + d], a);
+    acc[i] = a;
+  }
+}
+
+// Split-partial bookkeeping in p.part: m (B,KV,R,S), l (B,KV,R,S), acc
+// (B,KV,R,S,Dv). Row r0 + i of (b, kv) and split `split` sits at
+// base + i * S.
+__device__ __forceinline__ long part_base(const Params& p, int b, int kv, int r0,
+                                          int split) {
+  return ((long)(b * p.KV + kv) * p.R + r0) * p.S + split;
+}
+
+// A split that sees no live key: l = 0, so the merge skips it.
+__device__ __forceinline__ void empty_split(const Params& p, long base, int nr) {
+  const long n_rows = (long)p.B * p.KV * p.R * p.S;
+  for (int i = threadIdx.x; i < nr; i += kThreads) {
+    p.part[base + (long)i * p.S] = -INFINITY;
+    p.part[n_rows + base + (long)i * p.S] = 0.f;
+  }
+}
+
+__device__ __forceinline__ void write_partials(const Params& p, long base, int nr,
+                                               const float* m, const float* l,
+                                               const float* acc) {
+  const long n_rows = (long)p.B * p.KV * p.R * p.S;
+  for (int i = threadIdx.x; i < nr; i += kThreads) {
+    p.part[base + (long)i * p.S] = m[i];
+    p.part[n_rows + base + (long)i * p.S] = l[i];
+  }
+  for (int i = threadIdx.x; i < nr * p.Dv; i += kThreads) {
+    const int r = i / p.Dv, d = i % p.Dv;
+    p.part[2 * n_rows + (base + (long)r * p.S) * p.Dv + d] = acc[i];
+  }
+}
+
+// Load nr query rows of (b, kv) into qs and reset the softmax state.
+template <typename T>
+__device__ __forceinline__ void init_rows(const Params& p, float* qs, float* acc,
+                                          float* m, float* l, int b, int kv,
+                                          int r0, int nr) {
+  const T* qp = static_cast<const T*>(p.q);
+  for (int i = threadIdx.x; i < nr * p.Dh; i += kThreads) {
+    const int r = i / p.Dh, d = i % p.Dh;
+    qs[i] = to_f(qp[row_offset(p.q_sb, p.q_stok, p.Dh, b, kv, r0 + r, p.G) + d]);
+  }
+  for (int i = threadIdx.x; i < nr; i += kThreads) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  for (int i = threadIdx.x; i < nr * p.Dv; i += kThreads) acc[i] = 0.f;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
   extern __shared__ float smem[];
@@ -135,7 +245,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
   const int b = blockIdx.z / nrb;
   const int r0 = (blockIdx.z % nrb) * p.rows_per_block;
   const int nr = min(p.rows_per_block, p.R - r0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int Dh = p.Dh, Dv = p.Dv, tile = p.tile, rb = p.rows_per_block;
   const int ks = Dh + 1, vs = Dv + 1;  // padded rows: no bank conflicts across tokens
 
@@ -149,34 +259,16 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
   float* corr = l + rb;             // [rb]
   int* pg = reinterpret_cast<int*>(corr + rb);  // [tile] page of each tile token
 
-  const long n_rows = (long)p.B * p.KV * p.R * p.S;
-  float* part_m = p.part;
-  float* part_l = p.part + n_rows;
-  float* part_acc = p.part + 2 * n_rows;
-  const long base = ((long)(b * p.KV + kv) * p.R + r0) * p.S + split;  // row r0 + i: base + i * S
-
+  const long base = part_base(p, b, kv, r0, split);
   int len = p.lengths ? p.lengths[b] : p.len_host;
   len = min(len, p.nb * p.page);
   const int tok0 = split * p.pages_per_split * p.page;
   const int tok1 = min(len, tok0 + p.pages_per_split * p.page);
   if (tok0 >= tok1) {  // the whole split lies past the row's length
-    for (int i = tid; i < nr; i += kThreads) {
-      part_m[base + (long)i * p.S] = -INFINITY;
-      part_l[base + (long)i * p.S] = 0.f;
-    }
+    empty_split(p, base, nr);
     return;
   }
-
-  const T* qp = static_cast<const T*>(p.q);
-  for (int i = tid; i < nr * Dh; i += kThreads) {
-    const int r = i / Dh, d = i % Dh;
-    qs[i] = to_f(qp[row_offset(p.q_sb, p.q_stok, Dh, b, kv, r0 + r, p.G) + d]);
-  }
-  for (int i = tid; i < nr; i += kThreads) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  for (int i = tid; i < nr * Dv; i += kThreads) acc[i] = 0.f;
+  init_rows<T>(p, qs, acc, m, l, b, kv, r0, nr);
 
   const T* kp = static_cast<const T*>(p.k);
   const T* vp = static_cast<const T*>(p.v);
@@ -195,62 +287,10 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
       stage_tile<T, T>(vt, vs, vp, pg, t0, n, Dv, p.page, p.KV, kv);
     }
     __syncthreads();
-
-    for (int i = tid; i < nr * n; i += kThreads) {
-      const int r = i / n, j = i % n;
-      float s = -INFINITY;
-      if (p.causal_offset < 0 || t0 + j <= p.causal_offset + (r0 + r) / p.G) {
-        const float* qr = qs + r * Dh;
-        const float* kr = kt + j * ks;
-        float a = 0.f;
-        for (int d = 0; d < Dh; ++d) a = fmaf(qr[d], kr[d], a);
-        s = a * p.scale;
-      }
-      sc[r * tile + j] = s;
-    }
-    __syncthreads();
-
-    // online softmax update, one warp per query row
-    for (int r = warp; r < nr; r += kThreads / 32) {
-      float mt = -INFINITY;
-      for (int j = lane; j < n; j += 32) mt = fmaxf(mt, sc[r * tile + j]);
-      for (int o = 16; o; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
-      const float m_old = m[r];
-      const float m_new = fmaxf(m_old, mt);
-      const bool none = (m_new == -INFINITY);  // no live key for this row yet
-      float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float e = none ? 0.f : expf(sc[r * tile + j] - m_new);
-        sc[r * tile + j] = e;
-        sum += e;
-      }
-      for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float c = none ? 1.f : expf(m_old - m_new);
-        corr[r] = c;
-        m[r] = m_new;
-        l[r] = l[r] * c + sum;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < nr * Dv; i += kThreads) {
-      const int r = i / Dv, d = i % Dv;
-      const float* w = sc + r * tile;
-      float a = acc[i] * corr[r];
-      for (int j = 0; j < n; ++j) a = fmaf(w[j], vt[j * vs + d], a);
-      acc[i] = a;
-    }
+    attend_tile(p, qs, kt, vt, sc, acc, m, l, corr, nr, n, t0, r0, p.causal_offset);
   }
   __syncthreads();
-  for (int i = tid; i < nr; i += kThreads) {
-    part_m[base + (long)i * p.S] = m[i];
-    part_l[base + (long)i * p.S] = l[i];
-  }
-  for (int i = tid; i < nr * Dv; i += kThreads) {
-    const int r = i / Dv, d = i % Dv;
-    part_acc[(base + (long)r * p.S) * Dv + d] = acc[i];
-  }
+  write_partials(p, base, nr, m, l, acc);
 }
 
 // pass 2: merge the S split partials of each query row; splits with l == 0

@@ -41,17 +41,11 @@ _ARGTYPES = {
     # C, H, KV, Dh, Dv, page, nb, pages_per_split, offset, valid, scale, stream
     "paged_prefill": [_I] + [_P] * 6 + [_I] * 10 + [_F, _P],
 }
-_fns: dict[str, object] = {}
 
 
 def launcher(name: str):
     """The C entry point ``<name>_launch``, building its library first."""
-    if name not in _fns:
-        fn = getattr(build.load(SOURCES[name]), f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+    return build.c_function(SOURCES[name], f"{name}_launch", _ARGTYPES[name])
 
 
 def _check_cuda(name: str, floats: list[torch.Tensor], ints: list[torch.Tensor]):
@@ -74,11 +68,17 @@ def _check_cuda(name: str, floats: list[torch.Tensor], ints: list[torch.Tensor])
             raise TypeError(f"{name}: block tables and lengths must be int32")
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
+def run(fn, name: str, dev: torch.device, *args) -> None:
+    """Call a kernel's C entry point on ``dev``'s current stream; raise on a
+    launch error."""
     with torch.cuda.device(dev):
-        err = launcher(name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    run(launcher(name), name, dev, *args)
 
 
 # ------------------------------------------------------------------ decode

@@ -1,12 +1,12 @@
 """GQA/MQA/MHA attention layer of the port, serving phases over paged arenas
-(the JAX package's ``models/attention_layer.py``). Only the dense mode is
-ported; the other modes raise ``NotImplementedError`` naming their ROADMAP
-item."""
+(the JAX package's ``models/attention_layer.py``). The dense and CPQ (T2)
+modes and the tiered dense + CPQ arena are ported; the other modes raise
+``NotImplementedError`` naming their ROADMAP item."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs import AttentionRuntime, ModelConfig
+from repro_torch.configs import AttentionRuntime, CPQCfg, ModelConfig
 from repro_torch.models.layers import apply_rope, apply_rope_rows, rms_norm_vec, rope_tables
 from repro_torch.serving import paged_cache as pgc
 
@@ -58,26 +58,43 @@ def _scale(cfg: ModelConfig) -> float:
 
 
 def init_paged_attn_cache(cfg: ModelConfig, rt: AttentionRuntime, serving,
-                          device) -> pgc.PagedDenseKVCache:
-    """Per-layer paged arena of the dense mode."""
-    if rt.mode != "dense":
-        raise pgc.unported_mode(rt.mode)
-    return pgc.init_paged_dense(serving.num_pages, serving.page_size,
-                                cfg.num_kv_heads, cfg.head_dim,
-                                dtype=cfg.param_dtype, device=device)
+                          device, tiered: bool = False):
+    """Per-layer paged arena of the configured mode; ``tiered`` pairs the
+    dense base arena with a CPQ escalation arena of
+    ``serving.escalated_pages`` pages."""
+    kv, dh = cfg.num_kv_heads, cfg.head_dim
+    if tiered:
+        if rt.mode != "dense":
+            raise ValueError("tier escalation starts from a dense base arena")
+        return pgc.TieredPagedCache(
+            dense=pgc.init_paged_dense(serving.num_pages, serving.page_size, kv, dh,
+                                       dtype=cfg.param_dtype, device=device),
+            cpq=pgc.init_paged_cpq(serving.escalated_pages, serving.page_size,
+                                   serving.num_slots, kv, dh, rt.cpq or CPQCfg(),
+                                   device=device))
+    if rt.mode == "dense":
+        return pgc.init_paged_dense(serving.num_pages, serving.page_size, kv, dh,
+                                    dtype=cfg.param_dtype, device=device)
+    if rt.mode == "cpq":
+        return pgc.init_paged_cpq(serving.num_pages, serving.page_size,
+                                  serving.num_slots, kv, dh, rt.cpq, device=device)
+    raise pgc.unported_mode(rt.mode)
 
 
-def attn_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, p, x: torch.Tensor,
-                       positions: torch.Tensor, block_row: torch.Tensor,
-                       offset: int, valid: int, cache):
-    """One prompt chunk of one slot: its K/V go straight into the slot's
-    pages and its C queries attend [0, offset + valid). x (1, C, D) is the
-    normed block input at absolute ``positions``."""
+def attn_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first: bool,
+                       p, x: torch.Tensor, positions: torch.Tensor, slot: int,
+                       block_row: torch.Tensor, offset: int, valid: int, cache):
+    """One prompt chunk of one slot: its K/V (or CPQ codes) go straight into
+    the slot's pages and its C queries attend [0, offset + valid). x
+    (1, C, D) is the normed block input at absolute ``positions``; ``tier``
+    (the arm of a tiered arena) and ``first`` (first chunk of the
+    admission) are host-static."""
     q, k, v = _project_qkv(cfg, p, x)
     q, k = _rope_qk(cfg, q, k, positions, positions)
-    out, cache = pgc.chunk_attend_paged(rt, cache, block_row=block_row,
-                                        offset=offset, valid=valid, q=q,
-                                        k_c=k, v_c=v, scale=_scale(cfg))
+    out, cache = pgc.chunk_attend_paged(rt, cache, tier=tier, first=first, slot=slot,
+                                        block_row=block_row, offset=offset,
+                                        valid=valid, q=q, k_c=k, v_c=v,
+                                        scale=_scale(cfg))
     return _out(cfg, p, out), cache
 
 

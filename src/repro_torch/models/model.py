@@ -10,29 +10,39 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs import AttentionRuntime, ModelConfig
+from repro_torch.configs import AttentionRuntime, CPQCfg, ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, embed_inputs, lm_logits
+from repro_torch.serving import paged_cache as pgc
 from repro_torch.serving.paged_cache import RowState
+
+
+def per_layer(cfg: ModelConfig, tree):
+    """The entries of a per-layer tree (parameters or arenas), in the order
+    of ``cfg.layer_kinds``."""
+    yield from tree["prefix"]
+    for i in range(cfg.num_blocks):
+        for j in range(len(cfg.block_pattern)):
+            yield tree["blocks"][j][i]
 
 
 def _layers(cfg: ModelConfig, params, caches):
     """(kind, layer params, layer arena) for every layer, in order."""
-    yield from zip(cfg.prefix_pattern, params["prefix"], caches["prefix"])
-    for i in range(cfg.num_blocks):
-        for j, kind in enumerate(cfg.block_pattern):
-            yield kind, params["blocks"][j][i], caches["blocks"][j][i]
+    return zip(cfg.layer_kinds, per_layer(cfg, params), per_layer(cfg, caches))
 
 
-def init_paged_caches(cfg: ModelConfig, rt: AttentionRuntime, serving, device):
+def init_paged_caches(cfg: ModelConfig, rt: AttentionRuntime, serving, device,
+                      tiered: bool = False):
     """One paged arena per attention layer, shaped like the parameter tree:
-    {"prefix": [arena, ...], "blocks": [[arena per block] per position]}."""
-    return {
-        "prefix": [tfm.layer_paged_cache_init(cfg, rt, k, serving, device)
-                   for k in cfg.prefix_pattern],
-        "blocks": [[tfm.layer_paged_cache_init(cfg, rt, k, serving, device)
-                    for _ in range(cfg.num_blocks)] for k in cfg.block_pattern],
-    }
+    {"prefix": [arena, ...], "blocks": [[arena per block] per position]}.
+    ``tiered`` gives every layer a dense base arena and a CPQ escalation
+    arena."""
+    def one(kind):
+        return tfm.layer_paged_cache_init(cfg, rt, kind, serving, device, tiered)
+
+    return {"prefix": [one(k) for k in cfg.prefix_pattern],
+            "blocks": [[one(k) for _ in range(cfg.num_blocks)]
+                       for k in cfg.block_pattern]}
 
 
 def decode_step_rows(cfg: ModelConfig, rt: AttentionRuntime, params,
@@ -46,28 +56,49 @@ def decode_step_rows(cfg: ModelConfig, rt: AttentionRuntime, params,
     return lm_logits(cfg, params, x)[:, 0], caches
 
 
-def _chunk_forward(cfg: ModelConfig, rt: AttentionRuntime, params,
-                   tokens: torch.Tensor, block_row: torch.Tensor, offset: int,
-                   valid: int, caches):
+def _chunk_forward(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first: bool,
+                   params, tokens: torch.Tensor, slot: int, block_row: torch.Tensor,
+                   offset: int, valid: int, caches):
     """Trunk of the chunked paged forward pass: embed ``tokens`` (1, C) at
     positions ``offset + i`` and stream every layer's chunk step (writes
-    land in the slot's pages through ``block_row``). Returns the pre-norm
-    hidden states (1, C, D)."""
+    land in slot ``slot``'s pages through ``block_row``). Returns the
+    pre-norm hidden states (1, C, D)."""
     C = tokens.shape[1]
     positions = offset + torch.arange(C, device=tokens.device)
     x = embed_inputs(cfg, params["embed"], tokens, positions)
     for kind, p, c in _layers(cfg, params, caches):
-        x, _ = tfm.layer_prefill_chunk(cfg, rt, kind, p, x, positions, block_row,
-                                       offset, valid, c)
+        x, _ = tfm.layer_prefill_chunk(cfg, rt, tier, first, kind, p, x, positions,
+                                       slot, block_row, offset, valid, c)
     return x
 
 
-def prefill_chunk_rows(cfg: ModelConfig, rt: AttentionRuntime, params,
-                       tokens: torch.Tensor, block_row: torch.Tensor,
-                       offset: int, valid: int, caches):
+def prefill_chunk_rows(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first: bool,
+                       params, tokens: torch.Tensor, slot: int,
+                       block_row: torch.Tensor, offset: int, valid: int, caches):
     """One chunk of a chunked paged admission: ``tokens`` (1, C) is the next
-    slice of the prompt (padded to C with the edge token). Returns (logits
+    slice of the prompt (padded to C with the edge token); ``tier`` is the
+    arm of a tiered arena the request was admitted to and ``first`` marks
+    its first chunk (the CPQ tier fits its level 0 there). Returns (logits
     (1, V) of the chunk's last valid position, caches)."""
-    x = _chunk_forward(cfg, rt, params, tokens, block_row, offset, valid, caches)
+    x = _chunk_forward(cfg, rt, tier, first, params, tokens, slot, block_row, offset,
+                       valid, caches)
     x = apply_norm(cfg, params["final_norm"], x[:, valid - 1:valid])
     return lm_logits(cfg, params, x)[:, 0], caches
+
+
+def escalate_slot(cfg: ModelConfig, rt: AttentionRuntime, caches,
+                  dense_row: torch.Tensor, cpq_row: torch.Tensor, slot: int,
+                  length: int):
+    """Watermark-policy tier escalation: re-compress slot ``slot``'s dense
+    K/V into the CPQ arena of every tiered attention layer, in place.
+    ``dense_row`` is the slot's block row before escalation, ``cpq_row`` its
+    freshly allocated CPQ block row; the host frees the dense pages."""
+    cpq_cfg = rt.cpq or CPQCfg()
+    for kind, c in zip(cfg.layer_kinds, per_layer(cfg, caches)):
+        if kind[0] != "attn" or not isinstance(c, pgc.TieredPagedCache):
+            continue
+        src = pgc.compress_dense_slot(
+            pgc.gather_pages(c.dense.k, dense_row[None]),
+            pgc.gather_pages(c.dense.v, dense_row[None]), length, cpq_cfg)
+        pgc.pack_cpq(c.cpq, src, cpq_row, slot)
+    return caches

@@ -15,9 +15,9 @@ def _apply_mlp_part(cfg: ModelConfig, mlp: str, p, x):
 
 
 def layer_paged_cache_init(cfg: ModelConfig, rt: AttentionRuntime,
-                           kind: tuple[str, str], serving, device):
+                           kind: tuple[str, str], serving, device, tiered: bool = False):
     layer_defs(cfg, kind)  # raises for the layer kinds not ported yet
-    return attn.init_paged_attn_cache(cfg, rt, serving, device)
+    return attn.init_paged_attn_cache(cfg, rt, serving, device, tiered)
 
 
 def layer_decode_rows(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str],
@@ -30,10 +30,12 @@ def layer_decode_rows(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, s
     return _apply_mlp_part(cfg, mlp, p, x_t + y), cache
 
 
-def layer_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str],
-                        p, x, positions, block_row, offset: int, valid: int, cache):
+def layer_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first: bool,
+                        kind: tuple[str, str], p, x, positions, slot: int, block_row,
+                        offset: int, valid: int, cache):
     """Chunked paged prefill of one layer for one request slot."""
     _, mlp = kind
-    y, cache = attn.attn_prefill_chunk(cfg, rt, p["mixer"], apply_norm(cfg, p["norm1"], x),
-                                       positions, block_row, offset, valid, cache)
+    y, cache = attn.attn_prefill_chunk(cfg, rt, tier, first, p["mixer"],
+                                       apply_norm(cfg, p["norm1"], x), positions, slot,
+                                       block_row, offset, valid, cache)
     return _apply_mlp_part(cfg, mlp, p, x + y), cache

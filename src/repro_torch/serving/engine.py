@@ -5,16 +5,23 @@ Requests are admitted into vacated slots as soon as their pages fit, their
 prompts stream into the slot's arena pages one ``prefill_chunk`` per tick
 (interleaved with the decode step), every running row decodes at its own
 position, and rows retire at EOS / stop tokens / budget and free their pages
-at once. Ticks, outputs, stats and recompute preemption follow the reference
-step for step, so greedy streams and tick counters are identical to the JAX
-engine's.
+at once. Ticks, outputs, stats, recompute preemption and tier escalation
+follow the reference step for step, so greedy streams and tick counters are
+identical to the JAX engine's.
+
+Attention modes: ``dense`` and ``cpq`` (T2: the whole arena holds int8 CPQ
+codes). With ``ServingCfg(enable_escalation=True)`` a dense engine is
+tiered: every layer pairs its dense arena with a CPQ escalation arena, new
+admissions go to the CPQ tier while the dense arena's free fraction is below
+``low_watermark``, and below ``critical_watermark`` (or when a dense row
+cannot grow) running dense rows are re-compressed into it.
 
 The engine runs on the GPU unless ``device`` names another device. It
 refuses, with ``SchedulerConfigError``, every knob the port does not
-implement yet instead of ignoring it: tier escalation, prefix sharing,
-speculative decoding, one-shot admission (``prefill_chunk=0``), defrag, a
-device mesh, non-dense attention modes, non-token inputs, non-FIFO policies
-and sampled (``temperature > 0``) requests.
+implement yet instead of ignoring it: prefix sharing, speculative decoding,
+one-shot admission (``prefill_chunk=0``), defrag, a device mesh, the T1, T3
+and T1+T2 attention modes, non-token inputs, non-FIFO policies and sampled
+(``temperature > 0``) requests.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.configs import AttentionRuntime, ModelConfig, ServingCfg
+from repro_torch.configs import AttentionRuntime, CPQCfg, ModelConfig, ServingCfg
 from repro_torch.models import model as M
 from repro_torch.params import model_defs, resolve_device, to_device
 from repro_torch.serving import paged_cache as pgc
@@ -47,8 +54,6 @@ def _unported_knobs(serving: ServingCfg, rt: AttentionRuntime,
                     cfg: ModelConfig) -> list[str]:
     """The settings this engine refuses, each with its ROADMAP item."""
     out = []
-    if serving.enable_escalation:
-        out.append("enable_escalation (tier escalation, ROADMAP A14)")
     if serving.share_prefix:
         out.append("share_prefix (prefix sharing, ROADMAP A11)")
     if serving.spec_len > 0:
@@ -61,7 +66,7 @@ def _unported_knobs(serving: ServingCfg, rt: AttentionRuntime,
         out.append(f"policy={serving.policy!r} (ROADMAP A10)")
     if rt.mesh is not None:
         out.append("mesh (multi-device serving, ROADMAP A21)")
-    if rt.mode != "dense":
+    if rt.mode in pgc.UNPORTED_MODES:
         out.append(f"mode={rt.mode!r} (ROADMAP {pgc.UNPORTED_MODES[rt.mode]})")
     if cfg.input_kind != "tokens":
         out.append(f"input_kind={cfg.input_kind!r} (ROADMAP A19)")
@@ -75,12 +80,11 @@ class _ServeState:
 
     def __init__(self, eng: "ContinuousServeEngine", gen: GenerationConfig):
         self.gen = gen
-        self.sched = Scheduler(eng.serving, False, policy=make_policy(eng.serving.policy),
-                               share_prefix=False)
-        self.caches = M.init_paged_caches(eng.cfg, eng.rt, eng.serving, eng.device)
-        first = (self.caches["prefix"] + [c for pos in self.caches["blocks"]
-                                          for c in pos])[0]
-        self.bpt0 = pgc.bytes_per_token(first, eng.serving.page_size)
+        self.sched = Scheduler(eng.serving, eng.tiered,
+                               policy=make_policy(eng.serving.policy), share_prefix=False)
+        self.caches = M.init_paged_caches(eng.cfg, eng.rt, eng.serving, eng.device,
+                                          eng.tiered)
+        self.bpt0, self.bpt1 = eng._tier_bpt(self.caches)
         self.last_tok = np.zeros((eng.serving.num_slots,), np.int32)
         self.results: dict[int, dict] = {}
         self.outputs: list[RequestOutput] = []       # pending (undrained)
@@ -125,6 +129,9 @@ class ContinuousServeEngine:
             raise SchedulerConfigError(
                 "not ported yet: " + "; ".join(unported))
         model_defs(cfg)  # raises NotImplementedError for unported layer kinds
+        self.tiered = bool(serving.enable_escalation and rt.mode == "dense")
+        if self.tiered and rt.cpq is None:
+            rt = dataclasses.replace(rt, cpq=CPQCfg())
         self.rt = rt
         self.params = to_device(params, self.device)
         self._n_cache_layers = sum(1 for m, _ in cfg.layer_kinds if m in ("attn", "mla"))
@@ -134,6 +141,27 @@ class ContinuousServeEngine:
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.tensor(np.asarray(a), device=self.device)
+
+    def _tier_bpt(self, caches) -> tuple[float, float]:
+        """(base, escalated) per-token decode traffic per cache-bearing layer."""
+        ps = self.serving.page_size
+        for (mixer, _), c in zip(self.cfg.layer_kinds, M.per_layer(self.cfg, caches)):
+            if mixer not in ("attn", "mla"):
+                continue
+            if isinstance(c, pgc.TieredPagedCache):
+                return (pgc.bytes_per_token(c.dense, ps),
+                        pgc.bytes_per_token(c.cpq, ps, self.rt.cpq))
+            b = pgc.bytes_per_token(c, ps, self.rt.cpq)
+            return b, b
+        return 0.0, 0.0
+
+    def _escalate(self, st: _ServeState, req: Request) -> None:
+        """Move a running dense row to the CPQ tier: the scheduler hands its
+        pages over, then every layer re-compresses its dense K/V."""
+        slot, length = req.slot, req.length
+        dense_row, cpq_row = st.sched.apply_escalation(req)
+        M.escalate_slot(self.cfg, self.rt, st.caches, self._tensor(dense_row),
+                        self._tensor(cpq_row), slot, int(length))
 
     def _prefill_chunk(self, req: Request, st: _ServeState):
         """Stream the next ``prefill_chunk`` prompt tokens straight into the
@@ -147,9 +175,11 @@ class ContinuousServeEngine:
         chunk = req.context[off:off + valid]
         if valid < C:  # pad with the edge token (masked everywhere)
             chunk = np.concatenate([chunk, np.full((C - valid,), chunk[-1], np.int32)])
+        tables = sched.alt_block_tables if req.tier == 1 else sched.block_tables
         logits, _ = M.prefill_chunk_rows(
-            self.cfg, self.rt, self.params, self._tensor(chunk[None]),
-            self._tensor(sched.block_tables[req.slot]), off, valid, st.caches)
+            self.cfg, self.rt, req.tier, off == 0, self.params,
+            self._tensor(chunk[None]), req.slot, self._tensor(tables[req.slot]), off,
+            valid, st.caches)
         sched.note_chunk(req, valid)
         if req.length < req.prefill_target:
             return None, valid
@@ -160,7 +190,9 @@ class ContinuousServeEngine:
         return pgc.RowState(lengths=self._tensor(sched.lengths),
                             block_table=self._tensor(sched.block_tables),
                             active=self._tensor(active),
-                            tier=self._tensor(sched.tiers))
+                            tier=self._tensor(sched.tiers),
+                            alt_block_table=(self._tensor(sched.alt_block_tables)
+                                             if sched.tiered else None))
 
     # ------------------------------------------------- request-centric API
 
@@ -321,10 +353,11 @@ class ContinuousServeEngine:
     # ----------------------------------------------------------------- run
 
     def step(self) -> list[RequestOutput]:
-        """Run ONE engine tick: admissions, at most one streamed prompt
-        chunk, page growth (recompute preemption on exhaustion), and one
-        decode step + greedy sampling over the running rows. Returns this
-        tick's ``RequestOutput`` events.
+        """Run ONE engine tick: admissions, the watermark escalation policy,
+        at most one streamed prompt chunk, page growth (escalation or
+        recompute preemption on exhaustion), and one decode step + greedy
+        sampling over the running rows. Returns this tick's
+        ``RequestOutput`` events.
 
         Clock model (the reference's): a tick that runs the decode step
         costs 1 and one prompt chunk rides along for free; a prefill-only
@@ -345,6 +378,16 @@ class ContinuousServeEngine:
         while sched.admit_next(now=st.step, step=st.step) is not None:
             pass
 
+        # 1b) watermark policy: under critical pressure, running dense rows
+        #     are re-compressed into the CPQ arena and their pages freed
+        while (cand := sched.escalation_candidate()) is not None:
+            self._escalate(st, cand)
+
+        # 1c) recovery: a policy may de-escalate one T2 row per tick back to
+        #     dense by re-admission (FIFO never volunteers one)
+        if (cand := sched.deescalation_candidate()) is not None:
+            sched.deescalate(cand)
+
         # 2) chunked-prefill pump: at most ONE prompt chunk per tick
         did_chunk = False
         fresh_slot = -1  # row whose prefill finished THIS tick
@@ -354,7 +397,8 @@ class ContinuousServeEngine:
             did_chunk = True
             st.prefill_chunks += 1
             st.prefill_tokens += valid
-            st.prefill_write_bytes += valid * st.bpt0 * self._n_cache_layers
+            st.prefill_write_bytes += (valid * (st.bpt1 if req.tier else st.bpt0)
+                                       * self._n_cache_layers)
             if tok is not None:
                 # available at the tick's end; the row decodes from next tick
                 self._emit_token(st, req, tok, st.step + 1)
@@ -362,7 +406,8 @@ class ContinuousServeEngine:
                     fresh_slot = req.slot
 
         # 3) growth: map a page for every running row's next write; out of
-        #    pages, the policy's victim (the youngest) is preempted
+        #    pages, a dense grower first escalates itself to the CPQ arena,
+        #    else the policy's victim (the youngest) is preempted
         for req in sorted(sched.running(), key=lambda r: r.admitted_step):
             if req.state != "running":
                 continue
@@ -370,6 +415,10 @@ class ContinuousServeEngine:
                 if req.length // self.serving.page_size >= self.serving.max_blocks_per_slot:
                     self._finish(st, req, "length_cap")
                     break
+                if self.tiered and req.tier == 0 and sched.cpq_alloc.can_alloc(
+                        pgc.pages_needed(req.length + 1, self.serving.page_size)):
+                    self._escalate(st, req)
+                    continue
                 victim = sched.preemption_victim(exclude=req)
                 if victim is None:
                     self._finish(st, req, "oom")
@@ -411,8 +460,9 @@ class ContinuousServeEngine:
         toks = torch.argmax(logits, dim=-1).cpu().numpy()
         st.decode_steps += 1
         st.live_steps += int(active.sum())
-        st.traffic += float(sum(sched.lengths[s] + 1.0 for s in range(B)
-                                if active[s])) * st.bpt0 * self._n_cache_layers
+        st.traffic += float(sum(
+            (sched.lengths[s] + 1.0) * (st.bpt1 if sched.tiers[s] else st.bpt0)
+            for s in range(B) if active[s])) * self._n_cache_layers
         util = sched.dense_alloc.utilization
         st.util_peak = max(st.util_peak, util)
         st.util_sum += util
@@ -435,7 +485,7 @@ class ContinuousServeEngine:
         total_bytes = pgc.arena_bytes(st.caches)
         return {
             "cache_mode": self.rt.mode,
-            "tiered": False,
+            "tiered": self.tiered,
             "chunked_prefill": True,
             "prefix_sharing": False,
             "spec_on": False,
@@ -463,7 +513,7 @@ class ContinuousServeEngine:
             "wall_time_s": wall,
             "tokens_per_s": st.generated / max(wall, 1e-9),
             "dense_pages_leaked": sched.dense_alloc.num_used,
-            "cpq_pages_leaked": 0,
+            "cpq_pages_leaked": sched.cpq_alloc.num_used if sched.cpq_alloc else 0,
             **sched.stats,
             **sched.arena_stats(),
         }

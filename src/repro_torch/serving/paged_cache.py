@@ -1,5 +1,6 @@
-"""Block-paged KV arenas for continuous batching, dense tier (the JAX
-package's ``serving/paged_cache.py``).
+"""Block-paged KV arenas for continuous batching (the JAX package's
+``serving/paged_cache.py``): the dense tier, the T2 CPQ tier and the tiered
+arena that pairs them.
 
 The token axis is cut into fixed-size pages owned by a shared physical pool
 ``(P, page_size, KV, Dh)``; a per-slot block table ``(B, max_blocks)`` maps
@@ -13,24 +14,33 @@ arena. Several inactive rows may write the same null-page slot in one step;
 which value lands there is unspecified and harmless, because page 0 is
 never read.
 
-Only the dense tier is ported. The other containers (T1 X pages, T2 CPQ
-codes, T3 retrieval, the tiered arena) raise ``NotImplementedError`` naming
-their ROADMAP item.
+Per-token state is paged; per-sequence state (the CPQ scale/zero tables,
+level counts and prune thresholds) stays slot-indexed ``(num_slots, ...)``
+and is overwritten at admission.
+
+Mode -> paged container:
+  dense   PagedDenseKVCache   K, V pages
+  cpq     PagedCPQKVCache     CPQ code/level pages, slot tables (T2)
+  tiered  TieredPagedCache    dense base arena + CPQ escalation arena
+The T1 X pages, T3 retrieval and T1+T2 containers are not ported yet; their
+modes raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs import AttentionRuntime, CPQCfg
 from repro_torch.core import attention as core_attn
+from repro_torch.core import cpq as cpq_lib
+from repro_torch.kernels.cpq_attn import ops as cpq_ops
 from repro_torch.kernels.paged_attn import ops
 
 NULL_PAGE = 0
 
-UNPORTED_MODES = {"decomposed": "A13", "cpq": "A14", "retrieval": "A15",
-                  "decomposed_cpq": "A16"}
+UNPORTED_MODES = {"decomposed": "A13", "retrieval": "A15", "decomposed_cpq": "A16"}
 
 
 def unported_mode(mode: str) -> NotImplementedError:
@@ -45,7 +55,8 @@ class RowState(NamedTuple):
     lengths: torch.Tensor      # (B,) int32 valid tokens per slot (= next position)
     block_table: torch.Tensor  # (B, max_blocks) int32 physical page ids; 0 = unmapped
     active: torch.Tensor       # (B,) bool: the row decodes this step (writes commit)
-    tier: torch.Tensor         # (B,) int32: 0 = base tier (tiered arenas not ported)
+    tier: torch.Tensor         # (B,) int32: 0 = base tier, 1 = escalated (CPQ) tier
+    alt_block_table: Optional[torch.Tensor] = None  # escalated-arena table (tiered)
 
 
 # -------------------------------------------------------------- page plumbing
@@ -203,7 +214,7 @@ def defrag_plan(block_table, num_pages: int, shared=None):
     return np.asarray(perm, dtype=np.int32), new_bt, free
 
 
-# ------------------------------------------------------------- dense arena
+# ------------------------------------------------------------- containers
 
 
 class PagedDenseKVCache(NamedTuple):
@@ -211,11 +222,76 @@ class PagedDenseKVCache(NamedTuple):
     v: torch.Tensor  # (P, page, KV, Dh)
 
 
+class PagedCPQTensor(NamedTuple):
+    """CPQ arena: per-token code/level pages plus per-slot HQE side state."""
+
+    codes: torch.Tensor       # (P, page, KV, D) int8
+    level: torch.Tensor       # (P, page, KV) int32
+    scale: torch.Tensor       # (num_slots, L, KV, D) f32
+    zero: torch.Tensor        # (num_slots, L, KV, D) f32
+    num_levels: torch.Tensor  # (num_slots, KV) int32
+    prune_thr: torch.Tensor   # (num_slots, KV, D) f32
+
+
+class PagedCPQKVCache(NamedTuple):
+    k: PagedCPQTensor
+    v: PagedCPQTensor
+
+
+class TieredPagedCache(NamedTuple):
+    """Dense base arena + CPQ escalation arena; ``RowState.tier`` selects the
+    live one per row (the watermark policy's dense -> T2 target)."""
+
+    dense: PagedDenseKVCache
+    cpq: PagedCPQKVCache
+
+
+class CPQKVCache(NamedTuple):
+    """A contiguous CPQ-compressed K/V pair (the JAX package's
+    ``core/kv_cache.py`` container), the source of a pack."""
+
+    k: cpq_lib.CPQTensor
+    v: cpq_lib.CPQTensor
+
+
 def init_paged_dense(num_pages: int, page_size: int, kv: int, dh: int,
                      dtype=torch.bfloat16, device="cpu") -> PagedDenseKVCache:
     shape = (num_pages, page_size, kv, dh)
     return PagedDenseKVCache(torch.zeros(shape, dtype=dtype, device=device),
                              torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _init_paged_cpq_tensor(num_pages: int, page_size: int, num_slots: int, h: int,
+                           d: int, cfg: CPQCfg, device) -> PagedCPQTensor:
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return PagedCPQTensor(
+        codes=z((num_pages, page_size, h, d), torch.int8),
+        level=z((num_pages, page_size, h), torch.int32),
+        scale=z((num_slots, cfg.max_levels, h, d), torch.float32),
+        zero=z((num_slots, cfg.max_levels, h, d), torch.float32),
+        num_levels=torch.ones((num_slots, h), dtype=torch.int32, device=device),
+        prune_thr=z((num_slots, h, d), torch.float32))
+
+
+def init_paged_cpq(num_pages: int, page_size: int, num_slots: int, kv: int, dh: int,
+                   cfg: CPQCfg, device="cpu") -> PagedCPQKVCache:
+    return PagedCPQKVCache(
+        k=_init_paged_cpq_tensor(num_pages, page_size, num_slots, kv, dh, cfg, device),
+        v=_init_paged_cpq_tensor(num_pages, page_size, num_slots, kv, dh, cfg, device))
+
+
+def logical_cpq(t: PagedCPQTensor, block_table: torch.Tensor) -> cpq_lib.CPQTensor:
+    """Contiguous CPQTensor view of a paged CPQ arena: codes and levels
+    gathered through the block table, the per-slot state as it is."""
+    return cpq_lib.CPQTensor(
+        codes=gather_pages(t.codes, block_table), scale=t.scale, zero=t.zero,
+        level=gather_pages(t.level, block_table), num_levels=t.num_levels,
+        prune_thr=t.prune_thr)
+
+
+# ---------------------------------------------------------------- appends
 
 
 def append_dense(cache: PagedDenseKVCache, rows: RowState, k_t: torch.Tensor,
@@ -226,19 +302,63 @@ def append_dense(cache: PagedDenseKVCache, rows: RowState, k_t: torch.Tensor,
     return cache
 
 
-def _require_dense(rt, cache) -> None:
-    if rt.mode != "dense":
-        raise unported_mode(rt.mode)
-    if not isinstance(cache, PagedDenseKVCache):
-        raise NotImplementedError(
-            f"paged container {type(cache).__name__} is not ported yet")
+def append_cpq_tensor(t: PagedCPQTensor, rows: RowState, x_t: torch.Tensor,
+                      cfg: CPQCfg) -> PagedCPQTensor:
+    """HQE-encode one token per row and scatter its code and level through
+    the block table, in place. The side state commits on active rows only."""
+    code_t, level_t, scale, zero, num_levels = cpq_lib.cpq_encode_token(
+        t.scale, t.zero, t.num_levels, t.prune_thr, x_t, cfg)
+    act = rows.active
+    t.scale.copy_(torch.where(act[:, None, None, None], scale, t.scale))
+    t.zero.copy_(torch.where(act[:, None, None, None], zero, t.zero))
+    t.num_levels.copy_(torch.where(act[:, None], num_levels, t.num_levels))
+    write_token_pages(t.codes, rows.block_table, rows.lengths, act, code_t[:, 0])
+    write_token_pages(t.level, rows.block_table, rows.lengths, act, level_t)
+    return t
 
 
-def bytes_per_token(cache: PagedDenseKVCache, page_size: int) -> float:
-    """Per-token decode traffic of the dense arena: K and V payload plus the
-    amortized block-table entry."""
-    return (2.0 * cache.k.shape[2] * cache.k.shape[3] * cache.k.element_size()
-            + 4.0 / page_size)
+# ------------------------------------------------------------ prompt pack
+
+
+def pack_cpq_tensor(t: PagedCPQTensor, src: cpq_lib.CPQTensor, block_row: torch.Tensor,
+                    slot: int) -> PagedCPQTensor:
+    """Scatter a contiguous B=1 CPQTensor into slot ``slot``'s pages, in
+    place (a prompt is one chunk at offset 0)."""
+    n = src.codes.shape[1]
+    write_chunk_pages(t.codes, block_row, 0, n, src.codes[0])
+    write_chunk_pages(t.level, block_row, 0, n, src.level[0])
+    t.scale[slot] = src.scale[0]
+    t.zero[slot] = src.zero[0]
+    t.num_levels[slot] = src.num_levels[0]
+    t.prune_thr[slot] = src.prune_thr[0]
+    return t
+
+
+def pack_cpq(cache: PagedCPQKVCache, src: CPQKVCache, block_row: torch.Tensor,
+             slot: int) -> PagedCPQKVCache:
+    pack_cpq_tensor(cache.k, src.k, block_row, slot)
+    pack_cpq_tensor(cache.v, src.v, block_row, slot)
+    return cache
+
+
+# --------------------------------------------------------------- traffic
+
+
+def bytes_per_token(cache, page_size: int, cpq_cfg: Optional[CPQCfg] = None) -> float:
+    """Per-token decode traffic of a paged arena: the payload (dense K and V,
+    or the CPQ accounting of ``cpq_bytes_per_token``) plus the amortized
+    block-table entry. A tiered arena counts its base tier."""
+    overhead = 4.0 / page_size
+    if isinstance(cache, TieredPagedCache):
+        return bytes_per_token(cache.dense, page_size, cpq_cfg)
+    if isinstance(cache, PagedDenseKVCache):
+        payload = 2.0 * cache.k.shape[2] * cache.k.shape[3] * cache.k.element_size()
+    elif isinstance(cache, PagedCPQKVCache):
+        payload = 2.0 * cpq_lib.cpq_bytes_per_token(
+            cpq_cfg or CPQCfg(), cache.k.codes.shape[2], cache.k.codes.shape[3])
+    else:
+        raise TypeError(type(cache))
+    return payload + overhead
 
 
 def arena_bytes(caches) -> int:
@@ -250,46 +370,189 @@ def arena_bytes(caches) -> int:
     return sum(arena_bytes(c) for c in caches)
 
 
-# ------------------------------------------------------------- attention
+# ------------------------------------------------------- chunked prefill
 
 
-def decode_attend_paged(rt, cache: PagedDenseKVCache, rows: RowState, *,
-                        q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
-                        scale: float):
-    """Write one token per row through the block table, then attend with
-    per-row lengths: the B1 kernel with ``rt.paged_kernels`` (the default),
-    the gather path otherwise. Inactive rows write the null page and their
-    output is garbage the engine never reads. q (B, 1, H, Dh) roped;
-    k_t/v_t (B, 1, KV, Dh). Returns (out (B, 1, H, Dv), cache)."""
-    _require_dense(rt, cache)
-    new_len = rows.lengths + rows.active.to(rows.lengths.dtype)
-    cache = append_dense(cache, rows, k_t, v_t)
-    if rt.paged_kernels:
-        out = ops.paged_decode(q, cache.k, cache.v, rows.block_table, new_len, scale)
+def _slot_cpq(t: PagedCPQTensor, block_row: torch.Tensor, slot: int) -> cpq_lib.CPQTensor:
+    """One slot's logical CPQTensor view (B=1): codes and levels gathered
+    through its block row, side state sliced at ``slot``."""
+    sl = slice(slot, slot + 1)
+    return cpq_lib.CPQTensor(
+        codes=gather_pages(t.codes, block_row[None]), scale=t.scale[sl],
+        zero=t.zero[sl], level=gather_pages(t.level, block_row[None]),
+        num_levels=t.num_levels[sl], prune_thr=t.prune_thr[sl])
+
+
+def chunk_cpq_tensor(t: PagedCPQTensor, slot: int, block_row: torch.Tensor,
+                     offset: int, valid: int, x_c: torch.Tensor, cfg: CPQCfg,
+                     first: bool) -> PagedCPQTensor:
+    """Compress one prompt chunk into a slot's code pages, in place: the
+    first chunk fits the prune threshold and level 0 (the role the whole
+    prompt plays in ``cpq_compress_prefill``); later chunks HQE-extend token
+    by token like decode appends, never re-compressing earlier tokens.
+    x_c (1, C, KV, D)."""
+    sl = slice(slot, slot + 1)
+    if first:
+        codes, level, scale, zero, num_levels, thr = cpq_lib.cpq_fit_chunk(x_c, valid, cfg)
+        t.prune_thr[slot] = thr[0]
     else:
+        codes, level, scale, zero, num_levels = cpq_lib.cpq_encode_chunk(
+            t.scale[sl], t.zero[sl], t.num_levels[sl], t.prune_thr[sl], x_c, valid, cfg)
+    write_chunk_pages(t.codes, block_row, offset, valid, codes[0])
+    write_chunk_pages(t.level, block_row, offset, valid, level[0])
+    t.scale[slot] = scale[0]
+    t.zero[slot] = zero[0]
+    t.num_levels[slot] = num_levels[0]
+    return t
+
+
+def _chunk_mask_bias(n_prev: int, chunk: int, offset: int, valid: int,
+                     device) -> torch.Tensor:
+    """(C, n_prev + C) additive mask over [earlier-pages view | raw chunk]:
+    earlier key j is live iff j < offset; chunk key i is live iff i < valid
+    and i <= the query's chunk index."""
+    prev = torch.arange(n_prev, device=device)
+    idx = torch.arange(chunk, device=device)
+    kp = torch.cat([prev, offset + idx])
+    live = torch.cat([prev < offset, idx < valid])
+    qp = offset + idx
+    ok = live[None, :] & (kp[None, :] <= qp[:, None])
+    return torch.where(ok, 0.0, core_attn.NEG_INF)
+
+
+def cpq_chunk_prefill_attention(q, kt: PagedCPQTensor, vt: PagedCPQTensor,
+                                block_row, slot: int, k_raw, v_raw, offset: int,
+                                valid: int, scale: float) -> torch.Tensor:
+    """Gather-path oracle of B6: earlier chunks are read back as dequantized
+    codes (what decode reads), the current chunk attends its raw roped K/V
+    causally. q (1, C, H, Dh); k_raw/v_raw (1, C, KV, Dh|Dv)."""
+    k_hat = cpq_lib.cpq_dequant(_slot_cpq(kt, block_row, slot))
+    v_hat = cpq_lib.cpq_dequant(_slot_cpq(vt, block_row, slot))
+    k_all = torch.cat([k_hat.to(q.dtype), k_raw], dim=1)
+    v_all = torch.cat([v_hat.to(q.dtype), v_raw], dim=1)
+    bias = _chunk_mask_bias(k_hat.shape[1], q.shape[1], offset, valid, q.device)
+    return core_attn.dense_attention(q, k_all, v_all, scale, causal=False,
+                                     logit_bias=bias[None, :, None, :])
+
+
+def _cpq_runtime(rt) -> AttentionRuntime:
+    """The runtime of a tiered arena's CPQ arm."""
+    return AttentionRuntime(mode="cpq", cpq=rt.cpq, paged_kernels=rt.paged_kernels)
+
+
+def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
+                       block_row: torch.Tensor, offset: int, valid: int,
+                       q: torch.Tensor, k_c: torch.Tensor, v_c: torch.Tensor,
+                       scale: float):
+    """Write one prompt chunk straight into the slot's arena pages, then
+    attend the chunk's C queries over the slot's pages [0, offset + valid):
+    the B2 (dense) or B6 (CPQ) kernel with ``rt.paged_kernels``, the gather
+    path otherwise. A CPQ arena compresses the chunk as it goes (level-0
+    fit on the ``first`` chunk, HQE extension after) and reads earlier
+    chunks through their codes. A tiered arena runs the arm of the
+    host-static admission ``tier``. q (1, C, H, Dh) roped; k_c/v_c
+    (1, C, KV, Dh); slot/offset/valid host ints. Returns (out (1, C, H, Dv),
+    cache); rows past ``valid`` are padding."""
+    if isinstance(cache, TieredPagedCache):
+        arm_rt, arm = (rt, cache.dense) if tier == 0 else (_cpq_runtime(rt), cache.cpq)
+        out, _ = chunk_attend_paged(arm_rt, arm, tier=0, first=first, slot=slot,
+                                    block_row=block_row, offset=offset, valid=valid,
+                                    q=q, k_c=k_c, v_c=v_c, scale=scale)
+        return out, cache
+    if isinstance(cache, PagedDenseKVCache) and rt.mode == "dense":
+        write_chunk_pages(cache.k, block_row, offset, valid, k_c[0])
+        write_chunk_pages(cache.v, block_row, offset, valid, v_c[0])
+        if rt.paged_kernels:
+            out = ops.paged_prefill(q, cache.k, cache.v, block_row, offset, valid, scale)
+        else:
+            out = core_attn.dense_attention(
+                q, gather_pages(cache.k, block_row[None]),
+                gather_pages(cache.v, block_row[None]),
+                scale, causal=True, q_offset=offset, kv_length=offset + valid)
+        return out, cache
+    if isinstance(cache, PagedCPQKVCache) and rt.mode == "cpq":
+        chunk_cpq_tensor(cache.k, slot, block_row, offset, valid, k_c, rt.cpq, first)
+        chunk_cpq_tensor(cache.v, slot, block_row, offset, valid, v_c, rt.cpq, first)
+        if rt.paged_kernels:
+            out = cpq_ops.paged_cpq_prefill(q, cache.k, cache.v, k_c, v_c, slot,
+                                            block_row, offset, valid, scale)
+        else:
+            out = cpq_chunk_prefill_attention(q, cache.k, cache.v, block_row, slot,
+                                              k_c, v_c, offset, valid, scale)
+        return out, cache
+    raise _unported_cache(rt, cache)
+
+
+# ------------------------------------------------------------ decode attend
+
+
+def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
+                        k_t: torch.Tensor, v_t: torch.Tensor, scale: float):
+    """Write one token per row through the block table, then attend with
+    per-row lengths: the B1 (dense) or B5 (CPQ) kernel with
+    ``rt.paged_kernels`` (the default), the gather path otherwise. A tiered
+    arena runs both arms on every row, each arm's writes masked to its own
+    tier's rows and the CPQ arm reading ``rows.alt_block_table``, and picks
+    each row's output by tier, as the reference does. Inactive rows write
+    the null page and their output is garbage the engine never reads.
+    q (B, 1, H, Dh) roped; k_t/v_t (B, 1, KV, Dh). Returns
+    (out (B, 1, H, Dv), cache)."""
+    if isinstance(cache, TieredPagedCache):
+        rows_d = rows._replace(active=rows.active & (rows.tier == 0))
+        rows_c = rows._replace(active=rows.active & (rows.tier == 1),
+                               block_table=rows.alt_block_table)
+        out_d, _ = decode_attend_paged(rt, cache.dense, rows_d, q=q, k_t=k_t,
+                                       v_t=v_t, scale=scale)
+        out_c, _ = decode_attend_paged(_cpq_runtime(rt), cache.cpq, rows_c, q=q,
+                                       k_t=k_t, v_t=v_t, scale=scale)
+        return torch.where((rows.tier == 1)[:, None, None, None], out_c, out_d), cache
+    new_len = rows.lengths + rows.active.to(rows.lengths.dtype)
+    if isinstance(cache, PagedDenseKVCache) and rt.mode == "dense":
+        append_dense(cache, rows, k_t, v_t)
+        if rt.paged_kernels:
+            return ops.paged_decode(q, cache.k, cache.v, rows.block_table, new_len,
+                                    scale), cache
         out = core_attn.dense_attention(
             q, gather_pages(cache.k, rows.block_table),
             gather_pages(cache.v, rows.block_table),
             scale, causal=False, kv_length=new_len)
-    return out, cache
+        return out, cache
+    if isinstance(cache, PagedCPQKVCache) and rt.mode == "cpq":
+        append_cpq_tensor(cache.k, rows, k_t, rt.cpq)
+        append_cpq_tensor(cache.v, rows, v_t, rt.cpq)
+        if rt.paged_kernels:
+            return cpq_ops.paged_cpq_decode(q, cache.k, cache.v, rows.block_table,
+                                            new_len, scale), cache
+        out = core_attn.cpq_chunked_decode_attention(
+            q, logical_cpq(cache.k, rows.block_table),
+            logical_cpq(cache.v, rows.block_table), new_len, scale)
+        return out, cache
+    raise _unported_cache(rt, cache)
 
 
-def chunk_attend_paged(rt, cache: PagedDenseKVCache, *, block_row: torch.Tensor,
-                       offset: int, valid: int, q: torch.Tensor,
-                       k_c: torch.Tensor, v_c: torch.Tensor, scale: float):
-    """Write one prompt chunk's K/V straight into the slot's pages, then
-    attend the chunk's C queries over the pages [0, offset + valid): the B2
-    kernel with ``rt.paged_kernels``, the gather path otherwise. q
-    (1, C, H, Dh) roped; k_c/v_c (1, C, KV, Dh); offset/valid host ints.
-    Returns (out (1, C, H, Dv), cache); rows past ``valid`` are padding."""
-    _require_dense(rt, cache)
-    write_chunk_pages(cache.k, block_row, offset, valid, k_c[0])
-    write_chunk_pages(cache.v, block_row, offset, valid, v_c[0])
-    if rt.paged_kernels:
-        out = ops.paged_prefill(q, cache.k, cache.v, block_row, offset, valid, scale)
-    else:
-        out = core_attn.dense_attention(
-            q, gather_pages(cache.k, block_row[None]),
-            gather_pages(cache.v, block_row[None]),
-            scale, causal=True, q_offset=offset, kv_length=offset + valid)
-    return out, cache
+def _unported_cache(rt, cache) -> NotImplementedError:
+    if rt.mode in UNPORTED_MODES:
+        return unported_mode(rt.mode)
+    return NotImplementedError(
+        f"attention mode {rt.mode!r} over a {type(cache).__name__} is not ported")
+
+
+# ------------------------------------------------------- tier escalation (T2)
+
+
+def compress_dense_slot(k_log: torch.Tensor, v_log: torch.Tensor, length: int,
+                        cfg: CPQCfg) -> CPQKVCache:
+    """Re-compress one slot's gathered dense K/V into CPQ tensors: the
+    watermark policy's dense -> T2 migration. k_log/v_log (1, Npad, KV, Dh)
+    logical views; positions at or past ``length`` are replaced by the last
+    valid token, so the prune quantile and the level-0 range see only real
+    data."""
+    n = k_log.shape[1]
+    last = min(max(length - 1, 0), n - 1)
+    keep = (torch.arange(n, device=k_log.device) < length)[None, :, None, None]
+
+    def valid_only(a):
+        return torch.where(keep, a, a[:, last:last + 1])
+
+    return CPQKVCache(cpq_lib.cpq_compress_prefill(valid_only(k_log), cfg, n),
+                      cpq_lib.cpq_compress_prefill(valid_only(v_log), cfg, n))

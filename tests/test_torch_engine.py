@@ -107,7 +107,6 @@ def test_generate_matches_jax(model):
 
 
 @pytest.mark.parametrize("serving_kw,rt_kw", [
-    (dict(enable_escalation=True), {}),
     (dict(share_prefix=True), {}),
     (dict(spec_len=2), {}),
     (dict(prefill_chunk=0), {}),
@@ -116,7 +115,6 @@ def test_generate_matches_jax(model):
     (dict(policy="slo"), {}),
     ({}, dict(mesh=object())),
     ({}, dict(mode="decomposed")),
-    ({}, dict(mode="cpq")),
     ({}, dict(mode="retrieval")),
 ])
 def test_unported_knobs_raise(model, serving_kw, rt_kw):

@@ -7,15 +7,21 @@ installed:
 
 Tolerances (max abs): 1e-5 in float32 (both compute in float32 and differ in
 summation order only), 2e-2 in bfloat16 (one bf16 rounding step of an output
-below 4 in magnitude).
+below 4 in magnitude). The T2 (CPQ) kernels B5/B6 dequantize to the same
+bf16 values as their plain versions and are held to 5e-5 in float32 (the
+outputs reach 3 in magnitude) and 2e-2 in bfloat16.
 """
 import pytest
 import torch
 
+from repro_torch.kernels.cpq_attn import ops as cpq_ops
 from repro_torch.kernels.paged_attn import ops
-from torch_paged_cases import DECODE_CASES, PREFILL_CASES, decode_inputs, prefill_inputs, tensors
+from torch_paged_cases import (CPQ_DECODE_CASES, CPQ_PREFILL_CASES, DECODE_CASES,
+                               PREFILL_CASES, cpq_arena, cpq_decode_inputs,
+                               cpq_prefill_inputs, decode_inputs, prefill_inputs, tensors)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+CPQ_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -65,3 +71,45 @@ def test_wrappers_refuse_bad_inputs(cuda):
         ops.paged_decode(strided_q, *args[1:], scale)
     with pytest.raises(ValueError, match="tensors on"):
         ops.paged_decode(args[0], args[1].cpu(), *args[2:], scale)
+
+
+# ---------------------------------------------------------------- T2 / CPQ
+
+
+def _cpq_tensors(dtype, *arrays):
+    return [torch.tensor(a, device="cuda", dtype=dtype) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CPQ_DECODE_CASES)
+def test_cpq_decode_kernel_matches_plain(cuda, case, dtype):
+    q, kp, vp, bt, lengths, scale = cpq_decode_inputs(*case)
+    q, = _cpq_tensors(dtype, q)
+    kt, vt = cpq_arena(kp, "cuda"), cpq_arena(vp, "cuda")
+    bt, lengths = torch.tensor(bt, device="cuda"), torch.tensor(lengths, device="cuda")
+    before = cpq_ops.paged_cpq_decode.launches
+    out = cpq_ops.paged_cpq_decode(q, kt, vt, bt, lengths, scale)
+    torch.cuda.synchronize()
+    assert cpq_ops.paged_cpq_decode.launches == before + 1
+    ref = cpq_ops.paged_cpq_decode_plain(q, kt, vt, bt, lengths, scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=CPQ_TOL[dtype], rtol=0)
+    assert not out[lengths == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CPQ_PREFILL_CASES)
+def test_cpq_prefill_kernel_matches_plain(cuda, case, dtype):
+    q, kp, vp, k_raw, v_raw, slot, row, offset, valid, scale = cpq_prefill_inputs(*case)
+    q, k_raw, v_raw = _cpq_tensors(dtype, q, k_raw, v_raw)
+    kt, vt = cpq_arena(kp, "cuda"), cpq_arena(vp, "cuda")
+    row = torch.tensor(row, device="cuda")
+    before = cpq_ops.paged_cpq_prefill.launches
+    out = cpq_ops.paged_cpq_prefill(q, kt, vt, k_raw, v_raw, slot, row, offset, valid, scale)
+    torch.cuda.synchronize()
+    assert cpq_ops.paged_cpq_prefill.launches == before + 1
+    ref = cpq_ops.paged_cpq_prefill_plain(q, kt, vt, k_raw, v_raw, slot, row, offset,
+                                          valid, scale)
+    torch.testing.assert_close(out[0, :valid].float(), ref[0, :valid].float(),
+                               atol=CPQ_TOL[dtype], rtol=0)

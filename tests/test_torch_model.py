@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 
 from repro.configs import ARCHS, AttentionRuntime, ServingCfg, smoke_config
+from repro.configs.base import CPQCfg as JCPQCfg
 from repro.core import attention as j_attn
 from repro.models import layers as jl
 from repro.models import model as JM
@@ -176,7 +177,8 @@ def test_prefill_and_decode_logits_match_jax(qwen, fused):
                 params, jnp.asarray(chunk[None]), jnp.asarray(slot, jnp.int32),
                 jnp.asarray(bt[slot]), jnp.asarray(off, jnp.int32),
                 jnp.asarray(valid, jnp.int32), jcaches)
-            lt, _ = TM.prefill_chunk_rows(tcfg, trt, tparams, torch.tensor(chunk[None]),
+            lt, _ = TM.prefill_chunk_rows(tcfg, trt, 0, off == 0, tparams,
+                                          torch.tensor(chunk[None]), slot,
                                           torch.tensor(bt[slot]), off, valid, tcaches)
             _close(lt, lj, LOGIT_TOL)
 
@@ -196,3 +198,145 @@ def test_prefill_and_decode_logits_match_jax(qwen, fused):
         mapped = bt[bt > 0]
         _close(tcaches["blocks"][0][i].k[mapped], np.asarray(jcaches["blocks"][0].k[i])[mapped])
         _close(tcaches["blocks"][0][i].v[mapped], np.asarray(jcaches["blocks"][0].v[i])[mapped])
+
+
+def _stream_prompts(jcfg, tcfg, jrt, trt, params, tparams, jcaches, tcaches, bt, prompts,
+                    tier=0, C=8):
+    """Stream each slot's prompt chunk by chunk through both packages; the
+    chunk logits agree at every step. Returns the JAX caches."""
+    chunk_fn = {first: jax.jit(partial(JM.prefill_chunk_rows, jcfg, jrt, tier, first))
+                for first in (True, False)}
+    for slot, prompt in enumerate(prompts):
+        for off in range(0, len(prompt), C):
+            valid = min(C, len(prompt) - off)
+            chunk = np.concatenate([prompt[off:off + valid],
+                                    np.full(C - valid, prompt[off + valid - 1], np.int32)])
+            lj, jcaches = chunk_fn[off == 0](
+                params, jnp.asarray(chunk[None]), jnp.asarray(slot, jnp.int32),
+                jnp.asarray(bt[slot]), jnp.asarray(off, jnp.int32),
+                jnp.asarray(valid, jnp.int32), jcaches)
+            lt, _ = TM.prefill_chunk_rows(tcfg, trt, tier, off == 0, tparams,
+                                          torch.tensor(chunk[None]), slot,
+                                          torch.tensor(bt[slot]), off, valid, tcaches)
+            _close(lt, lj, LOGIT_TOL)
+    return jcaches
+
+
+def _cpq_arena_equal(t_arena, j_arena, pages):
+    """Mapped code/level pages and every slot's side state are identical."""
+    for name in ("codes", "level"):
+        np.testing.assert_array_equal(getattr(t_arena, name)[pages].numpy(),
+                                      np.asarray(getattr(j_arena, name))[pages], err_msg=name)
+    for name in ("scale", "zero", "num_levels", "prune_thr"):
+        np.testing.assert_array_equal(getattr(t_arena, name).numpy(),
+                                      np.asarray(getattr(j_arena, name)), err_msg=name)
+
+
+def _cpq_arena_close(t_arena, j_arena, pages):
+    """The same compression of K/V that the two packages computed in another
+    summation order: side state to 1e-4, codes equal but for rare rounding
+    ties (< 0.5 %)."""
+    for name in ("scale", "zero", "prune_thr"):
+        _close(getattr(t_arena, name), getattr(j_arena, name), LOGIT_TOL)
+    np.testing.assert_array_equal(t_arena.num_levels.numpy(), np.asarray(j_arena.num_levels))
+    differ = t_arena.codes[pages].numpy() != np.asarray(j_arena.codes)[pages]
+    assert differ.mean() < 5e-3, differ.mean()
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_cpq_prefill_and_decode_logits_match_jax(qwen, fused):
+    """mode="cpq": two slots stream their prompts (the second chunk of slot
+    0 HQE-extends what the first fitted), then decode three times, once
+    with a row inactive. Logits at every step and the code arenas match."""
+    jcfg, tcfg, params, tparams = qwen
+    serving = ServingCfg(num_slots=2, page_size=4, num_pages=17,
+                         max_blocks_per_slot=8, prefill_chunk=8)
+    jrt = AttentionRuntime(mode="cpq", paged_kernels=fused)
+    trt = tc.AttentionRuntime(mode="cpq", paged_kernels=fused)
+    jcaches = JM.init_paged_caches(jcfg, jrt, serving)
+    tcaches = TM.init_paged_caches(tcfg, trt, serving, "cpu")
+    decode_fn = jax.jit(partial(JM.decode_step_rows, jcfg, jrt))
+
+    rng = np.random.default_rng(8)
+    bt = np.zeros((2, 8), np.int32)
+    bt[0, :5] = [9, 3, 14, 1, 7]
+    bt[1, :3] = [12, 5, 10]
+    prompts = [rng.integers(0, 256, size=13).astype(np.int32),
+               rng.integers(0, 256, size=6).astype(np.int32)]
+    jcaches = _stream_prompts(jcfg, tcfg, jrt, trt, params, tparams, jcaches, tcaches,
+                              bt, prompts)
+    lengths = np.array([13, 6], np.int32)
+    for active in (np.array([True, True]), np.array([False, True]),
+                   np.array([True, True])):
+        toks = rng.integers(0, 256, size=(2, 1)).astype(np.int32)
+        rows_j = jpgc.RowState(jnp.asarray(lengths), jnp.asarray(bt), jnp.asarray(active),
+                               jnp.zeros(2, jnp.int32))
+        rows_t = tpgc.RowState(torch.tensor(lengths), torch.tensor(bt), torch.tensor(active),
+                               torch.zeros(2, dtype=torch.int32))
+        lj, jcaches = decode_fn(params, jnp.asarray(toks), rows_j, jcaches)
+        lt, _ = TM.decode_step_rows(tcfg, trt, tparams, torch.tensor(toks), rows_t, tcaches)
+        _close(lt[active], np.asarray(lj)[active], LOGIT_TOL)
+        lengths = lengths + active
+    mapped = bt[bt > 0]
+    for i in range(2):
+        for name in ("k", "v"):
+            _cpq_arena_close(getattr(tcaches["blocks"][0][i], name),
+                             jax.tree.map(lambda a: a[i], getattr(jcaches["blocks"][0], name)),
+                             mapped)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_escalate_slot_and_tiered_decode_match_jax(qwen, fused):
+    """Tiered arenas: both slots prefill dense, slot 0 escalates into the
+    CPQ arena, then a tiered decode runs the dense row and the escalated row
+    together. Escalation starts from the JAX dense arena's K/V (copied over,
+    so that the summation order of the two forward passes plays no part)
+    and leaves CPQ pages and tables identical to the JAX arena's."""
+    jcfg, tcfg, params, tparams = qwen
+    serving = ServingCfg(num_slots=2, page_size=4, num_pages=17, escalated_pages=13,
+                         max_blocks_per_slot=8, prefill_chunk=8)
+    jrt = AttentionRuntime(paged_kernels=fused, cpq=JCPQCfg())
+    trt = tc.AttentionRuntime(paged_kernels=fused, cpq=tc.CPQCfg())
+    jcaches = JM.init_paged_caches(jcfg, jrt, serving, True)
+    tcaches = TM.init_paged_caches(tcfg, trt, serving, "cpu", tiered=True)
+
+    rng = np.random.default_rng(9)
+    bt = np.zeros((2, 8), np.int32)
+    bt[0, :4] = [9, 3, 14, 1]
+    bt[1, :2] = [12, 5]
+    prompts = [rng.integers(0, 256, size=13).astype(np.int32),
+               rng.integers(0, 256, size=6).astype(np.int32)]
+    jcaches = _stream_prompts(jcfg, tcfg, jrt, trt, params, tparams, jcaches, tcaches,
+                              bt, prompts)
+    for i in range(2):
+        for name in ("k", "v"):
+            getattr(tcaches["blocks"][0][i].dense, name).copy_(
+                torch.tensor(np.asarray(getattr(jcaches["blocks"][0].dense, name)[i])))
+    alt = np.zeros((2, 8), np.int32)
+    alt[0, :4] = [6, 2, 11, 4]
+    jcaches = jax.jit(partial(JM.escalate_slot, jcfg, jrt))(
+        jcaches, jnp.asarray(bt[0]), jnp.asarray(alt[0]), jnp.asarray(0, jnp.int32),
+        jnp.asarray(13, jnp.int32))
+    TM.escalate_slot(tcfg, trt, tcaches, torch.tensor(bt[0]), torch.tensor(alt[0]), 0, 13)
+    for i in range(2):
+        for name in ("k", "v"):
+            _cpq_arena_equal(getattr(tcaches["blocks"][0][i].cpq, name),
+                             jax.tree.map(lambda a: a[i],
+                                          getattr(jcaches["blocks"][0].cpq, name)),
+                             alt[0, :4])
+
+    bt[0] = 0                                  # the dense pages went back
+    tier = np.array([1, 0], np.int32)
+    lengths = np.array([13, 6], np.int32)
+    active = np.array([True, True])
+    for _ in range(2):
+        toks = rng.integers(0, 256, size=(2, 1)).astype(np.int32)
+        rows_j = jpgc.RowState(jnp.asarray(lengths), jnp.asarray(bt), jnp.asarray(active),
+                               jnp.asarray(tier), jnp.asarray(alt))
+        rows_t = tpgc.RowState(torch.tensor(lengths), torch.tensor(bt), torch.tensor(active),
+                               torch.tensor(tier), torch.tensor(alt))
+        lj, jcaches = jax.jit(partial(JM.decode_step_rows, jcfg, jrt))(
+            params, jnp.asarray(toks), rows_j, jcaches)
+        lt, _ = TM.decode_step_rows(tcfg, trt, tparams, torch.tensor(toks), rows_t, tcaches)
+        _close(lt, lj, LOGIT_TOL)
+        lengths = lengths + 1

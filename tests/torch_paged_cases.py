@@ -65,3 +65,87 @@ def tensors(*arrays, device="cpu", dtype=torch.float32):
     """numpy -> torch; float arrays take ``dtype``, int arrays keep theirs."""
     return [torch.tensor(a, device=device, dtype=dtype if a.dtype == np.float32 else None)
             for a in arrays]
+
+
+# ---------------------------------------------------------------- T2 / CPQ
+
+CPQ_DECODE_CASES = [  # seed, page, nb, B, KV, g, Dh, bits
+    (0, 4, 4, 2, 2, 2, 16, 8),
+    (1, 2, 3, 3, 1, 4, 8, 4),
+    (2, 8, 2, 2, 4, 1, 32, 8),
+    (3, 3, 4, 2, 2, 1, 16, 4),    # odd page size
+    (4, 16, 4, 3, 4, 1, 64, 4),   # the served page size and head dim
+]
+
+CPQ_PREFILL_CASES = [  # seed, offset, valid, KV, g, Dh
+    (0, 0, 8, 2, 2, 8),           # first chunk: the raw tail only
+    (1, 8, 4, 2, 2, 8),
+    (2, 12, 8, 2, 2, 8),
+    (3, 5, 3, 1, 4, 16),          # mid-page offset, valid < C
+    (4, 21, 8, 2, 1, 64),         # the served head dim
+]
+
+CPQ_LEVELS = 4
+
+
+def cpq_pool(rng, P, page, KV, D, slots, bits, L, poison_levels=True):
+    """A CPQ arena of P pages: codes of ``bits``-bit values (some pruned),
+    levels in [0, L), per-slot scale/zero tables. Page 0, the null page,
+    holds full-range codes and, with ``poison_levels``, levels outside
+    [0, L) that must read scale = zero = 0. Returns (codes, level, scale,
+    zero) numpy arrays."""
+    codes = (rng.integers(0, 1 << bits, size=(P, page, KV, D)) - 128).astype(np.int8)
+    level = rng.integers(0, L, size=(P, page, KV)).astype(np.int32)
+    codes[0] = rng.integers(-128, 128, size=codes[0].shape)
+    if poison_levels:
+        level[0] = np.where(rng.random(level[0].shape) < 0.5, L + 3, -2)
+    # each level spans a range of width 1.2 to 3 around 0, as fitted K/V do
+    width = rng.uniform(1.2, 3.0, size=(slots, L, KV, D))
+    scale = (width / ((1 << bits) - 2)).astype(np.float32)
+    zero = (-width / 2 + 0.1 * rng.normal(size=width.shape)).astype(np.float32)
+    return codes, level, scale, zero
+
+
+def cpq_decode_inputs(seed, page, nb, B, KV, g, Dh, bits, poison_levels=True):
+    """q, K and V arenas (tuples of cpq_pool arrays, tables per row), block
+    table, lengths, scale. Besides the ragged rows of ``pool_layout``, the
+    last row has a live length over an all-null block row, as the CPQ arm of
+    a tiered decode sees a dense-tier row."""
+    rng = np.random.default_rng(seed)
+    num_pages, lengths, bt = pool_layout(rng, B, nb, page)
+    if B > 1:
+        bt[-1] = 0
+        lengths[-1] = min(page + 1, nb * page)
+    kt = cpq_pool(rng, num_pages, page, KV, Dh, B, bits, CPQ_LEVELS, poison_levels)
+    vt = cpq_pool(rng, num_pages, page, KV, Dh, B, bits, CPQ_LEVELS, poison_levels)
+    q = rng.normal(size=(B, 1, KV * g, Dh)).astype(np.float32)
+    return q, kt, vt, bt, lengths, 0.17
+
+
+def cpq_prefill_inputs(seed, offset, valid, KV, g, Dh, page=4, nb=8, C=8, bits=8,
+                       poison_levels=True):
+    """q, K and V arenas (two slots), the chunk's raw K/V, slot 1, its block
+    row (permuted pages, unmapped tail at the null page), offset, valid,
+    scale."""
+    rng = np.random.default_rng(seed)
+    P = nb + 3
+    kt = cpq_pool(rng, P, page, KV, Dh, 2, bits, CPQ_LEVELS, poison_levels)
+    vt = cpq_pool(rng, P, page, KV, Dh, 2, bits, CPQ_LEVELS, poison_levels)
+    mapped = -(-(offset + valid) // page)
+    row = np.zeros((nb,), np.int32)
+    row[:mapped] = rng.permutation(np.arange(1, P))[:mapped]
+    q = rng.normal(size=(1, C, KV * g, Dh)).astype(np.float32)
+    k_raw = rng.normal(size=(1, C, KV, Dh)).astype(np.float32)
+    v_raw = rng.normal(size=(1, C, KV, Dh)).astype(np.float32)
+    return q, kt, vt, k_raw, v_raw, 1, row, offset, valid, 0.3
+
+
+def cpq_arena(pool, device="cpu"):
+    """A port ``PagedCPQTensor`` from cpq_pool arrays."""
+    from repro_torch.serving.paged_cache import PagedCPQTensor
+
+    codes, level, scale, zero = (torch.tensor(a, device=device) for a in pool)
+    slots, _, KV, D = scale.shape
+    return PagedCPQTensor(codes, level, scale, zero,
+                          torch.ones((slots, KV), dtype=torch.int32, device=device),
+                          torch.zeros((slots, KV, D), device=device))
