@@ -14,29 +14,31 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               pages); B5 paged_cpq_decode and B6 paged_cpq_prefill over CPQ
               code pages of 4 and 8 bits, L = 4 levels, with the null page's
               levels out of range, a live row over an all-null block row,
-              and prompt chunks at offset 0, mid-prompt and with valid < C
+              and prompt chunks at offset 0, mid-prompt and with valid < C;
+              B3 paged_decomposed_decode and B4 paged_decomposed_prefill on
+              the same layouts at qwen1.5-0.5b's T1 shape (H=16, Dm=1024,
+              16 roped keys of 32), an MLA-like shape (H=16, Dm=512, one
+              shared roped key of 64) and a no-rope shape (H=8, Dm=256)
   4. serve    full-width qwen1.5-0.5b (24 layers, vocab 151936, random
               weights from a seed) in bf16 through ContinuousServeEngine:
               8 greedy requests, prompts of 64-512 tokens, 64 new tokens
-              each, (a) dense, (b) mode="cpq", (c) the tiered engine
-              (enable_escalation=True, a dense arena small enough that rows
-              are admitted into and escalated to the CPQ tier). Each run
-              must launch its kernels 24 times per tick; (a) and (b) then
-              time them at the shapes the run gave them, beside their
-              bound, their plain version and one PyTorch library call (a
-              yardstick only); each run is replayed under torch.profiler
-              over a window of decode-only ticks, (a) also over a window of
-              chunk ticks
-  5. parity   the same requests in f32 (TF32 off), dense and mode="cpq",
-              with the kernels on and off: prefill and first-decode logits
-              within 1e-3, greedy streams identical except where the gather
-              path's top-2 logit gap is below 1e-4. Dense runs each path on
-              its own history; CPQ runs them in lockstep on one history (the
-              gather path writes the K/V the kernel path wrote). Reported,
-              not gated: the gather path against itself with K/V one ulp
-              apart, the K/V the two paths write on their own histories
-              layer by layer (both modes), and for CPQ the logits of the two
-              paths each on its own history
+              each, (a) dense, (b) mode="cpq", (d) mode="decomposed" (T1),
+              (c) the tiered engine (enable_escalation=True, a dense arena
+              small enough that rows are admitted into and escalated to the
+              CPQ tier). Each run must launch its kernels 24 times per tick;
+              (a), (b) and (d) then time them at the shapes the run gave
+              them, beside their bound, their plain version and one PyTorch
+              library call (a yardstick only); each run is replayed under
+              torch.profiler over a window of decode-only ticks, (a) also
+              over a window of chunk ticks
+  5. parity   the same requests in f32 (TF32 off), dense, mode="cpq" and
+              mode="decomposed", with the kernels on and off: prefill and
+              first-decode logits within 1e-3, greedy streams identical
+              except where the gather path's top-2 logit gap is below 1e-4.
+              Dense and decomposed run each path on its own history; CPQ
+              runs them in lockstep on one history (the gather path writes
+              the K/V the kernel path wrote), since each path's 4-bit codes
+              would otherwise turn last-ulp K/V differences into whole steps
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -193,16 +195,56 @@ def sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits, page=16, nb=64, B=8, C=16):
     return err_dec, err_pre
 
 
+T1_SHAPES = ((16, 1024, 16, 32), (16, 512, 1, 64), (8, 256, 1, 0))  # H, Dm, kv_r, Rr
+
+
+def sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr, page=16, nb=64, B=8, C=16):
+    """Max abs error of B3 and B4 against their plain versions on the layout
+    of ``sweep``: an empty row, ragged rows, a long row with a partial last
+    page serving the prefill chunks, a poisoned null page."""
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    num_pages, lengths, bt = layout(rng, B, nb, page)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    xp, krp = randn(num_pages, page, Dm), randn(num_pages, page, kv_r, Rr)
+    xp[0] = krp[0] = 1e3                         # poisoned null page
+    bt_t = torch.tensor(bt, device=DEVICE)
+    len_t = torch.tensor(lengths, device=DEVICE)
+    scale = (Dm + Rr) ** -0.5
+    r, qr = randn(B, H, Dm), randn(B, H, Rr)
+    out = t1_ops.paged_decomposed_decode_fwd(r, qr, xp, krp, bt_t, len_t, scale)
+    torch.cuda.synchronize()
+    ref = t1_ops.paged_decomposed_decode_plain(r, qr, xp, krp, bt_t, len_t, scale)
+    err_dec = (out.float() - ref.float()).abs().max().item()
+    check(not out[0].any().item(), "paged_decomposed_decode: an empty row is not zero")
+    err_pre = 0.0
+    row = bt_t[-1]
+    for offset, valid in ((0, C), (C, 5), (512, C), (int(lengths[-1]) - 3, 3)):
+        rc, qc = randn(C, H, Dm), randn(C, H, Rr)
+        o = t1_ops.paged_decomposed_prefill_fwd(rc, qc, xp, krp, row, offset, valid, scale)
+        torch.cuda.synchronize()
+        ref = t1_ops.paged_decomposed_prefill_plain(rc, qc, xp, krp, row, offset, valid,
+                                                    scale)
+        err_pre = max(err_pre, (o[:valid].float() - ref[:valid].float()).abs().max().item())
+    return err_dec, err_pre
+
+
 # --------------------------------------------------------- phase 4: serve
 
 
 class Recorder:
     """Wraps a kernel wrapper: passes every call through, keeps the arenas of
     the first ``n_layers`` calls (one per layer) and a sample of the calls'
-    small inputs, so the kernel can be timed later at the served shapes."""
+    small inputs, so the kernel can be timed later at the served shapes.
+    ``split(*args)`` names a call's two arenas; ``snap(*args)`` copies the
+    sample."""
 
-    def __init__(self, fn, n_layers: int, every: int, snap):
-        self.fn, self.n_layers, self.every, self.snap = fn, n_layers, every, snap
+    def __init__(self, fn, n_layers: int, every: int, split, snap):
+        self.fn, self.n_layers, self.every = fn, n_layers, every
+        self.split, self.snap = split, snap
         self.calls, self.arenas, self.samples = 0, [], []
 
     # the wrapper counts its launches through its module-level name, which
@@ -215,13 +257,13 @@ class Recorder:
     def launches(self, n: int) -> None:
         self.fn.launches = n
 
-    def __call__(self, q, k_pages, v_pages, *rest):
+    def __call__(self, *args):
         if len(self.arenas) < self.n_layers:
-            self.arenas.append((k_pages, v_pages))
+            self.arenas.append(self.split(*args))
         if self.calls % (self.n_layers * self.every) == 0:
-            self.samples.append((q.clone(),) + self.snap(*rest))
+            self.samples.append(self.snap(*args))
         self.calls += 1
-        return self.fn(q, k_pages, v_pages, *rest)
+        return self.fn(*args)
 
 
 def served_config(T):
@@ -315,6 +357,34 @@ def cpq_prefill_bound(q, k_raw, offset, valid, kt, vt):
               + k_raw.numel() * elt * (1 + Dv / Dh) + q.numel() * elt * (1 + Dv / Dh)
               + -(-offset // page) * 4)
     return nbytes, 2.0 * pairs * H * (Dh + Dv), 2.0 * offset * KV * (Dh + Dv)
+
+
+def t1_decode_bound(r, qr, bt, lengths, x0, kr0):
+    """(bytes, flops) one B3 call needs: the live X rows and roped keys, R
+    and q_rope of the rows with a live key (a row of length 0 reads none),
+    P of every row once, the block table and lengths; two products of width
+    Dm and the roped one per live key and head."""
+    live = lengths.long().sum().item()
+    live_rows = int((lengths > 0).sum().item())
+    H, Dm, Rr, elt = r.shape[1], r.shape[2], qr.shape[-1], x0.element_size()
+    nbytes = (live * (Dm + kr0.shape[2] * kr0.shape[3]) * elt
+              + (live_rows * H * (Dm + Rr) + r.numel()) * elt
+              + bt.numel() * 4 + lengths.numel() * 4)
+    return nbytes, 2.0 * live * H * (2 * Dm + Rr)
+
+
+def t1_prefill_bound(r, qr, offset, valid, x0, kr0):
+    """(bytes, flops) one B4 call needs: the slot's live X rows and roped
+    keys, R, q_rope and P of the ``valid`` chunk rows once each (the padding
+    rows' P is never read), the mapped block-table entries; flops of the
+    valid rows under the causal mask."""
+    C, H, Dm = r.shape
+    Rr, elt, page = qr.shape[-1], x0.element_size(), x0.shape[1]
+    live = offset + valid
+    pairs = sum(offset + i + 1 for i in range(valid))
+    nbytes = (live * (Dm + kr0.shape[2] * kr0.shape[3]) * elt
+              + valid * H * (2 * Dm + Rr) * elt + -(-live // page) * 4)
+    return nbytes, 2.0 * pairs * H * (2 * Dm + Rr)
 
 
 def bound_of(nbytes, flops, dtype, f32_flops=0.0):
@@ -466,6 +536,63 @@ def cpq_prefill_case(cpq_ops, scale):
     return make
 
 
+def _t1_sdpa_operands(r, qr, xg, krg):
+    """The yardstick's operands for T1: q = [R | q_rope], k = [X | the head's
+    roped key], v = X, heads laid out (N, H, keys, width); xg (N, n, Dm) and
+    krg (N, n, kv_r, Rr) are gathered beforehand."""
+    N, H, n = r.shape[0], r.shape[-2], xg.shape[1]
+    k_rope = krg.repeat_interleave(H // krg.shape[2], dim=2).transpose(1, 2)  # (N, H, n, Rr)
+    x = xg[:, None].expand(N, H, n, xg.shape[2])
+    return (torch.cat([r, qr], -1).transpose(-3, -2),
+            torch.cat([x, k_rope], -1).contiguous(), x.contiguous())
+
+
+def t1_decode_case(t1_ops, scale):
+    """B3 at one sampled decode call (the sweep: R and P W_V are einsums
+    outside it); the yardstick is scaled_dot_product_attention with
+    q = [R | q_rope], k = [X | roped key of the head] and v = X gathered
+    beforehand, under a length mask: the same function."""
+    from repro_torch.serving.paged_cache import gather_pages
+
+    def make(sample, x0, kr0):
+        r, qr, bt, lengths = sample
+        qq, kk, vv = _t1_sdpa_operands(r[:, None], qr[:, None], gather_pages(x0, bt),
+                                       gather_pages(kr0, bt))
+        mask = (torch.arange(kk.shape[2], device=r.device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        return (lambda x, kr: t1_ops.paged_decomposed_decode_fwd(r, qr, x, kr, bt, lengths,
+                                                                 scale),
+                lambda: t1_ops.paged_decomposed_decode_plain(r, qr, x0, kr0, bt, lengths,
+                                                             scale),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qq, kk, vv, attn_mask=mask, scale=scale),
+                t1_decode_bound(r, qr, bt, lengths, x0, kr0))
+    return make
+
+
+def t1_prefill_case(t1_ops, scale):
+    """B4 at one sampled chunk call; the yardstick is
+    scaled_dot_product_attention on the slot's gathered [X | roped key] and
+    X with the chunk's causal mask."""
+    from repro_torch.serving.paged_cache import gather_pages
+
+    def make(sample, x0, kr0):
+        r, qr, row, offset, valid = sample
+        C, n = r.shape[0], offset + valid
+        qq, kk, vv = _t1_sdpa_operands(r[None], qr[None], gather_pages(x0, row[None])[:, :n],
+                                       gather_pages(kr0, row[None])[:, :n])
+        pos = torch.arange(n, device=r.device)
+        mask = pos[None, :] <= offset + torch.arange(C, device=r.device)[:, None]
+        return (lambda x, kr: t1_ops.paged_decomposed_prefill_fwd(r, qr, x, kr, row, offset,
+                                                                  valid, scale),
+                lambda: t1_ops.paged_decomposed_prefill_plain(r, qr, x0, kr0, row, offset,
+                                                              valid, scale),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qq, kk, vv, attn_mask=mask[None, None], scale=scale),
+                t1_prefill_bound(r, qr, offset, valid, x0, kr0))
+    return make
+
+
 def profile_windows(make_engine, T, reqs, ticks, windows) -> list[dict]:
     """Replays the same serve (greedy, so tick i does the same work) and
     profiles the given tick windows with torch.profiler: device time by
@@ -499,7 +626,8 @@ def profile_windows(make_engine, T, reqs, ticks, windows) -> list[dict]:
                          key=lambda r: -r[1])
         busy = sum(ms for _, ms, _ in kernels)
         wall = sum(t[0] for t in ticks[lo:hi])
-        attn = sum(ms for k, ms, _ in kernels if "paged_attn" in k or "cpq_attn" in k)
+        attn = sum(ms for k, ms, _ in kernels
+                   if any(a in k for a in ("paged_attn", "cpq_attn", "decomposed_attn")))
         gemm = sum(ms for k, ms, _ in kernels if any(g in k for g in ("gemm", "nvjet", "cutlass", "xmma")))
         out.append({"ticks": [lo, hi], "decode_only_ticks": sum(1 for t in ticks[lo:hi] if not t[2]),
                     "device_busy_ms": busy, "unprofiled_wall_ms": wall,
@@ -520,9 +648,9 @@ def log_profile(what: str, prof: list[dict]) -> None:
 
 
 def mid_decode_window(ticks) -> tuple[int, int]:
-    """20 ticks around the middle decode-only tick of a served run."""
+    """10 ticks around the middle decode-only tick of a served run."""
     pure = [i for i, t in enumerate(ticks) if t[3] and not t[2]]
-    return pure[len(pure) // 2 - 10], pure[len(pure) // 2 + 10]
+    return pure[len(pure) // 2 - 5], pure[len(pure) // 2 + 5]
 
 
 # -------------------------------------------------------- phase 5: parity
@@ -531,27 +659,25 @@ def mid_decode_window(ticks) -> tuple[int, int]:
 class SharedKV:
     """Lockstep runs on one history. While recording, every attention call
     keeps the K/V it writes into its arena; while replaying, the matching
-    call of the second run writes those instead of its own, moved first by
-    ``nudge`` if one is given. Both runs then attend over arenas of the same
-    contents, each with its own queries."""
+    call of the second run writes those instead of its own. Both runs then
+    attend over arenas of the same contents, each with its own queries."""
 
-    def __init__(self, nudge=None):
+    def __init__(self):
         from repro_torch.serving import paged_cache as pgc
 
-        self.pgc, self.kv, self.record, self.nudge = pgc, [], True, nudge
+        self.pgc, self.kv, self.record = pgc, [], True
         self.decode, self.chunk = pgc.decode_attend_paged, pgc.chunk_attend_paged
 
     def _take(self, k, v):
         if self.record:
             self.kv.append((k, v))
             return k, v
-        k, v = self.kv.pop(0)
-        return (k, v) if self.nudge is None else (self.nudge(k), self.nudge(v))
+        return self.kv.pop(0)
 
     def __enter__(self):
-        def decode(rt, cache, rows, *, q, k_t, v_t, scale):
+        def decode(rt, cache, rows, *, k_t, v_t, **kw):
             k_t, v_t = self._take(k_t, v_t)
-            return self.decode(rt, cache, rows, q=q, k_t=k_t, v_t=v_t, scale=scale)
+            return self.decode(rt, cache, rows, k_t=k_t, v_t=v_t, **kw)
 
         def chunk(rt, cache, *, k_c, v_c, **kw):
             k_c, v_c = self._take(k_c, v_c)
@@ -570,39 +696,6 @@ class SharedKV:
         b = second_fn()
         check(not self.kv, "parity: the two runs made different attention calls")
         return a, b
-
-    def apart(self, first_fn, second_fn, layers: int):
-        """Both runs, each on its own history: their results and, per layer,
-        the largest difference of the K/V they wrote, over the largest
-        magnitude of the first run's."""
-        self.record, got = True, []
-        for fn in (first_fn, second_fn):
-            got.append((fn(), self.kv))
-            self.kv = []
-        (a, kv_a), (b, kv_b) = got
-        check(len(kv_a) == len(kv_b), "parity: the two runs made different attention calls")
-        diff, size = [0.0] * layers, [0.0] * layers
-        for i, (x, y) in enumerate(zip(kv_a, kv_b)):
-            for t, u in zip(x, y):
-                diff[i % layers] = max(diff[i % layers], (t - u).abs().max().item())
-                size[i % layers] = max(size[i % layers], t.abs().max().item())
-        return (a, b), [d / max(z, 1e-30) for d, z in zip(diff, size)]
-
-
-def ulp_nudges() -> dict:
-    """K/V moved one ulp: up everywhere, or up or down per element at random
-    (seeded). A min-max fit moves with a uniform shift and keeps most codes;
-    signs at random do not cancel that way."""
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    inf = float("inf")
-
-    def up(x):
-        return torch.nextafter(x, torch.full_like(x, inf))
-
-    def random_sign(x):
-        down = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
-        return torch.nextafter(x, torch.where(down, -inf, inf).to(x.dtype))
-    return {"one_ulp_up": up, "one_ulp_random_sign": random_sign}
 
 
 def top2_gap(logits: torch.Tensor) -> torch.Tensor:
@@ -683,15 +776,12 @@ def max_diff(got) -> dict:
 def parity(T, M, cfg, params, reqs, mode: str) -> dict:
     """Kernels on vs the gather path in float32 for attention ``mode``:
     chunked-prefill and first-decode logits of two slots, then the greedy
-    streams of the served requests. Dense runs each path on its own
-    history. CPQ runs the two in lockstep on one history (SharedKV): each
-    path compresses the K/V it computed, which differ in the last ulp, and
-    4-bit codes can turn that into whole quantization steps. Beside the
-    checks, and not gated, stand the witnesses: in both modes the gather
-    path's logits against its own when the replayed K/V are moved one ulp
-    (``ulp_nudges``), the K/V that the two paths write, each on its own
-    history, compared layer by layer, and for CPQ the two paths' logits on
-    those histories."""
+    streams of the served requests. Dense and decomposed (T1, which
+    re-quantizes nothing) run each path on its own history. CPQ runs the two
+    in lockstep on one history (SharedKV): each path compresses the K/V it
+    computed, which differ in the last ulp, and 4-bit codes can turn that
+    into whole quantization steps, which the next layer's K/V then carry
+    (PERF.md)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     paths = (True, False)
@@ -705,25 +795,12 @@ def parity(T, M, cfg, params, reqs, mode: str) -> dict:
     bt[1, :lens[1] // 16 + 1] = perm[40:40 + lens[1] // 16 + 1]
     run = {f: (lambda f=f: first_logits(M, cfg, rts[f], params, reqs, small, bt))
            for f in paths}
-    with SharedKV() as shared:
-        own, kv_apart = shared.apart(run[True], run[False], cfg.num_layers)
-    out = {"witness": {"own_histories_kv_rel_diff_by_layer": kv_apart}}
-    log(f"parity {mode} witness, K/V written on own histories, relative difference by "
-        f"layer: {' '.join(f'{d:.1e}' for d in kv_apart)} (not gated)")
-    for what, nudge in ulp_nudges().items():
-        with SharedKV(nudge=nudge) as shared:
-            out["witness"][f"gather_vs_{what}"] = max_diff(shared.pair(run[False], run[False]))
     if lockstep:
         with SharedKV() as shared:
             got = shared.pair(run[True], run[False])
-        out["witness"]["own_histories"] = max_diff(own)
     else:
-        got = own
-    for what, d in out["witness"].items():
-        if isinstance(d, dict):
-            log(f"parity {mode} witness, {what}: prefill logits max abs diff "
-                f"{d['prefill_logits_max_abs_diff']:.3e}, first-decode "
-                f"{d['first-decode_logits_max_abs_diff']:.3e} (not gated)")
+        got = (run[True](), run[False]())
+    out = {}
     for i, (name, err) in enumerate(max_diff(got).items()):
         out[name] = err
         log(f"parity {mode}: {name} {err:.3e} (atol=rtol={LOGIT_TOL})")
@@ -844,6 +921,7 @@ def main() -> int:
     import repro_torch as T
     from repro_torch.kernels import build
     from repro_torch.kernels.cpq_attn import ops as cpq_ops
+    from repro_torch.kernels.decomposed_attn import ops as t1_ops
     from repro_torch.kernels.paged_attn import ops
     from repro_torch.models import model as M
     from repro_torch.params import init_params, to_device
@@ -858,7 +936,8 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
     report = {"card": smi, "profile": {}}
     kmods = {"paged_decode": ops, "paged_prefill": ops,
-             "paged_cpq_decode": cpq_ops, "paged_cpq_prefill": cpq_ops}
+             "paged_cpq_decode": cpq_ops, "paged_cpq_prefill": cpq_ops,
+             "paged_decomposed_decode": t1_ops, "paged_decomposed_prefill": t1_ops}
 
     # 2) build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -886,6 +965,13 @@ def main() -> int:
             log(f"sweep {tag}: paged_decode {e_dec:.3e}, paged_prefill {e_pre:.3e}, "
                 f"paged_cpq_decode {e_cd:.3e}, paged_cpq_prefill {e_cp:.3e} (bits 8; "
                 f"tol {TOL[dtype]})")
+        for H, Dm, kv_r, Rr in T1_SHAPES:
+            tag = f"{str(dtype).removeprefix('torch.')} H={H} Dm={Dm} kv_r={kv_r} Rr={Rr}"
+            e_dec, e_pre = sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr)
+            errs["paged_decomposed_decode"][tag] = e_dec
+            errs["paged_decomposed_prefill"][tag] = e_pre
+            log(f"sweep {tag}: paged_decomposed_decode {e_dec:.3e}, "
+                f"paged_decomposed_prefill {e_pre:.3e} (tol {TOL[dtype]})")
     for name, by_tag in errs.items():
         for tag, err in by_tag.items():
             check(err <= TOL[torch.bfloat16 if tag.startswith("bfloat16") else torch.float32],
@@ -906,19 +992,38 @@ def main() -> int:
     launches, per_tick, timing, serves = {}, {}, {}, {}
 
     def recorders_of(dec, pre):
-        return {dec: (kmods[dec], Recorder(getattr(kmods[dec], dec), L, 10,
-                                           lambda bt, ln, s: (bt.clone(), ln.clone()))),
-                pre: (kmods[pre], Recorder(getattr(kmods[pre], pre), L, 8, snap_of[pre]))}
+        return {name: (kmods[name], Recorder(getattr(kmods[name], name), L, every,
+                                             *split_of[name]))
+                for name, every in ((dec, 10), (pre, 8))}
 
-    snap_of = {"paged_prefill": lambda row, off, val, s: (row.clone(), off, val),
-               "paged_cpq_prefill": lambda kr, vr, slot, row, off, val, s:
-                   (kr.clone(), vr.clone(), slot, row.clone(), off, val)}
+    kv_arenas = lambda q, k, v, *rest: (k, v)  # noqa: E731
+    x_arenas = lambda qn, qr, x, kr, *rest: (x, kr)  # noqa: E731
+    decode_snap = lambda q, k, v, bt, ln, s: (q.clone(), bt.clone(), ln.clone())  # noqa: E731
+    split_of = {  # (the call's arenas, a copy of its small inputs)
+        "paged_decode": (kv_arenas, decode_snap),
+        "paged_cpq_decode": (kv_arenas, decode_snap),
+        "paged_prefill": (kv_arenas, lambda q, k, v, row, off, val, s:
+                          (q.clone(), row.clone(), off, val)),
+        "paged_cpq_prefill": (kv_arenas, lambda q, k, v, kr, vr, slot, row, off, val, s:
+                              (q.clone(), kr.clone(), vr.clone(), slot, row.clone(), off,
+                               val)),
+        "paged_decomposed_decode": (x_arenas, lambda qn, qr, x, kr, bt, ln, wk, wv, s: (
+            t1_ops.query_rows(qn, wk, x.dtype)[:, 0], qr[:, 0].to(x.dtype).contiguous(),
+            bt.clone(), ln.clone())),
+        "paged_decomposed_prefill": (x_arenas, lambda qn, qr, x, kr, row, off, val, wk, wv, s: (
+            t1_ops.query_rows(qn, wk, x.dtype)[0], qr[0].to(x.dtype).contiguous(),
+            row.clone(), off, val)),
+    }
     cases = {"paged_decode": decode_case(ops, scale), "paged_prefill": prefill_case(ops, scale),
              "paged_cpq_decode": cpq_decode_case(cpq_ops, scale),
-             "paged_cpq_prefill": cpq_prefill_case(cpq_ops, scale)}
+             "paged_cpq_prefill": cpq_prefill_case(cpq_ops, scale),
+             "paged_decomposed_decode": t1_decode_case(t1_ops, scale),
+             "paged_decomposed_prefill": t1_prefill_case(t1_ops, scale)}
     for mode, (dec, pre) in (("dense", ("paged_decode", "paged_prefill")),
-                             ("cpq", ("paged_cpq_decode", "paged_cpq_prefill"))):
-        # 4a) dense, 4b) mode="cpq"
+                             ("cpq", ("paged_cpq_decode", "paged_cpq_prefill")),
+                             ("decomposed", ("paged_decomposed_decode",
+                                             "paged_decomposed_prefill"))):
+        # 4a) dense, 4b) mode="cpq", 4d) mode="decomposed"
         eng = T.ContinuousServeEngine(cfg, params, rt=T.AttentionRuntime(mode=mode),
                                       serving=serving, device=DEVICE)
         recs = recorders_of(dec, pre)
@@ -938,7 +1043,7 @@ def main() -> int:
             log_timing(name, timing[name], launches[name], per_tick[name])
         del eng, recs
         torch.cuda.empty_cache()
-        windows = ([(40, 60)] if mode == "dense" else []) + [mid_decode_window(ticks)]
+        windows = ([(40, 50)] if mode == "dense" else []) + [mid_decode_window(ticks)]
         report["profile"][mode] = profile_windows(
             lambda: T.ContinuousServeEngine(cfg, params, rt=T.AttentionRuntime(mode=mode),
                                             serving=serving, device=DEVICE),
@@ -961,6 +1066,8 @@ def main() -> int:
             tiers.append(req.tier)
         return req
 
+    tiered_kernels = ("paged_decode", "paged_prefill", "paged_cpq_decode",
+                      "paged_cpq_prefill")
     for name, mod in kmods.items():
         getattr(mod, name).launches = 0
     S.Scheduler.admit_next = admit_counted
@@ -969,7 +1076,9 @@ def main() -> int:
         results, stats, ticks, wall = serve_timed(eng, T, run)
     finally:
         S.Scheduler.admit_next = admit
-    counts = {name: getattr(mod, name).launches for name, mod in kmods.items()}
+    counts = {name: kmods[name].__dict__[name].launches for name in tiered_kernels}
+    check(not any(getattr(mod, name).launches for name, mod in kmods.items()
+                  if name not in tiered_kernels), "tiered: a T1 kernel launched")
     check_finished(results, run, "tiered")
     serves["tiered"] = serve_metrics(stats, ticks, wall, "tiered")
     serves["tiered"].update(
@@ -1003,23 +1112,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - T0:.0f} s] profiled tiered")
 
-    # 5) f32 parity, kernels on and off, dense and CPQ
+    # 5) f32 parity, kernels on and off, dense, CPQ and T1
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = to_device(_tree_float(params), DEVICE)
     del params
     report["parity"] = {mode: parity(T, M, cfg32, params32, reqs, mode)
-                        for mode in ("dense", "cpq")}
+                        for mode in ("dense", "cpq", "decomposed")}
     log(f"[{time.perf_counter() - T0:.0f} s] parity checked")
 
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",
                 "paged_prefill": "src/repro/kernels/flash_attn/kernel.py:170",
                 "paged_cpq_decode": "src/repro/kernels/cpq_dequant_attn/kernel.py:281",
-                "paged_cpq_prefill": "src/repro/kernels/cpq_dequant_attn/kernel.py:213"}
+                "paged_cpq_prefill": "src/repro/kernels/cpq_dequant_attn/kernel.py:213",
+                "paged_decomposed_decode": "src/repro/kernels/decomposed_attn/kernel.py:244",
+                "paged_decomposed_prefill": "src/repro/kernels/decomposed_attn/kernel.py:187"}
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
     for name, mod in kmods.items():
         t = timing[name]
-        served = "bfloat16 KV=16 G=1 Dh=64" + (" bits=4" if "cpq" in name else "")
+        served = ("bfloat16 H=16 Dm=1024 kv_r=16 Rr=32" if "decomposed" in name
+                  else "bfloat16 KV=16 G=1 Dh=64" + (" bits=4" if "cpq" in name else ""))
         kernels.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(str(mod.SOURCES[name]), root),

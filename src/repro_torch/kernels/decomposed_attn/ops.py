@@ -1,0 +1,268 @@
+"""T1 decomposed-attention kernels of the port: wrappers, plain versions,
+counters.
+
+  ``paged_decomposed_decode``   B3: replaces ``paged_decomposed_decode_fwd``
+                                (src/repro/kernels/decomposed_attn/kernel.py:244)
+  ``paged_decomposed_prefill``  B4: replaces ``paged_decomposed_prefill_fwd``
+                                (src/repro/kernels/decomposed_attn/kernel.py:187)
+
+The work is split as the JAX ops split it (``decomposed_attn/ops.py``): the
+query side ``R = q_nope W_K^T`` is an einsum cast to the arena dtype, the
+sweep over the X pages (both cascaded products and the online softmax) is
+the kernel, which returns ``P`` (rows, H, Dm), and ``out = P W_V`` is an
+einsum in the arena dtype. ``paged_decomposed_*_fwd`` is the sweep alone,
+with the JAX kernels' arguments: given CPU tensors it runs the plain PyTorch
+version (``*_plain``, which the tests hold against the JAX kernels); given
+CUDA tensors it launches the hand-written CUDA kernel in ``csrc/`` on the
+current stream, or raises. It never falls back. Every launch adds one to the
+``launches`` counter of the wrapper it serves.
+
+Semantics (the TPU kernels'): scores ``R . X + q_rope . k_rope`` (the roped
+key of the head's group: ``kr_pages`` holds ``kv_r`` groups, per kv head or
+one shared) times ``scale``, softmax in float32 with ``P`` accumulated in
+float32 and cast to the arena dtype. Physical page 0 is the null page;
+positions at or past a row's length contribute nothing and a row of length
+0 returns zeros. ``Rr == 0`` (absolute positions) has no roped term.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.paged_attn.ops import NEG_INF, run
+from repro_torch.kernels.paged_attn.ops import _check_cuda as _check_common
+
+CSRC = Path(__file__).parent / "csrc"
+SOURCES = {"paged_decomposed_decode": CSRC / "paged_decomposed_decode.cu",
+           "paged_decomposed_prefill": CSRC / "paged_decomposed_prefill.cu"}
+# pass 1 cuts the key range into runs of whole pages of about this many
+# tokens, one block per run and 16 query rows (csrc/paged_decomposed.cuh).
+# A block fills an SM (512 threads at 128 registers) and walks its run one
+# 8-key tile at a time, so short runs keep that walk short while the live
+# runs of a served batch (a few thousand keys) still fit the 132 SMs in one
+# wave; each run writes a (16, Dm) float32 partial that pass 2 merges
+SPLIT_TOKENS = {"decode": 16, "prefill": 32}
+ROWS = 16          # query rows per block (kRows)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    # is_bf16, r, q_rope, x_pages, kr_pages, block_table, lengths, out, part,
+    # B, H, kv_r, Rr, Dm, page, nb, pages_per_split, scale, stream
+    "paged_decomposed_decode": [_I] + [_P] * 8 + [_I] * 8 + [_F, _P],
+    # is_bf16, r, q_rope, x_pages, kr_pages, block_row, out, part,
+    # C, H, kv_r, Rr, Dm, page, nb, pages_per_split, offset, valid, scale, stream
+    "paged_decomposed_prefill": [_I] + [_P] * 7 + [_I] * 10 + [_F, _P],
+}
+
+
+def launcher(name: str):
+    """The C entry point ``<name>_launch``, building its library first."""
+    return build.c_function(SOURCES[name], f"{name}_launch", _ARGTYPES[name])
+
+
+def _kv_r(q_rope, kr_pages) -> int:
+    return kr_pages.shape[2] if q_rope.shape[-1] else 1
+
+
+def _check_cuda(name: str, r, q_rope, x_pages, kr_pages, ints: list[torch.Tensor]):
+    """Device, dtype and layout checks (B1's), and the head grouping; the
+    kernels' shape limits (Dm, span, shared memory) are enforced by their C
+    entry point, which ``run`` turns into a raise."""
+    _check_common(name, [x_pages, r, q_rope, kr_pages], ints)
+    kv_r = _kv_r(q_rope, kr_pages)
+    if r.shape[-2] % kv_r:
+        raise ValueError(f"{name}: {r.shape[-2]} heads are not divisible by kv_r={kv_r}")
+
+
+def _pages_per_split(kind: str, page: int) -> int:
+    return max(1, SPLIT_TOKENS[kind] // page)
+
+
+def _partials(groups: int, splits: int, Dm: int, device) -> torch.Tensor:
+    return torch.empty(groups * splits * ROWS * (Dm + 2), dtype=torch.float32, device=device)
+
+
+# ------------------------------------------------------------ query / value
+
+
+def query_rows(q_nope: torch.Tensor, w_k_nope: torch.Tensor, dtype) -> torch.Tensor:
+    """R = q_nope W_K^T (the first cascaded product), in ``dtype``.
+    q_nope (N, T, H, Dn), w_k_nope (Dm, KV, Dn) -> (N, T, H, Dm)."""
+    N, T, H, Dn = q_nope.shape
+    Dm, KV, _ = w_k_nope.shape
+    qg = q_nope.reshape(N, T, KV, H // KV, Dn)
+    r = torch.einsum("ntkgd,mkd->ntkgm", qg, w_k_nope)
+    return r.reshape(N, T, H, Dm).to(dtype).contiguous()
+
+
+def value_rows(p: torch.Tensor, w_v: torch.Tensor) -> torch.Tensor:
+    """out = P W_V. p (N, T, H, Dm), w_v (Dm, KV, Dv) -> (N, T, H, Dv)."""
+    N, T, H, Dm = p.shape
+    KV, Dv = w_v.shape[1], w_v.shape[2]
+    pg = p.reshape(N, T, KV, H // KV, Dm)
+    return torch.einsum("ntkgm,mkd->ntkgd", pg, w_v).reshape(N, T, H, Dv)
+
+
+# ------------------------------------------------------------------ decode
+
+
+def paged_decomposed_decode_plain(r, q_rope, x_pages, kr_pages, block_table, lengths,
+                                  scale: float):
+    """Plain version of B3 (the JAX package's ``paged_decomposed_decode_ref``):
+    gather the logical view, exact softmax in float32, zeros for empty rows.
+    r (B, H, Dm); q_rope (B, H, Rr); x_pages (P, page, Dm); kr_pages
+    (P, page, kv_r, Rr). Returns P (B, H, Dm) in the arena dtype."""
+    B, H, Dm = r.shape
+    page, nb = x_pages.shape[1], block_table.shape[1]
+    bt = block_table.long()
+    x = x_pages[bt].reshape(B, nb * page, Dm).float()
+    s = torch.einsum("bhm,bnm->bhn", r.float(), x)
+    if q_rope.shape[-1] > 0:
+        kv_r, Rr = kr_pages.shape[2], kr_pages.shape[3]
+        kr = kr_pages[bt].reshape(B, nb * page, kv_r, Rr).float()
+        qg = q_rope.reshape(B, kv_r, H // kv_r, Rr).float()
+        s = s + torch.einsum("bkgr,bnkr->bkgn", qg, kr).reshape(B, H, nb * page)
+    s = s * scale
+    live = torch.arange(nb * page, device=r.device)[None, :] < lengths[:, None]
+    s = s.masked_fill(~live[:, None, :], NEG_INF)
+    w = torch.exp(s - s.amax(-1, keepdim=True))
+    p = torch.einsum("bhn,bnm->bhm", w, x) / w.sum(-1, keepdim=True).clamp_min(1e-30)
+    p = torch.where((lengths > 0)[:, None, None], p, torch.zeros_like(p))
+    return p.to(x_pages.dtype)
+
+
+def paged_decomposed_decode_fwd(r, q_rope, x_pages, kr_pages, block_table, lengths,
+                                scale: float):
+    """The decode sweep over the X pages: r (B, H, Dm) = q_nope W_K^T and
+    q_rope (B, H, Rr) in the arena dtype (Rr may be 0); x_pages
+    (P, page, Dm); kr_pages (P, page, kv_r, Rr); block_table (B, nb) int32,
+    0 = null page; lengths (B,) int32. Returns P (B, H, Dm)."""
+    if x_pages.device.type == "cpu":
+        return paged_decomposed_decode_plain(r, q_rope, x_pages, kr_pages, block_table,
+                                             lengths, scale)
+    B, H, Dm = r.shape
+    P, page, Dx = x_pages.shape
+    Rr, nb = q_rope.shape[-1], block_table.shape[-1]
+    kv_r = _kv_r(q_rope, kr_pages)
+    if (Dx != Dm or tuple(q_rope.shape[:2]) != (B, H)
+            or (Rr and tuple(kr_pages.shape) != (P, page, kv_r, Rr))
+            or tuple(block_table.shape) != (B, nb) or tuple(lengths.shape) != (B,)):
+        raise ValueError(
+            f"paged_decomposed_decode: shapes r {tuple(r.shape)}, q_rope "
+            f"{tuple(q_rope.shape)}, x {tuple(x_pages.shape)}, kr "
+            f"{tuple(kr_pages.shape)}, block_table {tuple(block_table.shape)}, "
+            f"lengths {tuple(lengths.shape)}")
+    _check_cuda("paged_decomposed_decode", r, q_rope, x_pages, kr_pages,
+                [block_table, lengths])
+    pps = _pages_per_split("decode", page)
+    splits = -(-nb // pps)
+    out = torch.empty((B, H, Dm), dtype=x_pages.dtype, device=x_pages.device)
+    part = _partials(B * -(-H // ROWS), splits, Dm, x_pages.device)
+    run(launcher("paged_decomposed_decode"), "paged_decomposed_decode", x_pages.device,
+        int(x_pages.dtype == torch.bfloat16), r.data_ptr(), q_rope.data_ptr(),
+        x_pages.data_ptr(), kr_pages.data_ptr(), block_table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, kv_r, Rr, Dm, page,
+        nb, pps, float(scale))
+    paged_decomposed_decode.launches += 1
+    return out
+
+
+def paged_decomposed_decode(q_nope, q_rope, x_pages, kr_pages, block_table, lengths,
+                            w_k_nope, w_v, scale: float):
+    """Paged T1 decode over an X arena through its block table.
+    q_nope (B, 1, H, Dn); q_rope (B, 1, H, Rr), Rr may be 0; kr_pages
+    (P, page, kv_r, Rr); w_k_nope (Dm, KV, Dn); w_v (Dm, KV, Dv);
+    block_table (B, nb) int32; lengths (B,) int32. Returns (B, 1, H, Dv)."""
+    r = query_rows(q_nope, w_k_nope, x_pages.dtype)[:, 0]
+    qr = q_rope[:, 0].to(x_pages.dtype).contiguous()
+    p = paged_decomposed_decode_fwd(r, qr, x_pages, kr_pages,
+                                    block_table, lengths, scale)
+    return value_rows(p[:, None], w_v)
+
+
+paged_decomposed_decode.launches = 0
+
+
+# ----------------------------------------------------------------- prefill
+
+
+def paged_decomposed_prefill_plain(r, q_rope, x_pages, kr_pages, block_row, offset: int,
+                                   valid: int, scale: float):
+    """Plain version of B4: gather the slot's logical view, mask
+    ``pos < offset + valid`` and ``pos <= offset + i`` for chunk token i,
+    exact softmax in float32. r (C, H, Dm); q_rope (C, H, Rr). Returns P
+    (C, H, Dm) in the arena dtype; rows past ``valid`` are padding."""
+    C, H, Dm = r.shape
+    page, nb = x_pages.shape[1], block_row.shape[0]
+    n = nb * page
+    br = block_row.long()
+    x = x_pages[br].reshape(n, Dm).float()
+    s = torch.einsum("chm,nm->chn", r.float(), x)
+    if q_rope.shape[-1] > 0:
+        kv_r, Rr = kr_pages.shape[2], kr_pages.shape[3]
+        kr = kr_pages[br].reshape(n, kv_r, Rr).float()
+        qg = q_rope.reshape(C, kv_r, H // kv_r, Rr).float()
+        s = s + torch.einsum("ckgr,nkr->ckgn", qg, kr).reshape(C, H, n)
+    s = s * scale
+    pos = torch.arange(n, device=r.device)
+    tok = torch.arange(C, device=r.device)
+    ok = (pos[None, :] < offset + valid) & (pos[None, :] <= offset + tok[:, None])
+    s = s.masked_fill(~ok[:, None, :], NEG_INF)
+    w = torch.exp(s - s.amax(-1, keepdim=True))
+    p = torch.einsum("chn,nm->chm", w, x) / w.sum(-1, keepdim=True).clamp_min(1e-30)
+    return p.to(x_pages.dtype)
+
+
+def paged_decomposed_prefill_fwd(r, q_rope, x_pages, kr_pages, block_row, offset: int,
+                                 valid: int, scale: float):
+    """The chunk sweep over one slot's X pages [0, offset + valid): r
+    (C, H, Dm) and q_rope (C, H, Rr) in the arena dtype; block_row (nb,)
+    int32; offset/valid host ints. Returns P (C, H, Dm); rows past ``valid``
+    are padding, never read."""
+    if x_pages.device.type == "cpu":
+        return paged_decomposed_prefill_plain(r, q_rope, x_pages, kr_pages, block_row,
+                                              offset, valid, scale)
+    C, H, Dm = r.shape
+    P, page, Dx = x_pages.shape
+    Rr, nb = q_rope.shape[-1], block_row.shape[0]
+    kv_r = _kv_r(q_rope, kr_pages)
+    if (Dx != Dm or tuple(q_rope.shape[:2]) != (C, H) or block_row.ndim != 1
+            or (Rr and tuple(kr_pages.shape) != (P, page, kv_r, Rr))):
+        raise ValueError(
+            f"paged_decomposed_prefill: shapes r {tuple(r.shape)}, q_rope "
+            f"{tuple(q_rope.shape)}, x {tuple(x_pages.shape)}, kr "
+            f"{tuple(kr_pages.shape)}, block_row {tuple(block_row.shape)}")
+    if not (offset >= 0 and 1 <= valid <= C):
+        raise ValueError(f"paged_decomposed_prefill: offset={offset}, valid={valid}, C={C}")
+    _check_cuda("paged_decomposed_prefill", r, q_rope, x_pages, kr_pages, [block_row])
+    pps = _pages_per_split("prefill", page)
+    splits = -(-nb // pps)
+    out = torch.empty((C, H, Dm), dtype=x_pages.dtype, device=x_pages.device)
+    part = _partials(-(-H * C // ROWS), splits, Dm, x_pages.device)
+    run(launcher("paged_decomposed_prefill"), "paged_decomposed_prefill", x_pages.device,
+        int(x_pages.dtype == torch.bfloat16), r.data_ptr(), q_rope.data_ptr(),
+        x_pages.data_ptr(), kr_pages.data_ptr(), block_row.data_ptr(), out.data_ptr(),
+        part.data_ptr(), C, H, kv_r, Rr, Dm, page, nb, pps, int(offset), int(valid),
+        float(scale))
+    paged_decomposed_prefill.launches += 1
+    return out
+
+
+def paged_decomposed_prefill(q_nope, q_rope, x_pages, kr_pages, block_row, offset: int,
+                             valid: int, w_k_nope, w_v, scale: float):
+    """Chunked paged T1 prefill for one slot: the chunk's C queries attend
+    the slot's X (+ roped key) pages [0, offset + valid), its own rows
+    already written there. q_nope (1, C, H, Dn); q_rope (1, C, H, Rr), Rr
+    may be 0; block_row (nb,) int32; offset/valid host ints. Returns
+    (1, C, H, Dv); rows past ``valid`` are padding."""
+    r = query_rows(q_nope, w_k_nope, x_pages.dtype)[0]
+    qr = q_rope[0].to(x_pages.dtype).contiguous()
+    p = paged_decomposed_prefill_fwd(r, qr, x_pages, kr_pages,
+                                     block_row, offset, valid, scale)
+    return value_rows(p[None], w_v)
+
+
+paged_decomposed_prefill.launches = 0

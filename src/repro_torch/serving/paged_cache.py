@@ -1,6 +1,6 @@
 """Block-paged KV arenas for continuous batching (the JAX package's
-``serving/paged_cache.py``): the dense tier, the T2 CPQ tier and the tiered
-arena that pairs them.
+``serving/paged_cache.py``): the dense tier, the T1 X tier, the T2 CPQ tier
+and the tiered arena that pairs dense with CPQ.
 
 The token axis is cut into fixed-size pages owned by a shared physical pool
 ``(P, page_size, KV, Dh)``; a per-slot block table ``(B, max_blocks)`` maps
@@ -19,11 +19,12 @@ level counts and prune thresholds) stays slot-indexed ``(num_slots, ...)``
 and is overwritten at admission.
 
 Mode -> paged container:
-  dense   PagedDenseKVCache   K, V pages
-  cpq     PagedCPQKVCache     CPQ code/level pages, slot tables (T2)
-  tiered  TieredPagedCache    dense base arena + CPQ escalation arena
-The T1 X pages, T3 retrieval and T1+T2 containers are not ported yet; their
-modes raise ``NotImplementedError`` naming their ROADMAP item.
+  dense       PagedDenseKVCache   K, V pages
+  decomposed  PagedXCache         block-input X pages + roped key slice (T1)
+  cpq         PagedCPQKVCache     CPQ code/level pages, slot tables (T2)
+  tiered      TieredPagedCache    dense base arena + CPQ escalation arena
+The T3 retrieval and T1+T2 containers are not ported yet; their modes raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,18 +36,21 @@ import torch
 from repro_torch.configs import AttentionRuntime, CPQCfg
 from repro_torch.core import attention as core_attn
 from repro_torch.core import cpq as cpq_lib
+from repro_torch.core.decomposed_attention import decomposed_attention
 from repro_torch.kernels.cpq_attn import ops as cpq_ops
+from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.kernels.paged_attn import ops
 
 NULL_PAGE = 0
 
-UNPORTED_MODES = {"decomposed": "A13", "retrieval": "A15", "decomposed_cpq": "A16"}
+UNPORTED_MODES = {"retrieval": "A15", "decomposed_cpq": "A16"}
 
 
 def unported_mode(mode: str) -> NotImplementedError:
     return NotImplementedError(
         f"attention mode {mode!r} is not ported yet "
-        f"(ROADMAP {UNPORTED_MODES.get(mode, 'A')}); the port serves 'dense'")
+        f"(ROADMAP {UNPORTED_MODES.get(mode, 'A')}); the port serves 'dense', "
+        "'decomposed' and 'cpq'")
 
 
 class RowState(NamedTuple):
@@ -222,6 +226,14 @@ class PagedDenseKVCache(NamedTuple):
     v: torch.Tensor  # (P, page, KV, Dh)
 
 
+class PagedXCache(NamedTuple):
+    """T1 arena: the normed block input X per token, and the roped key slice
+    of every kv head (zero-width without rope)."""
+
+    x: torch.Tensor       # (P, page, Dm)
+    k_rope: torch.Tensor  # (P, page, KV, R)
+
+
 class PagedCPQTensor(NamedTuple):
     """CPQ arena: per-token code/level pages plus per-slot HQE side state."""
 
@@ -259,6 +271,14 @@ def init_paged_dense(num_pages: int, page_size: int, kv: int, dh: int,
     shape = (num_pages, page_size, kv, dh)
     return PagedDenseKVCache(torch.zeros(shape, dtype=dtype, device=device),
                              torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_paged_x(num_pages: int, page_size: int, dm: int, kv: int, rope_dims: int,
+                 dtype=torch.bfloat16, device="cpu") -> PagedXCache:
+    return PagedXCache(
+        x=torch.zeros((num_pages, page_size, dm), dtype=dtype, device=device),
+        k_rope=torch.zeros((num_pages, page_size, kv, rope_dims), dtype=dtype,
+                           device=device))
 
 
 def _init_paged_cpq_tensor(num_pages: int, page_size: int, num_slots: int, h: int,
@@ -299,6 +319,16 @@ def append_dense(cache: PagedDenseKVCache, rows: RowState, k_t: torch.Tensor,
     """k_t/v_t: (B, 1, KV, Dh) new token per row, written in place."""
     write_token_pages(cache.k, rows.block_table, rows.lengths, rows.active, k_t[:, 0])
     write_token_pages(cache.v, rows.block_table, rows.lengths, rows.active, v_t[:, 0])
+    return cache
+
+
+def append_x(cache: PagedXCache, rows: RowState, x_t: torch.Tensor,
+             k_rope_t: torch.Tensor) -> PagedXCache:
+    """x_t (B, 1, Dm) normed block input and k_rope_t (B, 1, KV, R) roped key
+    slice of the new token per row, written in place."""
+    write_token_pages(cache.x, rows.block_table, rows.lengths, rows.active, x_t[:, 0])
+    write_token_pages(cache.k_rope, rows.block_table, rows.lengths, rows.active,
+                      k_rope_t[:, 0])
     return cache
 
 
@@ -346,13 +376,18 @@ def pack_cpq(cache: PagedCPQKVCache, src: CPQKVCache, block_row: torch.Tensor,
 
 def bytes_per_token(cache, page_size: int, cpq_cfg: Optional[CPQCfg] = None) -> float:
     """Per-token decode traffic of a paged arena: the payload (dense K and V,
-    or the CPQ accounting of ``cpq_bytes_per_token``) plus the amortized
-    block-table entry. A tiered arena counts its base tier."""
+    T1's X row and roped key slices, or the CPQ accounting of
+    ``cpq_bytes_per_token``) plus the amortized block-table entry. A tiered
+    arena counts its base tier."""
     overhead = 4.0 / page_size
     if isinstance(cache, TieredPagedCache):
         return bytes_per_token(cache.dense, page_size, cpq_cfg)
     if isinstance(cache, PagedDenseKVCache):
         payload = 2.0 * cache.k.shape[2] * cache.k.shape[3] * cache.k.element_size()
+    elif isinstance(cache, PagedXCache):
+        payload = (cache.x.shape[2] * cache.x.element_size()
+                   + cache.k_rope.shape[2] * cache.k_rope.shape[3]
+                   * cache.k_rope.element_size())
     elif isinstance(cache, PagedCPQKVCache):
         payload = 2.0 * cpq_lib.cpq_bytes_per_token(
             cpq_cfg or CPQCfg(), cache.k.codes.shape[2], cache.k.codes.shape[3])
@@ -443,16 +478,24 @@ def _cpq_runtime(rt) -> AttentionRuntime:
 def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
                        block_row: torch.Tensor, offset: int, valid: int,
                        q: torch.Tensor, k_c: torch.Tensor, v_c: torch.Tensor,
-                       scale: float):
+                       scale: float, x_c: Optional[torch.Tensor] = None,
+                       k_rope_c: Optional[torch.Tensor] = None,
+                       q_nope: Optional[torch.Tensor] = None,
+                       q_rope: Optional[torch.Tensor] = None,
+                       w_k_nope: Optional[torch.Tensor] = None,
+                       w_v: Optional[torch.Tensor] = None):
     """Write one prompt chunk straight into the slot's arena pages, then
     attend the chunk's C queries over the slot's pages [0, offset + valid):
-    the B2 (dense) or B6 (CPQ) kernel with ``rt.paged_kernels``, the gather
-    path otherwise. A CPQ arena compresses the chunk as it goes (level-0
-    fit on the ``first`` chunk, HQE extension after) and reads earlier
-    chunks through their codes. A tiered arena runs the arm of the
+    the B2 (dense), B4 (T1) or B6 (CPQ) kernel with ``rt.paged_kernels``,
+    the gather path otherwise. A CPQ arena compresses the chunk as it goes
+    (level-0 fit on the ``first`` chunk, HQE extension after) and reads
+    earlier chunks through their codes. A tiered arena runs the arm of the
     host-static admission ``tier``. q (1, C, H, Dh) roped; k_c/v_c
-    (1, C, KV, Dh); slot/offset/valid host ints. Returns (out (1, C, H, Dv),
-    cache); rows past ``valid`` are padding."""
+    (1, C, KV, Dh); slot/offset/valid host ints. The T1 arena takes instead
+    x_c (1, C, Dm) normed block input, k_rope_c (1, C, KV, R), q_nope
+    (1, C, H, Dn), q_rope (1, C, H, R), w_k_nope (Dm, KV, Dn) and w_v
+    (Dm, KV, Dv). Returns (out (1, C, H, Dv), cache); rows past ``valid``
+    are padding."""
     if isinstance(cache, TieredPagedCache):
         arm_rt, arm = (rt, cache.dense) if tier == 0 else (_cpq_runtime(rt), cache.cpq)
         out, _ = chunk_attend_paged(arm_rt, arm, tier=0, first=first, slot=slot,
@@ -469,6 +512,20 @@ def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
                 q, gather_pages(cache.k, block_row[None]),
                 gather_pages(cache.v, block_row[None]),
                 scale, causal=True, q_offset=offset, kv_length=offset + valid)
+        return out, cache
+    if isinstance(cache, PagedXCache) and rt.mode == "decomposed":
+        write_chunk_pages(cache.x, block_row, offset, valid, x_c[0])
+        write_chunk_pages(cache.k_rope, block_row, offset, valid, k_rope_c[0])
+        if rt.paged_kernels:
+            out = t1_ops.paged_decomposed_prefill(q_nope, q_rope, cache.x, cache.k_rope,
+                                                  block_row, offset, valid, w_k_nope,
+                                                  w_v, scale)
+        else:
+            qpos = offset + torch.arange(q.shape[1], device=q.device)
+            out = decomposed_attention(
+                q_nope, q_rope, gather_pages(cache.x, block_row[None]),
+                gather_pages(cache.k_rope, block_row[None]), w_k_nope, w_v,
+                offset + valid, scale, query_positions=qpos)
         return out, cache
     if isinstance(cache, PagedCPQKVCache) and rt.mode == "cpq":
         chunk_cpq_tensor(cache.k, slot, block_row, offset, valid, k_c, rt.cpq, first)
@@ -487,16 +544,24 @@ def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
 
 
 def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
-                        k_t: torch.Tensor, v_t: torch.Tensor, scale: float):
+                        k_t: torch.Tensor, v_t: torch.Tensor, scale: float,
+                        x_t: Optional[torch.Tensor] = None,
+                        k_rope_t: Optional[torch.Tensor] = None,
+                        q_nope: Optional[torch.Tensor] = None,
+                        q_rope: Optional[torch.Tensor] = None,
+                        w_k_nope: Optional[torch.Tensor] = None,
+                        w_v: Optional[torch.Tensor] = None):
     """Write one token per row through the block table, then attend with
-    per-row lengths: the B1 (dense) or B5 (CPQ) kernel with
+    per-row lengths: the B1 (dense), B3 (T1) or B5 (CPQ) kernel with
     ``rt.paged_kernels`` (the default), the gather path otherwise. A tiered
     arena runs both arms on every row, each arm's writes masked to its own
     tier's rows and the CPQ arm reading ``rows.alt_block_table``, and picks
     each row's output by tier, as the reference does. Inactive rows write
     the null page and their output is garbage the engine never reads.
-    q (B, 1, H, Dh) roped; k_t/v_t (B, 1, KV, Dh). Returns
-    (out (B, 1, H, Dv), cache)."""
+    q (B, 1, H, Dh) roped; k_t/v_t (B, 1, KV, Dh). The T1 arena takes instead
+    x_t (B, 1, Dm) normed block input, k_rope_t (B, 1, KV, R), q_nope
+    (B, 1, H, Dn), q_rope (B, 1, H, R), w_k_nope (Dm, KV, Dn) and w_v
+    (Dm, KV, Dv). Returns (out (B, 1, H, Dv), cache)."""
     if isinstance(cache, TieredPagedCache):
         rows_d = rows._replace(active=rows.active & (rows.tier == 0))
         rows_c = rows._replace(active=rows.active & (rows.tier == 1),
@@ -516,6 +581,16 @@ def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
             q, gather_pages(cache.k, rows.block_table),
             gather_pages(cache.v, rows.block_table),
             scale, causal=False, kv_length=new_len)
+        return out, cache
+    if isinstance(cache, PagedXCache) and rt.mode == "decomposed":
+        append_x(cache, rows, x_t, k_rope_t)
+        if rt.paged_kernels:
+            return t1_ops.paged_decomposed_decode(q_nope, q_rope, cache.x, cache.k_rope,
+                                                  rows.block_table, new_len, w_k_nope,
+                                                  w_v, scale), cache
+        out = decomposed_attention(
+            q_nope, q_rope, gather_pages(cache.x, rows.block_table),
+            gather_pages(cache.k_rope, rows.block_table), w_k_nope, w_v, new_len, scale)
         return out, cache
     if isinstance(cache, PagedCPQKVCache) and rt.mode == "cpq":
         append_cpq_tensor(cache.k, rows, k_t, rt.cpq)

@@ -114,7 +114,7 @@ def test_generate_matches_jax(model):
     (dict(policy="priority"), {}),
     (dict(policy="slo"), {}),
     ({}, dict(mesh=object())),
-    ({}, dict(mode="decomposed")),
+    ({}, dict(mode="decomposed_cpq")),
     ({}, dict(mode="retrieval")),
 ])
 def test_unported_knobs_raise(model, serving_kw, rt_kw):

@@ -9,16 +9,21 @@ Tolerances (max abs): 1e-5 in float32 (both compute in float32 and differ in
 summation order only), 2e-2 in bfloat16 (one bf16 rounding step of an output
 below 4 in magnitude). The T2 (CPQ) kernels B5/B6 dequantize to the same
 bf16 values as their plain versions and are held to 5e-5 in float32 (the
-outputs reach 3 in magnitude) and 2e-2 in bfloat16.
+outputs reach 3 in magnitude) and 2e-2 in bfloat16. The T1 kernels B3/B4
+return P, a weighted mean of X rows, and are held to 1e-5 / 2e-2, also at
+the widths they are built for (``T1_WIDE``).
 """
 import pytest
 import torch
 
 from repro_torch.kernels.cpq_attn import ops as cpq_ops
+from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.kernels.paged_attn import ops
 from torch_paged_cases import (CPQ_DECODE_CASES, CPQ_PREFILL_CASES, DECODE_CASES,
-                               PREFILL_CASES, cpq_arena, cpq_decode_inputs,
-                               cpq_prefill_inputs, decode_inputs, prefill_inputs, tensors)
+                               PREFILL_CASES, T1_DECODE_CASES, T1_PREFILL_CASES, T1_WIDE,
+                               cpq_arena, cpq_decode_inputs, cpq_prefill_inputs,
+                               decode_inputs, prefill_inputs, t1_decode_inputs,
+                               t1_prefill_inputs, tensors)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 CPQ_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
@@ -113,3 +118,57 @@ def test_cpq_prefill_kernel_matches_plain(cuda, case, dtype):
                                           valid, scale)
     torch.testing.assert_close(out[0, :valid].float(), ref[0, :valid].float(),
                                atol=CPQ_TOL[dtype], rtol=0)
+
+
+# ---------------------------------------------------------------- T1 / X
+
+T1_DECODE_ALL = T1_DECODE_CASES + [(6 + i, 16, 8, 3, *w) for i, w in enumerate(T1_WIDE)]
+T1_PREFILL_ALL = T1_PREFILL_CASES + [
+    (6 + i, off, val, *w) for i, (w, (off, val)) in
+    enumerate(zip(T1_WIDE, ((0, 16), (37, 16), (70, 9))))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", T1_DECODE_ALL)
+def test_decomposed_decode_kernel_matches_plain(cuda, case, dtype):
+    r, qr, xp, krp, bt, lengths, scale = t1_decode_inputs(*case)
+    args = tensors(r, qr, xp, krp, bt, lengths, device="cuda", dtype=dtype)
+    before = t1_ops.paged_decomposed_decode.launches
+    out = t1_ops.paged_decomposed_decode_fwd(*args, scale)
+    torch.cuda.synchronize()
+    assert t1_ops.paged_decomposed_decode.launches == before + 1
+    ref = t1_ops.paged_decomposed_decode_plain(*args, scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+    assert not out[args[5] == 0].any()  # empty rows -> zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", T1_PREFILL_ALL)
+def test_decomposed_prefill_kernel_matches_plain(cuda, case, dtype):
+    C = 8 if case in T1_PREFILL_CASES else 16
+    kw = {} if C == 8 else dict(page=16, nb=8, C=16)
+    r, qr, xp, krp, row, offset, valid, scale = t1_prefill_inputs(*case, **kw)
+    args = tensors(r, qr, xp, krp, row, device="cuda", dtype=dtype)
+    before = t1_ops.paged_decomposed_prefill.launches
+    out = t1_ops.paged_decomposed_prefill_fwd(*args, offset, valid, scale)
+    torch.cuda.synchronize()
+    assert t1_ops.paged_decomposed_prefill.launches == before + 1
+    ref = t1_ops.paged_decomposed_prefill_plain(*args, offset, valid, scale)
+    torch.testing.assert_close(out[:valid].float(), ref[:valid].float(),
+                               atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_decomposed_wrappers_refuse_bad_inputs(cuda):
+    r, qr, xp, krp, bt, lengths, scale = t1_decode_inputs(*T1_DECODE_CASES[0])
+    args = tensors(r, qr, xp, krp, bt, lengths, device="cuda")
+    with pytest.raises(TypeError, match="int32"):
+        t1_ops.paged_decomposed_decode_fwd(*args[:4], args[4].long(), args[5], scale)
+    with pytest.raises(ValueError, match="tensors on"):
+        t1_ops.paged_decomposed_decode_fwd(*args[:3], args[3].cpu(), *args[4:], scale)
+    wide = torch.zeros((1, 4, 4096), device="cuda")
+    with pytest.raises(RuntimeError, match="kernel launch failed"):  # Dm > 2048
+        t1_ops.paged_decomposed_decode_fwd(wide, args[1][:1], torch.zeros(
+            (3, 4, 4096), device="cuda"), args[3][:3], args[4][:1], args[5][:1], scale)

@@ -340,3 +340,46 @@ def test_escalate_slot_and_tiered_decode_match_jax(qwen, fused):
         lt, _ = TM.decode_step_rows(tcfg, trt, tparams, torch.tensor(toks), rows_t, tcaches)
         _close(lt, lj, LOGIT_TOL)
         lengths = lengths + 1
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_decomposed_prefill_and_decode_logits_match_jax(qwen, fused):
+    """mode="decomposed" (T1): two slots stream their prompts through
+    permuted X pages, then decode three times, once with a row inactive.
+    Logits at every step and the X and roped-key pages match. The fixture's
+    nonzero b_v is what T1 leaves out of (S X) W_V; a port that added it
+    would miss here."""
+    jcfg, tcfg, params, tparams = qwen
+    serving = ServingCfg(num_slots=2, page_size=4, num_pages=17,
+                         max_blocks_per_slot=8, prefill_chunk=8)
+    jrt = AttentionRuntime(mode="decomposed", paged_kernels=fused)
+    trt = tc.AttentionRuntime(mode="decomposed", paged_kernels=fused)
+    jcaches = JM.init_paged_caches(jcfg, jrt, serving)
+    tcaches = TM.init_paged_caches(tcfg, trt, serving, "cpu")
+    decode_fn = jax.jit(partial(JM.decode_step_rows, jcfg, jrt))
+
+    rng = np.random.default_rng(10)
+    bt = np.zeros((2, 8), np.int32)
+    bt[0, :5] = [9, 3, 14, 1, 7]
+    bt[1, :3] = [12, 5, 10]
+    prompts = [rng.integers(0, 256, size=13).astype(np.int32),
+               rng.integers(0, 256, size=6).astype(np.int32)]
+    jcaches = _stream_prompts(jcfg, tcfg, jrt, trt, params, tparams, jcaches, tcaches,
+                              bt, prompts)
+    lengths = np.array([13, 6], np.int32)
+    for active in (np.array([True, True]), np.array([False, True]),
+                   np.array([True, True])):
+        toks = rng.integers(0, 256, size=(2, 1)).astype(np.int32)
+        rows_j = jpgc.RowState(jnp.asarray(lengths), jnp.asarray(bt), jnp.asarray(active),
+                               jnp.zeros(2, jnp.int32))
+        rows_t = tpgc.RowState(torch.tensor(lengths), torch.tensor(bt), torch.tensor(active),
+                               torch.zeros(2, dtype=torch.int32))
+        lj, jcaches = decode_fn(params, jnp.asarray(toks), rows_j, jcaches)
+        lt, _ = TM.decode_step_rows(tcfg, trt, tparams, torch.tensor(toks), rows_t, tcaches)
+        _close(lt[active], np.asarray(lj)[active], LOGIT_TOL)
+        lengths = lengths + active
+    mapped = bt[bt > 0]
+    for i in range(2):
+        for name in ("x", "k_rope"):
+            _close(getattr(tcaches["blocks"][0][i], name)[mapped],
+                   np.asarray(getattr(jcaches["blocks"][0], name)[i])[mapped])

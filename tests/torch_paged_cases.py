@@ -149,3 +149,58 @@ def cpq_arena(pool, device="cpu"):
     return PagedCPQTensor(codes, level, scale, zero,
                           torch.ones((slots, KV), dtype=torch.int32, device=device),
                           torch.zeros((slots, KV, D), device=device))
+
+
+# ---------------------------------------------------------------- T1 / X
+
+T1_DECODE_CASES = [  # seed, page, nb, B, H, Dm, kv_r, Rr
+    (0, 4, 4, 2, 4, 16, 1, 8),      # shared roped key (MLA layout)
+    (1, 4, 3, 3, 4, 16, 2, 8),      # per-kv-head roped keys, 2 heads per group
+    (2, 2, 4, 2, 8, 32, 4, 4),
+    (3, 8, 2, 2, 4, 16, 1, 0),      # absolute positions: no roped term
+    (4, 5, 3, 1, 2, 8, 2, 8),       # odd page size
+    (5, 16, 4, 3, 16, 64, 16, 8),   # the served page size, 16 heads = kv_r
+]
+
+T1_PREFILL_CASES = [  # seed, offset, valid, H, Dm, kv_r, Rr
+    (0, 0, 8, 4, 16, 2, 8),         # first chunk
+    (1, 8, 8, 4, 16, 1, 8),         # shared roped key
+    (2, 8, 3, 4, 32, 4, 4),         # valid < C
+    (3, 5, 1, 2, 16, 2, 0),         # mid-page offset, one valid token, no rope
+    (4, 21, 8, 8, 64, 8, 8),
+]
+
+# the widths the CUDA kernels are built for: qwen1.5-0.5b (H 16, Dm 1024,
+# kv_r 16, Rr 32), an MLA-like shape at deepseek-v2-lite's widths (Dm 512,
+# one shared roped key of 64) and a no-rope shape
+T1_WIDE = [(16, 1024, 16, 32), (16, 512, 1, 64), (8, 256, 1, 0)]  # H, Dm, kv_r, Rr
+
+
+def t1_decode_inputs(seed, page, nb, B, H, Dm, kv_r, Rr):
+    """r, q_rope, X and roped-key pools (null page poisoned), block table,
+    lengths, scale for the T1 decode sweep."""
+    rng = np.random.default_rng(seed)
+    num_pages, lengths, bt = pool_layout(rng, B, nb, page)
+    xp = rng.normal(size=(num_pages, page, Dm)).astype(np.float32)
+    krp = rng.normal(size=(num_pages, page, kv_r, Rr)).astype(np.float32)
+    xp[0] = krp[0] = 1e3
+    r = rng.normal(size=(B, H, Dm)).astype(np.float32)
+    qr = rng.normal(size=(B, H, Rr)).astype(np.float32)
+    return r, qr, xp, krp, bt, lengths, (Dm + Rr) ** -0.5
+
+
+def t1_prefill_inputs(seed, offset, valid, H, Dm, kv_r, Rr, page=4, nb=8, C=8):
+    """r, q_rope, X and roped-key pools (null page poisoned), the slot's
+    permuted block row with its unmapped tail at the null page, offset,
+    valid, scale for the T1 chunk sweep."""
+    rng = np.random.default_rng(seed)
+    P = nb + 3
+    xp = rng.normal(size=(P, page, Dm)).astype(np.float32)
+    krp = rng.normal(size=(P, page, kv_r, Rr)).astype(np.float32)
+    xp[0] = krp[0] = 1e3
+    mapped = -(-(offset + valid) // page)
+    row = np.zeros((nb,), np.int32)
+    row[:mapped] = rng.permutation(np.arange(1, P))[:mapped]
+    r = rng.normal(size=(C, H, Dm)).astype(np.float32)
+    qr = rng.normal(size=(C, H, Rr)).astype(np.float32)
+    return r, qr, xp, krp, row, offset, valid, (Dm + Rr) ** -0.5
