@@ -18,27 +18,42 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               B3 paged_decomposed_decode and B4 paged_decomposed_prefill on
               the same layouts at qwen1.5-0.5b's T1 shape (H=16, Dm=1024,
               16 roped keys of 32), an MLA-like shape (H=16, Dm=512, one
-              shared roped key of 64) and a no-rope shape (H=8, Dm=256)
+              shared roped key of 64) and a no-rope shape (H=8, Dm=256);
+              B7 paged_proxy_scores in float32 (its inputs are float32
+              query factors and int8 codes) at qwen1.5-0.5b's T3 shape
+              (KV=16, G=1, Dp=64) and a GQA shape (KV=8, G=4, Dp=128) on the
+              same layouts, and in its contiguous one-page-per-row form,
+              held to 1e-5 x max |score|
   4. serve    full-width qwen1.5-0.5b (24 layers, vocab 151936, random
               weights from a seed) in bf16 through ContinuousServeEngine:
               8 greedy requests, prompts of 64-512 tokens, 64 new tokens
               each, (a) dense, (b) mode="cpq", (d) mode="decomposed" (T1),
-              (c) the tiered engine (enable_escalation=True, a dense arena
-              small enough that rows are admitted into and escalated to the
-              CPQ tier). Each run must launch its kernels 24 times per tick;
-              (a), (b) and (d) then time them at the shapes the run gave
+              (e) mode="retrieval" (T3, top_k=256, recent_window=64: rows
+              past 256 keys really select), (c) the tiered engine
+              (enable_escalation=True, a dense arena small enough that rows
+              are admitted into and escalated to the CPQ tier). Each run
+              must launch its kernels 24 times per tick (T3: B7 per decode
+              tick, B2 per chunk tick); (a), (b), (d) and (e) then time
+              them at the shapes the run gave
               them, beside their bound, their plain version and one PyTorch
               library call (a yardstick only); each run is replayed under
               torch.profiler over a window of decode-only ticks, (a) also
               over a window of chunk ticks
-  5. parity   the same requests in f32 (TF32 off), dense, mode="cpq" and
-              mode="decomposed", with the kernels on and off: prefill and
-              first-decode logits within 1e-3, greedy streams identical
-              except where the gather path's top-2 logit gap is below 1e-4.
-              Dense and decomposed run each path on its own history; CPQ
-              runs them in lockstep on one history (the gather path writes
-              the K/V the kernel path wrote), since each path's 4-bit codes
-              would otherwise turn last-ulp K/V differences into whole steps
+  5. parity   the same requests in f32 (TF32 off), dense, mode="cpq",
+              mode="decomposed" and mode="retrieval" (top_k=256), with the
+              kernels on and off: prefill and first-decode logits within
+              1e-3, greedy streams identical except where the gather path's
+              top-2 logit gap is below 1e-4. T3 also prints (no gate) how
+              many (row, head, layer) top-k sets picked by B7's scores differ
+              from those picked by its plain version's and by the gather
+              path's scores over sampled decode calls; its gather path
+              attends the keys the kernel path picked, and every pick of its
+              own that differs must be a swap within 1e-4 (relative) of the
+              top-k boundary. Dense and decomposed run each path on its own
+              history; CPQ and T3 run them in lockstep on one history (the
+              gather path writes the K/V the kernel path wrote), since each
+              path's 4-bit CPQ or 8-bit proxy codes would otherwise turn
+              last-ulp K/V differences into whole steps
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -46,6 +61,7 @@ every kernel with its launches, error and times.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -64,6 +80,7 @@ F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}  # kernel vs plain, max abs
 LOGIT_TOL = 1e-3            # f32 logits, kernels vs gather path (atol = rtol)
 ARGMAX_GAP = 1e-4           # top-2 gap below which a greedy tie is excused
+TOPK_GAP = 1e-4             # T3: relative proxy-score gap below which a top-k swap is a tie
 CPQ_LEVELS = 4              # HQE levels of the default CPQCfg
 SEED = 0
 DEVICE = "cuda"
@@ -232,10 +249,77 @@ def sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr, page=16, nb=64, B=8, C=16):
     return err_dec, err_pre
 
 
+T3_SHAPES = ((16, 1, 64), (8, 4, 128))   # KV, G, Dp
+T3_REL = 1e-5           # B7 vs plain: max abs error <= T3_REL * max |score|
+
+
+def t3_err(got, want) -> tuple[float, float]:
+    """(max abs error over live scores, its bound T3_REL * max |score|); the
+    masked scores must be exactly -1e30."""
+    live = want > -1e29
+    check(torch.equal(got[~live], want[~live]), "proxy scores: a masked score is not -1e30")
+    if not live.any():
+        return 0.0, 0.0
+    return ((got[live] - want[live]).abs().max().item(),
+            T3_REL * want[live].abs().max().item())
+
+
+def sweep_t3(t3_ops, KV, G, Dp, page=16, nb=64, B=8, N=1000):
+    """Max abs error of B7 against its plain version, each case checked
+    against its own tolerance (T3_REL x its max |score|): over code pages on the layout of ``sweep`` (an empty row, ragged rows, a
+    long row with a partial last page, a poisoned null page), then in the
+    contiguous one-page-per-row form at N = 1000 (not a multiple of the
+    kernel's 128-key tile) with lengths 777 and 0."""
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    num_pages, lengths, bt = layout(rng, B, nb, page)
+    codes = torch.randint(-128, 128, (num_pages, page, KV, Dp), generator=gen,
+                          device=DEVICE).to(torch.int8)
+    codes[0] = 127                               # poisoned null page
+    scale = 0.005 + 0.025 * torch.rand((B, KV, Dp), generator=gen, device=DEVICE)
+    zero = -1.5 + 0.3 * torch.randn((B, KV, Dp), generator=gen, device=DEVICE)
+    q = torch.randn((B, KV * G, Dp), generator=gen, device=DEVICE) * Dp ** -0.5
+    bt_t = torch.tensor(bt, device=DEVICE)
+    len_t = torch.tensor(lengths, device=DEVICE)
+    n = nb * page
+    out = t3_ops.paged_proxy_scores(q, scale, zero, codes, bt_t, len_t, n)
+    torch.cuda.synchronize()
+    errs = [t3_err(out, t3_ops.paged_proxy_scores_plain(q, scale, zero, codes, bt_t,
+                                                       len_t, n))]
+    check(bool((out[0] == -1e30).all().item()), "paged_proxy_scores: an empty row is live")
+    cont = torch.randint(-128, 128, (B, N, KV, Dp), generator=gen, device=DEVICE).to(torch.int8)
+    qs = 0.02 * torch.randn((B, KV, G, Dp), generator=gen, device=DEVICE)
+    qz = torch.randn((B, KV, G, 1), generator=gen, device=DEVICE)
+    for length in (777, 0):
+        o = t3_ops.proxy_scores(qs, qz, cont, length)
+        torch.cuda.synchronize()
+        errs.append(t3_err(o, t3_ops.proxy_scores_plain(qs, qz, cont, length)))
+    for err, tol in errs:
+        check(err <= tol, f"proxy scores KV={KV} G={G} Dp={Dp}: error {err} > {tol}")
+    return max(e for e, _ in errs)
+
+
 # --------------------------------------------------------- phase 4: serve
 
 
-class Recorder:
+class StandIn:
+    """Installed under a kernel wrapper's module-level name, passing calls
+    on to the wrapper ``fn``. The wrapper counts its launches through that
+    name, which is this stand-in while it is installed: keep the count on
+    the wrapper."""
+
+    fn = None
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+
+class Recorder(StandIn):
     """Wraps a kernel wrapper: passes every call through, keeps the arenas of
     the first ``n_layers`` calls (one per layer) and a sample of the calls'
     small inputs, so the kernel can be timed later at the served shapes.
@@ -246,16 +330,6 @@ class Recorder:
         self.fn, self.n_layers, self.every = fn, n_layers, every
         self.split, self.snap = split, snap
         self.calls, self.arenas, self.samples = 0, [], []
-
-    # the wrapper counts its launches through its module-level name, which
-    # is this recorder while it is installed: keep the count on the wrapper
-    @property
-    def launches(self) -> int:
-        return self.fn.launches
-
-    @launches.setter
-    def launches(self, n: int) -> None:
-        self.fn.launches = n
 
     def __call__(self, *args):
         if len(self.arenas) < self.n_layers:
@@ -385,6 +459,19 @@ def t1_prefill_bound(r, qr, offset, valid, x0, kr0):
     nbytes = (live * (Dm + kr0.shape[2] * kr0.shape[3]) * elt
               + valid * H * (2 * Dm + Rr) * elt + -(-live // page) * 4)
     return nbytes, 2.0 * pairs * H * (2 * Dm + Rr)
+
+
+def t3_bound(q, tables, bt, lengths, n, codes0):
+    """(bytes, flops, float32 flops) one B7 call needs: the live codes (up
+    to n per row), q, every row's proxy scale and zero tables, the scores
+    written, the block table and lengths; one float32 multiply-add per live
+    code and query head."""
+    live = lengths.long().clamp(max=n).sum().item()
+    B, H = q.shape[:2]
+    KV, Dp = codes0.shape[2], codes0.shape[3]
+    nbytes = (live * KV * Dp + q.numel() * q.element_size() + 2 * tables[0].numel() * 4
+              + B * H * n * 4 + bt.numel() * 4 + lengths.numel() * 4)
+    return nbytes, 0.0, 2.0 * live * H * Dp
 
 
 def bound_of(nbytes, flops, dtype, f32_flops=0.0):
@@ -593,6 +680,25 @@ def t1_prefill_case(t1_ops, scale):
     return make
 
 
+def t3_decode_case(t3_ops):
+    """B7 at one sampled decode call (the served ``paged_proxy_scores``:
+    query factors, then the kernel); the yardstick is torch.matmul of the
+    query factors against the rows' codes gathered, shifted by 128 and
+    converted to float32 beforehand, plus qz: the same scores, unmasked."""
+    from repro_torch.serving.paged_cache import gather_pages
+
+    def make(sample, codes0, tables0):
+        q, bt, lengths, n = sample
+        qs, qz = t3_ops.query_factors(q, *tables0)
+        cg = (gather_pages(codes0, bt)[:, :n].float() + 128.0).permute(0, 2, 3, 1).contiguous()
+        return (lambda codes, tables: t3_ops.paged_proxy_scores(q, *tables, codes, bt,
+                                                                 lengths, n),
+                lambda: t3_ops.paged_proxy_scores_plain(q, *tables0, codes0, bt, lengths, n),
+                lambda: torch.matmul(qs, cg) + qz,
+                t3_bound(q, tables0, bt, lengths, n, codes0))
+    return make
+
+
 def profile_windows(make_engine, T, reqs, ticks, windows) -> list[dict]:
     """Replays the same serve (greedy, so tick i does the same work) and
     profiles the given tick windows with torch.profiler: device time by
@@ -627,7 +733,8 @@ def profile_windows(make_engine, T, reqs, ticks, windows) -> list[dict]:
         busy = sum(ms for _, ms, _ in kernels)
         wall = sum(t[0] for t in ticks[lo:hi])
         attn = sum(ms for k, ms, _ in kernels
-                   if any(a in k for a in ("paged_attn", "cpq_attn", "decomposed_attn")))
+                   if any(a in k for a in ("paged_attn", "cpq_attn", "decomposed_attn",
+                                           "topk_retrieval")))
         gemm = sum(ms for k, ms, _ in kernels if any(g in k for g in ("gemm", "nvjet", "cutlass", "xmma")))
         out.append({"ticks": [lo, hi], "decode_only_ticks": sum(1 for t in ticks[lo:hi] if not t[2]),
                     "device_busy_ms": busy, "unprofiled_wall_ms": wall,
@@ -665,14 +772,14 @@ class SharedKV:
     def __init__(self):
         from repro_torch.serving import paged_cache as pgc
 
-        self.pgc, self.kv, self.record = pgc, [], True
+        self.pgc, self.kept, self.record = pgc, [], True
         self.decode, self.chunk = pgc.decode_attend_paged, pgc.chunk_attend_paged
 
     def _take(self, k, v):
         if self.record:
-            self.kv.append((k, v))
+            self.kept.append((k, v))
             return k, v
-        return self.kv.pop(0)
+        return self.kept.pop(0)
 
     def __enter__(self):
         def decode(rt, cache, rows, *, k_t, v_t, **kw):
@@ -689,13 +796,111 @@ class SharedKV:
     def __exit__(self, *exc):
         self.pgc.decode_attend_paged, self.pgc.chunk_attend_paged = self.decode, self.chunk
 
-    def pair(self, first_fn, second_fn):
-        self.record = True
-        a = first_fn()
-        self.record = False
-        b = second_fn()
-        check(not self.kv, "parity: the two runs made different attention calls")
-        return a, b
+
+def pair(recorders, first_fn, second_fn):
+    """Run ``first_fn`` with every lockstep recorder (SharedKV,
+    SelectionPin) recording, then ``second_fn`` replaying it."""
+    for r in recorders:
+        r.record = True
+    a = first_fn()
+    for r in recorders:
+        r.record = False
+    b = second_fn()
+    check(not any(r.kept for r in recorders), "parity: the two runs made different calls")
+    return a, b
+
+
+class TopkWitness(StandIn):
+    """Installed in place of the served B7 wrapper ``paged_proxy_scores``:
+    on every ``every``-th decode tick (all layers), the call's inputs are
+    also scored by B7's plain version and by the gather path's
+    ``proxy_scores`` (the reference's einsum order over the gathered codes),
+    each picks its top-k as the engine does, and the (row, head, layer)
+    sets that differ from the kernel's are counted: rows whose proxy scores
+    lie within an ulp at the top-k boundary can swap a key. A witness only;
+    nothing is gated on it."""
+
+    def __init__(self, t3_ops, cfg, n_layers: int, every: int = 8):
+        from repro_torch.core import retrieval_attention as ret_lib
+        from repro_torch.serving.paged_cache import gather_pages
+
+        self.ops, self.cfg, self.n_layers, self.every = t3_ops, cfg, n_layers, every
+        self.fn = t3_ops.paged_proxy_scores
+        self.ret_lib, self.gather_pages = ret_lib, gather_pages
+        self.select = ret_lib.select_topk
+        self.calls = self.sets = self.differ_plain = self.differ_gather = 0
+
+    def __enter__(self):
+        self.ops.paged_proxy_scores = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.paged_proxy_scores = self.fn
+
+    def _sets(self, s, lengths):
+        return self.select(s[:, None], lengths, self.cfg)[:, 0].sort(-1).values
+
+    def __call__(self, q, sc, z, codes, bt, lengths, n):
+        out = self.fn(q, sc, z, codes, bt, lengths, n)
+        if (self.calls // self.n_layers) % self.every == 0:
+            plain = self.ops.paged_proxy_scores_plain(q, sc, z, codes, bt, lengths, n)
+            gather = self.ret_lib.proxy_scores(
+                q[:, None], self.gather_pages(codes, bt)[:, :n], sc, z)[:, 0]
+            kern, live = self._sets(out, lengths), lengths > 0
+            self.sets += int(live.sum().item()) * q.shape[1]
+            for name, other in (("differ_plain", plain), ("differ_gather", gather)):
+                differ = (self._sets(other, lengths) != kern).any(-1)[live]
+                setattr(self, name, getattr(self, name) + int(differ.sum().item()))
+        self.calls += 1
+        return out
+
+
+class SelectionPin:
+    """T3's top-k choices in lockstep across the two paths of a parity run.
+    While recording (the kernel path), every ``select_topk`` call keeps its
+    choice; while replaying (the gather path), the matching call makes its
+    own choice from its own proxy scores, measures how far it is from the
+    recorded one, and returns the recorded one, so both paths attend the
+    same keys. Where the two choices differ, ``gap`` is how far the gather
+    path's own scores rank the keys only it picked above those only the
+    kernel path picked, relative to the largest live |score| of that (row,
+    head): a swap at a near-tie of the boundary has a gap near 0."""
+
+    def __init__(self):
+        from repro_torch.core import retrieval_attention as ret_lib
+
+        self.ret_lib, self.select = ret_lib, ret_lib.select_topk
+        self.kept, self.record = [], True
+        self.sets = self.differ = 0
+        self.max_gap = 0.0
+
+    def __enter__(self):
+        self.ret_lib.select_topk = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.ret_lib.select_topk = self.select
+
+    def _call(self, s_proxy, length, cfg, query_positions=None):
+        idx = self.select(s_proxy, length, cfg, query_positions)
+        if self.record:
+            self.kept.append(idx)
+            return idx
+        pinned = self.kept.pop(0)
+        own = torch.zeros(s_proxy.shape, dtype=torch.bool, device=idx.device)
+        own.scatter_(-1, idx, True)
+        pin = torch.zeros_like(own).scatter_(-1, pinned, True)
+        differ = (own != pin).any(-1)
+        live = torch.arange(s_proxy.shape[-1], device=idx.device) < torch.as_tensor(
+            length, device=idx.device).reshape(-1, 1, 1, 1)
+        self.sets += int(live.any(-1).expand(differ.shape).sum().item())
+        if differ.any():
+            hi = torch.where(own & ~pin, s_proxy, -torch.inf).amax(-1)[differ]
+            lo = torch.where(pin & ~own, s_proxy, torch.inf).amin(-1)[differ]
+            top = torch.where(live, s_proxy.abs(), 0.0).amax(-1)[differ]
+            self.differ += int(differ.sum().item())
+            self.max_gap = max(self.max_gap, ((hi - lo) / top).max().item())
+        return pinned
 
 
 def top2_gap(logits: torch.Tensor) -> torch.Tensor:
@@ -773,20 +978,30 @@ def max_diff(got) -> dict:
             for i, name in enumerate(("prefill", "first-decode"))}
 
 
-def parity(T, M, cfg, params, reqs, mode: str) -> dict:
-    """Kernels on vs the gather path in float32 for attention ``mode``:
+def parity(T, M, cfg, params, reqs, mode: str, rt_kw=None) -> dict:
+    """Kernels on vs the gather path in float32 for attention ``mode`` (with
+    the runtime's other settings ``rt_kw``):
     chunked-prefill and first-decode logits of two slots, then the greedy
     streams of the served requests. Dense and decomposed (T1, which
     re-quantizes nothing) run each path on its own history. CPQ runs the two
     in lockstep on one history (SharedKV): each path compresses the K/V it
     computed, which differ in the last ulp, and 4-bit codes can turn that
     into whole quantization steps, which the next layer's K/V then carry
-    (PERF.md)."""
+    (PERF.md). T3 (retrieval) runs in lockstep too, for the same reason
+    (int8 proxy codes of K/V that differ in the last ulp differ by a whole
+    step), and with its top-k choices pinned (``SelectionPin``): the two
+    paths' queries still differ in the last ulps, which can swap a key at
+    the top-k boundary, and one swap moves the next logits by ~1e-3
+    (PERF.md). So the gather path attends the keys the kernel path chose,
+    every choice of its own that differs must differ by a swap within
+    TOPK_GAP of the boundary, and the logits and streams are held as for
+    the other modes; the unpinned first-decode logits are reported."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     paths = (True, False)
-    rts = {fused: T.AttentionRuntime(mode=mode, paged_kernels=fused) for fused in paths}
-    lockstep = mode == "cpq"
+    rts = {fused: T.AttentionRuntime(mode=mode, paged_kernels=fused, **(rt_kw or {}))
+           for fused in paths}
+    lockstep, pinned = mode in ("cpq", "retrieval"), mode == "retrieval"
     small = T.ServingCfg(num_slots=2, page_size=16, num_pages=80, max_blocks_per_slot=64)
     bt = np.zeros((2, 64), np.int32)
     lens = [len(reqs[0].prompt), len(reqs[1].prompt)]
@@ -795,12 +1010,20 @@ def parity(T, M, cfg, params, reqs, mode: str) -> dict:
     bt[1, :lens[1] // 16 + 1] = perm[40:40 + lens[1] // 16 + 1]
     run = {f: (lambda f=f: first_logits(M, cfg, rts[f], params, reqs, small, bt))
            for f in paths}
-    if lockstep:
+    out = {}
+    if pinned:
         with SharedKV() as shared:
-            got = shared.pair(run[True], run[False])
+            own = pair([shared], run[True], run[False])
+        err = (own[0][1] - own[1][1]).abs().max().item()
+        out["unpinned_first-decode_logits_max_abs_diff"] = err
+        log(f"parity {mode}: unpinned first-decode_logits_max_abs_diff {err:.3e} (no gate)")
+    if lockstep:
+        with SharedKV() as shared, pin_if(pinned) as pin:
+            got = pair([shared] + [pin] * pinned, run[True], run[False])
+        if pinned:
+            out.update(pin_report(mode, "first logits", pin))
     else:
         got = (run[True](), run[False]())
-    out = {}
     for i, (name, err) in enumerate(max_diff(got).items()):
         out[name] = err
         log(f"parity {mode}: {name} {err:.3e} (atol=rtol={LOGIT_TOL})")
@@ -818,9 +1041,11 @@ def parity(T, M, cfg, params, reqs, mode: str) -> dict:
     gaps = {}
     step = gather_gaps(M, engs[False], gaps)
     if lockstep:
-        with SharedKV() as shared:
+        with SharedKV() as shared, pin_if(pinned) as pin:
             while engs[True].has_unfinished():
-                shared.pair(engs[True].step, step)
+                pair([shared] + [pin] * pinned, engs[True].step, step)
+        if pinned:
+            out.update(pin_report(mode, "streams", pin))
     else:
         while engs[True].has_unfinished():
             engs[True].step()
@@ -847,6 +1072,22 @@ def parity(T, M, cfg, params, reqs, mode: str) -> dict:
     out["streams_identical"] = len(reqs) - excused
     out["lockstep"] = lockstep
     return out
+
+
+def pin_if(pinned: bool):
+    return SelectionPin() if pinned else contextlib.nullcontext()
+
+
+def pin_report(mode: str, what: str, pin: SelectionPin) -> dict:
+    """Log and gate the top-k choices of a pinned parity run."""
+    log(f"parity {mode} {what}: {pin.differ} of {pin.sets} (row, head, layer) top-k sets "
+        f"the gather path chose differ from the kernel path's; largest relative gap "
+        f"{pin.max_gap:.3e} (tie below {TOPK_GAP})")
+    check(pin.max_gap <= TOPK_GAP, f"parity {mode} {what}: a top-k choice differs at a "
+          f"resolvable gap {pin.max_gap:.3e}")
+    key = what.replace(" ", "_")
+    return {f"{key}_topk_sets": pin.sets, f"{key}_topk_sets_differ": pin.differ,
+            f"{key}_topk_max_rel_gap": pin.max_gap}
 
 
 # ------------------------------------------------------------------ main
@@ -902,7 +1143,7 @@ def serve_recorded(eng, T, reqs, recorders: dict):
 def log_timing(name, t, launches, per_tick) -> None:
     log(f"{name}: {t['ms'] * 1e3:.2f} us/launch on the device, {t['eager_ms'] * 1e3:.2f} "
         f"us launched eagerly (bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}; "
-        f"plain {t['plain_ms'] * 1e3:.1f} us, sdpa {t['library_ms'] * 1e3:.1f} us) over "
+        f"plain {t['plain_ms'] * 1e3:.1f} us, library {t['library_ms'] * 1e3:.1f} us) over "
         f"{t['samples']} sampled calls; {launches} launches, {per_tick:.0f} per tick")
 
 
@@ -919,10 +1160,12 @@ def main() -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 1
     import repro_torch as T
+    from repro_torch.configs import RetrievalCfg
     from repro_torch.kernels import build
     from repro_torch.kernels.cpq_attn import ops as cpq_ops
     from repro_torch.kernels.decomposed_attn import ops as t1_ops
     from repro_torch.kernels.paged_attn import ops
+    from repro_torch.kernels.topk_retrieval import ops as t3_ops
     from repro_torch.models import model as M
     from repro_torch.params import init_params, to_device
     from repro_torch.serving import scheduler as S
@@ -937,9 +1180,11 @@ def main() -> int:
     report = {"card": smi, "profile": {}}
     kmods = {"paged_decode": ops, "paged_prefill": ops,
              "paged_cpq_decode": cpq_ops, "paged_cpq_prefill": cpq_ops,
-             "paged_decomposed_decode": t1_ops, "paged_decomposed_prefill": t1_ops}
+             "paged_decomposed_decode": t1_ops, "paged_decomposed_prefill": t1_ops,
+             "paged_proxy_scores": t3_ops}
 
-    # 2) build: one nvcc per source, all started together
+    # 2) build: one nvcc per source, all started together (B7's two wrappers
+    #    share one source, built once)
     t0 = time.perf_counter()
     build.build([mod.SOURCES[name] for name, mod in kmods.items()])
     for name, mod in kmods.items():
@@ -976,6 +1221,12 @@ def main() -> int:
         for tag, err in by_tag.items():
             check(err <= TOL[torch.bfloat16 if tag.startswith("bfloat16") else torch.float32],
                   f"{name} {tag}: error {err}")
+    errs["paged_proxy_scores"] = {}
+    for KV, G, Dp in T3_SHAPES:  # float32 only: B7 takes float32 factors, int8 codes
+        tag = f"float32 KV={KV} G={G} Dp={Dp}"
+        errs["paged_proxy_scores"][tag] = sweep_t3(t3_ops, KV, G, Dp)
+        log(f"sweep {tag}: paged_proxy_scores and proxy_scores "
+            f"{errs['paged_proxy_scores'][tag]:.3e} (tol {T3_REL} x max |score|)")
     log(f"[{time.perf_counter() - T0:.0f} s] kernels checked")
 
     # 4a) serve full-width qwen1.5-0.5b in bf16, dense
@@ -998,6 +1249,7 @@ def main() -> int:
 
     kv_arenas = lambda q, k, v, *rest: (k, v)  # noqa: E731
     x_arenas = lambda qn, qr, x, kr, *rest: (x, kr)  # noqa: E731
+    code_arenas = lambda q, sc, z, codes, *rest: (codes, (sc, z))  # noqa: E731
     decode_snap = lambda q, k, v, bt, ln, s: (q.clone(), bt.clone(), ln.clone())  # noqa: E731
     split_of = {  # (the call's arenas, a copy of its small inputs)
         "paged_decode": (kv_arenas, decode_snap),
@@ -1013,19 +1265,28 @@ def main() -> int:
         "paged_decomposed_prefill": (x_arenas, lambda qn, qr, x, kr, row, off, val, wk, wv, s: (
             t1_ops.query_rows(qn, wk, x.dtype)[0], qr[0].to(x.dtype).contiguous(),
             row.clone(), off, val)),
+        "paged_proxy_scores": (code_arenas, lambda q, sc, z, codes, bt, ln, n: (
+            q.clone(), bt.clone(), ln.clone(), n)),
     }
     cases = {"paged_decode": decode_case(ops, scale), "paged_prefill": prefill_case(ops, scale),
              "paged_cpq_decode": cpq_decode_case(cpq_ops, scale),
              "paged_cpq_prefill": cpq_prefill_case(cpq_ops, scale),
              "paged_decomposed_decode": t1_decode_case(t1_ops, scale),
-             "paged_decomposed_prefill": t1_prefill_case(t1_ops, scale)}
+             "paged_decomposed_prefill": t1_prefill_case(t1_ops, scale),
+             "paged_proxy_scores": t3_decode_case(t3_ops)}
+    # T3 with top_k=256 (one of bench_retrieval.py's K): with prompts of
+    # 64-512 tokens plus 64 new ones, rows past 256 keys really select
+    t3_cfg = RetrievalCfg(top_k=256, recent_window=64)
+    rts = {mode: T.AttentionRuntime(mode=mode) for mode in ("dense", "cpq", "decomposed")}
+    rts["retrieval"] = T.AttentionRuntime(mode="retrieval", retrieval=t3_cfg)
     for mode, (dec, pre) in (("dense", ("paged_decode", "paged_prefill")),
                              ("cpq", ("paged_cpq_decode", "paged_cpq_prefill")),
                              ("decomposed", ("paged_decomposed_decode",
-                                             "paged_decomposed_prefill"))):
-        # 4a) dense, 4b) mode="cpq", 4d) mode="decomposed"
-        eng = T.ContinuousServeEngine(cfg, params, rt=T.AttentionRuntime(mode=mode),
-                                      serving=serving, device=DEVICE)
+                                             "paged_decomposed_prefill")),
+                             ("retrieval", ("paged_proxy_scores", "paged_prefill"))):
+        # 4a) dense, 4b) mode="cpq", 4d) mode="decomposed", 4e) mode="retrieval"
+        eng = T.ContinuousServeEngine(cfg, params, rt=rts[mode], serving=serving,
+                                      device=DEVICE)
         recs = recorders_of(dec, pre)
         run = make_requests(T, cfg.vocab_size)  # a served Request keeps its tokens
         results, stats, ticks, wall, counts = serve_recorded(eng, T, run, recs)
@@ -1033,20 +1294,32 @@ def main() -> int:
         check(counts[dec] == L * stats["decode_steps"] and counts[pre] == L * stats["prefill_chunks"],
               f"{mode}: launch counts {counts} vs {stats['decode_steps']} decode ticks and "
               f"{stats['prefill_chunks']} chunks")
-        launches.update(counts)
-        per_tick[dec] = counts[dec] / stats["decode_steps"]
-        per_tick[pre] = counts[pre] / stats["prefill_chunks"]
         serves[mode] = serve_metrics(stats, ticks, wall, mode)
+        serves[mode]["launches"] = counts
         log(f"[{time.perf_counter() - T0:.0f} s] served {mode}")
         for name in (dec, pre):
+            if name in timing:  # B2 again, under T3: its launches are logged only
+                log(f"{name}: {counts[name]} launches in the {mode} serve, "
+                    f"{counts[name] / stats['prefill_chunks']:.0f} per chunk tick")
+                continue
+            launches[name] = counts[name]
+            per_tick[name] = counts[name] / stats["decode_steps" if name == dec
+                                                 else "prefill_chunks"]
             timing[name] = time_kernel(recs[name][1], cases[name])
             log_timing(name, timing[name], launches[name], per_tick[name])
+        if mode == "retrieval":
+            d, r = serves["dense"], serves[mode]
+            log(f"serve retrieval vs dense, same call: decode tick median "
+                f"{r['decode_step_ms_median']:.3f} vs {d['decode_step_ms_median']:.3f} ms, "
+                f"end to end {r['end_to_end_tokens_per_s']:.1f} vs "
+                f"{d['end_to_end_tokens_per_s']:.1f} tokens/s, arena {r['arena_bytes']} vs "
+                f"{d['arena_bytes']} bytes")
         del eng, recs
         torch.cuda.empty_cache()
         windows = ([(40, 50)] if mode == "dense" else []) + [mid_decode_window(ticks)]
         report["profile"][mode] = profile_windows(
-            lambda: T.ContinuousServeEngine(cfg, params, rt=T.AttentionRuntime(mode=mode),
-                                            serving=serving, device=DEVICE),
+            lambda: T.ContinuousServeEngine(cfg, params, rt=rts[mode], serving=serving,
+                                            device=DEVICE),
             T, make_requests(T, cfg.vocab_size), ticks, windows)
         log_profile(mode, report["profile"][mode])
         torch.cuda.empty_cache()
@@ -1078,7 +1351,7 @@ def main() -> int:
         S.Scheduler.admit_next = admit
     counts = {name: kmods[name].__dict__[name].launches for name in tiered_kernels}
     check(not any(getattr(mod, name).launches for name, mod in kmods.items()
-                  if name not in tiered_kernels), "tiered: a T1 kernel launched")
+                  if name not in tiered_kernels), "tiered: a T1 or T3 kernel launched")
     check_finished(results, run, "tiered")
     serves["tiered"] = serve_metrics(stats, ticks, wall, "tiered")
     serves["tiered"].update(
@@ -1112,12 +1385,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - T0:.0f} s] profiled tiered")
 
-    # 5) f32 parity, kernels on and off, dense, CPQ and T1
+    # 5) f32 parity, kernels on and off, dense, CPQ, T1 and T3
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = to_device(_tree_float(params), DEVICE)
     del params
     report["parity"] = {mode: parity(T, M, cfg32, params32, reqs, mode)
                         for mode in ("dense", "cpq", "decomposed")}
+    with TopkWitness(t3_ops, t3_cfg, L) as witness:
+        report["parity"]["retrieval"] = parity(T, M, cfg32, params32, reqs, "retrieval",
+                                               dict(retrieval=t3_cfg))
+    report["parity"]["retrieval"].update(
+        topk_sets_compared=witness.sets, topk_sets_differ_plain=witness.differ_plain,
+        topk_sets_differ_gather=witness.differ_gather)
+    log(f"parity retrieval: of {witness.sets} (row, head, layer) top-k sets over sampled "
+        f"decode calls, {witness.differ_plain} differ between B7's scores and its plain "
+        f"version's, {witness.differ_gather} between B7's and the gather path's (no gate)")
     log(f"[{time.perf_counter() - T0:.0f} s] parity checked")
 
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",
@@ -1125,12 +1407,17 @@ def main() -> int:
                 "paged_cpq_decode": "src/repro/kernels/cpq_dequant_attn/kernel.py:281",
                 "paged_cpq_prefill": "src/repro/kernels/cpq_dequant_attn/kernel.py:213",
                 "paged_decomposed_decode": "src/repro/kernels/decomposed_attn/kernel.py:244",
-                "paged_decomposed_prefill": "src/repro/kernels/decomposed_attn/kernel.py:187"}
+                "paged_decomposed_prefill": "src/repro/kernels/decomposed_attn/kernel.py:187",
+                "paged_proxy_scores": "src/repro/kernels/topk_retrieval/kernel.py:39"}
+    sdpa = "torch.nn.functional.scaled_dot_product_attention"
+    library = {name: sdpa for name in kmods}
+    library["paged_proxy_scores"] = "torch.matmul on codes gathered beforehand, plus qz"
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
     for name, mod in kmods.items():
         t = timing[name]
         served = ("bfloat16 H=16 Dm=1024 kv_r=16 Rr=32" if "decomposed" in name
+                  else "float32 KV=16 G=1 Dp=64" if name == "paged_proxy_scores"
                   else "bfloat16 KV=16 G=1 Dh=64" + (" bits=4" if "cpq" in name else ""))
         kernels.append({
             "name": name, "route": "cuda",
@@ -1141,8 +1428,9 @@ def main() -> int:
             "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "library": "torch.nn.functional.scaled_dot_product_attention",
-            "timed_samples": t["samples"]})
+            "library": library[name], "timed_samples": t["samples"],
+            "launches_by_serve": {mode: sv["launches"][name] for mode, sv in serves.items()
+                                  if name in sv.get("launches", {})}})
     report["kernels"] = kernels
     report["run_s"] = time.perf_counter() - T0
     if args.out:

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the JAX package ``repro``.
 
 The port serves the continuous-batching engine on an NVIDIA GPU, dense, T1
-decomposed, T2 CPQ and tiered, through hand-written paged-attention CUDA
+decomposed, T2 CPQ, T3 retrieval and tiered, through hand-written CUDA
 kernels (``kernels/paged_attn``, ``kernels/decomposed_attn``,
-``kernels/cpq_attn``); every module keeps the name of its JAX counterpart. It imports nothing of ``repro`` or ``jax``: the JAX package is
+``kernels/cpq_attn``, ``kernels/topk_retrieval``); every module keeps the
+name of its JAX counterpart. It imports nothing of ``repro`` or ``jax``: the JAX package is
 the reference the port's tests hold it against.
 """
 from repro_torch.configs import (ARCHS, AttentionRuntime, ModelConfig, ServingCfg,

@@ -53,10 +53,11 @@ def build(sources: list[Path]) -> list[Path]:
     started together. Returns the library paths in source order."""
     targets = [_target(s) for s in sources]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs, seen = [], set()
     for src, tgt in zip(sources, targets):
-        if tgt.exists():
+        if tgt.exists() or tgt in seen:  # built, or named twice
             continue
+        seen.add(tgt)
         tmp = tgt.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs.append((src, tgt, tmp, subprocess.Popen(

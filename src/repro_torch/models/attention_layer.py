@@ -1,8 +1,8 @@
 """GQA/MQA/MHA attention layer of the port, serving phases over paged arenas
 (the JAX package's ``models/attention_layer.py``). Ported: the dense,
-decomposed (T1) and CPQ (T2) modes and the tiered dense + CPQ arena;
-retrieval (T3) and decomposed_cpq (T1+T2) raise ``NotImplementedError``
-naming their ROADMAP item.
+decomposed (T1), CPQ (T2) and retrieval (T3) modes and the tiered dense +
+CPQ arena; decomposed_cpq (T1+T2) raises ``NotImplementedError`` naming its
+ROADMAP item.
 
 Decomposed (T1) rope handling: rotations do not commute with W_K, so on
 RoPE architectures only the first ``decoupled_rope_dims`` dims of each q
@@ -120,6 +120,10 @@ def init_paged_attn_cache(cfg: ModelConfig, rt: AttentionRuntime, serving,
     if rt.mode == "cpq":
         return pgc.init_paged_cpq(serving.num_pages, serving.page_size,
                                   serving.num_slots, kv, dh, rt.cpq, device=device)
+    if rt.mode == "retrieval":
+        return pgc.init_paged_retrieval(serving.num_pages, serving.page_size,
+                                        serving.num_slots, kv, dh, rt.retrieval,
+                                        dtype=cfg.param_dtype, device=device)
     raise pgc.unported_mode(rt.mode)
 
 

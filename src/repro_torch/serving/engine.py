@@ -10,8 +10,10 @@ follow the reference step for step, so greedy streams and tick counters are
 identical to the JAX engine's.
 
 Attention modes: ``dense``, ``decomposed`` (T1: the arena holds the normed
-block input X and a roped key slice per kv head instead of K and V) and
-``cpq`` (T2: the whole arena holds int8 CPQ codes). With
+block input X and a roped key slice per kv head instead of K and V),
+``cpq`` (T2: the whole arena holds int8 CPQ codes) and ``retrieval`` (T3:
+K and V pages beside int8 proxy-code pages; decode attends the top-k keys
+by proxy score plus a recent window, prefill attends densely). With
 ``ServingCfg(enable_escalation=True)`` a dense engine is tiered: every
 layer pairs its dense arena with a CPQ escalation arena, new admissions go
 to the CPQ tier while the dense arena's free fraction is below
@@ -22,8 +24,8 @@ reference, escalation with any other mode leaves the engine untiered.
 The engine runs on the GPU unless ``device`` names another device. It
 refuses, with ``SchedulerConfigError``, every knob the port does not
 implement yet instead of ignoring it: prefix sharing, speculative decoding,
-one-shot admission (``prefill_chunk=0``), defrag, a device mesh, the T3 and
-T1+T2 attention modes, non-token inputs, non-FIFO policies and sampled
+one-shot admission (``prefill_chunk=0``), defrag, a device mesh, the T1+T2
+attention mode, non-token inputs, non-FIFO policies and sampled
 (``temperature > 0``) requests.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Block-paged KV arenas for continuous batching (the JAX package's
-``serving/paged_cache.py``): the dense tier, the T1 X tier, the T2 CPQ tier
-and the tiered arena that pairs dense with CPQ.
+``serving/paged_cache.py``): the dense tier, the T1 X tier, the T2 CPQ tier,
+the T3 retrieval tier and the tiered arena that pairs dense with CPQ.
 
 The token axis is cut into fixed-size pages owned by a shared physical pool
 ``(P, page_size, KV, Dh)``; a per-slot block table ``(B, max_blocks)`` maps
@@ -15,16 +15,18 @@ which value lands there is unspecified and harmless, because page 0 is
 never read.
 
 Per-token state is paged; per-sequence state (the CPQ scale/zero tables,
-level counts and prune thresholds) stays slot-indexed ``(num_slots, ...)``
-and is overwritten at admission.
+level counts and prune thresholds, the T3 proxy calibration) stays
+slot-indexed ``(num_slots, ...)`` and is overwritten at admission.
 
 Mode -> paged container:
   dense       PagedDenseKVCache   K, V pages
   decomposed  PagedXCache         block-input X pages + roped key slice (T1)
   cpq         PagedCPQKVCache     CPQ code/level pages, slot tables (T2)
+  retrieval   PagedRetrievalCache K, V and int8 proxy-code pages, slot
+                                  proxy calibration (T3)
   tiered      TieredPagedCache    dense base arena + CPQ escalation arena
-The T3 retrieval and T1+T2 containers are not ported yet; their modes raise
-``NotImplementedError`` naming their ROADMAP item.
+The T1+T2 container is not ported yet; its mode raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -36,21 +38,23 @@ import torch
 from repro_torch.configs import AttentionRuntime, CPQCfg
 from repro_torch.core import attention as core_attn
 from repro_torch.core import cpq as cpq_lib
+from repro_torch.core import retrieval_attention as ret_lib
 from repro_torch.core.decomposed_attention import decomposed_attention
 from repro_torch.kernels.cpq_attn import ops as cpq_ops
 from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.kernels.paged_attn import ops
+from repro_torch.kernels.topk_retrieval import ops as t3_ops
 
 NULL_PAGE = 0
 
-UNPORTED_MODES = {"retrieval": "A15", "decomposed_cpq": "A16"}
+UNPORTED_MODES = {"decomposed_cpq": "A16"}
 
 
 def unported_mode(mode: str) -> NotImplementedError:
     return NotImplementedError(
         f"attention mode {mode!r} is not ported yet "
         f"(ROADMAP {UNPORTED_MODES.get(mode, 'A')}); the port serves 'dense', "
-        "'decomposed' and 'cpq'")
+        "'decomposed', 'cpq' and 'retrieval'")
 
 
 class RowState(NamedTuple):
@@ -250,6 +254,17 @@ class PagedCPQKVCache(NamedTuple):
     v: PagedCPQTensor
 
 
+class PagedRetrievalCache(NamedTuple):
+    """T3 arena: K and V pages, int8 proxy-code pages (stored code - 128) and
+    each slot's proxy calibration, fitted on its first prompt chunk."""
+
+    k: torch.Tensor            # (P, page, KV, Dh)
+    v: torch.Tensor            # (P, page, KV, Dh)
+    proxy: torch.Tensor        # (P, page, KV, Dp) int8
+    proxy_scale: torch.Tensor  # (num_slots, KV, Dp) f32
+    proxy_zero: torch.Tensor   # (num_slots, KV, Dp) f32
+
+
 class TieredPagedCache(NamedTuple):
     """Dense base arena + CPQ escalation arena; ``RowState.tier`` selects the
     live one per row (the watermark policy's dense -> T2 target)."""
@@ -279,6 +294,19 @@ def init_paged_x(num_pages: int, page_size: int, dm: int, kv: int, rope_dims: in
         x=torch.zeros((num_pages, page_size, dm), dtype=dtype, device=device),
         k_rope=torch.zeros((num_pages, page_size, kv, rope_dims), dtype=dtype,
                            device=device))
+
+
+def init_paged_retrieval(num_pages: int, page_size: int, num_slots: int, kv: int,
+                         dh: int, cfg, dtype=torch.bfloat16,
+                         device="cpu") -> PagedRetrievalCache:
+    dp = cfg.proxy_dim or dh
+    shape = (num_pages, page_size, kv, dh)
+    return PagedRetrievalCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        proxy=torch.zeros((num_pages, page_size, kv, dp), dtype=torch.int8, device=device),
+        proxy_scale=torch.ones((num_slots, kv, dp), dtype=torch.float32, device=device),
+        proxy_zero=torch.zeros((num_slots, kv, dp), dtype=torch.float32, device=device))
 
 
 def _init_paged_cpq_tensor(num_pages: int, page_size: int, num_slots: int, h: int,
@@ -376,8 +404,9 @@ def pack_cpq(cache: PagedCPQKVCache, src: CPQKVCache, block_row: torch.Tensor,
 
 def bytes_per_token(cache, page_size: int, cpq_cfg: Optional[CPQCfg] = None) -> float:
     """Per-token decode traffic of a paged arena: the payload (dense K and V,
-    T1's X row and roped key slices, or the CPQ accounting of
-    ``cpq_bytes_per_token``) plus the amortized block-table entry. A tiered
+    T1's X row and roped key slices, the CPQ accounting of
+    ``cpq_bytes_per_token``, or T3's K and V plus one byte per proxy
+    channel) plus the amortized block-table entry. A tiered
     arena counts its base tier."""
     overhead = 4.0 / page_size
     if isinstance(cache, TieredPagedCache):
@@ -391,6 +420,9 @@ def bytes_per_token(cache, page_size: int, cpq_cfg: Optional[CPQCfg] = None) -> 
     elif isinstance(cache, PagedCPQKVCache):
         payload = 2.0 * cpq_lib.cpq_bytes_per_token(
             cpq_cfg or CPQCfg(), cache.k.codes.shape[2], cache.k.codes.shape[3])
+    elif isinstance(cache, PagedRetrievalCache):
+        payload = (2.0 * cache.k.shape[2] * cache.k.shape[3] * cache.k.element_size()
+                   + cache.proxy.shape[2] * cache.proxy.shape[3])
     else:
         raise TypeError(type(cache))
     return payload + overhead
@@ -470,6 +502,40 @@ def cpq_chunk_prefill_attention(q, kt: PagedCPQTensor, vt: PagedCPQTensor,
                                      logit_bias=bias[None, :, None, :])
 
 
+def _dense_chunk_attend(rt, k_pages, v_pages, block_row, offset: int, valid: int, q,
+                        scale: float) -> torch.Tensor:
+    """A chunk's C queries over the slot's K/V pages [0, offset + valid):
+    B2 with ``rt.paged_kernels``, the gather path otherwise."""
+    if rt.paged_kernels:
+        return ops.paged_prefill(q, k_pages, v_pages, block_row, offset, valid, scale)
+    return core_attn.dense_attention(
+        q, gather_pages(k_pages, block_row[None]), gather_pages(v_pages, block_row[None]),
+        scale, causal=True, q_offset=offset, kv_length=offset + valid)
+
+
+def chunk_proxy(cache: PagedRetrievalCache, cfg, slot: int, block_row: torch.Tensor,
+                offset: int, valid: int, k_c: torch.Tensor, first: bool) -> None:
+    """Encode one prompt chunk's proxy codes into the slot's pages, in place.
+    The first chunk fits the slot's proxy calibration on its own keys (the
+    reference's behaviour: later chunks and decode appends encode with it,
+    so a one-shot admission, which fits the whole prompt, can differ); the
+    chunk's padding takes the last valid key first, so the per-channel
+    min/max sees only real keys. k_c (1, C, KV, Dh) roped keys."""
+    dp = cfg.proxy_dim or k_c.shape[-1]
+    if first:
+        idx = torch.arange(k_c.shape[1], device=k_c.device)
+        edge = k_c[:, max(valid - 1, 0)][:, None]
+        k_fit = torch.where((idx < valid)[None, :, None, None], k_c, edge)
+        codes, pscale, pzero = ret_lib.fit_proxy(k_fit[..., :dp], cfg.proxy_bits)
+        cache.proxy_scale[slot] = pscale[0]
+        cache.proxy_zero[slot] = pzero[0]
+    else:
+        sl = slice(slot, slot + 1)
+        codes = ret_lib.encode_proxy(k_c[..., :dp], cache.proxy_scale[sl],
+                                     cache.proxy_zero[sl], cfg.proxy_bits)
+    write_chunk_pages(cache.proxy, block_row, offset, valid, codes[0])
+
+
 def _cpq_runtime(rt) -> AttentionRuntime:
     """The runtime of a tiered arena's CPQ arm."""
     return AttentionRuntime(mode="cpq", cpq=rt.cpq, paged_kernels=rt.paged_kernels)
@@ -486,10 +552,12 @@ def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
                        w_v: Optional[torch.Tensor] = None):
     """Write one prompt chunk straight into the slot's arena pages, then
     attend the chunk's C queries over the slot's pages [0, offset + valid):
-    the B2 (dense), B4 (T1) or B6 (CPQ) kernel with ``rt.paged_kernels``,
-    the gather path otherwise. A CPQ arena compresses the chunk as it goes
-    (level-0 fit on the ``first`` chunk, HQE extension after) and reads
-    earlier chunks through their codes. A tiered arena runs the arm of the
+    the B2 (dense and T3), B4 (T1) or B6 (CPQ) kernel with
+    ``rt.paged_kernels``, the gather path otherwise. A CPQ arena compresses
+    the chunk as it goes (level-0 fit on the ``first`` chunk, HQE extension
+    after) and reads earlier chunks through their codes; a T3 arena encodes
+    the chunk's proxy codes the same way (``chunk_proxy``) and attends
+    densely. A tiered arena runs the arm of the
     host-static admission ``tier``. q (1, C, H, Dh) roped; k_c/v_c
     (1, C, KV, Dh); slot/offset/valid host ints. The T1 arena takes instead
     x_c (1, C, Dm) normed block input, k_rope_c (1, C, KV, R), q_nope
@@ -505,14 +573,16 @@ def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
     if isinstance(cache, PagedDenseKVCache) and rt.mode == "dense":
         write_chunk_pages(cache.k, block_row, offset, valid, k_c[0])
         write_chunk_pages(cache.v, block_row, offset, valid, v_c[0])
-        if rt.paged_kernels:
-            out = ops.paged_prefill(q, cache.k, cache.v, block_row, offset, valid, scale)
-        else:
-            out = core_attn.dense_attention(
-                q, gather_pages(cache.k, block_row[None]),
-                gather_pages(cache.v, block_row[None]),
-                scale, causal=True, q_offset=offset, kv_length=offset + valid)
-        return out, cache
+        return _dense_chunk_attend(rt, cache.k, cache.v, block_row, offset, valid, q,
+                                   scale), cache
+    if isinstance(cache, PagedRetrievalCache) and rt.mode == "retrieval":
+        chunk_proxy(cache, rt.retrieval, slot, block_row, offset, valid, k_c, first)
+        write_chunk_pages(cache.k, block_row, offset, valid, k_c[0])
+        write_chunk_pages(cache.v, block_row, offset, valid, v_c[0])
+        # prefill COMPUTE is dense (T3 gates decode reads only): the K/V
+        # pages hold the raw payload, so the dense chunk kernel serves them
+        return _dense_chunk_attend(rt, cache.k, cache.v, block_row, offset, valid, q,
+                                   scale), cache
     if isinstance(cache, PagedXCache) and rt.mode == "decomposed":
         write_chunk_pages(cache.x, block_row, offset, valid, x_c[0])
         write_chunk_pages(cache.k_rope, block_row, offset, valid, k_rope_c[0])
@@ -552,8 +622,8 @@ def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
                         w_k_nope: Optional[torch.Tensor] = None,
                         w_v: Optional[torch.Tensor] = None):
     """Write one token per row through the block table, then attend with
-    per-row lengths: the B1 (dense), B3 (T1) or B5 (CPQ) kernel with
-    ``rt.paged_kernels`` (the default), the gather path otherwise. A tiered
+    per-row lengths: the B1 (dense), B3 (T1), B5 (CPQ) or B7 (T3) kernel
+    with ``rt.paged_kernels`` (the default), the gather path otherwise. A tiered
     arena runs both arms on every row, each arm's writes masked to its own
     tier's rows and the CPQ arm reading ``rows.alt_block_table``, and picks
     each row's output by tier, as the reference does. Inactive rows write
@@ -582,6 +652,23 @@ def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
             gather_pages(cache.v, rows.block_table),
             scale, causal=False, kv_length=new_len)
         return out, cache
+    if isinstance(cache, PagedRetrievalCache) and rt.mode == "retrieval":
+        cfg = rt.retrieval
+        dp = cfg.proxy_dim or k_t.shape[-1]
+        code_t = ret_lib.encode_proxy(k_t[..., :dp], cache.proxy_scale, cache.proxy_zero,
+                                      cfg.proxy_bits)
+        append_dense(cache, rows, k_t, v_t)
+        write_token_pages(cache.proxy, rows.block_table, rows.lengths, rows.active,
+                          code_t[:, 0])
+        if rt.paged_kernels:
+            return retrieval_decode_paged(cache, rows.block_table, new_len, q, cfg,
+                                          scale), cache
+        out = ret_lib.retrieval_attention(
+            q, gather_pages(cache.k, rows.block_table),
+            gather_pages(cache.v, rows.block_table),
+            gather_pages(cache.proxy, rows.block_table),
+            cache.proxy_scale, cache.proxy_zero, new_len, cfg, scale)
+        return out, cache
     if isinstance(cache, PagedXCache) and rt.mode == "decomposed":
         append_x(cache, rows, x_t, k_rope_t)
         if rt.paged_kernels:
@@ -603,6 +690,31 @@ def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
             logical_cpq(cache.v, rows.block_table), new_len, scale)
         return out, cache
     raise _unported_cache(rt, cache)
+
+
+def retrieval_decode_paged(cache: PagedRetrievalCache, block_table: torch.Tensor,
+                           lengths: torch.Tensor, q: torch.Tensor, cfg,
+                           scale: float) -> torch.Tensor:
+    """Kernel route of T3 decode: B7 scores every row's proxy code pages
+    through the block table, ``select_topk`` picks over the same N =
+    max_blocks * page positions as the gathered view, each picked logical
+    position is translated to its (page, slot) through the block table, and
+    only the picked K/V are read for the exact re-score and calibration. No
+    logical view of K, V or the codes is formed. q (B, 1, H, Dh) roped;
+    lengths (B,) after this step's append. Returns (B, 1, H, Dh)."""
+    B, _, H, Dh = q.shape
+    page, KV = cache.k.shape[1], cache.k.shape[2]
+    dp = cfg.proxy_dim or Dh
+    sp = t3_ops.paged_proxy_scores(q[:, 0, :, :dp] * scale, cache.proxy_scale,
+                                   cache.proxy_zero, cache.proxy, block_table, lengths,
+                                   block_table.shape[1] * page)[:, None]
+    idx = ret_lib.select_topk(sp, lengths, cfg)                  # (B, 1, H, K) logical
+    phys = torch.gather(block_table.long(), 1,
+                        (idx // page).reshape(B, -1)).reshape(idx.shape)
+    kvh = (torch.arange(H, device=q.device) // (H // KV))[None, None, :, None]
+    slot = idx % page
+    return ret_lib.attend_selected(q, cache.k[phys, slot, kvh], cache.v[phys, slot, kvh],
+                                   idx, sp, lengths, scale)
 
 
 def _unported_cache(rt, cache) -> NotImplementedError:

@@ -115,7 +115,7 @@ def test_generate_matches_jax(model):
     (dict(policy="slo"), {}),
     ({}, dict(mesh=object())),
     ({}, dict(mode="decomposed_cpq")),
-    ({}, dict(mode="retrieval")),
+    ({}, dict(mode="retrieval", mesh=object())),  # T3 serves, but not over a mesh
 ])
 def test_unported_knobs_raise(model, serving_kw, rt_kw):
     _, tcfg, _, tparams = model

@@ -11,7 +11,10 @@ below 4 in magnitude). The T2 (CPQ) kernels B5/B6 dequantize to the same
 bf16 values as their plain versions and are held to 5e-5 in float32 (the
 outputs reach 3 in magnitude) and 2e-2 in bfloat16. The T1 kernels B3/B4
 return P, a weighted mean of X rows, and are held to 1e-5 / 2e-2, also at
-the widths they are built for (``T1_WIDE``).
+the widths they are built for (``T1_WIDE``). The T3 proxy-scoring kernel B7
+takes float32 query factors and int8 codes only; its scores are held to
+1e-5 x max |score| (float32 sums of 16-64 terms in another order) and its
+masked scores must be exactly -1e30.
 """
 import pytest
 import torch
@@ -19,10 +22,12 @@ import torch
 from repro_torch.kernels.cpq_attn import ops as cpq_ops
 from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.kernels.paged_attn import ops
-from torch_paged_cases import (CPQ_DECODE_CASES, CPQ_PREFILL_CASES, DECODE_CASES,
-                               PREFILL_CASES, T1_DECODE_CASES, T1_PREFILL_CASES, T1_WIDE,
-                               cpq_arena, cpq_decode_inputs, cpq_prefill_inputs,
-                               decode_inputs, prefill_inputs, t1_decode_inputs,
+from repro_torch.kernels.topk_retrieval import ops as t3_ops
+from torch_paged_cases import (CONTIG_PROXY_CASES, CPQ_DECODE_CASES, CPQ_PREFILL_CASES,
+                               DECODE_CASES, PREFILL_CASES, PROXY_CASES, T1_DECODE_CASES,
+                               T1_PREFILL_CASES, T1_WIDE, contig_proxy_inputs, cpq_arena,
+                               cpq_decode_inputs, cpq_prefill_inputs, decode_inputs,
+                               prefill_inputs, proxy_inputs, t1_decode_inputs,
                                t1_prefill_inputs, tensors)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -172,3 +177,64 @@ def test_decomposed_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(RuntimeError, match="kernel launch failed"):  # Dm > 2048
         t1_ops.paged_decomposed_decode_fwd(wide, args[1][:1], torch.zeros(
             (3, 4, 4096), device="cuda"), args[3][:3], args[4][:1], args[5][:1], scale)
+
+
+# ---------------------------------------------------------------- T3 / B7
+
+
+def _scores_close(got, want):
+    live = want > -1e29
+    assert torch.equal(got[~live], want[~live])
+    if live.any():
+        err = (got[live] - want[live]).abs().max().item()
+        assert err <= 1e-5 * want[live].abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PROXY_CASES)
+def test_paged_proxy_scores_kernel_matches_plain(cuda, case):
+    q, scale, zero, codes, bt, lengths = (torch.tensor(a, device="cuda")
+                                          for a in proxy_inputs(*case))
+    n = bt.shape[1] * codes.shape[1]
+    before = t3_ops.paged_proxy_scores.launches
+    out = t3_ops.paged_proxy_scores(q, scale, zero, codes, bt, lengths, n)
+    torch.cuda.synchronize()
+    assert t3_ops.paged_proxy_scores.launches == before + 1
+    _scores_close(out, t3_ops.paged_proxy_scores_plain(q, scale, zero, codes, bt, lengths, n))
+    assert (out[lengths == 0] == -1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONTIG_PROXY_CASES)
+def test_contiguous_proxy_scores_kernel_matches_plain(cuda, case):
+    seed, B, N, KV, g, Dp, length, _ = case
+    qs, qz, codes, length = contig_proxy_inputs(seed, B, N, KV, g, Dp, length)
+    qs, qz, codes = (torch.tensor(a, device="cuda") for a in (qs, qz, codes))
+    before = t3_ops.proxy_scores.launches
+    out = t3_ops.proxy_scores(qs, qz, codes, length)
+    torch.cuda.synchronize()
+    assert t3_ops.proxy_scores.launches == before + 1
+    _scores_close(out, t3_ops.proxy_scores_plain(qs, qz, codes, length))
+
+
+@pytest.mark.cuda
+def test_proxy_scores_wrappers_refuse_bad_inputs(cuda):
+    q, scale, zero, codes, bt, lengths = (torch.tensor(a, device="cuda")
+                                          for a in proxy_inputs(*PROXY_CASES[0]))
+    n = bt.shape[1] * codes.shape[1]
+    with pytest.raises(ValueError, match="Dp"):            # 8 proxy channels
+        t3_ops.paged_proxy_scores(q[..., :8].contiguous(), scale[..., :8].contiguous(),
+                                  zero[..., :8].contiguous(), codes[..., :8].contiguous(),
+                                  bt, lengths, n)
+    with pytest.raises(TypeError):                        # int32 codes
+        t3_ops.paged_proxy_scores(q, scale, zero, codes.int(), bt, lengths, n)
+    with pytest.raises(TypeError):                        # int64 block table
+        t3_ops.paged_proxy_scores(q, scale, zero, codes, bt.long(), lengths, n)
+    with pytest.raises(ValueError):                       # a CPU block table
+        t3_ops.paged_proxy_scores(q, scale, zero, codes, bt.cpu(), lengths, n)
+    with pytest.raises(ValueError):                       # n past the table
+        t3_ops.paged_proxy_scores(q, scale, zero, codes, bt, lengths, n + 1)
+    with pytest.raises(ValueError, match="G="):           # 3 query heads per kv head
+        t3_ops.proxy_scores(torch.zeros((1, 1, 3, 16), device="cuda"),
+                            torch.zeros((1, 1, 3, 1), device="cuda"),
+                            torch.zeros((1, 4, 1, 16), dtype=torch.int8, device="cuda"), 4)

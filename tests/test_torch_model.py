@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from repro.configs import ARCHS, AttentionRuntime, ServingCfg, smoke_config
 from repro.configs.base import CPQCfg as JCPQCfg
+from repro.configs.base import RetrievalCfg as JRetrievalCfg
 from repro.core import attention as j_attn
 from repro.models import layers as jl
 from repro.models import model as JM
@@ -383,3 +384,54 @@ def test_decomposed_prefill_and_decode_logits_match_jax(qwen, fused):
         for name in ("x", "k_rope"):
             _close(getattr(tcaches["blocks"][0][i], name)[mapped],
                    np.asarray(getattr(jcaches["blocks"][0], name)[i])[mapped])
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_retrieval_prefill_and_decode_logits_match_jax(qwen, fused):
+    """mode="retrieval" (T3) with top_k=6 and recent_window=2, so rows past 6
+    keys really select: two slots stream their prompts (slot 0's first
+    chunk fits the proxy calibration, its second chunk encodes with it),
+    then decode three times, once with a row inactive. Logits at every step,
+    the K/V pages and the slot calibration match; the proxy codes are equal
+    but for rare rounding ties of keys that differ in the last ulp."""
+    jcfg, tcfg, params, tparams = qwen
+    serving = ServingCfg(num_slots=2, page_size=4, num_pages=17,
+                         max_blocks_per_slot=8, prefill_chunk=8)
+    jrt = AttentionRuntime(mode="retrieval", paged_kernels=fused,
+                           retrieval=JRetrievalCfg(top_k=6, recent_window=2))
+    trt = tc.AttentionRuntime(mode="retrieval", paged_kernels=fused,
+                              retrieval=tc.RetrievalCfg(top_k=6, recent_window=2))
+    jcaches = JM.init_paged_caches(jcfg, jrt, serving)
+    tcaches = TM.init_paged_caches(tcfg, trt, serving, "cpu")
+    decode_fn = jax.jit(partial(JM.decode_step_rows, jcfg, jrt))
+
+    rng = np.random.default_rng(11)
+    bt = np.zeros((2, 8), np.int32)
+    bt[0, :5] = [9, 3, 14, 1, 7]
+    bt[1, :3] = [12, 5, 10]
+    prompts = [rng.integers(0, 256, size=13).astype(np.int32),
+               rng.integers(0, 256, size=6).astype(np.int32)]
+    jcaches = _stream_prompts(jcfg, tcfg, jrt, trt, params, tparams, jcaches, tcaches,
+                              bt, prompts)
+    lengths = np.array([13, 6], np.int32)
+    for active in (np.array([True, True]), np.array([False, True]),
+                   np.array([True, True])):
+        toks = rng.integers(0, 256, size=(2, 1)).astype(np.int32)
+        rows_j = jpgc.RowState(jnp.asarray(lengths), jnp.asarray(bt), jnp.asarray(active),
+                               jnp.zeros(2, jnp.int32))
+        rows_t = tpgc.RowState(torch.tensor(lengths), torch.tensor(bt), torch.tensor(active),
+                               torch.zeros(2, dtype=torch.int32))
+        lj, jcaches = decode_fn(params, jnp.asarray(toks), rows_j, jcaches)
+        lt, _ = TM.decode_step_rows(tcfg, trt, tparams, torch.tensor(toks), rows_t, tcaches)
+        _close(lt[active], np.asarray(lj)[active], LOGIT_TOL)
+        lengths = lengths + active
+    assert lengths.max() > 6   # slot 0 selected 6 of its keys
+    mapped = bt[bt > 0]
+    for i in range(2):
+        t, j = tcaches["blocks"][0][i], jcaches["blocks"][0]
+        for name in ("k", "v"):
+            _close(getattr(t, name)[mapped], np.asarray(getattr(j, name)[i])[mapped])
+        for name in ("proxy_scale", "proxy_zero"):
+            _close(getattr(t, name), np.asarray(getattr(j, name)[i]), LOGIT_TOL)
+        differ = t.proxy[mapped].numpy() != np.asarray(j.proxy[i])[mapped]
+        assert differ.mean() < 5e-3, differ.mean()

@@ -204,3 +204,52 @@ def t1_prefill_inputs(seed, offset, valid, H, Dm, kv_r, Rr, page=4, nb=8, C=8):
     r = rng.normal(size=(C, H, Dm)).astype(np.float32)
     qr = rng.normal(size=(C, H, Rr)).astype(np.float32)
     return r, qr, xp, krp, row, offset, valid, (Dm + Rr) ** -0.5
+
+
+# ---------------------------------------------------------------- T3 / proxy
+
+PROXY_CASES = [  # seed, page, nb, B, KV, g, Dp
+    (0, 4, 4, 3, 2, 1, 16),
+    (1, 1, 3, 2, 1, 4, 32),      # page_size 1: one token per page
+    (2, 8, 2, 2, 4, 2, 16),
+    (3, 5, 4, 4, 2, 4, 16),      # odd page size, partial last pages
+    (4, 4, 1, 1, 1, 8, 64),      # single block
+    (5, 16, 4, 3, 16, 1, 64),    # the served page size, kv heads and Dp
+]
+
+CONTIG_PROXY_CASES = [  # seed, B, N, KV, g, Dp, length, block_n
+    (0, 2, 40, 2, 1, 16, 40, 16),     # N not a multiple of the block
+    (1, 1, 37, 1, 4, 32, 20, 16),     # a partial length
+    (2, 3, 64, 4, 2, 64, 0, 32),      # length 0: every score masked
+    (3, 2, 50, 16, 1, 64, 33, 1024),  # one block wider than N
+]
+
+
+def proxy_tables(rng, B, KV, Dp):
+    """Per-slot proxy scale/zero tables, as fitted keys of spread ~3 give."""
+    scale = rng.uniform(0.005, 0.03, size=(B, KV, Dp)).astype(np.float32)
+    zero = (-1.5 + 0.3 * rng.normal(size=(B, KV, Dp))).astype(np.float32)
+    return scale, zero
+
+
+def proxy_inputs(seed, page, nb, B, KV, g, Dp):
+    """q (B, H, Dp) pre-scaled, proxy scale/zero (B, KV, Dp), code pages
+    (P, page, KV, Dp) int8 with the null page poisoned at the top code,
+    block table, lengths."""
+    rng = np.random.default_rng(seed)
+    num_pages, lengths, bt = pool_layout(rng, B, nb, page)
+    codes = rng.integers(-128, 128, size=(num_pages, page, KV, Dp)).astype(np.int8)
+    codes[0] = 127
+    scale, zero = proxy_tables(rng, B, KV, Dp)
+    q = (rng.normal(size=(B, KV * g, Dp)) * Dp ** -0.5).astype(np.float32)
+    return q, scale, zero, codes, bt, lengths
+
+
+def contig_proxy_inputs(seed, B, N, KV, g, Dp, length):
+    """qs (B, KV, G, Dp), qz (B, KV, G, 1), codes (B, N, KV, Dp) int8 for
+    B7's contiguous contract, and its length."""
+    rng = np.random.default_rng(seed)
+    qs = (rng.normal(size=(B, KV, g, Dp)) * 0.02).astype(np.float32)
+    qz = rng.normal(size=(B, KV, g, 1)).astype(np.float32)
+    codes = rng.integers(-128, 128, size=(B, N, KV, Dp)).astype(np.int8)
+    return qs, qz, codes, length
