@@ -23,7 +23,15 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               query factors and int8 codes) at qwen1.5-0.5b's T3 shape
               (KV=16, G=1, Dp=64) and a GQA shape (KV=8, G=4, Dp=128) on the
               same layouts, and in its contiguous one-page-per-row form,
-              held to 1e-5 x max |score|
+              held to 1e-5 x max |score|; the contiguous kernels: B8
+              flash_attention on the five cases of tests/test_kernels.py,
+              qwen1.5-0.5b's static prefill (8 x 512 tokens, causal), a
+              decode token over 575 keys (a prefix of a 576-key arena) and
+              T = S = 77; B9 decomposed_decode at qwen's T1 shape (kv_r 16,
+              Rr 32, length < N), an MLA-like shape (kv_r 1, Rr 64), a
+              no-rope shape and N = 77; B10 cpq_decode with 4- and 8-bit
+              codes, G of 1 and 4, tiles rounded and not, pruned codes,
+              length < N and N = 77 (float32 output, its tolerance)
   4. serve    full-width qwen1.5-0.5b (24 layers, vocab 151936, random
               weights from a seed) in bf16 through ContinuousServeEngine:
               8 greedy requests, prompts of 64-512 tokens, 64 new tokens
@@ -38,7 +46,16 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               them, beside their bound, their plain version and one PyTorch
               library call (a yardstick only); each run is replayed under
               torch.profiler over a window of decode-only ticks, (a) also
-              over a window of chunk ticks
+              over a window of chunk ticks. Then the contiguous path: (f)
+              the static ServeEngine on 8 prompts of 512 seeded tokens, 64
+              new tokens, in the four modes: B8 launched 24 times for the
+              prefill, and 24 times per decode step B8 (dense), B9
+              (decomposed), B10 (cpq) or B7's contiguous form (retrieval);
+              B8 (prompt and decode shapes), B9 and B10 timed at the
+              shapes the runs gave them, ten dense decode steps profiled;
+              (g) ContinuousServeEngine with prefill_chunk=0 (one-shot
+              admission), dense, on the traffic of (a): B8 24 times per
+              admission, B1 24 times per decode tick, B2 never
   5. parity   the same requests in f32 (TF32 off), dense, mode="cpq",
               mode="decomposed" and mode="retrieval" (top_k=256), with the
               kernels on and off: prefill and first-decode logits within
@@ -53,7 +70,13 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               history; CPQ and T3 run them in lockstep on one history (the
               gather path writes the K/V the kernel path wrote), since each
               path's 4-bit CPQ or 8-bit proxy codes would otherwise turn
-              last-ulp K/V differences into whole steps
+              last-ulp K/V differences into whole steps. These continuous
+              serves run the first 8 of the 24 layers here, to keep the
+              script well inside its time limit. Then, at full depth, the
+              same checks for (g) (dense, each path on its own history)
+              and for (f) in the four modes (CPQ and T3 in lockstep, T3
+              pinned): the prefill and first-decode logits of the batch,
+              and the greedy streams
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -82,6 +105,7 @@ LOGIT_TOL = 1e-3            # f32 logits, kernels vs gather path (atol = rtol)
 ARGMAX_GAP = 1e-4           # top-2 gap below which a greedy tie is excused
 TOPK_GAP = 1e-4             # T3: relative proxy-score gap below which a top-k swap is a tie
 CPQ_LEVELS = 4              # HQE levels of the default CPQCfg
+PARITY_DEPTH = 8            # layers of the continuous serves' f32 parity (of 24)
 SEED = 0
 DEVICE = "cuda"
 T0 = 0.0                    # start of the run, for phase timestamps
@@ -299,6 +323,88 @@ def sweep_t3(t3_ops, KV, G, Dp, page=16, nb=64, B=8, N=1000):
     return max(e for e, _ in errs)
 
 
+FLASH_SWEEP = (  # B, T, S, H, KV, D, causal, arena (k and v: the first S keys)
+    (2, 128, 128, 4, 2, 64, True, 128),      # the five cases of tests/test_kernels.py
+    (2, 256, 256, 8, 8, 128, True, 256),
+    (2, 100, 100, 4, 1, 32, False, 100),
+    (2, 192, 192, 6, 3, 64, True, 192),
+    (2, 128, 128, 4, 4, 64, True, 128),
+    (8, 512, 512, 16, 16, 64, True, 512),    # qwen1.5-0.5b's static prefill
+    (8, 1, 575, 16, 16, 64, False, 576),     # its last static dense decode
+    (3, 77, 77, 4, 2, 64, True, 77),         # T and S no block multiple
+)
+T1C_SWEEP = (  # B, N, H, Dm, kv_r, Rr, length
+    (8, 576, 16, 1024, 16, 32, 575),         # qwen1.5-0.5b's static T1 decode
+    (4, 300, 16, 512, 1, 64, 300),           # MLA-like: one shared roped key
+    (4, 200, 8, 256, 1, 0, 150),             # no roped term, length < N
+    (3, 77, 16, 1024, 16, 32, 77),           # N no multiple of the 16-key split
+)
+CPQC_SWEEP = (  # B, N, KV, G, Dh, bits, length
+    (8, 576, 16, 1, 64, 4, 575),             # qwen1.5-0.5b's static T2 decode
+    (4, 300, 4, 4, 128, 8, 250),             # G = 4, length < N
+    (2, 77, 16, 1, 64, 8, 77),               # N no multiple of the 64-key split
+)
+
+
+def sweep_flash(fa_ops, dtype) -> dict:
+    """Max abs error of B8 against its plain version per FLASH_SWEEP case."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = {}
+    for B, T, S, H, KV, D, causal, arena in FLASH_SWEEP:
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                   for shape in ((B, T, H, D), (B, arena, KV, D), (B, arena, KV, D)))
+        k, v = k[:, :S], v[:, :S]
+        got = fa_ops.flash_attention(q, k, v, D ** -0.5, causal)
+        torch.cuda.synchronize()
+        ref = fa_ops.flash_attention_plain(q, k, v, D ** -0.5, causal)
+        out[f"B={B} T={T} S={S} H={H} KV={KV} D={D} causal={causal}"] = (
+            (got.float() - ref.float()).abs().max().item())
+    return out
+
+
+def sweep_t1c(t1_ops, dtype) -> dict:
+    """Max abs error of B9 against its plain version per T1C_SWEEP case."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = {}
+    for B, N, H, Dm, kv_r, Rr, length in T1C_SWEEP:
+        r, qr, x, kr = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                        for shape in ((B, H, Dm), (B, H, Rr), (B, N, Dm), (B, N, kv_r, Rr)))
+        x[:, length:] = 1e3                      # unwritten slots: never read
+        scale = (Dm + Rr) ** -0.5
+        got = t1_ops.decomposed_decode_fwd(r, qr, x, kr, length, scale)
+        torch.cuda.synchronize()
+        ref = t1_ops.decomposed_decode_plain(r, qr, x, kr, length, scale)
+        out[f"B={B} N={N} H={H} Dm={Dm} kv_r={kv_r} Rr={Rr} length={length}"] = (
+            (got.float() - ref.float()).abs().max().item())
+    return out
+
+
+def sweep_cpqc(cpq_ops, dtype) -> dict:
+    """Max abs error of B10 (float32 output) against its plain version per
+    CPQC_SWEEP case, tiles rounded to bf16 and not; q in ``dtype``. The
+    arenas hold pruned codes (-128, which dequantize to 0) and, in row 0,
+    levels outside [0, L) (scale = zero = 0)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = {}
+    for B, N, KV, G, Dh, bits, length in CPQC_SWEEP:
+        kt = cpq_pool(gen, B, N, KV, Dh, B, bits)   # (B, N, KV, D): one page of N per row
+        vt = cpq_pool(gen, B, N, KV, Dh, B, bits)
+        check(bool((kt.codes == -128).any().item()), "cpq sweep: no pruned code")
+        q = torch.randn((B, KV, G, Dh), generator=gen, device=DEVICE).to(dtype)
+        args = (q, kt.codes, vt.codes, kt.scale, kt.zero, vt.scale, vt.zero, kt.level,
+                vt.level, length, Dh ** -0.5)
+        for rnd in (True, False):
+            got = cpq_ops.cpq_decode_fwd(*args, rnd)
+            torch.cuda.synchronize()
+            ref = cpq_ops.cpq_decode_plain(*args, rnd)
+            out[f"B={B} N={N} KV={KV} G={G} Dh={Dh} bits={bits} length={length} "
+                f"round={rnd}"] = (got - ref).abs().max().item()
+        pruned = cpq_ops.cpq_decode_fwd(*args[:2], torch.full_like(vt.codes, -128),
+                                        *args[3:], True)
+        check(not pruned.any().item(), "cpq_decode: all-pruned values do not give 0")
+    return out
+
+
 # --------------------------------------------------------- phase 4: serve
 
 
@@ -358,7 +464,7 @@ def make_requests(T, vocab: int):
 def serve_timed(eng, T, reqs):
     """Drive the engine tick by tick, a device sync around each tick.
     Returns (results, stats, ticks, wall s); a tick is (ms, rows decoded,
-    ran a prompt chunk, ran the decode step)."""
+    prefilled a prompt chunk or a one-shot admission, ran the decode step)."""
     eng.reset(T.GenerationConfig())
     for r in reqs:
         eng.add_request(r)
@@ -373,7 +479,7 @@ def serve_timed(eng, T, reqs):
         ms = (time.perf_counter() - t0) * 1e3
         after = eng.stats()
         rows = after["generated_tokens"] - before["generated_tokens"]
-        chunk = after["prefill_chunks"] > before["prefill_chunks"]
+        chunk = after["prefill_tokens"] > before["prefill_tokens"]  # a chunk or an admission
         decoded = after["decode_steps"] > before["decode_steps"]
         ticks.append((ms, rows if decoded else 0, chunk, decoded))
     wall = time.perf_counter() - t_all
@@ -760,20 +866,278 @@ def mid_decode_window(ticks) -> tuple[int, int]:
     return pure[len(pure) // 2 - 5], pure[len(pure) // 2 + 5]
 
 
+# ------------------------------------------ phase 4: the contiguous path
+
+
+def static_prompts(vocab: int) -> np.ndarray:
+    """The static serve's batch: 8 prompts of 512 seeded tokens."""
+    return np.random.default_rng(SEED + 1).integers(0, vocab, size=(8, 512)).astype(np.int32)
+
+
+def arena_of(t: torch.Tensor) -> torch.Tensor:
+    """The whole (B, N, KV, D) arena that a (B, S, KV, D) prefix view lies in."""
+    B, _, KV, D = t.shape
+    return torch.as_strided(t, (B, t.stride(0) // (KV * D), KV, D), t.stride())
+
+
+class FlashRecorder(StandIn):
+    """B8's Recorder: its prompt calls (T > 1, causal over fresh K/V) and its
+    decode calls (one query token over the written prefix of the static
+    dense arena) are sampled apart. A decode sample keeps the prefix length;
+    its arena is the layer's whole arena."""
+
+    def __init__(self, fn, n_layers: int):
+        self.fn = fn
+        self.pre = Recorder(fn, n_layers, 1, lambda q, k, v, *r: (k, v),
+                            lambda q, k, v, *r: (q.clone(),))
+        self.dec = Recorder(fn, n_layers, 10, lambda q, k, v, *r: (arena_of(k), arena_of(v)),
+                            lambda q, k, v, *r: (q.clone(), k.shape[1]))
+
+    def __call__(self, q, k, v, scale, causal=True):
+        return (self.pre if q.shape[1] > 1 else self.dec)(q, k, v, scale, causal)
+
+
+class StepTimer:
+    """Wraps the model's ``prefill`` and ``decode_step``: the device-synced
+    wall time of every call, and the caches the last call returned."""
+
+    def __init__(self, M):
+        self.M, self.pre, self.dec = M, M.prefill, M.decode_step
+        self.prefill_ms, self.step_ms, self.caches = [], [], None
+
+    def _timed(self, fn, out):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            self.caches = r[1]
+            return r
+        return run
+
+    def __enter__(self):
+        self.M.prefill = self._timed(self.pre, self.prefill_ms)
+        self.M.decode_step = self._timed(self.dec, self.step_ms)
+        return self
+
+    def __exit__(self, *exc):
+        self.M.prefill, self.M.decode_step = self.pre, self.dec
+
+
+def device_bytes(tree) -> int:
+    """Bytes of the CUDA tensors of a cache tree (a container's length lives
+    on the host)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size() if tree.is_cuda else 0
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return sum(device_bytes(t) for t in tree)
+
+
+def serve_static(eng, T, M, prompts, n_new: int, recorders: dict, counted: list):
+    """One static generate with each kernel wrapper replaced by its Recorder,
+    every launch count of ``counted`` (module, wrapper name) pairs set to 0
+    just before and read just after. Returns (tokens, stats, StepTimer,
+    wall s, counts)."""
+    for name, (mod, rec) in recorders.items():
+        setattr(mod, name, rec)
+    for mod, name in counted:
+        getattr(mod, name).launches = 0
+    try:
+        with StepTimer(M) as timer:
+            t0 = time.perf_counter()
+            out, stats = eng.generate({"tokens": prompts}, T.GenerationConfig(max_new_tokens=n_new))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, (mod, rec) in recorders.items():
+            setattr(mod, name, rec.fn)
+    return out, stats, timer, wall, {name: getattr(mod, name).launches for mod, name in counted}
+
+
+def static_metrics(out, stats, timer, wall, what: str) -> dict:
+    step = float(np.median(timer.step_ms))
+    B = out.shape[0]
+    m = {"prefill_ms": timer.prefill_ms[0], "decode_steps": stats["decode_steps"],
+         "decode_step_ms_median": step,
+         "decode_step_ms_p90": float(np.percentile(timer.step_ms, 90)),
+         "decode_tokens_per_s": B / step * 1e3, "generated_tokens": stats["generated_tokens"],
+         "serve_wall_s": wall, "end_to_end_tokens_per_s": stats["generated_tokens"] / wall,
+         "arena_bytes": device_bytes(timer.caches)}
+    log(f"serve static {what}: prefill {m['prefill_ms']:.3f} ms; decode step median "
+        f"{step:.3f} ms (p90 {m['decode_step_ms_p90']:.3f}) over {len(timer.step_ms)} steps "
+        f"of {B} rows = {m['decode_tokens_per_s']:.1f} tokens/s; end to end "
+        f"{m['end_to_end_tokens_per_s']:.1f} tokens/s over {wall:.2f} s; arena "
+        f"{m['arena_bytes'] / 1e9:.3f} GB")
+    return m
+
+
+def flash_bound(q, S, KV, Dv, causal):
+    """(bytes, flops) one B8 call needs: q, the S keys and values, out once
+    each; 2 (Dh + Dv) flops per (query, key) pair it sees (causal: key j <=
+    query i, T == S)."""
+    B, T, H, Dh = q.shape
+    elt = q.element_size()
+    pairs = T * (T + 1) // 2 if causal else T * S
+    nbytes = (q.numel() + B * S * KV * (Dh + Dv) + B * T * H * Dv) * elt
+    return nbytes, 2.0 * B * H * pairs * (Dh + Dv)
+
+
+def flash_prefill_case(fa_ops, scale):
+    """B8 at a sampled prompt call; the yardstick is causal
+    scaled_dot_product_attention on the same q, k, v."""
+    def make(sample, k0, v0):
+        (q,) = sample
+        gqa = {"enable_gqa": True} if q.shape[2] != k0.shape[2] else {}
+        return (lambda k, v: fa_ops.flash_attention(q, k, v, scale, True),
+                lambda: fa_ops.flash_attention_plain(q, k0, v0, scale, True),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k0.transpose(1, 2), v0.transpose(1, 2), is_causal=True,
+                    scale=scale, **gqa),
+                flash_bound(q, k0.shape[1], k0.shape[2], v0.shape[3], True))
+    return make
+
+
+def flash_decode_case(fa_ops, scale):
+    """B8 at a sampled static dense decode call, over the first S keys of
+    each layer's arena; the yardstick is scaled_dot_product_attention on the
+    same prefix."""
+    def make(sample, k0, v0):
+        q, S = sample
+        gqa = {"enable_gqa": True} if q.shape[2] != k0.shape[2] else {}
+        return (lambda k, v: fa_ops.flash_attention(q, k[:, :S], v[:, :S], scale, False),
+                lambda: fa_ops.flash_attention_plain(q, k0[:, :S], v0[:, :S], scale, False),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k0[:, :S].transpose(1, 2), v0[:, :S].transpose(1, 2),
+                    scale=scale, **gqa),
+                flash_bound(q, S, k0.shape[2], v0.shape[3], False))
+    return make
+
+
+def t1c_bound(r, qr, length, x0, kr0):
+    """(bytes, flops) one B9 call needs: the first ``length`` X rows and
+    roped keys of every row, R and q_rope, P once each."""
+    B, H, Dm = r.shape
+    elt = x0.element_size()
+    nbytes = (B * length * (Dm + kr0.shape[2] * kr0.shape[3]) + r.numel() + qr.numel()
+              + B * H * Dm) * elt
+    return nbytes, 2.0 * B * length * H * (2 * Dm + qr.shape[-1])
+
+
+def t1c_decode_case(t1_ops, scale):
+    """B9 at a sampled static T1 decode call; the yardstick is
+    scaled_dot_product_attention with q = [R | q_rope], k = [X | roped key],
+    v = X over the written prefix, as for B3."""
+    def make(sample, x0, kr0):
+        r, qr, length = sample
+        qq, kk, vv = _t1_sdpa_operands(r[:, None], qr[:, None], x0[:, :length],
+                                       kr0[:, :length])
+        return (lambda x, kr: t1_ops.decomposed_decode_fwd(r, qr, x, kr, length, scale),
+                lambda: t1_ops.decomposed_decode_plain(r, qr, x0, kr0, length, scale),
+                lambda: torch.nn.functional.scaled_dot_product_attention(qq, kk, vv,
+                                                                         scale=scale),
+                t1c_bound(r, qr, length, x0, kr0))
+    return make
+
+
+def cpqc_bound(q, length, kt, vt):
+    """(bytes, flops, float32 flops) one B10 call needs: the first
+    ``length`` codes and levels of every row, every row's tables, q (float32)
+    and out once each; the attention's and the dequantization's float32
+    operations."""
+    B, KV, G, Dh = q.shape
+    Dv = vt.codes.shape[3]
+    nbytes = (B * length * KV * (Dh + Dv + 2 * 4) + 2 * 4 * (kt.scale.numel() + vt.scale.numel())
+              + 4 * (q.numel() + B * KV * G * Dv))
+    return nbytes, 0.0, 2.0 * B * length * KV * (G + 1) * (Dh + Dv)
+
+
+def cpqc_decode_case(cpq_ops, scale):
+    """B10 at a sampled static T2 decode call (rounded tiles, the served
+    function); the yardstick is scaled_dot_product_attention on K/V
+    dequantized (to bf16) and sliced to the written prefix beforehand."""
+    from repro_torch.core.cpq import cpq_dequant
+
+    def make(sample, kt0, vt0):
+        q, length = sample                      # q (B, KV, G, Dh) float32
+        B, KV, G, Dh = q.shape
+        kg = cpq_dequant(kt0)[:, :length].transpose(1, 2)   # (B, KV, n, Dh) bf16
+        vg = cpq_dequant(vt0)[:, :length].transpose(1, 2)
+        qq = q.reshape(B, KV * G, 1, Dh).to(torch.bfloat16)
+        gqa = {"enable_gqa": True} if G > 1 else {}
+
+        def kern(kt, vt):
+            return cpq_ops.cpq_decode_fwd(q, kt.codes, vt.codes, kt.scale, kt.zero, vt.scale,
+                                          vt.zero, kt.level, vt.level, length, scale, True)
+        return (kern,
+                lambda: cpq_ops.cpq_decode_plain(q, kt0.codes, vt0.codes, kt0.scale, kt0.zero,
+                                                 vt0.scale, vt0.zero, kt0.level, vt0.level,
+                                                 length, scale, True),
+                lambda: torch.nn.functional.scaled_dot_product_attention(qq, kg, vg,
+                                                                         scale=scale, **gqa),
+                cpqc_bound(q, length, kt0, vt0))
+    return make
+
+
+def profile_static(make_engine, T, M, prompts, n_new, step_ms, lo: int, hi: int) -> dict:
+    """Replays the static serve and profiles decode steps lo .. hi-1 with
+    torch.profiler: device time by kernel and the device's busy share of
+    those steps' unprofiled wall time (``step_ms`` of the measured run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, dec, calls = make_engine(), M.decode_step, [0]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def step(*a, **kw):
+        if calls[0] == lo:
+            torch.cuda.synchronize()
+            prof.__enter__()
+        r = dec(*a, **kw)
+        calls[0] += 1
+        if calls[0] == hi:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+        return r
+
+    M.decode_step = step
+    try:
+        eng.generate({"tokens": prompts}, T.GenerationConfig(max_new_tokens=n_new))
+    finally:
+        M.decode_step = dec
+    kernels = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
+                     key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    wall = sum(step_ms[lo:hi])
+    attn = sum(ms for k, ms, _ in kernels if "paged_attn" in k)
+    gemm = sum(ms for k, ms, _ in kernels if any(g in k for g in ("gemm", "nvjet", "cutlass", "xmma")))
+    return {"ticks": [lo, hi], "decode_only_ticks": hi - lo, "device_busy_ms": busy,
+            "unprofiled_wall_ms": wall, "busy_share": busy / wall, "paged_attn_ms": attn,
+            "gemm_ms": gemm, "top_kernels": [{"name": k, "ms": ms, "count": n}
+                                             for k, ms, n in kernels[:12]]}
+
+
 # -------------------------------------------------------- phase 5: parity
 
 
 class SharedKV:
     """Lockstep runs on one history. While recording, every attention call
-    keeps the K/V it writes into its arena; while replaying, the matching
-    call of the second run writes those instead of its own. Both runs then
-    attend over arenas of the same contents, each with its own queries."""
+    keeps the K/V it writes into its arena (paged: a decode token or a
+    prompt chunk; contiguous: a whole prompt or a decode token); while
+    replaying, the matching call of the second run writes those instead of
+    its own. Both runs then attend over arenas of the same contents, each
+    with its own queries."""
 
     def __init__(self):
+        from repro_torch.core import attention as core_attn
         from repro_torch.serving import paged_cache as pgc
 
-        self.pgc, self.kept, self.record = pgc, [], True
+        self.pgc, self.core, self.kept, self.record = pgc, core_attn, [], True
         self.decode, self.chunk = pgc.decode_attend_paged, pgc.chunk_attend_paged
+        self.c_prefill, self.c_decode = core_attn.prefill_into_cache, core_attn.decode_attend
 
     def _take(self, k, v):
         if self.record:
@@ -790,11 +1154,21 @@ class SharedKV:
             k_c, v_c = self._take(k_c, v_c)
             return self.chunk(rt, cache, k_c=k_c, v_c=v_c, **kw)
 
+        def c_prefill(rt, cache, *, k, v, **kw):
+            k, v = self._take(k, v)
+            return self.c_prefill(rt, cache, k=k, v=v, **kw)
+
+        def c_decode(rt, cache, *, k_t, v_t, **kw):
+            k_t, v_t = self._take(k_t, v_t)
+            return self.c_decode(rt, cache, k_t=k_t, v_t=v_t, **kw)
+
         self.pgc.decode_attend_paged, self.pgc.chunk_attend_paged = decode, chunk
+        self.core.prefill_into_cache, self.core.decode_attend = c_prefill, c_decode
         return self
 
     def __exit__(self, *exc):
         self.pgc.decode_attend_paged, self.pgc.chunk_attend_paged = self.decode, self.chunk
+        self.core.prefill_into_cache, self.core.decode_attend = self.c_prefill, self.c_decode
 
 
 def pair(recorders, first_fn, second_fn):
@@ -910,10 +1284,12 @@ def top2_gap(logits: torch.Tensor) -> torch.Tensor:
 
 def gather_gaps(M, eng, gaps: dict):
     """``eng.step`` that also files the gather path's top-2 logit gap of
-    every token it emits under (rid, index): a first token comes from the
-    tick's last prompt chunk, the decode step's tokens come in slot order."""
+    every token it emits under (rid, index). A tick emits its admissions'
+    first tokens before the decode step's: chunked, the tick's last prompt
+    chunk's (one chunk per tick); one-shot, each admission's prefill, in
+    order; then the decode step's tokens in slot order."""
     seen = {}
-    dec, pre = M.decode_step_rows, M.prefill_chunk_rows
+    dec, chunk, pre = M.decode_step_rows, M.prefill_chunk_rows, M.prefill
 
     def keep_decode(*a):
         out = dec(*a)
@@ -921,24 +1297,33 @@ def gather_gaps(M, eng, gaps: dict):
         return out
 
     def keep_chunk(*a):
-        out = pre(*a)
+        out = chunk(*a)
         seen["chunk"] = top2_gap(out[0][0]).item()
+        return out
+
+    def keep_prefill(*a, **kw):
+        out = pre(*a, **kw)
+        seen["oneshot"].append(top2_gap(out[0][0]).item())
         return out
 
     def step():
         seen.clear()
-        M.decode_step_rows, M.prefill_chunk_rows = keep_decode, keep_chunk
+        seen["oneshot"] = []
+        M.decode_step_rows, M.prefill_chunk_rows, M.prefill = keep_decode, keep_chunk, keep_prefill
         try:
             events = eng.step()
         finally:
-            M.decode_step_rows, M.prefill_chunk_rows = dec, pre
-        decoded = [e for e in events if e.index > 0]
+            M.decode_step_rows, M.prefill_chunk_rows, M.prefill = dec, chunk, pre
+        admitted = len(seen["oneshot"])
+        for e, g in zip(events, seen["oneshot"]):
+            gaps[(e.rid, e.index)] = g
+        decoded = [e for e in events[admitted:] if admitted or e.index > 0]
         if decoded:
             row_gaps, slots = seen["decode"]
             for e, slot in zip(decoded, slots):
                 gaps[(e.rid, e.index)] = row_gaps[slot]
-        for e in events:
-            if e.index == 0:
+        for e in events[admitted:]:
+            if not admitted and e.index == 0:
                 gaps[(e.rid, 0)] = seen["chunk"]
         return events
     return step
@@ -946,16 +1331,25 @@ def gather_gaps(M, eng, gaps: dict):
 
 def first_logits(M, cfg, rt, params, reqs, small, bt):
     """Two slots (the shortest and the longest prompt) streamed chunk by
-    chunk through prefill_chunk_rows, then one decode step: the last
-    chunk's logits of each slot (2, V) and the decode logits (2, V)."""
+    chunk through prefill_chunk_rows, or admitted one-shot when
+    ``small.prefill_chunk`` is 0 (the prompt padded to the bucket, prefilled
+    as a B=1 contiguous cache and packed into its pages), then one decode
+    step: the prompt logits of each slot (2, V) and the decode logits (2, V)."""
     from repro_torch.serving.paged_cache import RowState
 
     caches = M.init_paged_caches(cfg, rt, small, DEVICE)
-    C = small.prefill_chunk
+    C, bucket = small.prefill_chunk, small.prefill_bucket
     pre = []
     for s in range(2):
         ctx, row = reqs[s].prompt, torch.tensor(bt[s], device=DEVICE)
-        for off in range(0, len(ctx), C):
+        if not C:
+            n = len(ctx)
+            pad = max(bucket, -(-n // bucket) * bucket)
+            tok = np.concatenate([ctx, np.full(pad - n, ctx[-1], np.int32)])
+            logits, ctg = M.prefill(cfg, rt, params, torch.tensor(tok[None], device=DEVICE),
+                                    M.init_caches(cfg, rt, 1, pad, DEVICE), last_index=n - 1)
+            M.pack_prefill_caches(cfg, rt, caches, ctg, row, s)
+        for off in range(0, len(ctx), C) if C else ():
             valid = min(C, len(ctx) - off)
             tok = np.concatenate([ctx[off:off + valid],
                                   np.full(C - valid, ctx[off + valid - 1], np.int32)])
@@ -978,9 +1372,10 @@ def max_diff(got) -> dict:
             for i, name in enumerate(("prefill", "first-decode"))}
 
 
-def parity(T, M, cfg, params, reqs, mode: str, rt_kw=None) -> dict:
+def parity(T, M, cfg, params, reqs, mode: str, rt_kw=None, serving_kw=None) -> dict:
     """Kernels on vs the gather path in float32 for attention ``mode`` (with
-    the runtime's other settings ``rt_kw``):
+    the runtime's other settings ``rt_kw`` and the serving ones
+    ``serving_kw``: ``prefill_chunk=0`` admits one-shot):
     chunked-prefill and first-decode logits of two slots, then the greedy
     streams of the served requests. Dense and decomposed (T1, which
     re-quantizes nothing) run each path on its own history. CPQ runs the two
@@ -1002,7 +1397,9 @@ def parity(T, M, cfg, params, reqs, mode: str, rt_kw=None) -> dict:
     rts = {fused: T.AttentionRuntime(mode=mode, paged_kernels=fused, **(rt_kw or {}))
            for fused in paths}
     lockstep, pinned = mode in ("cpq", "retrieval"), mode == "retrieval"
-    small = T.ServingCfg(num_slots=2, page_size=16, num_pages=80, max_blocks_per_slot=64)
+    what = mode if (serving_kw or {}).get("prefill_chunk", 1) else f"oneshot {mode}"
+    small = T.ServingCfg(num_slots=2, page_size=16, num_pages=80, max_blocks_per_slot=64,
+                         **(serving_kw or {}))
     bt = np.zeros((2, 64), np.int32)
     lens = [len(reqs[0].prompt), len(reqs[1].prompt)]
     perm = np.random.default_rng(SEED).permutation(np.arange(1, 80))
@@ -1016,22 +1413,18 @@ def parity(T, M, cfg, params, reqs, mode: str, rt_kw=None) -> dict:
             own = pair([shared], run[True], run[False])
         err = (own[0][1] - own[1][1]).abs().max().item()
         out["unpinned_first-decode_logits_max_abs_diff"] = err
-        log(f"parity {mode}: unpinned first-decode_logits_max_abs_diff {err:.3e} (no gate)")
+        log(f"parity {what}: unpinned first-decode_logits_max_abs_diff {err:.3e} (no gate)")
     if lockstep:
         with SharedKV() as shared, pin_if(pinned) as pin:
             got = pair([shared] + [pin] * pinned, run[True], run[False])
         if pinned:
-            out.update(pin_report(mode, "first logits", pin))
+            out.update(pin_report(what, "first logits", pin))
     else:
         got = (run[True](), run[False]())
-    for i, (name, err) in enumerate(max_diff(got).items()):
-        out[name] = err
-        log(f"parity {mode}: {name} {err:.3e} (atol=rtol={LOGIT_TOL})")
-        check(torch.allclose(got[0][i], got[1][i], atol=LOGIT_TOL, rtol=LOGIT_TOL),
-              f"parity {mode}: {name} {err:.3e}")
+    check_logits(what, got, out)
 
     serving = T.ServingCfg(num_slots=8, page_size=16, num_pages=513,
-                           max_blocks_per_slot=64)
+                           max_blocks_per_slot=64, **(serving_kw or {}))
     engs = {f: T.ContinuousServeEngine(cfg, params, rt=rts[f], serving=serving,
                                        device=DEVICE) for f in paths}
     for eng in engs.values():
@@ -1045,7 +1438,7 @@ def parity(T, M, cfg, params, reqs, mode: str, rt_kw=None) -> dict:
             while engs[True].has_unfinished():
                 pair([shared] + [pin] * pinned, engs[True].step, step)
         if pinned:
-            out.update(pin_report(mode, "streams", pin))
+            out.update(pin_report(what, "streams", pin))
     else:
         while engs[True].has_unfinished():
             engs[True].step()
@@ -1053,23 +1446,126 @@ def parity(T, M, cfg, params, reqs, mode: str, rt_kw=None) -> dict:
             step()
     streams = {f: {rid: res["tokens"] for rid, res in engs[f].results().items()} for f in paths}
     del engs
+    out["streams_identical"] = compare_streams(what, streams, gaps,
+                                               {r.rid: r.max_new_tokens for r in reqs})
+    out["lockstep"] = lockstep
+    return out
+
+
+def compare_streams(mode: str, streams: dict, gaps: dict, lengths: dict) -> int:
+    """Greedy streams of the kernel path (``streams[True]``) and the gather
+    path, by request id: identical, but for a first divergence where the
+    gather path's top-2 logit gap is below ARGMAX_GAP. Returns the number
+    of identical streams."""
     excused = 0
-    for r in reqs:
-        a, b = streams[True][r.rid], streams[False][r.rid]
-        check(len(a) == len(b) == r.max_new_tokens, f"parity {mode}: request {r.rid} lengths")
+    for rid, n in lengths.items():
+        a, b = streams[True][rid], streams[False][rid]
+        check(len(a) == len(b) == n, f"parity {mode}: request {rid} lengths")
         diff = np.flatnonzero(a != b)
         if not len(diff):
             continue
         t = int(diff[0])   # after a divergence the contexts differ: stop there
-        gap = gaps[(r.rid, t)]
-        log(f"parity {mode}: request {r.rid} diverges at token {t}: kernels {a[t]} vs "
+        gap = gaps[(rid, t)]
+        log(f"parity {mode}: request {rid} diverges at token {t}: kernels {a[t]} vs "
             f"gather {b[t]}, gather top-2 gap {gap:.3e}")
-        check(gap < ARGMAX_GAP, f"parity {mode}: request {r.rid} token {t} differs at a "
+        check(gap < ARGMAX_GAP, f"parity {mode}: request {rid} token {t} differs at a "
               f"resolvable gap {gap:.3e}")
         excused += 1
-    log(f"parity {mode}: greedy streams identical for {len(reqs) - excused}/{len(reqs)} "
-        f"requests, {excused} near-tie divergences excused")
-    out["streams_identical"] = len(reqs) - excused
+    log(f"parity {mode}: greedy streams identical for {len(lengths) - excused}/"
+        f"{len(lengths)} requests, {excused} near-tie divergences excused")
+    return len(lengths) - excused
+
+
+def check_logits(mode: str, got, out: dict) -> None:
+    """Prefill and first-decode logits of the two paths within LOGIT_TOL."""
+    for i, (name, err) in enumerate(max_diff(got).items()):
+        out[name] = err
+        log(f"parity {mode}: {name} {err:.3e} (atol=rtol={LOGIT_TOL})")
+        check(torch.allclose(got[0][i], got[1][i], atol=LOGIT_TOL, rtol=LOGIT_TOL),
+              f"parity {mode}: {name} {err:.3e}")
+
+
+def static_first_logits(M, cfg, rt, params, prompts):
+    """The static engine's prefill logits of the batch and the first decode
+    step's (its argmax fed back)."""
+    tok = torch.tensor(prompts, device=DEVICE)
+    B, S = tok.shape
+    caches = M.init_caches(cfg, rt, B, S + 1, DEVICE)
+    pre, caches = M.prefill(cfg, rt, params, tok, caches)
+    dec, _ = M.decode_step(cfg, rt, params, pre.argmax(-1).to(torch.int32)[:, None], S, caches)
+    return pre, dec
+
+
+def static_gaps(M, gaps: dict):
+    """A context in which the model's ``prefill`` and ``decode_step`` file
+    the top-2 logit gap of every row's token under (row, index)."""
+    pre, dec = M.prefill, M.decode_step
+    count = [0]
+
+    def keep_pre(*a, **kw):
+        out = pre(*a, **kw)
+        for row, g in enumerate(top2_gap(out[0]).tolist()):
+            gaps[(row, 0)] = g
+        return out
+
+    def keep_dec(*a, **kw):
+        out = dec(*a, **kw)
+        count[0] += 1
+        for row, g in enumerate(top2_gap(out[0]).tolist()):
+            gaps[(row, count[0])] = g
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        M.prefill, M.decode_step = keep_pre, keep_dec
+        try:
+            yield
+        finally:
+            M.prefill, M.decode_step = pre, dec
+    return ctx()
+
+
+def static_parity(T, M, cfg, params, prompts, mode: str, n_new: int, rt_kw=None) -> dict:
+    """The static engine with its contiguous kernels (B8, B9, B10, B7) on
+    and off, in float32: prefill and first-decode logits of the batch within
+    LOGIT_TOL, then the greedy streams of ``n_new`` tokens. CPQ and T3 run in
+    lockstep on one K/V history, T3 with its top-k choices pinned, as in
+    ``parity``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paths = (True, False)
+    rts = {f: T.AttentionRuntime(mode=mode, paged_kernels=f, **(rt_kw or {})) for f in paths}
+    lockstep, pinned = mode in ("cpq", "retrieval"), mode == "retrieval"
+    what = f"static {mode}"
+    run = {f: (lambda f=f: static_first_logits(M, cfg, rts[f], params, prompts)) for f in paths}
+    out = {}
+    if lockstep:
+        with SharedKV() as shared, pin_if(pinned) as pin:
+            got = pair([shared] + [pin] * pinned, run[True], run[False])
+        if pinned:
+            out.update(pin_report(what, "first logits", pin))
+    else:
+        got = (run[True](), run[False]())
+    check_logits(what, got, out)
+    engs = {f: T.ServeEngine(cfg, params, rt=rts[f], device=DEVICE) for f in paths}
+    gen = T.GenerationConfig(max_new_tokens=n_new)
+    gaps = {}
+
+    def gather():
+        with static_gaps(M, gaps):
+            return engs[False].generate({"tokens": prompts}, gen)[0]
+
+    if lockstep:
+        with SharedKV() as shared, pin_if(pinned) as pin:
+            a, b = pair([shared] + [pin] * pinned,
+                        lambda: engs[True].generate({"tokens": prompts}, gen)[0], gather)
+        if pinned:
+            out.update(pin_report(what, "streams", pin))
+    else:
+        a, b = engs[True].generate({"tokens": prompts}, gen)[0], gather()
+    out["streams_identical"] = compare_streams(
+        what, {True: dict(enumerate(a)), False: dict(enumerate(b))}, gaps,
+        {row: n_new for row in range(len(prompts))})
     out["lockstep"] = lockstep
     return out
 
@@ -1164,6 +1660,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.cpq_attn import ops as cpq_ops
     from repro_torch.kernels.decomposed_attn import ops as t1_ops
+    from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.paged_attn import ops
     from repro_torch.kernels.topk_retrieval import ops as t3_ops
     from repro_torch.models import model as M
@@ -1181,10 +1678,12 @@ def main() -> int:
     kmods = {"paged_decode": ops, "paged_prefill": ops,
              "paged_cpq_decode": cpq_ops, "paged_cpq_prefill": cpq_ops,
              "paged_decomposed_decode": t1_ops, "paged_decomposed_prefill": t1_ops,
-             "paged_proxy_scores": t3_ops}
+             "paged_proxy_scores": t3_ops, "flash_attention": fa_ops,
+             "decomposed_decode": t1_ops, "cpq_decode": cpq_ops}
+    counted = [(mod, name) for name, mod in kmods.items()] + [(t3_ops, "proxy_scores")]
 
     # 2) build: one nvcc per source, all started together (B7's two wrappers
-    #    share one source, built once)
+    #    share one source, built once; so do B8's prompt and decode calls)
     t0 = time.perf_counter()
     build.build([mod.SOURCES[name] for name, mod in kmods.items()])
     for name, mod in kmods.items():
@@ -1217,6 +1716,18 @@ def main() -> int:
             errs["paged_decomposed_prefill"][tag] = e_pre
             log(f"sweep {tag}: paged_decomposed_decode {e_dec:.3e}, "
                 f"paged_decomposed_prefill {e_pre:.3e} (tol {TOL[dtype]})")
+        dname = str(dtype).removeprefix("torch.")
+        for name, sweep_fn, mod in (("flash_attention", sweep_flash, fa_ops),
+                                    ("decomposed_decode", sweep_t1c, t1_ops)):
+            for case, err in sweep_fn(mod, dtype).items():
+                errs[name][f"{dname} {case}"] = err
+        for case, err in sweep_cpqc(cpq_ops, dtype).items():  # float32 output
+            errs["cpq_decode"][f"float32 q={dname} {case}"] = err
+        log(f"sweep {dname}: flash_attention {max(errs['flash_attention'].values()):.3e} over "
+            f"{len(FLASH_SWEEP)} cases, decomposed_decode "
+            f"{max(errs['decomposed_decode'].values()):.3e} over {len(T1C_SWEEP)}, cpq_decode "
+            f"{max(errs['cpq_decode'].values()):.3e} over {2 * len(CPQC_SWEEP)} (tol "
+            f"{TOL[dtype]}, cpq_decode {TOL[torch.float32]})")
     for name, by_tag in errs.items():
         for tag, err in by_tag.items():
             check(err <= TOL[torch.bfloat16 if tag.startswith("bfloat16") else torch.float32],
@@ -1385,14 +1896,98 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - T0:.0f} s] profiled tiered")
 
+    # 4f) the static ServeEngine: 8 prompts of 512 tokens, 64 new, in four
+    #     modes; B8 prefills (24 launches) and decodes dense, B9, B10 and B7
+    #     decode T1, T2 and T3 (24 launches per step)
+    prompts = static_prompts(cfg.vocab_size)
+    n_new = 64
+    step_kernel = {"dense": "flash_attention", "decomposed": "decomposed_decode",
+                   "cpq": "cpq_decode", "retrieval": "proxy_scores"}
+    flash_prefill = None
+    for mode in ("dense", "decomposed", "cpq", "retrieval"):
+        eng = T.ServeEngine(cfg, params, rt=rts[mode], device=DEVICE)
+        recs = {"flash_attention": (fa_ops, FlashRecorder(fa_ops.flash_attention, L))}
+        if mode == "decomposed":
+            recs["decomposed_decode"] = (t1_ops, Recorder(
+                t1_ops.decomposed_decode, L, 10, lambda qn, qr, x, kr, *r: (x, kr),
+                lambda qn, qr, x, kr, ln, wk, wv, s: (t1_ops.query_rows(qn, wk, x.dtype)[:, 0],
+                                                      qr[:, 0].to(x.dtype).contiguous(), ln)))
+        if mode == "cpq":
+            recs["cpq_decode"] = (cpq_ops, Recorder(
+                cpq_ops.cpq_decode, L, 10, lambda q, kt, vt, *r: (kt, vt),
+                lambda q, kt, vt, ln, *r: (q[:, 0].reshape(q.shape[0], kt.codes.shape[2], -1,
+                                                           q.shape[3]).float().contiguous(),
+                                           ln)))
+        out, stats, timer, wall, counts = serve_static(eng, T, M, prompts, n_new, recs, counted)
+        steps = stats["decode_steps"]
+        check(out.shape == (len(prompts), n_new) and steps == n_new - 1
+              and stats["generated_tokens"] == out.size, f"static {mode}: {out.shape}, {stats}")
+        want = {name: 0 for name in counts}
+        want["flash_attention"] = L * (1 + steps if mode == "dense" else 1)
+        if mode != "dense":
+            want[step_kernel[mode]] = L * steps
+        check(counts == want, f"static {mode}: launch counts {counts}, want {want}")
+        serves[f"static {mode}"] = static_metrics(out, stats, timer, wall, mode)
+        serves[f"static {mode}"]["launches"] = {k: n for k, n in counts.items() if n}
+        if mode == "dense":
+            flash_prefill = time_kernel(recs["flash_attention"][1].pre,
+                                        flash_prefill_case(fa_ops, scale))
+            log_timing("flash_attention (prompt)", flash_prefill, L, L)
+        if mode != "retrieval":
+            name = step_kernel[mode]
+            rec = recs[name][1].dec if name == "flash_attention" else recs[name][1]
+            case = {"flash_attention": flash_decode_case(fa_ops, scale),
+                    "decomposed_decode": t1c_decode_case(t1_ops, scale),
+                    "cpq_decode": cpqc_decode_case(cpq_ops, scale)}[name]
+            launches[name], per_tick[name] = counts[name], counts[name] / (steps + (
+                mode == "dense"))
+            timing[name] = time_kernel(rec, case)
+            log_timing(name, timing[name], launches[name], per_tick[name])
+        step_ms = timer.step_ms
+        del eng, recs, timer
+        torch.cuda.empty_cache()
+        if mode == "dense":
+            report["profile"]["static dense"] = [profile_static(
+                lambda: T.ServeEngine(cfg, params, rt=rts["dense"], device=DEVICE), T, M,
+                prompts, n_new, step_ms, 30, 40)]
+            log_profile("static dense", report["profile"]["static dense"])
+        log(f"[{time.perf_counter() - T0:.0f} s] served static {mode}")
+    timing["flash_attention"]["prompt"] = flash_prefill
+
+    # 4g) one-shot admission (prefill_chunk=0), dense, on the traffic of 4a:
+    #     B8 prefills each admission's padded prompt, B1 decodes
+    eng = T.ContinuousServeEngine(cfg, params, serving=dataclasses.replace(
+        serving, prefill_chunk=0), device=DEVICE)
+    for mod, name in counted:
+        getattr(mod, name).launches = 0
+    run = make_requests(T, cfg.vocab_size)
+    results, stats, ticks, wall = serve_timed(eng, T, run)
+    counts = {name: getattr(mod, name).launches for mod, name in counted}
+    check_finished(results, run, "oneshot")
+    want = {name: 0 for name in counts}
+    want.update(flash_attention=L * stats["admitted"], paged_decode=L * stats["decode_steps"])
+    check(counts == want and stats["admitted"] == len(run) and not stats["chunked_prefill"],
+          f"oneshot: launch counts {counts}, want {want}; {stats['admitted']} admissions")
+    serves["oneshot"] = serve_metrics(stats, ticks, wall, "oneshot dense")
+    serves["oneshot"]["launches"] = {k: n for k, n in counts.items() if n}
+    del eng
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - T0:.0f} s] served oneshot")
+
     # 5) f32 parity, kernels on and off, dense, CPQ, T1 and T3
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = to_device(_tree_float(params), DEVICE)
+    # the continuous serves' parity runs the first PARITY_DEPTH layers, to
+    # keep the script well inside its time limit; the contiguous path's
+    # (static, one-shot) runs the full depth
+    depth = min(PARITY_DEPTH, cfg32.num_blocks)
+    cfg_p = dataclasses.replace(cfg32, num_blocks=depth)
+    params_p = {**params32, "blocks": [b[:depth] for b in params32["blocks"]]}
     del params
-    report["parity"] = {mode: parity(T, M, cfg32, params32, reqs, mode)
+    report["parity"] = {mode: parity(T, M, cfg_p, params_p, reqs, mode)
                         for mode in ("dense", "cpq", "decomposed")}
-    with TopkWitness(t3_ops, t3_cfg, L) as witness:
-        report["parity"]["retrieval"] = parity(T, M, cfg32, params32, reqs, "retrieval",
+    with TopkWitness(t3_ops, t3_cfg, cfg_p.num_layers) as witness:
+        report["parity"]["retrieval"] = parity(T, M, cfg_p, params_p, reqs, "retrieval",
                                                dict(retrieval=t3_cfg))
     report["parity"]["retrieval"].update(
         topk_sets_compared=witness.sets, topk_sets_differ_plain=witness.differ_plain,
@@ -1400,7 +1995,14 @@ def main() -> int:
     log(f"parity retrieval: of {witness.sets} (row, head, layer) top-k sets over sampled "
         f"decode calls, {witness.differ_plain} differ between B7's scores and its plain "
         f"version's, {witness.differ_gather} between B7's and the gather path's (no gate)")
-    log(f"[{time.perf_counter() - T0:.0f} s] parity checked")
+    log(f"[{time.perf_counter() - T0:.0f} s] parity checked (continuous)")
+    report["parity"]["oneshot"] = parity(T, M, cfg32, params32, reqs, "dense",
+                                         serving_kw=dict(prefill_chunk=0))
+    for mode in ("dense", "decomposed", "cpq", "retrieval"):
+        report["parity"][f"static {mode}"] = static_parity(
+            T, M, cfg32, params32, prompts, mode, n_new,
+            dict(retrieval=t3_cfg) if mode == "retrieval" else None)
+    log(f"[{time.perf_counter() - T0:.0f} s] parity checked (contiguous)")
 
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",
                 "paged_prefill": "src/repro/kernels/flash_attn/kernel.py:170",
@@ -1408,29 +2010,43 @@ def main() -> int:
                 "paged_cpq_prefill": "src/repro/kernels/cpq_dequant_attn/kernel.py:213",
                 "paged_decomposed_decode": "src/repro/kernels/decomposed_attn/kernel.py:244",
                 "paged_decomposed_prefill": "src/repro/kernels/decomposed_attn/kernel.py:187",
-                "paged_proxy_scores": "src/repro/kernels/topk_retrieval/kernel.py:39"}
+                "paged_proxy_scores": "src/repro/kernels/topk_retrieval/kernel.py:39",
+                "flash_attention": "src/repro/kernels/flash_attn/kernel.py:276",
+                "decomposed_decode": "src/repro/kernels/decomposed_attn/kernel.py:298",
+                "cpq_decode": "src/repro/kernels/cpq_dequant_attn/kernel.py:338"}
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
     library = {name: sdpa for name in kmods}
     library["paged_proxy_scores"] = "torch.matmul on codes gathered beforehand, plus qz"
+    library["cpq_decode"] = sdpa + " on K/V dequantized beforehand"
+    served = {name: "bfloat16 KV=16 G=1 Dh=64" + (" bits=4" if "cpq" in name else "")
+              for name in kmods}
+    served.update({
+        "paged_decomposed_decode": "bfloat16 H=16 Dm=1024 kv_r=16 Rr=32",
+        "paged_decomposed_prefill": "bfloat16 H=16 Dm=1024 kv_r=16 Rr=32",
+        "paged_proxy_scores": "float32 KV=16 G=1 Dp=64",
+        "flash_attention": "bfloat16 B=8 T=1 S=575 H=16 KV=16 D=64 causal=False",
+        "decomposed_decode": "bfloat16 B=8 N=576 H=16 Dm=1024 kv_r=16 Rr=32 length=575",
+        "cpq_decode": "float32 q=bfloat16 B=8 N=576 KV=16 G=1 Dh=64 bits=4 length=575 "
+                      "round=True"})
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
     for name, mod in kmods.items():
         t = timing[name]
-        served = ("bfloat16 H=16 Dm=1024 kv_r=16 Rr=32" if "decomposed" in name
-                  else "float32 KV=16 G=1 Dp=64" if name == "paged_proxy_scores"
-                  else "bfloat16 KV=16 G=1 Dh=64" + (" bits=4" if "cpq" in name else ""))
+        by_serve = {mode: sv["launches"][name] for mode, sv in serves.items()
+                    if sv.get("launches", {}).get(name)}
+        if name == "paged_proxy_scores":  # B7's contiguous wrapper, the static T3 decode
+            by_serve["static retrieval"] = serves["static retrieval"]["launches"]["proxy_scores"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(str(mod.SOURCES[name]), root),
             "replaces": replaces[name], "launches": launches[name],
             "launches_per_tick": per_tick[name],
-            "max_abs_err": errs[name][served], "max_abs_err_sweep": errs[name],
+            "max_abs_err": errs[name][served[name]], "max_abs_err_sweep": errs[name],
             "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "library": library[name], "timed_samples": t["samples"],
-            "launches_by_serve": {mode: sv["launches"][name] for mode, sv in serves.items()
-                                  if name in sv.get("launches", {})}})
+            "launches_by_serve": by_serve, **({"prompt": t["prompt"]} if "prompt" in t else {})})
     report["kernels"] = kernels
     report["run_s"] = time.perf_counter() - T0
     if args.out:

@@ -285,6 +285,18 @@ def cpq_encode_chunk(scale: torch.Tensor, zero: torch.Tensor,
     return codes, level, scale, zero, num_levels
 
 
+def cpq_append_decode(t: CPQTensor, x_t: torch.Tensor, pos: int, cfg: CPQCfg) -> CPQTensor:
+    """HQE append of one token per row to a contiguous CPQ arena: x_t
+    (B, 1, H, D) is encoded by ``cpq_encode_token`` and its code and level
+    are written at token slot ``pos`` (a host int) in place. Returns the
+    tensor with the new scale/zero tables and level counts."""
+    code_t, level_t, scale, zero, num_levels = cpq_encode_token(
+        t.scale, t.zero, t.num_levels, t.prune_thr, x_t, cfg)
+    t.codes[:, pos] = code_t[:, 0]
+    t.level[:, pos] = level_t
+    return t._replace(scale=scale, zero=zero, num_levels=num_levels)
+
+
 # ------------------------------------------------------------------ reference
 
 

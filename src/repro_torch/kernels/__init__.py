@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version. ``build.py`` compiles the sources in ``*/csrc`` with ``nvcc`` on
 first use; ``paged_attn/`` holds the paged-attention kernels of the dense
-tier, ``decomposed_attn/`` those of the T1 tier, which sweep its X pages,
-``cpq_attn/`` those that attend straight over the T2 tier's int8 CPQ code
-pages, and ``topk_retrieval/`` the T3 proxy-scoring sweep over int8 key-code
-pages."""
+tier, ``flash_attn/`` the contiguous flash kernel of every contiguous prefill
+and of the static dense decode, ``decomposed_attn/`` the T1 kernels, which
+sweep X pages or a contiguous X arena, ``cpq_attn/`` those that attend
+straight over the T2 tier's int8 CPQ codes (paged or contiguous), and
+``topk_retrieval/`` the T3 proxy-scoring sweep over int8 key codes."""

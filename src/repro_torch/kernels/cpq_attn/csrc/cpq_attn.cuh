@@ -1,9 +1,11 @@
 // T2 attention straight over int8 CPQ code pages, for Hopper (sm_90a).
 //
-// Shared device code of the port's two CPQ kernels: paged_cpq_decode.cu
-// (one query token per request row) and paged_cpq_prefill.cu (one prompt
+// Shared device code of the port's three CPQ kernels: paged_cpq_decode.cu
+// (one query token per request row), paged_cpq_prefill.cu (one prompt
 // chunk of one slot: the slot's earlier code pages, then the chunk's own raw
-// K/V under a causal mask). The arena holds int8 codes `c8 = code - 128`
+// K/V under a causal mask) and cpq_decode.cu (one query token per row over
+// contiguous (B, N, KV, D) code arenas with one length: no block table,
+// page 1, token t of row b at arena row b * N + t). The arena holds int8 codes `c8 = code - 128`
 // (P, page, KV, D), one int32 HQE level per (token, kv head) (P, page, KV)
 // and, per request slot, a float32 scale and zero table (L, KV, D) for K
 // and for V. A code dequantizes to exactly 0 when code == 0 and to
@@ -20,9 +22,13 @@
 // into the float tile in shared memory. Nothing dequantized ever goes back
 // to device memory.
 //
-// Numerics follow the TPU kernel (src/repro/kernels/cpq_dequant_attn/
-// kernel.py): the dequantized K and V tiles are rounded to bf16 and back to
-// float (:112-117, :184-187); the chunk's raw K/V tail is not (:200-201).
+// Numerics follow the TPU kernels (src/repro/kernels/cpq_dequant_attn/
+// kernel.py): the paged kernels round the dequantized K and V tiles to bf16
+// and back to float (:112-117, :184-187), and the chunk's raw K/V tail is
+// not rounded (:200-201); the contiguous kernel rounds under the
+// compile-time switch kRound (its TPU kernel does not, :30-40, while the
+// contiguous decode the static engine serves, cpq_chunked_decode_attention,
+// does).
 // The dequantization (code - 1) * scale + zero is one fused multiply-add,
 // rounded once, as XLA compiles it for the reference and as the plain
 // version computes it, so no value lands on the other side of a bf16
@@ -59,19 +65,20 @@ struct Params {
   int vec16_codes, vec16_raw;
 };
 
+template <bool kRound>
 __device__ __forceinline__ float dequant(int code8, int l, int L, const float* s_tab,
                                          const float* z_tab, int D, int d) {
   const int c = code8 + 128;
   if (c == 0 || l < 0 || l >= L) return 0.f;
   const float v = fmaf((float)(c - 1), s_tab[l * D + d], z_tab[l * D + d]);
-  return __bfloat162float(__float2bfloat16_rn(v));
+  return kRound ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
 // Stage n tokens x D codes of kv head `kv` as dequantized float rows of
 // stride `stride`. lvl[j] is token j's level, s_tab/z_tab the slot's
 // [L][D] tables in shared memory. U is the load unit: 16 codes (rows and
 // base 16-byte aligned) or one. Loads are all issued before any is used.
-template <typename U>
+template <typename U, bool kRound>
 __device__ __forceinline__ void stage_codes(float* dst, int stride, const int8_t* src,
                                             const int* pg, const int* lvl,
                                             const float* s_tab, const float* z_tab,
@@ -100,13 +107,13 @@ __device__ __forceinline__ void stage_codes(float* dst, int stride, const int8_t
         float* out = dst + j * stride + d0;
 #pragma unroll
         for (int e = 0; e < per; ++e)
-          out[e] = dequant(codes[e], lvl[j], L, s_tab, z_tab, D, d0 + e);
+          out[e] = dequant<kRound>(codes[e], lvl[j], L, s_tab, z_tab, D, d0 + e);
       }
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kRound>
 __global__ void __launch_bounds__(kThreads) split_kernel(Params c) {
   const paged_attn::Params& p = c.p;
   extern __shared__ float smem[];
@@ -165,7 +172,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params c) {
       tzv[i] = c.zv[at];
     }
   }
-  const int* bt = p.block_table + (long)b * p.nb;
+  const int* bt = p.block_table ? p.block_table + (long)b * p.nb : nullptr;
 
   for (int t0 = tok0; t0 < tok1; t0 += tile) {
     const int n = min(tile, tok1 - t0);
@@ -185,7 +192,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params c) {
       }
     } else {
       for (int j = tid; j < n; j += kThreads) {
-        const int tok = t0 + j, page_id = bt[tok / p.page];
+        const int tok = t0 + j, page_id = bt ? bt[tok / p.page] : b * p.nb + tok;
         const long at = ((long)page_id * p.page + tok % p.page) * p.KV + kv;
         pg[j] = page_id;
         lvk[j] = c.lk[at];
@@ -193,11 +200,15 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params c) {
       }
       __syncthreads();
       if (c.vec16_codes) {
-        stage_codes<uint4>(kt, ks, c.ck, pg, lvk, tsk, tzk, L, t0, n, Dh, p.page, p.KV, kv);
-        stage_codes<uint4>(vt, vs, c.cv, pg, lvv, tsv, tzv, L, t0, n, Dv, p.page, p.KV, kv);
+        stage_codes<uint4, kRound>(kt, ks, c.ck, pg, lvk, tsk, tzk, L, t0, n, Dh, p.page,
+                                   p.KV, kv);
+        stage_codes<uint4, kRound>(vt, vs, c.cv, pg, lvv, tsv, tzv, L, t0, n, Dv, p.page,
+                                   p.KV, kv);
       } else {
-        stage_codes<int8_t>(kt, ks, c.ck, pg, lvk, tsk, tzk, L, t0, n, Dh, p.page, p.KV, kv);
-        stage_codes<int8_t>(vt, vs, c.cv, pg, lvv, tsv, tzv, L, t0, n, Dv, p.page, p.KV, kv);
+        stage_codes<int8_t, kRound>(kt, ks, c.ck, pg, lvk, tsk, tzk, L, t0, n, Dh, p.page,
+                                    p.KV, kv);
+        stage_codes<int8_t, kRound>(vt, vs, c.cv, pg, lvv, tsv, tzv, L, t0, n, Dv, p.page,
+                                    p.KV, kv);
       }
     }
     __syncthreads();
@@ -234,7 +245,7 @@ inline bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-template <typename T>
+template <typename T, bool kRound>
 int launch(Params c, cudaStream_t stream) {
   paged_attn::Params& p = c.p;
   if (p.B < 1 || p.KV < 1 || p.R < 1 || p.pages_per_split < 1 || p.nb < 1 ||
@@ -247,7 +258,7 @@ int launch(Params c, cudaStream_t stream) {
                 (p.Dv * sizeof(T)) % 16 == 0 && aligned16(c.k_raw) && aligned16(c.v_raw);
   const int nrb = (p.R + p.rows_per_block - 1) / p.rows_per_block;
   const size_t bytes = smem_bytes(p.rows_per_block, p.tile, p.Dh, p.Dv, c.L);
-  split_kernel<T><<<dim3(p.S, p.KV, p.B * nrb), kThreads, bytes, stream>>>(c);
+  split_kernel<T, kRound><<<dim3(p.S, p.KV, p.B * nrb), kThreads, bytes, stream>>>(c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int threads = p.Dv >= 128 ? 128 : ((p.Dv + 31) / 32) * 32;
@@ -255,9 +266,10 @@ int launch(Params c, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The paged kernels: tiles rounded to bf16, q and out in either type.
 inline int dispatch(int is_bf16, const Params& c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(c, s) : launch<float>(c, s);
+  return is_bf16 ? launch<__nv_bfloat16, true>(c, s) : launch<float, true>(c, s);
 }
 
 }  // namespace cpq_attn

@@ -5,11 +5,15 @@ counters.
                          (src/repro/kernels/cpq_dequant_attn/kernel.py:281)
   ``paged_cpq_prefill``  B6: replaces ``paged_cpq_prefill_fwd``
                          (src/repro/kernels/cpq_dequant_attn/kernel.py:213)
+  ``cpq_decode``         B10: replaces ``cpq_decode_fwd``
+                         (src/repro/kernels/cpq_dequant_attn/kernel.py:338), the
+                         static engine's T2 decode over contiguous code arenas
 
 The wrappers take the arenas as the JAX ops do (``cpq_dequant_attn/ops.py``):
 ``kt``/``vt`` are ``PagedCPQTensor``s with code pages (P, page, KV, D) int8,
 level pages (P, page, KV) int32 and per-slot scale/zero tables
-(num_slots, L, KV, D) float32. Given CPU tensors a wrapper runs its plain
+(num_slots, L, KV, D) float32, or, for B10, contiguous ``CPQTensor``s with
+codes (B, N, KV, D), levels (B, N, KV) and per-row tables (B, L, KV, D). Given CPU tensors a wrapper runs its plain
 PyTorch version (``*_plain``, which the tests hold against the JAX kernels);
 given CUDA tensors it launches the hand-written CUDA kernel in ``csrc/`` on
 the current stream, or raises. It never falls back. Every launch adds one to
@@ -19,6 +23,9 @@ Semantics (the TPU kernels'): a stored code ``c8`` means ``c = c8 + 128``;
 ``c == 0`` is exactly 0, else ``(c - 1) * scale[level] + zero[level]``; a
 level outside [0, L) reads scale = zero = 0. The dequantized K and V are
 rounded to bf16 and back to float32; a prefill chunk's own raw K/V is not.
+B10 rounds only when asked (``round_tiles``): its TPU kernel does not, the
+contiguous decode the static engine serves (``cpq_chunked_decode_attention``)
+does.
 Positions at or past a row's length contribute nothing and a row of length
 0 returns zeros. Outputs are computed in float32 and returned in q's dtype.
 """
@@ -29,13 +36,14 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.cpq import decode_codes, take_levels
+from repro_torch.core.cpq import CPQTensor, decode_codes, take_levels
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attn.ops import NEG_INF, SPLIT_TOKENS, run
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = {"paged_cpq_decode": CSRC / "paged_cpq_decode.cu",
-           "paged_cpq_prefill": CSRC / "paged_cpq_prefill.cu"}
+           "paged_cpq_prefill": CSRC / "paged_cpq_prefill.cu",
+           "cpq_decode": CSRC / "cpq_decode.cu"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -48,6 +56,10 @@ _ARGTYPES = {
     # C, H, KV, Dh, Dv, page, nb, L, pages_per_split, page_splits, offset,
     # valid, scale, stream
     "paged_cpq_prefill": [_I] + [_P] * 14 + [_I] * 12 + [_F, _P],
+    # round_tiles, q, codes_k, codes_v, level_k, level_v, scale_k, zero_k,
+    # scale_v, zero_v, out, part, B, KV, G, Dh, Dv, N, L, length, split_tokens,
+    # scale, stream
+    "cpq_decode": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
 }
 
 
@@ -231,3 +243,88 @@ def paged_cpq_prefill(q, kt, vt, k_raw, v_raw, slot: int, block_row,
 
 
 paged_cpq_prefill.launches = 0
+
+
+# ------------------------------------------------------- contiguous decode
+
+
+def cpq_decode_plain(q, codes_k, codes_v, scale_k, zero_k, scale_v, zero_v, level_k,
+                     level_v, length: int, scale: float, round_tiles: bool = False):
+    """Plain version of B10 (the JAX package's ``cpq_decode_ref``, with the
+    bf16 rounding of ``cpq_chunked_decode_attention`` when ``round_tiles``):
+    dequantize, exact softmax in float32 over the first ``length``
+    positions; a length of 0 returns zeros. q (B, KV, G, Dh). Returns
+    (B, KV, G, Dv) float32."""
+    N = codes_k.shape[1]
+
+    def dequant(codes, s_tab, z_tab, level):
+        out = decode_codes(codes, take_levels(s_tab, level), take_levels(z_tab, level),
+                           torch.bfloat16 if round_tiles else torch.float32)
+        return out.float()
+
+    k = dequant(codes_k, scale_k, zero_k, level_k)
+    v = dequant(codes_v, scale_v, zero_v, level_v)
+    s = torch.einsum("bkgd,bnkd->bkgn", q.float(), k) * scale
+    live = torch.arange(N, device=q.device) < int(length)
+    s = s.masked_fill(~live, NEG_INF)
+    w = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bkgn,bnkd->bkgd", w, v) / w.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o if int(length) > 0 else torch.zeros_like(o)
+
+
+def cpq_decode_fwd(q, codes_k, codes_v, scale_k, zero_k, scale_v, zero_v, level_k,
+                   level_v, length: int, scale: float, round_tiles: bool = False):
+    """The contiguous T2 decode, with the TPU kernel's arguments: q
+    (B, KV, G, Dh) (taken to float32); codes_* (B, N, KV, D*) int8; scale_*
+    and zero_* (B, L, KV, D*) float32; level_* (B, N, KV) int32; ``length``
+    a host int, the valid tokens of every row. Returns (B, KV, G, Dv)
+    float32."""
+    args = (q, codes_k, codes_v, scale_k, zero_k, scale_v, zero_v, level_k, level_v,
+            length, scale, round_tiles)
+    if q.device.type == "cpu":
+        return cpq_decode_plain(*args)
+    B, KV, G, Dh = q.shape
+    _, N, _, Dv = codes_v.shape
+    L = scale_k.shape[1]
+    if (tuple(codes_k.shape) != (B, N, KV, Dh) or tuple(codes_v.shape[:3]) != (B, N, KV)
+            or tuple(level_k.shape) != (B, N, KV) or tuple(level_v.shape) != (B, N, KV)
+            or tuple(scale_k.shape) != (B, L, KV, Dh) or zero_k.shape != scale_k.shape
+            or tuple(scale_v.shape) != (B, L, KV, Dv) or zero_v.shape != scale_v.shape
+            or not 0 <= int(length) <= N):
+        raise ValueError(
+            f"cpq_decode: shapes q {tuple(q.shape)}, codes {tuple(codes_k.shape)}/"
+            f"{tuple(codes_v.shape)}, levels {tuple(level_k.shape)}/{tuple(level_v.shape)}, "
+            f"tables {tuple(scale_k.shape)}/{tuple(scale_v.shape)}, length {int(length)}")
+    qf = q.float().contiguous()
+    kt, vt = (CPQTensor(codes=c, scale=sc, zero=z, level=lv, num_levels=None, prune_thr=None)
+              for c, sc, z, lv in ((codes_k, scale_k, zero_k, level_k),
+                                   (codes_v, scale_v, zero_v, level_v)))
+    _check_cuda("cpq_decode", qf, kt, vt, [])
+    split = SPLIT_TOKENS
+    out = torch.empty((B, KV, G, Dv), dtype=torch.float32, device=q.device)
+    part = torch.empty(B * KV * G * -(-N // split) * (Dv + 2), dtype=torch.float32,
+                       device=q.device)
+    run(launcher("cpq_decode"), "cpq_decode", q.device, int(round_tiles), qf.data_ptr(),
+        codes_k.data_ptr(), codes_v.data_ptr(), level_k.data_ptr(), level_v.data_ptr(),
+        scale_k.data_ptr(), zero_k.data_ptr(), scale_v.data_ptr(), zero_v.data_ptr(),
+        out.data_ptr(), part.data_ptr(), B, KV, G, Dh, Dv, N, L, int(length), split,
+        float(scale))
+    cpq_decode.launches += 1
+    return out
+
+
+def cpq_decode(q, kt, vt, length: int, scale: float, round_tiles: bool = True):
+    """Contiguous T2 decode over a ``CPQKVCache``'s tensors (``cpq_decode_tpu``):
+    q (B, 1, H, Dh) roped; kt/vt ``CPQTensor``s; ``length`` a host int.
+    ``round_tiles`` (on by default) gives the function the static engine
+    serves, ``cpq_chunked_decode_attention``. Returns (B, 1, H, Dv) in q's
+    dtype."""
+    B, _, H, Dh = q.shape
+    KV = kt.codes.shape[2]
+    out = cpq_decode_fwd(q[:, 0].reshape(B, KV, H // KV, Dh), kt.codes, vt.codes, kt.scale,
+                         kt.zero, vt.scale, vt.zero, kt.level, vt.level, length, scale,
+                         round_tiles)
+    return out.reshape(B, 1, H, -1).to(q.dtype)
+
+
+cpq_decode.launches = 0

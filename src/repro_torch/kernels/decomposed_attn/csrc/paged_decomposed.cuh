@@ -1,9 +1,14 @@
 // T1 decomposed attention straight over a block-paged X arena, for Hopper
 // (sm_90a).
 //
-// Shared device code of the port's two T1 kernels: paged_decomposed_decode.cu
-// (one query token per request row) and paged_decomposed_prefill.cu (one
-// prompt chunk of one slot, causal per row). The arena caches the block
+// Shared device code of the port's three T1 kernels: paged_decomposed_decode.cu
+// (one query token per request row), paged_decomposed_prefill.cu (one
+// prompt chunk of one slot, causal per row) and decomposed_decode.cu (one
+// query token per row over contiguous (B, N, ...) arenas with one length;
+// the compile-time switch kContig: no block table, page 1, token t of row b
+// at arena row b * N + t, the length in `valid`; the paged kernels' code and
+// Params are untouched by it, and so is their register allocation).
+// The arena caches the block
 // input X (P, page, Dm) and a roped key slice (P, page, kv_r, Rr) instead of
 // K and V. Each query row brings R = q_nope W_K^T (Dm values, computed
 // outside) and its roped slice q_rope (Rr values); per live key position n
@@ -84,7 +89,8 @@ struct Params {
   float* part;            // m (G, S, kRows), l (G, S, kRows), acc (G, S, kRows, Dm)
   int prefill;            // 0: rows b * H + h; 1: chunk rows i * H + h
   int B, C, H, kv_r, Rr, Dm, page, nb;
-  int offset, valid;      // prefill: the chunk sits at positions offset + i
+  int offset, valid;      // prefill: the chunk sits at positions offset + i;
+                          // contiguous decode: valid is every row's length
   int pages_per_split, S;
   int groups, head_groups;  // G blocks of kRows rows; decode: groups per row b
   float scale;
@@ -164,7 +170,7 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[kRows], int lane
 }
 
 // Pass 1: one block per (key split, group of kRows query rows).
-template <typename T, int DPT>
+template <typename T, int DPT, bool kContig>
 __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
   extern __shared__ float dyn[];                 // qr_s [kRows][Rr], kr_s [kTile][kv_r * Rr]
   __shared__ float red[kMaxWarps * kRedStride];  // per-warp score sums [warp][key][row]
@@ -177,7 +183,7 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int b = p.prefill ? 0 : g / p.head_groups;
-  int len = p.prefill ? p.offset + p.valid : p.lengths[b];
+  int len = kContig ? p.valid : p.prefill ? p.offset + p.valid : p.lengths[b];
   len = min(len, p.nb * p.page);
   const int span = p.pages_per_split * p.page;
   const int tok0 = split * span, tok1 = min(len, tok0 + span);
@@ -212,10 +218,14 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
     const Row w = row_of(p, g, i / p.Rr);
     qr_s[i] = w.alive ? to_f(qrp[(long)w.qrow * p.Rr + i % p.Rr]) : 0.f;
   }
-  const int* bt = p.block_table + (long)b * p.nb;
-  for (int i = tid; i < tok1 - tok0; i += nthreads) {
-    const int t = tok0 + i;
-    row_s[i] = bt[t / p.page] * p.page + t % p.page;
+  if constexpr (kContig) {
+    for (int i = tid; i < tok1 - tok0; i += nthreads) row_s[i] = b * p.nb + tok0 + i;
+  } else {
+    const int* bt = p.block_table + (long)b * p.nb;
+    for (int i = tid; i < tok1 - tok0; i += nthreads) {
+      const int t = tok0 + i;
+      row_s[i] = bt[t / p.page] * p.page + t % p.page;
+    }
   }
 
   float rq[kRows][DPT], acc[kRows][DPT];
@@ -392,17 +402,17 @@ __global__ void merge_kernel(Params p) {
   }
 }
 
-template <typename T, int DPT>
+template <typename T, int DPT, bool kContig>
 int launch(Params p, int threads, cudaStream_t stream) {
   const size_t dyn = sizeof(float) * ((size_t)kRows * p.Rr + (size_t)kTile * p.kv_r * p.Rr);
   if (dyn > kSmemOptIn) return cudaErrorInvalidValue;
   if (dyn > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(split_kernel<T, DPT>,
+    cudaError_t err = cudaFuncSetAttribute(split_kernel<T, DPT, kContig>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)dyn);
     if (err != cudaSuccess) return err;
   }
-  split_kernel<T, DPT><<<dim3(p.S, p.groups), threads, dyn, stream>>>(p);
+  split_kernel<T, DPT, kContig><<<dim3(p.S, p.groups), threads, dyn, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   merge_kernel<T><<<dim3(kRows, p.groups), 256, (sizeof(float) + sizeof(int)) * p.S,
@@ -413,7 +423,10 @@ int launch(Params p, int threads, cudaStream_t stream) {
 // Elements of Dm per thread: the block has Dm / DPT threads (at most 512).
 inline int dpt_of(int Dm) { return Dm <= 512 ? 1 : Dm <= 1024 ? 2 : 4; }
 
-inline int dispatch(int is_bf16, Params p, void* stream) {
+// kContig: contiguous arenas (decomposed_decode.cu); the paged kernels
+// instantiate the default.
+template <bool kContig = false>
+int dispatch(int is_bf16, Params p, void* stream) {
   if (p.H < 1 || p.Dm < 1 || p.Rr < 0 || p.page < 1 || p.nb < 1 ||
       p.pages_per_split < 1 || p.pages_per_split * p.page > kMaxSpan || p.Dm > 2048)
     return cudaErrorInvalidValue;
@@ -431,13 +444,13 @@ inline int dispatch(int is_bf16, Params p, void* stream) {
   p.groups = p.prefill ? (p.H * p.C + kRows - 1) / kRows : p.B * p.head_groups;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (dpt == 1) return launch<__nv_bfloat16, 1>(p, threads, s);
-    if (dpt == 2) return launch<__nv_bfloat16, 2>(p, threads, s);
-    return launch<__nv_bfloat16, 4>(p, threads, s);
+    if (dpt == 1) return launch<__nv_bfloat16, 1, kContig>(p, threads, s);
+    if (dpt == 2) return launch<__nv_bfloat16, 2, kContig>(p, threads, s);
+    return launch<__nv_bfloat16, 4, kContig>(p, threads, s);
   }
-  if (dpt == 1) return launch<float, 1>(p, threads, s);
-  if (dpt == 2) return launch<float, 2>(p, threads, s);
-  return launch<float, 4>(p, threads, s);
+  if (dpt == 1) return launch<float, 1, kContig>(p, threads, s);
+  if (dpt == 2) return launch<float, 2, kContig>(p, threads, s);
+  return launch<float, 4, kContig>(p, threads, s);
 }
 
 }  // namespace decomposed_attn

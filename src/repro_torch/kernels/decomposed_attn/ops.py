@@ -5,12 +5,16 @@ counters.
                                 (src/repro/kernels/decomposed_attn/kernel.py:244)
   ``paged_decomposed_prefill``  B4: replaces ``paged_decomposed_prefill_fwd``
                                 (src/repro/kernels/decomposed_attn/kernel.py:187)
+  ``decomposed_decode``         B9: replaces ``decomposed_decode_fwd``
+                                (src/repro/kernels/decomposed_attn/kernel.py:298),
+                                the static engine's T1 decode over contiguous
+                                (B, N, ...) arenas with one length
 
 The work is split as the JAX ops split it (``decomposed_attn/ops.py``): the
 query side ``R = q_nope W_K^T`` is an einsum cast to the arena dtype, the
 sweep over the X pages (both cascaded products and the online softmax) is
 the kernel, which returns ``P`` (rows, H, Dm), and ``out = P W_V`` is an
-einsum in the arena dtype. ``paged_decomposed_*_fwd`` is the sweep alone,
+einsum in the arena dtype. ``*_fwd`` is the sweep alone,
 with the JAX kernels' arguments: given CPU tensors it runs the plain PyTorch
 version (``*_plain``, which the tests hold against the JAX kernels); given
 CUDA tensors it launches the hand-written CUDA kernel in ``csrc/`` on the
@@ -37,14 +41,15 @@ from repro_torch.kernels.paged_attn.ops import _check_cuda as _check_common
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = {"paged_decomposed_decode": CSRC / "paged_decomposed_decode.cu",
-           "paged_decomposed_prefill": CSRC / "paged_decomposed_prefill.cu"}
+           "paged_decomposed_prefill": CSRC / "paged_decomposed_prefill.cu",
+           "decomposed_decode": CSRC / "decomposed_decode.cu"}
 # pass 1 cuts the key range into runs of whole pages of about this many
 # tokens, one block per run and 16 query rows (csrc/paged_decomposed.cuh).
 # A block fills an SM (512 threads at 128 registers) and walks its run one
 # 8-key tile at a time, so short runs keep that walk short while the live
 # runs of a served batch (a few thousand keys) still fit the 132 SMs in one
 # wave; each run writes a (16, Dm) float32 partial that pass 2 merges
-SPLIT_TOKENS = {"decode": 16, "prefill": 32}
+SPLIT_TOKENS = {"decode": 16, "prefill": 32}  # the contiguous decode as "decode"
 ROWS = 16          # query rows per block (kRows)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -55,6 +60,9 @@ _ARGTYPES = {
     # is_bf16, r, q_rope, x_pages, kr_pages, block_row, out, part,
     # C, H, kv_r, Rr, Dm, page, nb, pages_per_split, offset, valid, scale, stream
     "paged_decomposed_prefill": [_I] + [_P] * 7 + [_I] * 10 + [_F, _P],
+    # is_bf16, r, q_rope, x, k_rope, out, part,
+    # B, H, kv_r, Rr, Dm, N, length, split_tokens, scale, stream
+    "decomposed_decode": [_I] + [_P] * 6 + [_I] * 8 + [_F, _P],
 }
 
 
@@ -266,3 +274,73 @@ def paged_decomposed_prefill(q_nope, q_rope, x_pages, kr_pages, block_row, offse
 
 
 paged_decomposed_prefill.launches = 0
+
+
+# ------------------------------------------------------- contiguous decode
+
+
+def decomposed_decode_plain(r, q_rope, x, k_rope, length: int, scale: float):
+    """Plain version of B9: exact softmax in float32 over the first
+    ``length`` positions, P accumulated in float32 and cast to x's dtype; a
+    row of length 0 returns zeros. r (B, H, Dm); q_rope (B, H, Rr); x
+    (B, N, Dm); k_rope (B, N, kv_r, Rr). Returns P (B, H, Dm)."""
+    B, H, _ = r.shape
+    N = x.shape[1]
+    xf = x.float()
+    s = torch.einsum("bhm,bnm->bhn", r.float(), xf)
+    if q_rope.shape[-1] > 0:
+        kv_r, Rr = k_rope.shape[2], k_rope.shape[3]
+        qg = q_rope.reshape(B, kv_r, H // kv_r, Rr).float()
+        s = s + torch.einsum("bkgr,bnkr->bkgn", qg, k_rope.float()).reshape(B, H, N)
+    s = s * scale
+    live = torch.arange(N, device=r.device) < int(length)
+    s = s.masked_fill(~live[None, None, :], NEG_INF)
+    w = torch.exp(s - s.amax(-1, keepdim=True))
+    p = torch.einsum("bhn,bnm->bhm", w, xf) / w.sum(-1, keepdim=True).clamp_min(1e-30)
+    return (p if int(length) > 0 else torch.zeros_like(p)).to(x.dtype)
+
+
+def decomposed_decode_fwd(r, q_rope, x, k_rope, length: int, scale: float):
+    """The contiguous decode sweep: r (B, H, Dm) = q_nope W_K^T and q_rope
+    (B, H, Rr) in x's dtype (Rr may be 0); x (B, N, Dm); k_rope
+    (B, N, kv_r, Rr) with kv_r == 1 (one roped key shared by every head, the
+    TPU kernel's layout) or one per kv head; ``length`` a host int, the valid
+    tokens of every row. Returns P (B, H, Dm)."""
+    if x.device.type == "cpu":
+        return decomposed_decode_plain(r, q_rope, x, k_rope, length, scale)
+    B, H, Dm = r.shape
+    _, N, Dx = x.shape
+    Rr = q_rope.shape[-1]
+    kv_r = _kv_r(q_rope, k_rope)
+    if (Dx != Dm or x.shape[0] != B or tuple(q_rope.shape[:2]) != (B, H)
+            or (Rr and tuple(k_rope.shape) != (B, N, kv_r, Rr))
+            or not 0 <= int(length) <= N):
+        raise ValueError(
+            f"decomposed_decode: shapes r {tuple(r.shape)}, q_rope {tuple(q_rope.shape)}, "
+            f"x {tuple(x.shape)}, k_rope {tuple(k_rope.shape)}, length {int(length)}")
+    _check_cuda("decomposed_decode", r, q_rope, x, k_rope, [])
+    split = SPLIT_TOKENS["decode"]
+    out = torch.empty((B, H, Dm), dtype=x.dtype, device=x.device)
+    part = _partials(B * -(-H // ROWS), -(-N // split), Dm, x.device)
+    run(launcher("decomposed_decode"), "decomposed_decode", x.device,
+        int(x.dtype == torch.bfloat16), r.data_ptr(), q_rope.data_ptr(), x.data_ptr(),
+        k_rope.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, kv_r, Rr, Dm, N,
+        int(length), split, float(scale))
+    decomposed_decode.launches += 1
+    return out
+
+
+def decomposed_decode(q_nope, q_rope, x, k_rope, length: int, w_k_nope, w_v,
+                      scale: float):
+    """Contiguous T1 decode (``decomposed_decode_tpu``): R = q_nope W_K^T,
+    the B9 sweep over the X arena, then P W_V. q_nope (B, 1, H, Dn); q_rope
+    (B, 1, H, Rr), Rr may be 0; x (B, N, Dm); k_rope (B, N, kv_r, Rr);
+    ``length`` a host int; w_k_nope (Dm, KV, Dn); w_v (Dm, KV, Dv). Returns
+    (B, 1, H, Dv)."""
+    r = query_rows(q_nope, w_k_nope, x.dtype)[:, 0]
+    qr = q_rope[:, 0].to(x.dtype).contiguous()
+    p = decomposed_decode_fwd(r, qr, x, k_rope, length, scale)
+    return value_rows(p[:, None], w_v)
+
+
+decomposed_decode.launches = 0

@@ -23,6 +23,13 @@
 //     element), then the block computes scores, the softmax update and P.V
 //     out of shared memory.
 //
+// The same kernels serve contiguous arenas (the flash kernel B8,
+// ../../flash_attn/csrc/flash_attention.cu): with no block table, the arena
+// is (B, nb, KV, D) with page == 1, and token t of row b is arena row
+// b * nb + t, so a row's keys are any prefix of a longer arena. A causal
+// block stops at the last key its last query row may see: key tiles, and
+// whole splits, that every row of the block masks are never loaded.
+//
 // Masking follows the JAX package's convention (null page 0 holds garbage,
 // every position >= the row's length contributes nothing, a row of length 0
 // returns zeros). Keys past the length are never loaded, so page 0 is never
@@ -106,7 +113,8 @@ struct Params {
   const void* k;          // (P, page, KV, Dh) arena
   const void* v;          // (P, page, KV, Dv) arena
   void* out;              // output rows, addressed like q with Dv
-  const int* block_table; // (B, nb) physical page of each logical block
+  const int* block_table; // (B, nb) physical page of each logical block, or
+                          // nullptr: contiguous (B, nb, KV, D) arenas, page 1
   const int* lengths;     // (B,) live tokens per row, or nullptr: len_host
   float* part;            // scratch: m (B,KV,R,S), l (B,KV,R,S), acc (B,KV,R,S,Dv)
   int len_host;
@@ -263,8 +271,10 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
   int len = p.lengths ? p.lengths[b] : p.len_host;
   len = min(len, p.nb * p.page);
   const int tok0 = split * p.pages_per_split * p.page;
-  const int tok1 = min(len, tok0 + p.pages_per_split * p.page);
-  if (tok0 >= tok1) {  // the whole split lies past the row's length
+  int tok1 = min(len, tok0 + p.pages_per_split * p.page);
+  if (p.causal_offset >= 0)  // nothing past what the block's last row may see
+    tok1 = min(tok1, p.causal_offset + (r0 + nr - 1) / p.G + 1);
+  if (tok0 >= tok1) {  // the whole split lies past the row's length or causal limit
     empty_split(p, base, nr);
     return;
   }
@@ -272,12 +282,13 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
 
   const T* kp = static_cast<const T*>(p.k);
   const T* vp = static_cast<const T*>(p.v);
-  const int* bt = p.block_table + (long)b * p.nb;
+  const int* bt = p.block_table ? p.block_table + (long)b * p.nb : nullptr;
 
   for (int t0 = tok0; t0 < tok1; t0 += tile) {
     const int n = min(tile, tok1 - t0);
     __syncthreads();  // the previous tile is consumed; initial state is visible
-    for (int j = tid; j < n; j += kThreads) pg[j] = bt[(t0 + j) / p.page];
+    for (int j = tid; j < n; j += kThreads)
+      pg[j] = bt ? bt[(t0 + j) / p.page] : b * p.nb + t0 + j;
     __syncthreads();
     if (p.vec16) {
       stage_tile<T, uint4>(kt, ks, kp, pg, t0, n, Dh, p.page, p.KV, kv);

@@ -9,7 +9,8 @@
 and the JAX package's ops around it (``topk_retrieval/ops.py``):
 ``proxy_scores_q`` (``proxy_scores_tpu``: builds the query factors) and
 ``retrieval_decode`` (``retrieval_decode_tpu``: kernel sweep, then top-k and
-the exact re-score, without calibration, as there).
+the exact re-score, without calibration as there, or with it: the static
+engine's T3 decode).
 
 Both kernel wrappers launch one CUDA kernel, ``csrc/proxy_scores.cu``. Given
 CPU tensors a wrapper runs its plain PyTorch version (``*_plain``, which the
@@ -180,14 +181,16 @@ paged_proxy_scores.launches = 0
 # ------------------------------------------------------ contiguous decode
 
 
-def retrieval_decode(q, cache, cfg, scale: float):
+def retrieval_decode(q, cache, cfg, scale: float, calibrate: bool = False):
     """``retrieval_decode_tpu``: the kernel's proxy sweep, then top-k and the
-    exact re-score over the picked keys, with no calibration. q (B, 1, H, Dh)
-    roped; cache a ``RetrievalCache``. Returns (B, 1, H, Dh)."""
+    exact re-score over the picked keys, with no calibration unless asked
+    (the static engine's T3 decode calibrates, as ``retrieval_attention``
+    does). q (B, 1, H, Dh) roped; cache a ``RetrievalCache``. Returns
+    (B, 1, H, Dh)."""
     dp = cfg.proxy_dim or q.shape[-1]
     sp = proxy_scores_q(q[:, 0, :, :dp] * scale, cache.proxy_scale, cache.proxy_zero,
                         cache.proxy, cache.length)[:, None]
     idx = ret_lib.select_topk(sp, cache.length, cfg)
     k_sel, v_sel = ret_lib.gather_kv(cache.k, cache.v, idx)
     return ret_lib.attend_selected(q, k_sel, v_sel, idx, sp, cache.length, scale,
-                                   calibrate=False)
+                                   calibrate=calibrate)

@@ -1,8 +1,14 @@
-"""GQA/MQA/MHA attention layer of the port, serving phases over paged arenas
-(the JAX package's ``models/attention_layer.py``). Ported: the dense,
-decomposed (T1), CPQ (T2) and retrieval (T3) modes and the tiered dense +
-CPQ arena; decomposed_cpq (T1+T2) raises ``NotImplementedError`` naming its
-ROADMAP item.
+"""GQA/MQA/MHA attention layer of the port, serving phases (the JAX
+package's ``models/attention_layer.py``): over paged arenas (chunked prefill
+and per-row decode) and over contiguous arenas (``attn_prefill`` of a whole
+prompt and ``attn_decode`` at one shared position: the static engine and
+one-shot admission). Ported: the dense, decomposed (T1), CPQ (T2) and
+retrieval (T3) modes and the tiered dense + CPQ arena; decomposed_cpq
+(T1+T2) raises ``NotImplementedError`` naming its ROADMAP item.
+
+Prefill attention over a whole prompt is dense and causal in every mode:
+the contiguous flash kernel B8 with ``rt.paged_kernels`` (the default),
+else its plain version, ``attention_auto``, as the reference computes it.
 
 Decomposed (T1) rope handling: rotations do not commute with W_K, so on
 RoPE architectures only the first ``decoupled_rope_dims`` dims of each q
@@ -15,6 +21,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import AttentionRuntime, CPQCfg, ModelConfig
+from repro_torch.core import attention as core_attn
+from repro_torch.core.flash_ref import attention_auto
+from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.models.layers import apply_rope, apply_rope_rows, rms_norm_vec, rope_tables
 from repro_torch.serving import paged_cache as pgc
 
@@ -93,6 +102,60 @@ def _out(cfg: ModelConfig, p, o: torch.Tensor) -> torch.Tensor:
 
 def _scale(cfg: ModelConfig) -> float:
     return cfg.head_dim ** -0.5
+
+
+def init_attn_cache(cfg: ModelConfig, rt: AttentionRuntime, batch: int, n_max: int,
+                    device):
+    """Contiguous (batch, n_max) arena of the configured mode."""
+    return core_attn.init_cache(
+        rt, batch=batch, n_max=n_max, kv=cfg.num_kv_heads, dh=cfg.head_dim,
+        d_model=cfg.d_model, rope_dims=decoupled_rope_dims(cfg), dtype=cfg.param_dtype,
+        device=device)
+
+
+def _prefill_attention(rt: AttentionRuntime, q, k, v, scale: float):
+    """Causal attention over a whole prompt: B8 or its plain version."""
+    if rt.paged_kernels:
+        return fa_ops.flash_attention(q, k, v, scale, causal=True)
+    return attention_auto(q, k, v, scale, causal=True)
+
+
+def attn_prefill(cfg: ModelConfig, rt: AttentionRuntime, p, x: torch.Tensor,
+                 positions: torch.Tensor, cache):
+    """Dense prefill compute over the whole prompt and the mode's cache
+    build. x (B, S, D) is the normed block input (the exact T1 operand);
+    the cache records length S. T1 ropes only the cached slice of q and k,
+    and its prefill attends over those partly roped q and k, as the
+    reference does."""
+    q, k, v = _project_qkv(cfg, p, x)
+    r = decoupled_rope_dims(cfg)
+    if rt.mode == "decomposed":
+        q, k = _rope_qk(cfg, q, k, positions, positions, dims=r)
+        k_rope = k[..., :r]
+    else:
+        q, k = _rope_qk(cfg, q, k, positions, positions)
+        k_rope = None
+    cache = core_attn.prefill_into_cache(rt, cache, k=k, v=v, x=x, k_rope=k_rope,
+                                         length=x.shape[1])
+    return _out(cfg, p, _prefill_attention(rt, q, k, v, _scale(cfg))), cache
+
+
+def attn_decode(cfg: ModelConfig, rt: AttentionRuntime, p, x_t: torch.Tensor, pos: int,
+                cache):
+    """One-token decode over a contiguous arena, every row at position
+    ``pos`` (a host int). x_t (B, 1, D) normed block input."""
+    q, k, v = _project_qkv(cfg, p, x_t)
+    positions = torch.tensor([pos], device=x_t.device)
+    if rt.mode == "decomposed":
+        wk_nope, wv, r = _wk_wv_heads(cfg, p)
+        q, k = _rope_qk(cfg, q, k, positions, positions, dims=r)
+        out, cache = core_attn.decode_attend(
+            rt, cache, q=q, k_t=k, v_t=v, x_t=x_t, k_rope_t=k[..., :r], q_nope=q[..., r:],
+            q_rope=q[..., :r], w_k_nope=wk_nope, w_v=wv, scale=_scale(cfg))
+    else:
+        q, k = _rope_qk(cfg, q, k, positions, positions)
+        out, cache = core_attn.decode_attend(rt, cache, q=q, k_t=k, v_t=v, scale=_scale(cfg))
+    return _out(cfg, p, out), cache
 
 
 def init_paged_attn_cache(cfg: ModelConfig, rt: AttentionRuntime, serving,

@@ -1,12 +1,18 @@
-"""Full model of the port for continuous paged serving (the JAX package's
-``models/model.py``): embed -> layers -> final norm -> LM head.
+"""Full model of the port for serving (the JAX package's ``models/model.py``):
+embed -> layers -> final norm -> LM head, over contiguous arenas (``prefill``
+and ``decode_step``: the static engine and one-shot admission, whose B=1
+prefill ``pack_prefill_caches`` scatters into a slot's pages) and over
+paged arenas (continuous batching).
 
 The JAX package scans over stacked block parameters and caches; here a
 Python loop walks the layers, each with its own parameter dict and its own
-paged arena (so no stacked copy of an arena is ever needed). Arenas are
-updated in place, and the functions return them for symmetry with the
-reference."""
+arena (so no stacked copy of an arena is ever needed). Arenas are updated
+in place; the paged functions return them for symmetry with the reference,
+and the contiguous ones return new containers, which carry the new
+lengths."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -29,6 +35,65 @@ def per_layer(cfg: ModelConfig, tree):
 def _layers(cfg: ModelConfig, params, caches):
     """(kind, layer params, layer arena) for every layer, in order."""
     return zip(cfg.layer_kinds, per_layer(cfg, params), per_layer(cfg, caches))
+
+
+def _tree(cfg: ModelConfig, layers: list):
+    """A per-layer list, in the order of ``cfg.layer_kinds``, as a tree
+    shaped like the parameters."""
+    n = len(cfg.prefix_pattern)
+    nb, npos = cfg.num_blocks, len(cfg.block_pattern)
+    return {"prefix": layers[:n],
+            "blocks": [[layers[n + i * npos + j] for i in range(nb)] for j in range(npos)]}
+
+
+def init_caches(cfg: ModelConfig, rt: AttentionRuntime, batch: int, n_max: int, device):
+    """One contiguous (batch, n_max) arena per attention layer, shaped like
+    the parameter tree."""
+    return _tree(cfg, [tfm.layer_cache_init(cfg, rt, kind, batch, n_max, device)
+                       for kind in cfg.layer_kinds])
+
+
+def prefill(cfg: ModelConfig, rt: AttentionRuntime, params, tokens: torch.Tensor, caches,
+            last_index: Optional[int] = None):
+    """Prefill the prompts ``tokens`` (B, S) into contiguous arenas. Returns
+    (logits (B, V) float32 of the last position, or of ``last_index`` when
+    the prompt is right-padded to a bucket (one-shot admission), the new
+    caches)."""
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)
+    x = embed_inputs(cfg, params["embed"], tokens, positions)
+    new = []
+    for kind, p, c in _layers(cfg, params, caches):
+        x, c = tfm.layer_prefill(cfg, rt, kind, p, x, positions, c)
+        new.append(c)
+    i = S - 1 if last_index is None else last_index
+    x = apply_norm(cfg, params["final_norm"], x[:, i:i + 1])
+    return lm_logits(cfg, params, x)[:, 0], _tree(cfg, new)
+
+
+def decode_step(cfg: ModelConfig, rt: AttentionRuntime, params, tokens: torch.Tensor,
+                pos: int, caches):
+    """One decode step over contiguous arenas, every row at position ``pos``
+    (a host int). tokens (B, 1). Returns (logits (B, V) float32, caches)."""
+    x = embed_inputs(cfg, params["embed"], tokens, torch.tensor([pos], device=tokens.device))
+    new = []
+    for kind, p, c in _layers(cfg, params, caches):
+        x, c = tfm.layer_decode(cfg, rt, kind, p, x, pos, c)
+        new.append(c)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params, x)[:, 0], _tree(cfg, new)
+
+
+def pack_prefill_caches(cfg: ModelConfig, rt: AttentionRuntime, paged, src,
+                        block_row: torch.Tensor, slot: int):
+    """Scatter a freshly prefilled B=1 contiguous cache tree ``src`` (from
+    ``prefill``) into slot ``slot`` of the paged arenas, in place: one-shot
+    admission."""
+    for (mixer, _), pc, sc in zip(cfg.layer_kinds, per_layer(cfg, paged),
+                                  per_layer(cfg, src)):
+        if mixer == "attn":
+            pgc.pack_into(rt.mode, pc, sc, block_row, slot)
+    return paged
 
 
 def init_paged_caches(cfg: ModelConfig, rt: AttentionRuntime, serving, device,

@@ -1,5 +1,7 @@
 """Layer dispatch of the port (the JAX package's ``models/transformer.py``),
-serving phases for ``("attn", "dense")`` layers."""
+serving phases for ``("attn", "dense")`` layers: over paged arenas
+(continuous batching) and over contiguous arenas (the static engine and
+one-shot admission)."""
 from __future__ import annotations
 
 from repro_torch.configs import AttentionRuntime, ModelConfig
@@ -39,3 +41,27 @@ def layer_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first
                                        apply_norm(cfg, p["norm1"], x), positions, slot,
                                        block_row, offset, valid, cache)
     return _apply_mlp_part(cfg, mlp, p, x + y), cache
+
+
+def layer_cache_init(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str],
+                     batch: int, n_max: int, device):
+    layer_defs(cfg, kind)  # raises for the layer kinds not ported yet
+    return attn.init_attn_cache(cfg, rt, batch, n_max, device)
+
+
+def layer_prefill(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str], p, x,
+                  positions, cache):
+    """Whole-prompt prefill of one layer into its contiguous arena."""
+    _, mlp = kind
+    y, cache = attn.attn_prefill(cfg, rt, p["mixer"], apply_norm(cfg, p["norm1"], x),
+                                 positions, cache)
+    return _apply_mlp_part(cfg, mlp, p, x + y), cache
+
+
+def layer_decode(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str], p, x_t,
+                 pos: int, cache):
+    """One-token decode of one layer, every row at position ``pos``."""
+    _, mlp = kind
+    y, cache = attn.attn_decode(cfg, rt, p["mixer"], apply_norm(cfg, p["norm1"], x_t), pos,
+                                cache)
+    return _apply_mlp_part(cfg, mlp, p, x_t + y), cache

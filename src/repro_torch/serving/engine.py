@@ -1,13 +1,22 @@
-"""Continuous-batching serving engine of the port (the JAX package's
-``ContinuousServeEngine``, ``serving/engine.py:225``).
+"""Serving engines of the port (the JAX package's ``serving/engine.py``).
 
-Requests are admitted into vacated slots as soon as their pages fit, their
-prompts stream into the slot's arena pages one ``prefill_chunk`` per tick
-(interleaved with the decode step), every running row decodes at its own
-position, and rows retire at EOS / stop tokens / budget and free their pages
-at once. Ticks, outputs, stats, recompute preemption and tier escalation
-follow the reference step for step, so greedy streams and tick counters are
-identical to the JAX engine's.
+``ServeEngine`` (``:116``) is the static-batch engine, the contiguous-arena
+baseline: one batch of equal-length prompts is prefilled into contiguous
+``(B, S + max_new_tokens, ...)`` arenas, then decoded step by step at one
+shared position to the end, greedily.
+
+``ContinuousServeEngine`` (``:225``) is continuous batching: requests are
+admitted into vacated slots as soon as their pages fit, their prompts stream
+into the slot's arena pages one ``prefill_chunk`` per tick (interleaved with
+the decode step), every running row decodes at its own position, and rows
+retire at EOS / stop tokens / budget and free their pages at once. With
+``prefill_chunk=0`` an admission is one-shot instead, the reference's
+construction-exact oracle of chunked admission: the whole prompt, padded to
+the ``prefill_bucket``, is prefilled into a B=1 contiguous cache and packed
+into the slot's pages, and the clock is charged its bucket-equivalents.
+Ticks, outputs, stats, recompute preemption and tier escalation follow the
+reference step for step, so greedy streams and tick counters are identical
+to the JAX engine's.
 
 Attention modes: ``dense``, ``decomposed`` (T1: the arena holds the normed
 block input X and a roped key slice per kv head instead of K and V),
@@ -21,12 +30,12 @@ to the CPQ tier while the dense arena's free fraction is below
 cannot grow) running dense rows are re-compressed into it. As in the
 reference, escalation with any other mode leaves the engine untiered.
 
-The engine runs on the GPU unless ``device`` names another device. It
-refuses, with ``SchedulerConfigError``, every knob the port does not
-implement yet instead of ignoring it: prefix sharing, speculative decoding,
-one-shot admission (``prefill_chunk=0``), defrag, a device mesh, the T1+T2
-attention mode, non-token inputs, non-FIFO policies and sampled
-(``temperature > 0``) requests.
+Both engines run on the GPU unless ``device`` names another device. They
+refuse, with ``SchedulerConfigError``, every knob the port does not
+implement yet instead of ignoring it: the T1+T2 attention mode, non-token
+inputs and sampled (``temperature > 0``) requests, and, in the continuous
+engine, prefix sharing, speculative decoding, defrag, a device mesh and
+non-FIFO policies.
 """
 from __future__ import annotations
 
@@ -63,12 +72,16 @@ def _unported_knobs(serving: ServingCfg, rt: AttentionRuntime,
         out.append("share_prefix (prefix sharing, ROADMAP A11)")
     if serving.spec_len > 0:
         out.append(f"spec_len={serving.spec_len} (speculative decoding, ROADMAP A12)")
-    if serving.prefill_chunk == 0:
-        out.append("prefill_chunk=0 (one-shot admission, ROADMAP A9)")
     if serving.defrag_every:
         out.append(f"defrag_every={serving.defrag_every} (defrag, ROADMAP A11)")
     if serving.policy != "fifo":
         out.append(f"policy={serving.policy!r} (ROADMAP A10)")
+    return out + _unported_model(rt, cfg)
+
+
+def _unported_model(rt: AttentionRuntime, cfg: ModelConfig) -> list[str]:
+    """The runtime and model settings neither engine serves yet."""
+    out = []
     if rt.mesh is not None:
         out.append("mesh (multi-device serving, ROADMAP A21)")
     if rt.mode in pgc.UNPORTED_MODES:
@@ -76,6 +89,80 @@ def _unported_knobs(serving: ServingCfg, rt: AttentionRuntime,
     if cfg.input_kind != "tokens":
         out.append(f"input_kind={cfg.input_kind!r} (ROADMAP A19)")
     return out
+
+
+def _refuse_sampling(temperature: float, who: str) -> None:
+    if temperature > 0.0:
+        raise SchedulerConfigError(
+            f"{who}: temperature={temperature} — seeded sampling is not ported yet "
+            "(ROADMAP A6); the port serves greedy requests")
+
+
+def sample_tokens(logits: torch.Tensor, gen: GenerationConfig) -> torch.Tensor:
+    """(B, V) logits -> (B,) int32 greedy tokens (the reference's
+    ``sample_tokens`` at temperature 0; sampling is refused)."""
+    _refuse_sampling(gen.temperature, "sample_tokens")
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+# --------------------------------------------------------------- static engine
+
+
+class ServeEngine:
+    """Static-batch engine: one batch of equal-length prompts, prefilled
+    into contiguous arenas and decoded to the end at one shared position,
+    greedily. The contiguous-arena baseline."""
+
+    def __init__(self, cfg: ModelConfig, params, rt: Optional[AttentionRuntime] = None,
+                 max_len: int = 4096, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.rt = rt or cfg.attention
+        unported = _unported_model(self.rt, cfg)
+        if unported:
+            raise SchedulerConfigError("not ported yet: " + "; ".join(unported))
+        model_defs(cfg)  # raises NotImplementedError for unported layer kinds
+        self.params = to_device(params, self.device)
+        self.max_len = max_len
+
+    def generate(self, batch: dict, gen: GenerationConfig = GenerationConfig()):
+        """batch: {'tokens': (B, S)}. Returns (generated (B, n) int32, n <=
+        max_new_tokens, stats). With ``eos_id`` rows past their EOS emit
+        ``eos_id``, the EOS itself counts as generated, and the run stops
+        once every row has emitted one."""
+        _refuse_sampling(gen.temperature, "ServeEngine.generate")
+        cfg = self.cfg
+        prompt = torch.as_tensor(np.asarray(batch["tokens"]), device=self.device)
+        B, S = prompt.shape
+        if S > self.max_len:
+            raise ValueError(f"ServeEngine.generate: prompts of {S} tokens exceed "
+                             f"max_len={self.max_len}")
+        caches = M.init_caches(cfg, self.rt, B, S + gen.max_new_tokens, self.device)
+        logits, caches = M.prefill(cfg, self.rt, self.params, prompt, caches)
+
+        toks = []
+        done = np.zeros((B,), bool)
+        live_tokens = decode_calls = 0
+        tok = sample_tokens(logits, gen).cpu().numpy()
+        for t in range(gen.max_new_tokens):
+            if gen.eos_id >= 0:  # rows past their EOS emit eos_id
+                tok = np.where(done, gen.eos_id, tok).astype(np.int32)
+            toks.append(tok)
+            live_tokens += int((~done).sum())  # EOS itself counts; padding does not
+            if gen.eos_id >= 0:
+                done = done | (tok == gen.eos_id)
+                if done.all():
+                    break
+            if t == gen.max_new_tokens - 1:
+                break  # the last token needs no decode
+            logits, caches = M.decode_step(cfg, self.rt, self.params,
+                                           torch.as_tensor(tok[:, None], device=self.device),
+                                           S + t, caches)
+            decode_calls += 1
+            tok = sample_tokens(logits, gen).cpu().numpy()
+        stats = {"prompt_tokens": int(B * S), "generated_tokens": live_tokens,
+                 "decode_steps": decode_calls, "cache_mode": self.rt.mode}
+        return np.stack(toks, axis=1), stats
 
 
 class _ServeState:
@@ -90,6 +177,7 @@ class _ServeState:
         self.caches = M.init_paged_caches(eng.cfg, eng.rt, eng.serving, eng.device,
                                           eng.tiered)
         self.bpt0, self.bpt1 = eng._tier_bpt(self.caches)
+        self.quantum = eng.serving.prefill_chunk or eng.serving.prefill_bucket
         self.last_tok = np.zeros((eng.serving.num_slots,), np.int32)
         self.results: dict[int, dict] = {}
         self.outputs: list[RequestOutput] = []       # pending (undrained)
@@ -139,6 +227,7 @@ class ContinuousServeEngine:
             rt = dataclasses.replace(rt, cpq=CPQCfg())
         self.rt = rt
         self.params = to_device(params, self.device)
+        self.chunked = bool(serving.prefill_chunk)  # else one-shot admission
         self._n_cache_layers = sum(1 for m, _ in cfg.layer_kinds if m in ("attn", "mla"))
         self._st: Optional[_ServeState] = None
 
@@ -167,6 +256,38 @@ class ContinuousServeEngine:
         dense_row, cpq_row = st.sched.apply_escalation(req)
         M.escalate_slot(self.cfg, self.rt, st.caches, self._tensor(dense_row),
                         self._tensor(cpq_row), slot, int(length))
+
+    def _rt_for_tier(self, tier: int) -> AttentionRuntime:
+        return self.rt if tier == 0 else pgc._cpq_runtime(self.rt)
+
+    def _bucketed(self, ctx: np.ndarray) -> tuple[np.ndarray, int]:
+        """Right-pad a context to the prefill bucket with its edge token
+        (padding never enters attention: causal mask, logits of the true
+        last position, and pack positions past the slot's capacity land on
+        the null page). Returns (padded, true length)."""
+        S = len(ctx)
+        b = self.serving.prefill_bucket
+        S_pad = max(b, -(-S // b) * b)
+        if S_pad == S:
+            return ctx, S
+        return np.concatenate([ctx, np.full((S_pad - S,), ctx[-1], np.int32)]), S
+
+    def _admit(self, req: Request, st: _ServeState):
+        """One-shot admission: prefill the whole bucket-padded context into
+        a B=1 contiguous cache of the request's tier, pack it into the
+        slot's pages, and take the first token from the true last
+        position's logits. Returns (first token, padded length)."""
+        sched = st.sched
+        padded, S = self._bucketed(req.context)
+        rt_t = self._rt_for_tier(req.tier)
+        ctg = M.init_caches(self.cfg, rt_t, 1, len(padded), self.device)
+        logits, ctg = M.prefill(self.cfg, rt_t, self.params, self._tensor(padded[None]), ctg,
+                                last_index=S - 1)
+        tables = sched.alt_block_tables if req.tier == 1 else sched.block_tables
+        M.pack_prefill_caches(self.cfg, rt_t, st.caches, ctg, self._tensor(tables[req.slot]),
+                              req.slot)
+        sched.finish_prefill(req)
+        return int(torch.argmax(logits, dim=-1)[0]), len(padded)
 
     def _prefill_chunk(self, req: Request, st: _ServeState):
         """Stream the next ``prefill_chunk`` prompt tokens straight into the
@@ -227,10 +348,7 @@ class ContinuousServeEngine:
         elif stream is not None:
             req.stream = stream
         temp = req.sampling.temperature if req.sampling is not None else st.gen.temperature
-        if temp > 0.0:
-            raise SchedulerConfigError(
-                f"request {req.rid}: temperature={temp} — seeded sampling is "
-                "not ported yet (ROADMAP A6); the port serves greedy requests")
+        _refuse_sampling(temp, f"request {req.rid}")
         if (req.rid in st.results
                 or any(r.rid == req.rid for r in st.sched.queue)
                 or any(r is not None and r.rid == req.rid for r in st.sched.slots)):
@@ -366,7 +484,8 @@ class ContinuousServeEngine:
 
         Clock model (the reference's): a tick that runs the decode step
         costs 1 and one prompt chunk rides along for free; a prefill-only
-        tick also costs 1."""
+        tick also costs 1; a one-shot admission costs its padded length in
+        ``prefill_bucket`` units before the tick's decode step."""
         st = self._ensure_state()
         st.step_outputs = []
         sched = st.sched
@@ -379,9 +498,18 @@ class ContinuousServeEngine:
         if not sched.has_work():
             return st.step_outputs
 
-        # 1) admissions into vacated slots; their prompts stream below
-        while sched.admit_next(now=st.step, step=st.step) is not None:
-            pass
+        # 1) admissions into vacated slots: chunked, their prompts stream
+        #    below; one-shot, the whole prompt is prefilled now and the
+        #    clock is charged its bucket-equivalents (the head-of-line stall)
+        while (req := sched.admit_next(now=st.step, step=st.step)) is not None:
+            if self.chunked:
+                continue
+            tok, padded = self._admit(req, st)
+            st.step += -(-padded // st.quantum)
+            st.prefill_tokens += req.length
+            st.prefill_write_bytes += (req.length * (st.bpt1 if req.tier else st.bpt0)
+                                       * self._n_cache_layers)
+            self._emit_token(st, req, tok, st.step)  # ready after the stall
 
         # 1b) watermark policy: under critical pressure, running dense rows
         #     are re-compressed into the CPQ arena and their pages freed
@@ -396,7 +524,7 @@ class ContinuousServeEngine:
         # 2) chunked-prefill pump: at most ONE prompt chunk per tick
         did_chunk = False
         fresh_slot = -1  # row whose prefill finished THIS tick
-        if pre := sched.prefilling():
+        if self.chunked and (pre := sched.prefilling()):
             req = pre[0]
             tok, valid = self._prefill_chunk(req, st)
             did_chunk = True
@@ -491,7 +619,7 @@ class ContinuousServeEngine:
         return {
             "cache_mode": self.rt.mode,
             "tiered": self.tiered,
-            "chunked_prefill": True,
+            "chunked_prefill": self.chunked,
             "prefix_sharing": False,
             "spec_on": False,
             "spec_accept_rate": (sched.stats["spec_accepted"]

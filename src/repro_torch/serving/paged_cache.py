@@ -38,7 +38,9 @@ import torch
 from repro_torch.configs import AttentionRuntime, CPQCfg
 from repro_torch.core import attention as core_attn
 from repro_torch.core import cpq as cpq_lib
+from repro_torch.core import kv_cache as kvc
 from repro_torch.core import retrieval_attention as ret_lib
+from repro_torch.core.kv_cache import CPQKVCache
 from repro_torch.core.decomposed_attention import decomposed_attention
 from repro_torch.kernels.cpq_attn import ops as cpq_ops
 from repro_torch.kernels.decomposed_attn import ops as t1_ops
@@ -90,6 +92,15 @@ def write_token_pages(pages: torch.Tensor, block_table: torch.Tensor,
     page_idx = torch.where(active, page_idx, torch.zeros_like(page_idx))
     pages[page_idx, lengths % page_size] = val.to(pages.dtype)
     return pages
+
+
+def write_prompt_pages(pages: torch.Tensor, block_row: torch.Tensor,
+                       val: torch.Tensor) -> torch.Tensor:
+    """Write a whole prompt into one slot's pages at positions 0 .. S-1, in
+    place. val (S, ...). Positions whose block is unmapped or beyond the
+    slot's capacity (bucket padding past ``max_blocks``) land on the null
+    page, never wrapping round onto a mapped page."""
+    return write_chunk_pages(pages, block_row, 0, val.shape[0], val)
 
 
 def write_chunk_pages(pages: torch.Tensor, block_row: torch.Tensor, offset: int,
@@ -273,14 +284,6 @@ class TieredPagedCache(NamedTuple):
     cpq: PagedCPQKVCache
 
 
-class CPQKVCache(NamedTuple):
-    """A contiguous CPQ-compressed K/V pair (the JAX package's
-    ``core/kv_cache.py`` container), the source of a pack."""
-
-    k: cpq_lib.CPQTensor
-    v: cpq_lib.CPQTensor
-
-
 def init_paged_dense(num_pages: int, page_size: int, kv: int, dh: int,
                      dtype=torch.bfloat16, device="cpu") -> PagedDenseKVCache:
     shape = (num_pages, page_size, kv, dh)
@@ -376,15 +379,31 @@ def append_cpq_tensor(t: PagedCPQTensor, rows: RowState, x_t: torch.Tensor,
 
 
 # ------------------------------------------------------------ prompt pack
+#
+# One-shot admission prefills a B=1 contiguous cache (core/kv_cache.py) of
+# the bucket-padded prompt and scatters it into the slot's pages here, in
+# place; escalation packs a re-compressed dense slot the same way.
+
+
+def pack_dense(cache: PagedDenseKVCache, src: kvc.DenseKVCache,
+               block_row: torch.Tensor) -> PagedDenseKVCache:
+    write_prompt_pages(cache.k, block_row, src.k[0])
+    write_prompt_pages(cache.v, block_row, src.v[0])
+    return cache
+
+
+def pack_x(cache: PagedXCache, src: kvc.XCache, block_row: torch.Tensor) -> PagedXCache:
+    write_prompt_pages(cache.x, block_row, src.x[0])
+    write_prompt_pages(cache.k_rope, block_row, src.k_rope[0])
+    return cache
 
 
 def pack_cpq_tensor(t: PagedCPQTensor, src: cpq_lib.CPQTensor, block_row: torch.Tensor,
                     slot: int) -> PagedCPQTensor:
-    """Scatter a contiguous B=1 CPQTensor into slot ``slot``'s pages, in
-    place (a prompt is one chunk at offset 0)."""
-    n = src.codes.shape[1]
-    write_chunk_pages(t.codes, block_row, 0, n, src.codes[0])
-    write_chunk_pages(t.level, block_row, 0, n, src.level[0])
+    """Scatter a contiguous B=1 CPQTensor into slot ``slot``'s pages and
+    side state, in place."""
+    write_prompt_pages(t.codes, block_row, src.codes[0])
+    write_prompt_pages(t.level, block_row, src.level[0])
     t.scale[slot] = src.scale[0]
     t.zero[slot] = src.zero[0]
     t.num_levels[slot] = src.num_levels[0]
@@ -397,6 +416,37 @@ def pack_cpq(cache: PagedCPQKVCache, src: CPQKVCache, block_row: torch.Tensor,
     pack_cpq_tensor(cache.k, src.k, block_row, slot)
     pack_cpq_tensor(cache.v, src.v, block_row, slot)
     return cache
+
+
+def pack_retrieval(cache: PagedRetrievalCache, src: kvc.RetrievalCache,
+                   block_row: torch.Tensor, slot: int) -> PagedRetrievalCache:
+    write_prompt_pages(cache.k, block_row, src.k[0])
+    write_prompt_pages(cache.v, block_row, src.v[0])
+    write_prompt_pages(cache.proxy, block_row, src.proxy[0])
+    cache.proxy_scale[slot] = src.proxy_scale[0]
+    cache.proxy_zero[slot] = src.proxy_zero[0]
+    return cache
+
+
+def pack_into(rt_mode: str, cache, src, block_row: torch.Tensor, slot: int):
+    """Mode dispatch of the admission pack (contiguous B=1 prefill -> a
+    slot's pages); a tiered arena takes a dense source into its dense arm
+    and a CPQ source into its CPQ arm."""
+    if isinstance(cache, TieredPagedCache):
+        if isinstance(src, kvc.DenseKVCache):
+            pack_dense(cache.dense, src, block_row)
+        else:
+            pack_cpq(cache.cpq, src, block_row, slot)
+        return cache
+    if isinstance(cache, PagedDenseKVCache):
+        return pack_dense(cache, src, block_row)
+    if isinstance(cache, PagedXCache):
+        return pack_x(cache, src, block_row)
+    if isinstance(cache, PagedCPQKVCache):
+        return pack_cpq(cache, src, block_row, slot)
+    if isinstance(cache, PagedRetrievalCache):
+        return pack_retrieval(cache, src, block_row, slot)
+    raise unported_mode(rt_mode)
 
 
 # --------------------------------------------------------------- traffic
@@ -742,4 +792,5 @@ def compress_dense_slot(k_log: torch.Tensor, v_log: torch.Tensor, length: int,
         return torch.where(keep, a, a[:, last:last + 1])
 
     return CPQKVCache(cpq_lib.cpq_compress_prefill(valid_only(k_log), cfg, n),
-                      cpq_lib.cpq_compress_prefill(valid_only(v_log), cfg, n))
+                      cpq_lib.cpq_compress_prefill(valid_only(v_log), cfg, n),
+                      kvc.host_length(length))

@@ -109,7 +109,6 @@ def test_generate_matches_jax(model):
 @pytest.mark.parametrize("serving_kw,rt_kw", [
     (dict(share_prefix=True), {}),
     (dict(spec_len=2), {}),
-    (dict(prefill_chunk=0), {}),
     (dict(defrag_every=2), {}),
     (dict(policy="priority"), {}),
     (dict(policy="slo"), {}),
@@ -141,3 +140,12 @@ def test_unported_inputs_and_sampling_raise(model):
     with pytest.raises(T.SchedulerConfigError, match="A6"):
         eng.add_request(T.Request(rid=0, prompt=np.arange(4, dtype=np.int32),
                                   max_new_tokens=3))
+
+
+def test_static_engine_refuses_sampling(model):
+    """The static engine serves greedy batches only, as the continuous one."""
+    _, tcfg, _, tparams = model
+    eng = T.ServeEngine(tcfg, tparams, device="cpu")
+    with pytest.raises(T.SchedulerConfigError, match="A6"):
+        eng.generate({"tokens": np.arange(6, dtype=np.int32).reshape(2, 3)},
+                     T.GenerationConfig(max_new_tokens=2, temperature=0.5))

@@ -14,20 +14,27 @@ return P, a weighted mean of X rows, and are held to 1e-5 / 2e-2, also at
 the widths they are built for (``T1_WIDE``). The T3 proxy-scoring kernel B7
 takes float32 query factors and int8 codes only; its scores are held to
 1e-5 x max |score| (float32 sums of 16-64 terms in another order) and its
-masked scores must be exactly -1e30.
+masked scores must be exactly -1e30. The contiguous kernels: B8 (flash
+attention, causal or not, k and v possibly a prefix of a longer arena) and
+B9 (contiguous T1 decode) at 1e-5 / 2e-2, B10 (contiguous T2 decode, float32
+output, tiles rounded or not) at 5e-5.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.cpq_attn import ops as cpq_ops
 from repro_torch.kernels.decomposed_attn import ops as t1_ops
+from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.paged_attn import ops
 from repro_torch.kernels.topk_retrieval import ops as t3_ops
-from torch_paged_cases import (CONTIG_PROXY_CASES, CPQ_DECODE_CASES, CPQ_PREFILL_CASES,
-                               DECODE_CASES, PREFILL_CASES, PROXY_CASES, T1_DECODE_CASES,
-                               T1_PREFILL_CASES, T1_WIDE, contig_proxy_inputs, cpq_arena,
+from torch_paged_cases import (CONTIG_CPQ_CASES, CONTIG_PROXY_CASES, CONTIG_T1_CASES,
+                               CPQ_DECODE_CASES, CPQ_PREFILL_CASES, DECODE_CASES,
+                               FLASH_CASES, PREFILL_CASES, PROXY_CASES, T1_DECODE_CASES,
+                               T1_PREFILL_CASES, T1_WIDE, contig_cpq_inputs,
+                               contig_proxy_inputs, contig_t1_inputs, cpq_arena,
                                cpq_decode_inputs, cpq_prefill_inputs, decode_inputs,
-                               prefill_inputs, proxy_inputs, t1_decode_inputs,
+                               flash_inputs, prefill_inputs, proxy_inputs, t1_decode_inputs,
                                t1_prefill_inputs, tensors)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -238,3 +245,76 @@ def test_proxy_scores_wrappers_refuse_bad_inputs(cuda):
         t3_ops.proxy_scores(torch.zeros((1, 1, 3, 16), device="cuda"),
                             torch.zeros((1, 1, 3, 1), device="cuda"),
                             torch.zeros((1, 4, 1, 16), dtype=torch.int8, device="cuda"), 4)
+
+
+# ------------------------------------------------- contiguous: B8, B9, B10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    """B8, causal or not, on k and v that are a prefix of a longer arena."""
+    q, k, v, scale = flash_inputs(*case)
+    S, causal = case[3], case[7]
+    q, k, v = tensors(q, k, v, device="cuda", dtype=dtype)
+    k, v = k[:, :S], v[:, :S]
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    ref = fa_ops.flash_attention_plain(q, k, v, scale, causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CONTIG_T1_CASES)
+def test_contiguous_decomposed_decode_kernel_matches_plain(cuda, case, dtype):
+    r, qr, x, kr, length, scale = contig_t1_inputs(*case)
+    args = tensors(r, qr, x, kr, device="cuda", dtype=dtype)
+    before = t1_ops.decomposed_decode.launches
+    out = t1_ops.decomposed_decode_fwd(*args, length, scale)
+    torch.cuda.synchronize()
+    assert t1_ops.decomposed_decode.launches == before + 1
+    ref = t1_ops.decomposed_decode_plain(*args, length, scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_tiles", [False, True])
+@pytest.mark.parametrize("case", CONTIG_CPQ_CASES)
+def test_contiguous_cpq_decode_kernel_matches_plain(cuda, case, round_tiles):
+    """B10 with dequantized tiles in float32 (the TPU kernel's function) and
+    rounded to bf16 (the static engine's); pruned codes dequantize to 0."""
+    q, kt, vt, length, scale = contig_cpq_inputs(*case)
+    (ck, lk, sk, zk), (cv, lv, sv, zv) = ([torch.tensor(a, device="cuda") for a in t]
+                                          for t in (kt, vt))
+    args = (torch.tensor(q, device="cuda"), ck, cv, sk, zk, sv, zv, lk, lv)
+    before = cpq_ops.cpq_decode.launches
+    out = cpq_ops.cpq_decode_fwd(*args, length, scale, round_tiles)
+    torch.cuda.synchronize()
+    assert cpq_ops.cpq_decode.launches == before + 1
+    ref = cpq_ops.cpq_decode_plain(*args, length, scale, round_tiles)
+    torch.testing.assert_close(out, ref, atol=CPQ_TOL[torch.float32], rtol=0)
+
+
+@pytest.mark.cuda
+def test_contiguous_wrappers_refuse_bad_inputs(cuda):
+    q, k, v, scale = (torch.tensor(a, device="cuda") if isinstance(a, np.ndarray) else a
+                      for a in flash_inputs(*FLASH_CASES[5]))
+    heads_outer = k.transpose(1, 2).contiguous().transpose(1, 2)  # (B, S, KV, D), KV outer
+    with pytest.raises(ValueError, match="dense"):
+        fa_ops.flash_attention(q, heads_outer, v, scale, False)
+    with pytest.raises(TypeError, match="mixed"):
+        fa_ops.flash_attention(q, k.to(torch.bfloat16), v, scale, False)
+    r, qr, x, kr, length, scale = (torch.tensor(a, device="cuda") if isinstance(a, np.ndarray)
+                                   else a for a in contig_t1_inputs(*CONTIG_T1_CASES[0]))
+    with pytest.raises(ValueError, match="length"):
+        t1_ops.decomposed_decode_fwd(r, qr, x, kr, x.shape[1] + 1, scale)
+    q, kt, vt, length, scale = contig_cpq_inputs(*CONTIG_CPQ_CASES[0])
+    (ck, lk, sk, zk), (cv, lv, sv, zv) = ([torch.tensor(a, device="cuda") for a in t]
+                                          for t in (kt, vt))
+    with pytest.raises(TypeError):                       # int32 codes
+        cpq_ops.cpq_decode_fwd(torch.tensor(q, device="cuda"), ck.int(), cv, sk, zk, sv, zv,
+                               lk, lv, length, scale)

@@ -253,3 +253,61 @@ def contig_proxy_inputs(seed, B, N, KV, g, Dp, length):
     qz = rng.normal(size=(B, KV, g, 1)).astype(np.float32)
     codes = rng.integers(-128, 128, size=(B, N, KV, Dp)).astype(np.int8)
     return qs, qz, codes, length
+
+
+# ------------------------------------------------------ contiguous (B8-B10)
+
+FLASH_CASES = [  # seed, B, T, S, H, KV, D, causal, arena (S <= arena: k, v a prefix)
+    (0, 2, 128, 128, 4, 2, 64, True, 128),    # the five cases of tests/test_kernels.py
+    (1, 2, 256, 256, 8, 8, 128, True, 256),
+    (2, 2, 100, 100, 4, 1, 32, False, 100),
+    (3, 2, 192, 192, 6, 3, 64, True, 192),
+    (4, 2, 128, 128, 4, 4, 64, True, 128),
+    (5, 3, 1, 75, 4, 4, 64, False, 80),       # a decode token over a written prefix
+    (6, 1, 77, 77, 2, 2, 16, True, 77),       # T and S no block multiple
+]
+
+
+def flash_inputs(seed, B, T, S, H, KV, D, causal, arena):
+    """q (B, T, H, D), and k, v: the first S tokens of (B, arena, KV, D)
+    arenas; scale."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, T, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, arena, KV, D)).astype(np.float32)
+    v = rng.normal(size=(B, arena, KV, D)).astype(np.float32)
+    return q, k, v, D ** -0.5
+
+
+CONTIG_T1_CASES = [  # seed, B, N, H, Dm, kv_r, Rr, length
+    (0, 2, 40, 4, 16, 1, 8, 40),       # shared roped key (the TPU kernel's layout)
+    (1, 3, 37, 4, 16, 2, 8, 30),       # per-kv-head roped keys, length < N
+    (2, 2, 50, 8, 32, 4, 0, 49),       # no roped term
+    (3, 2, 33, 16, 1024, 16, 32, 20),  # qwen1.5-0.5b's T1 widths
+    (4, 1, 20, 16, 512, 1, 64, 7),     # an MLA-like shape
+]
+
+
+def contig_t1_inputs(seed, B, N, H, Dm, kv_r, Rr, length):
+    """r, q_rope, x (B, N, Dm), k_rope (B, N, kv_r, Rr), length, scale."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    return (f(B, H, Dm), f(B, H, Rr), f(B, N, Dm), f(B, N, kv_r, Rr), length,
+            (Dm + Rr) ** -0.5)
+
+
+CONTIG_CPQ_CASES = [  # seed, B, N, KV, g, Dh, bits, length
+    (0, 2, 40, 2, 1, 16, 4, 40),
+    (1, 3, 70, 2, 4, 32, 8, 55),     # G = 4, length < N
+    (2, 2, 130, 4, 2, 64, 4, 129),   # N past two splits of 64
+]
+
+
+def contig_cpq_inputs(seed, B, N, KV, g, Dh, bits, length):
+    """q (B, KV, G, Dh) and contiguous K and V arenas as cpq_pool arrays
+    (codes (B, N, KV, D), levels (B, N, KV), tables (B, L, KV, D); about one
+    code in 2^bits pruned, levels in [0, L)), length, scale."""
+    rng = np.random.default_rng(seed)
+    arenas = [cpq_pool(rng, B, N, KV, Dh, B, bits, CPQ_LEVELS, poison_levels=False)
+              for _ in range(2)]
+    q = rng.normal(size=(B, KV, g, Dh)).astype(np.float32)
+    return q, arenas[0], arenas[1], length, 0.17
