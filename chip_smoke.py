@@ -18,20 +18,26 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               B3 paged_decomposed_decode and B4 paged_decomposed_prefill on
               the same layouts at qwen1.5-0.5b's T1 shape (H=16, Dm=1024,
               16 roped keys of 32), an MLA-like shape (H=16, Dm=512, one
-              shared roped key of 64) and a no-rope shape (H=8, Dm=256);
-              B7 paged_proxy_scores in float32 (its inputs are float32
-              query factors and int8 codes) at qwen1.5-0.5b's T3 shape
-              (KV=16, G=1, Dp=64) and a GQA shape (KV=8, G=4, Dp=128) on the
+              shared roped key of 64), a no-rope shape (H=8, Dm=256) and
+              past d_model 2048 (Dm 2560, 3072, 4096, 8192); B7
+              paged_proxy_scores in float32 (its inputs are float32 query
+              factors and int8 codes) at qwen1.5-0.5b's T3 shape (KV=16,
+              G=1, Dp=64) and GQA shapes (KV=8, G=4 and G=3, Dp=128) on the
               same layouts, and in its contiguous one-page-per-row form,
               held to 1e-5 x max |score|; the contiguous kernels: B8
-              flash_attention on the five cases of tests/test_kernels.py,
+              flash_attention (a bf16 prompt on its tensor-core route, a
+              float32 prompt on its CUDA-core sweep, a decode token on its
+              single-query route) on the five cases of tests/test_kernels.py,
               qwen1.5-0.5b's static prefill (8 x 512 tokens, causal), a
-              decode token over 575 keys (a prefix of a 576-key arena) and
-              T = S = 77; B9 decomposed_decode at qwen's T1 shape (kv_r 16,
-              Rr 32, length < N), an MLA-like shape (kv_r 1, Rr 64), a
-              no-rope shape and N = 77; B10 cpq_decode with 4- and 8-bit
-              codes, G of 1 and 4, tiles rounded and not, pruned codes,
-              length < N and N = 77 (float32 output, its tolerance)
+              one-shot prompt (1 x 512), a decode token over 575 keys (a
+              prefix of a 576-key arena), T = S = 77, and at Dh 32, 64, 128
+              and 256 with G of 1, 4 and 8 a prompt of 200 (causal and not)
+              and a decode token; B9 decomposed_decode at qwen's T1 shape
+              (kv_r 16, Rr 32, length < N), an MLA-like shape (kv_r 1, Rr
+              64), a no-rope shape, N = 77 and Dm 2560-8192; B10 cpq_decode
+              with 4- and 8-bit codes, G of 1, 4 and 8 (Dh 256), tiles
+              rounded and not, pruned codes, length < N and N = 77 (float32
+              output, its tolerance)
   4. serve    full-width qwen1.5-0.5b (24 layers, vocab 151936, random
               weights from a seed) in bf16 through ContinuousServeEngine:
               8 greedy requests, prompts of 64-512 tokens, 64 new tokens
@@ -51,11 +57,17 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               new tokens, in the four modes: B8 launched 24 times for the
               prefill, and 24 times per decode step B8 (dense), B9
               (decomposed), B10 (cpq) or B7's contiguous form (retrieval);
-              B8 (prompt and decode shapes), B9 and B10 timed at the
-              shapes the runs gave them, ten dense decode steps profiled;
-              (g) ContinuousServeEngine with prefill_chunk=0 (one-shot
-              admission), dense, on the traffic of (a): B8 24 times per
-              admission, B1 24 times per decode tick, B2 never
+              every bf16 prefill through B8's tensor-core route and every
+              dense decode step through its single-query route (counted per
+              route); B8 (prompt and decode shapes), B9 and B10 timed at
+              the shapes the runs gave them, ten dense decode steps
+              profiled; (g) ContinuousServeEngine with prefill_chunk=0
+              (one-shot admission), dense, on the traffic of (a): B8's
+              tensor-core route 24 times per admission, B1 24 times per
+              decode tick, B2 never. No gate: layer 0's K/V of the static
+              prompts encoded by the HQE compression (448 tokens at once,
+              64 appended) and the T3 proxy encode on the card and on the
+              CPU, and how many codes, levels and tables differ
   5. parity   the same requests in f32 (TF32 off), dense, mode="cpq",
               mode="decomposed" and mode="retrieval" (top_k=256), with the
               kernels on and off: prefill and first-decode logits within
@@ -71,7 +83,7 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               gather path writes the K/V the kernel path wrote), since each
               path's 4-bit CPQ or 8-bit proxy codes would otherwise turn
               last-ulp K/V differences into whole steps. These continuous
-              serves run the first 8 of the 24 layers here, to keep the
+              serves run the first 6 of the 24 layers here, to keep the
               script well inside its time limit. Then, at full depth, the
               same checks for (g) (dense, each path on its own history)
               and for (f) in the four modes (CPQ and T3 in lockstep, T3
@@ -108,6 +120,14 @@ CPQ_LEVELS = 4              # HQE levels of the default CPQCfg
 PARITY_DEPTH = 8            # layers of the continuous serves' f32 parity (of 24)
 SEED = 0
 DEVICE = "cuda"
+# the namespaces of the attention kernels' device functions, as a profile
+# names them
+ATTENTION_KERNELS = ("paged_attn", "cpq_attn", "decomposed_attn", "topk_retrieval",
+                     "flash_prompt", "single_query")
+# B8's wrapper counts every launch; its kernels (routes) are counted apart,
+# under these names in a serve's launch counts
+COUNT_KEY = {"flash_attention": "flash_attention/decode",
+             "flash_attention_prompt": "flash_attention/prompt"}
 T0 = 0.0                    # start of the run, for phase timestamps
 
 
@@ -236,7 +256,9 @@ def sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits, page=16, nb=64, B=8, C=16):
     return err_dec, err_pre
 
 
-T1_SHAPES = ((16, 1024, 16, 32), (16, 512, 1, 64), (8, 256, 1, 0))  # H, Dm, kv_r, Rr
+T1_SHAPES = ((16, 1024, 16, 32), (16, 512, 1, 64), (8, 256, 1, 0),  # H, Dm, kv_r, Rr
+             # past d_model 2048 (qwen3-4b, phi4-mini, opt-6.7b, jamba): fewer rows a block
+             (32, 2560, 8, 32), (24, 3072, 8, 32), (32, 4096, 32, 32), (64, 8192, 8, 64))
 
 
 def sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr, page=16, nb=64, B=8, C=16):
@@ -273,7 +295,7 @@ def sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr, page=16, nb=64, B=8, C=16):
     return err_dec, err_pre
 
 
-T3_SHAPES = ((16, 1, 64), (8, 4, 128))   # KV, G, Dp
+T3_SHAPES = ((16, 1, 64), (8, 4, 128), (8, 3, 128))   # KV, G, Dp (G = 3: phi4-mini)
 T3_REL = 1e-5           # B7 vs plain: max abs error <= T3_REL * max |score|
 
 
@@ -332,17 +354,28 @@ FLASH_SWEEP = (  # B, T, S, H, KV, D, causal, arena (k and v: the first S keys)
     (8, 512, 512, 16, 16, 64, True, 512),    # qwen1.5-0.5b's static prefill
     (8, 1, 575, 16, 16, 64, False, 576),     # its last static dense decode
     (3, 77, 77, 4, 2, 64, True, 77),         # T and S no block multiple
-)
+    (1, 512, 512, 16, 16, 64, True, 512),    # a one-shot admission's prompt
+) + tuple(  # every head width and group size of the routes, a prompt (causal and not,
+    # T no multiple of the 64-row tile, k and v a prefix) and a decode token
+    case for D in (32, 64, 128, 256) for G in (1, 4, 8)
+    for case in ((2, 200, 200, 2 * G, 2, D, True, 208), (2, 200, 200, 2 * G, 2, D, False, 200),
+                 (3, 1, 300, 2 * G, 2, D, False, 301)))
+
 T1C_SWEEP = (  # B, N, H, Dm, kv_r, Rr, length
     (8, 576, 16, 1024, 16, 32, 575),         # qwen1.5-0.5b's static T1 decode
     (4, 300, 16, 512, 1, 64, 300),           # MLA-like: one shared roped key
     (4, 200, 8, 256, 1, 0, 150),             # no roped term, length < N
     (3, 77, 16, 1024, 16, 32, 77),           # N no multiple of the 16-key split
+    (4, 300, 32, 2560, 8, 32, 299),          # past d_model 2048: qwen3-4b
+    (2, 100, 24, 3072, 8, 32, 77),           # phi4-mini
+    (2, 64, 32, 4096, 1, 64, 64),            # opt-6.7b / llama-vision widths
+    (2, 50, 64, 8192, 8, 64, 33),            # jamba
 )
 CPQC_SWEEP = (  # B, N, KV, G, Dh, bits, length
     (8, 576, 16, 1, 64, 4, 575),             # qwen1.5-0.5b's static T2 decode
     (4, 300, 4, 4, 128, 8, 250),             # G = 4, length < N
-    (2, 77, 16, 1, 64, 8, 77),               # N no multiple of the 64-key split
+    (2, 77, 16, 1, 64, 8, 77),               # N no multiple of a split
+    (2, 90, 1, 8, 256, 4, 77),               # gemma-2b: 8 heads over one kv head, Dh 256
 )
 
 
@@ -838,13 +871,11 @@ def profile_windows(make_engine, T, reqs, ticks, windows) -> list[dict]:
                          key=lambda r: -r[1])
         busy = sum(ms for _, ms, _ in kernels)
         wall = sum(t[0] for t in ticks[lo:hi])
-        attn = sum(ms for k, ms, _ in kernels
-                   if any(a in k for a in ("paged_attn", "cpq_attn", "decomposed_attn",
-                                           "topk_retrieval")))
+        attn = sum(ms for k, ms, _ in kernels if any(a in k for a in ATTENTION_KERNELS))
         gemm = sum(ms for k, ms, _ in kernels if any(g in k for g in ("gemm", "nvjet", "cutlass", "xmma")))
         out.append({"ticks": [lo, hi], "decode_only_ticks": sum(1 for t in ticks[lo:hi] if not t[2]),
                     "device_busy_ms": busy, "unprofiled_wall_ms": wall,
-                    "busy_share": busy / wall, "paged_attn_ms": attn, "gemm_ms": gemm,
+                    "busy_share": busy / wall, "attn_ms": attn, "gemm_ms": gemm,
                     "top_kernels": [{"name": k, "ms": ms, "count": n}
                                     for k, ms, n in kernels[:12]]})
     return out
@@ -854,7 +885,7 @@ def log_profile(what: str, prof: list[dict]) -> None:
     for w in prof:
         log(f"profile {what} ticks {w['ticks']} ({w['decode_only_ticks']} decode-only): "
             f"device busy {w['device_busy_ms']:.2f} ms of {w['unprofiled_wall_ms']:.2f} ms "
-            f"wall = {w['busy_share']:.1%}; paged attention {w['paged_attn_ms']:.2f} ms, "
+            f"wall = {w['busy_share']:.1%}; attention kernels {w['attn_ms']:.2f} ms, "
             f"GEMMs {w['gemm_ms']:.2f} ms")
         for k in w["top_kernels"][:6]:
             log(f"profile:   {k['ms']:8.3f} ms {k['count']:5d}x {k['name'][:100]}")
@@ -935,15 +966,29 @@ def device_bytes(tree) -> int:
     return sum(device_bytes(t) for t in tree)
 
 
-def serve_static(eng, T, M, prompts, n_new: int, recorders: dict, counted: list):
-    """One static generate with each kernel wrapper replaced by its Recorder,
-    every launch count of ``counted`` (module, wrapper name) pairs set to 0
-    just before and read just after. Returns (tokens, stats, StepTimer,
-    wall s, counts)."""
-    for name, (mod, rec) in recorders.items():
-        setattr(mod, name, rec)
+def counted_launches(counted: list, routes: dict) -> dict:
+    """The launch counts of ``counted`` (module, wrapper name) pairs, and of
+    B8's routes as ``flash_attention/<route>``."""
+    return {**{name: getattr(mod, name).launches for mod, name in counted},
+            **{f"flash_attention/{r}": n for r, n in routes.items()}}
+
+
+def zero_launches(counted: list, routes: dict) -> None:
     for mod, name in counted:
         getattr(mod, name).launches = 0
+    for r in routes:
+        routes[r] = 0
+
+
+def serve_static(eng, T, M, prompts, n_new: int, recorders: dict, counted: list,
+                 routes: dict):
+    """One static generate with each kernel wrapper replaced by its Recorder,
+    every launch count of ``counted`` (module, wrapper name) pairs and of
+    B8's ``routes`` set to 0 just before and read just after. Returns
+    (tokens, stats, StepTimer, wall s, counts)."""
+    for name, (mod, rec) in recorders.items():
+        setattr(mod, name, rec)
+    zero_launches(counted, routes)
     try:
         with StepTimer(M) as timer:
             t0 = time.perf_counter()
@@ -953,7 +998,7 @@ def serve_static(eng, T, M, prompts, n_new: int, recorders: dict, counted: list)
     finally:
         for name, (mod, rec) in recorders.items():
             setattr(mod, name, rec.fn)
-    return out, stats, timer, wall, {name: getattr(mod, name).launches for mod, name in counted}
+    return out, stats, timer, wall, counted_launches(counted, routes)
 
 
 def static_metrics(out, stats, timer, wall, what: str) -> dict:
@@ -1112,12 +1157,53 @@ def profile_static(make_engine, T, M, prompts, n_new, step_ms, lo: int, hi: int)
                      key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in kernels)
     wall = sum(step_ms[lo:hi])
-    attn = sum(ms for k, ms, _ in kernels if "paged_attn" in k)
+    attn = sum(ms for k, ms, _ in kernels if any(a in k for a in ATTENTION_KERNELS))
     gemm = sum(ms for k, ms, _ in kernels if any(g in k for g in ("gemm", "nvjet", "cutlass", "xmma")))
     return {"ticks": [lo, hi], "decode_only_ticks": hi - lo, "device_busy_ms": busy,
-            "unprofiled_wall_ms": wall, "busy_share": busy / wall, "paged_attn_ms": attn,
+            "unprofiled_wall_ms": wall, "busy_share": busy / wall, "attn_ms": attn,
             "gemm_ms": gemm, "top_kernels": [{"name": k, "ms": ms, "count": n}
                                              for k, ms, n in kernels[:12]]}
+
+
+def encode_parity(k, v, cpq_cfg, t3_cfg, split: int) -> dict:
+    """The T2 and T3 encoders on the card against the same on the CPU (no
+    gate): one layer's K/V history (B, N, KV, D), its first ``split`` tokens
+    compressed at once (``cpq_compress_prefill``; T3: ``fit_proxy``), the
+    rest appended token by token (``cpq_append_decode``, which may spawn HQE
+    levels; T3: ``encode_proxy``), as the static engine does. Returns how
+    many codes, levels and tables differ between the two devices."""
+    from repro_torch.core import cpq as C
+    from repro_torch.core import retrieval_attention as R
+
+    def hqe(x):
+        t = C.cpq_compress_prefill(x[:, :split], cpq_cfg, x.shape[1])
+        for pos in range(split, x.shape[1]):
+            t = C.cpq_append_decode(t, x[:, pos:pos + 1], pos, cpq_cfg)
+        return t
+
+    def proxy(x):
+        dp = t3_cfg.proxy_dim or x.shape[-1]
+        codes, sc, z = R.fit_proxy(x[:, :split, :, :dp], t3_cfg.proxy_bits)
+        return codes, R.encode_proxy(x[:, split:, :, :dp], sc, z, t3_cfg.proxy_bits), sc, z
+
+    out = {}
+    for name, x in (("K", k), ("V", v)):
+        card, cpu = hqe(x), hqe(x.cpu())
+        out[f"hqe {name}"] = {
+            "codes": card.codes.numel(),
+            "codes_differ": int((card.codes.cpu() != cpu.codes).sum()),
+            "levels_differ": int((card.level.cpu() != cpu.level).sum()),
+            "num_levels_differ": int((card.num_levels.cpu() != cpu.num_levels).sum()),
+            "table_max_abs_diff": max((card.scale.cpu() - cpu.scale).abs().max().item(),
+                                      (card.zero.cpu() - cpu.zero).abs().max().item())}
+    card, cpu = proxy(k), proxy(k.cpu())
+    out["proxy K"] = {
+        "codes": card[0].numel() + card[1].numel(),
+        "fit_codes_differ": int((card[0].cpu() != cpu[0]).sum()),
+        "encode_codes_differ": int((card[1].cpu() != cpu[1]).sum()),
+        "table_max_abs_diff": max((card[2].cpu() - cpu[2]).abs().max().item(),
+                                  (card[3].cpu() - cpu[3]).abs().max().item())}
+    return out
 
 
 # -------------------------------------------------------- phase 5: parity
@@ -1636,11 +1722,11 @@ def serve_recorded(eng, T, reqs, recorders: dict):
     return results, stats, ticks, wall, {n: rec.fn.launches for n, (_, rec) in recorders.items()}
 
 
-def log_timing(name, t, launches, per_tick) -> None:
+def log_timing(name, t, launches, per_tick, unit="tick") -> None:
     log(f"{name}: {t['ms'] * 1e3:.2f} us/launch on the device, {t['eager_ms'] * 1e3:.2f} "
         f"us launched eagerly (bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}; "
         f"plain {t['plain_ms'] * 1e3:.1f} us, library {t['library_ms'] * 1e3:.1f} us) over "
-        f"{t['samples']} sampled calls; {launches} launches, {per_tick:.0f} per tick")
+        f"{t['samples']} sampled calls; {launches} launches, {per_tick:.0f} per {unit}")
 
 
 def main() -> int:
@@ -1683,13 +1769,18 @@ def main() -> int:
     counted = [(mod, name) for name, mod in kmods.items()] + [(t3_ops, "proxy_scores")]
 
     # 2) build: one nvcc per source, all started together (B7's two wrappers
-    #    share one source, built once; so do B8's prompt and decode calls)
+    #    share one source, built once; B8's three routes have a source each)
     t0 = time.perf_counter()
-    build.build([mod.SOURCES[name] for name, mod in kmods.items()])
-    for name, mod in kmods.items():
+    sources = {src: (mod, name) for mod in set(kmods.values())
+               for name, src in mod.SOURCES.items()}
+    build.build(sorted(sources))
+    for mod, name in sources.values():
         mod.launcher(name)
     report["build_s"] = time.perf_counter() - t0
-    log(f"build: {report['build_s']:.1f} s")
+    report["nvcc_s"] = dict(build.BUILD_SECONDS)
+    log(f"build: {report['build_s']:.1f} s; nvcc per source: "
+        + ", ".join(f"{n} {s:.1f} s" for n, s in sorted(build.BUILD_SECONDS.items())))
+    report["ptxas"] = {name: build.ptxas_report(text) for name, text in build.BUILD_LOGS.items()}
     for name, text in build.BUILD_LOGS.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -1751,7 +1842,7 @@ def main() -> int:
     del warm
     scale = cfg.head_dim ** -0.5
     L = cfg.num_layers
-    launches, per_tick, timing, serves = {}, {}, {}, {}
+    launches, per_tick, per_prefill, timing, serves = {}, {}, {}, {}, {}
 
     def recorders_of(dec, pre):
         return {name: (kmods[name], Recorder(getattr(kmods[name], name), L, every,
@@ -1903,7 +1994,6 @@ def main() -> int:
     n_new = 64
     step_kernel = {"dense": "flash_attention", "decomposed": "decomposed_decode",
                    "cpq": "cpq_decode", "retrieval": "proxy_scores"}
-    flash_prefill = None
     for mode in ("dense", "decomposed", "cpq", "retrieval"):
         eng = T.ServeEngine(cfg, params, rt=rts[mode], device=DEVICE)
         recs = {"flash_attention": (fa_ops, FlashRecorder(fa_ops.flash_attention, L))}
@@ -1918,32 +2008,41 @@ def main() -> int:
                 lambda q, kt, vt, ln, *r: (q[:, 0].reshape(q.shape[0], kt.codes.shape[2], -1,
                                                            q.shape[3]).float().contiguous(),
                                            ln)))
-        out, stats, timer, wall, counts = serve_static(eng, T, M, prompts, n_new, recs, counted)
+        out, stats, timer, wall, counts = serve_static(eng, T, M, prompts, n_new, recs, counted,
+                                                       fa_ops.ROUTE_LAUNCHES)
         steps = stats["decode_steps"]
         check(out.shape == (len(prompts), n_new) and steps == n_new - 1
               and stats["generated_tokens"] == out.size, f"static {mode}: {out.shape}, {stats}")
         want = {name: 0 for name in counts}
         want["flash_attention"] = L * (1 + steps if mode == "dense" else 1)
-        if mode != "dense":
+        want["flash_attention/prompt"] = L         # the bf16 prefill: tensor cores
+        if mode == "dense":
+            want["flash_attention/decode"] = L * steps
+        else:
             want[step_kernel[mode]] = L * steps
         check(counts == want, f"static {mode}: launch counts {counts}, want {want}")
         serves[f"static {mode}"] = static_metrics(out, stats, timer, wall, mode)
         serves[f"static {mode}"]["launches"] = {k: n for k, n in counts.items() if n}
         if mode == "dense":
-            flash_prefill = time_kernel(recs["flash_attention"][1].pre,
-                                        flash_prefill_case(fa_ops, scale))
-            log_timing("flash_attention (prompt)", flash_prefill, L, L)
+            name = "flash_attention_prompt"
+            timing[name] = time_kernel(recs["flash_attention"][1].pre,
+                                       flash_prefill_case(fa_ops, scale))
+            # the static serve prefills once: its count is the count per prefill
+            launches[name] = per_prefill[name] = counts["flash_attention/prompt"]
+            log_timing(name, timing[name], launches[name], per_prefill[name], "prefill")
         if mode != "retrieval":
             name = step_kernel[mode]
             rec = recs[name][1].dec if name == "flash_attention" else recs[name][1]
             case = {"flash_attention": flash_decode_case(fa_ops, scale),
                     "decomposed_decode": t1c_decode_case(t1_ops, scale),
                     "cpq_decode": cpqc_decode_case(cpq_ops, scale)}[name]
-            launches[name], per_tick[name] = counts[name], counts[name] / (steps + (
-                mode == "dense"))
+            n = counts[COUNT_KEY.get(name, name)]
+            launches[name], per_tick[name] = n, n / steps
             timing[name] = time_kernel(rec, case)
             log_timing(name, timing[name], launches[name], per_tick[name])
         step_ms = timer.step_ms
+        if mode == "dense":  # layer 0's prompt K/V, for the encoders' device check
+            history = tuple(t.clone() for t in recs["flash_attention"][1].pre.arenas[0])
         del eng, recs, timer
         torch.cuda.empty_cache()
         if mode == "dense":
@@ -1952,20 +2051,20 @@ def main() -> int:
                 prompts, n_new, step_ms, 30, 40)]
             log_profile("static dense", report["profile"]["static dense"])
         log(f"[{time.perf_counter() - T0:.0f} s] served static {mode}")
-    timing["flash_attention"]["prompt"] = flash_prefill
 
     # 4g) one-shot admission (prefill_chunk=0), dense, on the traffic of 4a:
     #     B8 prefills each admission's padded prompt, B1 decodes
     eng = T.ContinuousServeEngine(cfg, params, serving=dataclasses.replace(
         serving, prefill_chunk=0), device=DEVICE)
-    for mod, name in counted:
-        getattr(mod, name).launches = 0
+    zero_launches(counted, fa_ops.ROUTE_LAUNCHES)
     run = make_requests(T, cfg.vocab_size)
     results, stats, ticks, wall = serve_timed(eng, T, run)
-    counts = {name: getattr(mod, name).launches for mod, name in counted}
+    counts = counted_launches(counted, fa_ops.ROUTE_LAUNCHES)
     check_finished(results, run, "oneshot")
     want = {name: 0 for name in counts}
-    want.update(flash_attention=L * stats["admitted"], paged_decode=L * stats["decode_steps"])
+    want.update({"flash_attention": L * stats["admitted"],
+                 "flash_attention/prompt": L * stats["admitted"],
+                 "paged_decode": L * stats["decode_steps"]})
     check(counts == want and stats["admitted"] == len(run) and not stats["chunked_prefill"],
           f"oneshot: launch counts {counts}, want {want}; {stats['admitted']} admissions")
     serves["oneshot"] = serve_metrics(stats, ticks, wall, "oneshot dense")
@@ -1973,6 +2072,13 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - T0:.0f} s] served oneshot")
+
+    # C3: the T2 (HQE) and T3 (proxy) encoders on the card and on the CPU, on
+    #     layer 0's K/V of the static prompts (448 at once, 64 appended)
+    report["encode_parity"] = encode_parity(*history, rts["cpq"].cpq, t3_cfg, 448)
+    for what, r in report["encode_parity"].items():
+        log(f"encode parity {what} (card vs CPU, no gate): {r}")
+    del history
 
     # 5) f32 parity, kernels on and off, dense, CPQ, T1 and T3
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -2004,6 +2110,7 @@ def main() -> int:
             dict(retrieval=t3_cfg) if mode == "retrieval" else None)
     log(f"[{time.perf_counter() - T0:.0f} s] parity checked (contiguous)")
 
+    kernel_mod = {**kmods, "flash_attention_prompt": fa_ops}
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",
                 "paged_prefill": "src/repro/kernels/flash_attn/kernel.py:170",
                 "paged_cpq_decode": "src/repro/kernels/cpq_dequant_attn/kernel.py:281",
@@ -2012,10 +2119,14 @@ def main() -> int:
                 "paged_decomposed_prefill": "src/repro/kernels/decomposed_attn/kernel.py:187",
                 "paged_proxy_scores": "src/repro/kernels/topk_retrieval/kernel.py:39",
                 "flash_attention": "src/repro/kernels/flash_attn/kernel.py:276",
+                "flash_attention_prompt": "src/repro/kernels/flash_attn/kernel.py:276",
                 "decomposed_decode": "src/repro/kernels/decomposed_attn/kernel.py:298",
                 "cpq_decode": "src/repro/kernels/cpq_dequant_attn/kernel.py:338"}
+    source = {name: mod.SOURCES[name] for name, mod in kmods.items()}
+    source.update(flash_attention=fa_ops.SOURCES["flash_decode"],
+                  flash_attention_prompt=fa_ops.SOURCES["flash_prompt"])
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
-    library = {name: sdpa for name in kmods}
+    library = {name: sdpa for name in kernel_mod}
     library["paged_proxy_scores"] = "torch.matmul on codes gathered beforehand, plus qz"
     library["cpq_decode"] = sdpa + " on K/V dequantized beforehand"
     served = {name: "bfloat16 KV=16 G=1 Dh=64" + (" bits=4" if "cpq" in name else "")
@@ -2025,35 +2136,44 @@ def main() -> int:
         "paged_decomposed_prefill": "bfloat16 H=16 Dm=1024 kv_r=16 Rr=32",
         "paged_proxy_scores": "float32 KV=16 G=1 Dp=64",
         "flash_attention": "bfloat16 B=8 T=1 S=575 H=16 KV=16 D=64 causal=False",
+        "flash_attention_prompt": "bfloat16 B=8 T=512 S=512 H=16 KV=16 D=64 causal=True",
         "decomposed_decode": "bfloat16 B=8 N=576 H=16 Dm=1024 kv_r=16 Rr=32 length=575",
         "cpq_decode": "float32 q=bfloat16 B=8 N=576 KV=16 G=1 Dh=64 bits=4 length=575 "
                       "round=True"})
+    # B8's sweep, split by route: a decode token, or a prompt
+    errs["flash_attention_prompt"] = {k: e for k, e in errs["flash_attention"].items()
+                                      if " T=1 " not in k}
+    errs["flash_attention"] = {k: e for k, e in errs["flash_attention"].items()
+                               if " T=1 " in k}
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
-    for name, mod in kmods.items():
-        t = timing[name]
-        by_serve = {mode: sv["launches"][name] for mode, sv in serves.items()
-                    if sv.get("launches", {}).get(name)}
+    for name in kernel_mod:
+        t, key = timing[name], COUNT_KEY.get(name, name)
+        by_serve = {mode: sv["launches"][key] for mode, sv in serves.items()
+                    if sv.get("launches", {}).get(key)}
         if name == "paged_proxy_scores":  # B7's contiguous wrapper, the static T3 decode
             by_serve["static retrieval"] = serves["static retrieval"]["launches"]["proxy_scores"]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": os.path.relpath(str(mod.SOURCES[name]), root),
+            "source": os.path.relpath(str(source[name]), root),
             "replaces": replaces[name], "launches": launches[name],
-            "launches_per_tick": per_tick[name],
+            # per decode or chunk tick; B8's prompt route per static prefill
+            **({"launches_per_prefill": per_prefill[name]} if name in per_prefill
+               else {"launches_per_tick": per_tick[name]}),
             "max_abs_err": errs[name][served[name]], "max_abs_err_sweep": errs[name],
             "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "library": library[name], "timed_samples": t["samples"],
-            "launches_by_serve": by_serve, **({"prompt": t["prompt"]} if "prompt" in t else {})})
+            "launches_by_serve": by_serve})
     report["kernels"] = kernels
     report["run_s"] = time.perf_counter() - T0
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "max_abs_err_sweep"}
+                                  for e in kernels]}))  # the sweep's errors: --out
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

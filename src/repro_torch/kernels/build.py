@@ -9,14 +9,30 @@ family's header), so an edited source is rebuilt and an unchanged one is
 reused. Nothing here
 runs at import time: this module is imported on machines with no GPU and no
 ``nvcc``.
+
+Run as a script, it compiles every source of this checkout (and, with
+``--against DIR``, of another checkout of the repository at DIR, with the
+same flags; one nvcc per source, a tree's all started together) and prints
+nvcc's time per source, ptxas's report of each kernel (registers, spills,
+shared memory), and whether the two builds' reports of each kernel they
+share are identical:
+
+    PYTHONPATH=src python -m repro_torch.kernels.build [--against DIR] [--out FILE]
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
@@ -27,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _loaded: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
 BUILD_LOGS: dict[str, str] = {}  # nvcc's output (ptxas register/smem report)
+BUILD_SECONDS: dict[str, float] = {}  # nvcc's wall time
 
 
 def nvcc_path() -> str:
@@ -40,34 +57,43 @@ def nvcc_path() -> str:
     return found
 
 
-def _target(source: Path) -> Path:
+def _target(source: Path, out_dir: Path) -> Path:
+    kernels_dir = source.parents[2]  # <kernels>/<family>/csrc/<name>.cu
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(KERNELS_DIR.glob("*/csrc/*.cu*")):  # sources and headers
-        h.update(str(f.relative_to(KERNELS_DIR)).encode())
+    for f in sorted(kernels_dir.glob("*/csrc/*.cu*")):  # sources and headers
+        h.update(str(f.relative_to(kernels_dir)).encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
+    return out_dir / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(sources: list[Path]) -> list[Path]:
-    """Compile every source not yet built, one ``nvcc`` process each, all
-    started together. Returns the library paths in source order."""
-    targets = [_target(s) for s in sources]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs, seen = [], set()
+def build(sources: list[Path], out_dir: Path = BUILD_DIR) -> list[Path]:
+    """Compile every source not yet built in ``out_dir``, one ``nvcc``
+    process each, all started together; each one's output goes to
+    ``BUILD_LOGS`` and its wall time to ``BUILD_SECONDS``, by source stem.
+    Returns the library paths in source order."""
+    targets = [_target(s, out_dir) for s in sources]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs, seen = [], set()
     for src, tgt in zip(sources, targets):
         if tgt.exists() or tgt in seen:  # built, or named twice
             continue
         seen.add(tgt)
-        tmp = tgt.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs.append((src, tgt, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        jobs.append((src, tgt, tgt.with_suffix(f".{os.getpid()}.tmp")))
+
+    def nvcc(job):
+        src, _, tmp = job
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(len(jobs), 1)) as pool:
+        done = list(pool.map(nvcc, jobs))
     failed = []
-    for src, tgt, tmp, proc in procs:
-        log, _ = proc.communicate()
-        BUILD_LOGS[src.stem] = log
+    for (src, tgt, tmp), (proc, seconds) in zip(jobs, done):
+        BUILD_LOGS[src.stem], BUILD_SECONDS[src.stem] = proc.stdout, seconds
         if proc.returncode != 0:
-            failed.append(f"{src.name}:\n{log}")
+            failed.append(f"{src.name}:\n{proc.stdout}")
             continue
         os.replace(tmp, tgt)  # atomic: a concurrent loader sees all or nothing
     if failed:
@@ -94,3 +120,64 @@ def c_function(source: Path, name: str, argtypes: list):
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return _fns[key]
+
+
+def ptxas_report(log: str) -> dict[str, list[str]]:
+    """ptxas's lines about each entry function of one nvcc log, by its
+    (mangled) name."""
+    report, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            report[cur] = []
+        elif cur and ("registers" in line or "spill" in line or "stack frame" in line):
+            report[cur].append(line.split(":", 1)[-1].strip() if "ptxas" in line
+                               else line.strip())
+    return report
+
+
+def _reports(kernels_dir: Path, out_dir: Path) -> dict[str, dict[str, list[str]]]:
+    """Build every source under ``kernels_dir`` afresh into ``out_dir`` and
+    return the ptxas report of each, by source path, with nvcc's wall time
+    under ``"nvcc s"``."""
+    sources = sorted(kernels_dir.glob("*/csrc/*.cu"))
+    BUILD_LOGS.clear()
+    build(sources, out_dir)
+    return {str(src.relative_to(kernels_dir.parent)): {
+        "nvcc s": [f"{BUILD_SECONDS[src.stem]:.1f}"], **ptxas_report(BUILD_LOGS[src.stem])}
+        for src in sources}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="ptxas report of the port's CUDA kernels")
+    ap.add_argument("--against", default=None, help="root of another checkout to compare")
+    ap.add_argument("--out", default=None, help="also write the reports as JSON here")
+    args = ap.parse_args(argv)
+    with tempfile.TemporaryDirectory() as mine_dir, tempfile.TemporaryDirectory() as other_dir:
+        mine = _reports(KERNELS_DIR, Path(mine_dir))
+        other = {}
+        if args.against:
+            other = _reports(Path(args.against) / "src" / "repro_torch" / "kernels",
+                             Path(other_dir))
+    result = {"this": mine, "against": other, "compared": {}}
+    for src, kernels in mine.items():
+        for name, lines in kernels.items():
+            print(f"ptxas {src} {name}: {'; '.join(lines)}")
+            if name != "nvcc s" and name in other.get(src, {}):
+                same = other[src][name] == lines
+                result["compared"][f"{src} {name}"] = same
+                if not same:
+                    print(f"  differs from {args.against}: {'; '.join(other[src][name])}")
+    if args.against:
+        n = len(result["compared"])
+        print(f"ptxas: {sum(result['compared'].values())} of {n} kernels that both builds "
+              f"compile are identical")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

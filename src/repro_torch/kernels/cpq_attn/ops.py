@@ -37,7 +37,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.core.cpq import CPQTensor, decode_codes, take_levels
-from repro_torch.kernels import build
+from repro_torch.kernels import build, single_query
 from repro_torch.kernels.paged_attn.ops import NEG_INF, SPLIT_TOKENS, run
 
 CSRC = Path(__file__).parent / "csrc"
@@ -57,9 +57,9 @@ _ARGTYPES = {
     # valid, scale, stream
     "paged_cpq_prefill": [_I] + [_P] * 14 + [_I] * 12 + [_F, _P],
     # round_tiles, q, codes_k, codes_v, level_k, level_v, scale_k, zero_k,
-    # scale_v, zero_v, out, part, B, KV, G, Dh, Dv, N, L, length, split_tokens,
-    # scale, stream
-    "cpq_decode": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
+    # scale_v, zero_v, out, part, counters, B, KV, G, Dh, Dv, N, L, length,
+    # splits, split_keys, scale, stream
+    "cpq_decode": [_I] + [_P] * 12 + [_I] * 10 + [_F, _P],
 }
 
 
@@ -300,15 +300,17 @@ def cpq_decode_fwd(q, codes_k, codes_v, scale_k, zero_k, scale_v, zero_v, level_
               for c, sc, z, lv in ((codes_k, scale_k, zero_k, level_k),
                                    (codes_v, scale_v, zero_v, level_v)))
     _check_cuda("cpq_decode", qf, kt, vt, [])
-    split = SPLIT_TOKENS
+    if Dh % 16 or Dv % 16 or max(Dh, Dv) > single_query.MAX_HEAD_DIM:
+        raise ValueError(f"cpq_decode: Dh={Dh}, Dv={Dv}; the kernel takes multiples of 16 "
+                         f"up to {single_query.MAX_HEAD_DIM}")
+    splits, keys = single_query.plan(B * KV * -(-G // 4), int(length), q.device)
     out = torch.empty((B, KV, G, Dv), dtype=torch.float32, device=q.device)
-    part = torch.empty(B * KV * G * -(-N // split) * (Dv + 2), dtype=torch.float32,
-                       device=q.device)
+    part = torch.empty(B * KV * G * splits * (Dv + 2), dtype=torch.float32, device=q.device)
     run(launcher("cpq_decode"), "cpq_decode", q.device, int(round_tiles), qf.data_ptr(),
         codes_k.data_ptr(), codes_v.data_ptr(), level_k.data_ptr(), level_v.data_ptr(),
         scale_k.data_ptr(), zero_k.data_ptr(), scale_v.data_ptr(), zero_v.data_ptr(),
-        out.data_ptr(), part.data_ptr(), B, KV, G, Dh, Dv, N, L, int(length), split,
-        float(scale))
+        out.data_ptr(), part.data_ptr(), single_query.counters(B * KV * G, q.device).data_ptr(),
+        B, KV, G, Dh, Dv, N, L, int(length), splits, keys, float(scale))
     cpq_decode.launches += 1
     return out
 

@@ -39,6 +39,17 @@
 //     keys is loaded with every thread reading only its own slice of each X
 //     row, so X goes from device memory to registers once and serves both
 //     the score and the value stage.
+//   * Past Dm 2048 that no longer fits: a block holds (2 * rows + tile) *
+//     Dm floats in registers, 64K at Dm 2048 with 16 rows and 8 keys, which
+//     is all an SM has. Wider models (qwen3-4b 2560, phi4-mini 3072,
+//     opt-6.7b 4096, jamba 8192) run the same sweep with fewer rows and keys
+//     per block, both template parameters of the body: 4 rows and 4 keys at
+//     DPT 8 (Dm up to 4096), 2 rows and 2 keys at DPT 16 (up to 8192), 96
+//     floats of state a thread either way. Each block still reads its X
+//     rows once for both products; one request row's heads now take H /
+//     rows blocks, which read the same X (the later ones from L2). The
+//     Dm <= 2048 kernels are the same body at 16 rows and 8 keys, under
+//     their old names and with their old code.
 //   * Scores: each thread forms kRows partial dot products per key, each
 //     warp reduce-scatters them (15 exchanges and one sum per key for 16
 //     rows), and the warps' sums meet in shared memory, where one warp per
@@ -74,8 +85,6 @@ constexpr int kTile = 8;           // key tokens per tile
 constexpr int kMaxThreads = 512;   // Dm / DPT threads, rounded up to a warp
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxSpan = 1024;     // key tokens per split
-constexpr int kRedStride = kTile * kRows + 1;  // padded: the warps' sums of one
-                                               // (key, row) sit in distinct banks
 constexpr size_t kSmemOptIn = 227 * 1024;
 
 struct Params {
@@ -103,14 +112,16 @@ struct Row {
   int kvr;      // its roped-key group
 };
 
-// Row r of block group g. Decode: group g holds heads of request row
-// g / head_groups. Prefill: the chunk's rows in head-major order h * C + i,
-// as the TPU kernel lays them out, stored at i * H + h in r and out.
+// Row r of block group g (KR rows to a group). Decode: group g holds heads
+// of request row g / head_groups. Prefill: the chunk's rows in head-major
+// order h * C + i, as the TPU kernel lays them out, stored at i * H + h in r
+// and out.
+template <int KR = kRows>
 __device__ __forceinline__ Row row_of(const Params& p, int g, int r) {
   Row w;
   int h;
   if (p.prefill) {
-    const int gr = g * kRows + r;
+    const int gr = g * KR + r;
     w.alive = gr < p.H * p.C;
     h = gr / p.C;
     const int i = gr % p.C;
@@ -118,7 +129,7 @@ __device__ __forceinline__ Row row_of(const Params& p, int g, int r) {
     w.limit = p.offset + i;
   } else {
     const int b = g / p.head_groups;
-    h = (g % p.head_groups) * kRows + r;
+    h = (g % p.head_groups) * KR + r;
     w.alive = h < p.H;
     w.qrow = b * p.H + h;
     w.limit = INT_MAX;
@@ -143,8 +154,8 @@ __device__ __forceinline__ void load_slice(const T* src, float (&out)[DPT]) {
 // One halving exchange of a warp reduce-scatter: lanes with bit MASK set
 // keep the upper K of their 2K values, the others the lower K, each adding
 // its partner's copy of the half it keeps.
-template <int K, int MASK>
-__device__ __forceinline__ void scatter_level(float (&v)[kRows], int lane, int& row) {
+template <int K, int MASK, int N>
+__device__ __forceinline__ void scatter_level(float (&v)[N], int lane, int& row) {
   const bool upper = lane & MASK;
 #pragma unroll
   for (int i = 0; i < K; ++i) {
@@ -155,28 +166,41 @@ __device__ __forceinline__ void scatter_level(float (&v)[kRows], int lane, int& 
   if (upper) row += K;
 }
 
-// Reduce-scatter of kRows values across a warp: after log2(kRows) halving
+// Reduce-scatter of KR values across a warp: after log2(KR) halving
 // exchanges and a full sum over the remaining lane bits, lane l holds the
-// warp's sum for row `row` (lanes 0 .. kRows-1 hold every row once).
-__device__ __forceinline__ float warp_reduce_scatter(float (&v)[kRows], int lane,
-                                                     int& row) {
-  static_assert(kRows == 16, "the exchanges below are written for 16 rows");
+// warp's sum for row `row` (lanes 0 .. KR-1 hold every row once).
+template <int KR>
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[KR], int lane, int& row) {
+  static_assert(KR == 16 || KR == 4 || KR == 2, "the exchanges are written for these");
   row = 0;
-  scatter_level<8, 1>(v, lane, row);
-  scatter_level<4, 2>(v, lane, row);
-  scatter_level<2, 4>(v, lane, row);
-  scatter_level<1, 8>(v, lane, row);
-  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
+  if constexpr (KR == 16) {
+    scatter_level<8, 1>(v, lane, row);
+    scatter_level<4, 2>(v, lane, row);
+    scatter_level<2, 4>(v, lane, row);
+    scatter_level<1, 8>(v, lane, row);
+    return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
+  } else {
+    if constexpr (KR == 4) scatter_level<2, 1>(v, lane, row);
+    scatter_level<1, KR / 2>(v, lane, row);
+    float s = v[0];
+#pragma unroll
+    for (int o = KR; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    return s;
+  }
 }
 
-// Pass 1: one block per (key split, group of kRows query rows).
-template <typename T, int DPT, bool kContig>
-__global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
-  extern __shared__ float dyn[];                 // qr_s [kRows][Rr], kr_s [kTile][kv_r * Rr]
+// Pass 1: one block per (key split, group of KR query rows), tiles of
+// TILE keys; split_kernel (KR = kRows, TILE = kTile) and wide_split_kernel
+// are this body.
+template <typename T, int DPT, bool kContig, int KR, int TILE>
+__device__ __forceinline__ void split_body(const Params& p) {
+  constexpr int kRedStride = TILE * KR + 1;  // padded: the warps' sums of one
+                                             // (key, row) sit in distinct banks
+  extern __shared__ float dyn[];                 // qr_s [KR][Rr], kr_s [TILE][kv_r * Rr]
   __shared__ float red[kMaxWarps * kRedStride];  // per-warp score sums [warp][key][row]
-  __shared__ __align__(16) float sc[kRows][kTile];  // scores, then weights
-  __shared__ float m_s[kRows], l_s[kRows], corr_s[kRows];
-  __shared__ int limit_s[kRows], kvr_s[kRows];
+  __shared__ __align__(16) float sc[KR][TILE];   // scores, then weights
+  __shared__ float m_s[KR], l_s[KR], corr_s[KR];
+  __shared__ int limit_s[KR], kvr_s[KR];
   __shared__ int row_s[kMaxSpan];  // arena row (page * page_size + slot) of each key
 
   const int split = blockIdx.x, g = blockIdx.y;
@@ -187,10 +211,10 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
   len = min(len, p.nb * p.page);
   const int span = p.pages_per_split * p.page;
   const int tok0 = split * span, tok1 = min(len, tok0 + span);
-  const long n_part = (long)p.groups * p.S * kRows;
-  const long base = ((long)g * p.S + split) * kRows;
+  const long n_part = (long)p.groups * p.S * KR;
+  const long base = ((long)g * p.S + split) * KR;
   if (tok0 >= tok1) {  // the whole split lies past the length: an empty partial
-    for (int r = tid; r < kRows; r += nthreads) {
+    for (int r = tid; r < KR; r += nthreads) {
       p.part[base + r] = -INFINITY;
       p.part[n_part + base + r] = 0.f;
     }
@@ -203,19 +227,19 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
   const T* krp = static_cast<const T*>(p.kr);
   const int RR = p.kv_r * p.Rr;  // roped-key elements per token
   float* qr_s = dyn;
-  float* kr_s = dyn + kRows * p.Rr;
+  float* kr_s = dyn + KR * p.Rr;
   const int d0 = tid * DPT;
   const bool owns = d0 < p.Dm;
 
-  for (int r = tid; r < kRows; r += nthreads) {
-    const Row w = row_of(p, g, r);
+  for (int r = tid; r < KR; r += nthreads) {
+    const Row w = row_of<KR>(p, g, r);
     limit_s[r] = w.alive ? w.limit : -1;  // a padding row sees no key
     kvr_s[r] = w.alive ? w.kvr : 0;
     m_s[r] = -INFINITY;
     l_s[r] = 0.f;
   }
-  for (int i = tid; i < kRows * p.Rr; i += nthreads) {
-    const Row w = row_of(p, g, i / p.Rr);
+  for (int i = tid; i < KR * p.Rr; i += nthreads) {
+    const Row w = row_of<KR>(p, g, i / p.Rr);
     qr_s[i] = w.alive ? to_f(qrp[(long)w.qrow * p.Rr + i % p.Rr]) : 0.f;
   }
   if constexpr (kContig) {
@@ -228,10 +252,10 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
     }
   }
 
-  float rq[kRows][DPT], acc[kRows][DPT];
+  float rq[KR][DPT], acc[KR][DPT];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const Row w = row_of(p, g, r);
+  for (int r = 0; r < KR; ++r) {
+    const Row w = row_of<KR>(p, g, r);
     if (owns && w.alive) {
       load_slice<T, DPT>(rp + (long)w.qrow * p.Dm + d0, rq[r]);
     } else {
@@ -243,13 +267,13 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
   }
   __syncthreads();
 
-  for (int t0 = tok0; t0 < tok1; t0 += kTile) {
-    const int n = min(kTile, tok1 - t0);
+  for (int t0 = tok0; t0 < tok1; t0 += TILE) {
+    const int n = min(TILE, tok1 - t0);
     // this thread's slice of the tile's X rows, all loads issued at once
     const int* rows = row_s + (t0 - tok0);
-    float xt[kTile][DPT];
+    float xt[TILE][DPT];
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) {
+    for (int j = 0; j < TILE; ++j) {
       if (j < n && owns) {
         load_slice<T, DPT>(xp + (long)rows[j] * p.Dm + d0, xt[j]);
       } else {
@@ -258,19 +282,19 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
       }
     }
     for (int e = tid; e < RR; e += nthreads) {  // the tile's roped keys
-      float kv[kTile];
+      float kv[TILE];
 #pragma unroll
-      for (int j = 0; j < kTile; ++j) kv[j] = j < n ? to_f(krp[(long)rows[j] * RR + e]) : 0.f;
+      for (int j = 0; j < TILE; ++j) kv[j] = j < n ? to_f(krp[(long)rows[j] * RR + e]) : 0.f;
 #pragma unroll
-      for (int j = 0; j < kTile; ++j) kr_s[j * RR + e] = kv[j];
+      for (int j = 0; j < TILE; ++j) kr_s[j * RR + e] = kv[j];
     }
     // score stage, first product: R . X per key, summed over the block
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) {
+    for (int j = 0; j < TILE; ++j) {
       if (j < n) {  // n is the same for the whole block
-        float v[kRows];
+        float v[KR];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
+        for (int r = 0; r < KR; ++r) {
           float a = 0.f;
 #pragma unroll
           for (int e = 0; e < DPT; ++e) a = fmaf(rq[r][e], xt[j][e], a);
@@ -278,14 +302,14 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
         }
         int row;
         const float s = warp_reduce_scatter(v, lane, row);
-        if (lane < kRows) red[warp * kRedStride + j * kRows + row] = s;
+        if (lane < KR) red[warp * kRedStride + j * KR + row] = s;
       }
     }
     __syncthreads();
     // scores: the warps' sums and the roped term, one warp per (row, key)
-    for (int i = warp; i < kRows * n; i += nwarps) {
+    for (int i = warp; i < KR * n; i += nwarps) {
       const int r = i / n, j = i % n;
-      float s = lane < nwarps ? red[lane * kRedStride + j * kRows + r] : 0.f;
+      float s = lane < nwarps ? red[lane * kRedStride + j * KR + r] : 0.f;
       const float* q = qr_s + r * p.Rr;
       const float* k = kr_s + j * RR + kvr_s[r] * p.Rr;
       for (int e = lane; e < p.Rr; e += 32) s = fmaf(q[e], k[e], s);
@@ -294,7 +318,7 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
     }
     __syncthreads();
     // online softmax update, one warp per row; weights past n are 0
-    for (int r = warp; r < kRows; r += nwarps) {
+    for (int r = warp; r < KR; r += nwarps) {
       const float s = lane < n ? sc[r][lane] : -INFINITY;
       float mt = s;
       for (int o = 16; o; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
@@ -304,7 +328,7 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
       const float e = (none || lane >= n) ? 0.f : expf(s - m_new);
       float sum = e;
       for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane < kTile) sc[r][lane] = e;
+      if (lane < TILE) sc[r][lane] = e;
       if (lane == 0) {
         const float c = none ? 1.f : expf(m_old - m_new);
         corr_s[r] = c;
@@ -315,16 +339,23 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
     __syncthreads();
     // value stage, second product: acc += p X on the same X slice
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 w0 = *reinterpret_cast<const float4*>(&sc[r][0]);
-      const float4 w1 = *reinterpret_cast<const float4*>(&sc[r][4]);
-      const float wj[kTile] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    for (int r = 0; r < KR; ++r) {
+      float wj[TILE];
+      if constexpr (TILE == 8) {
+        const float4 w0 = *reinterpret_cast<const float4*>(&sc[r][0]);
+        const float4 w1 = *reinterpret_cast<const float4*>(&sc[r][4]);
+        wj[0] = w0.x, wj[1] = w0.y, wj[2] = w0.z, wj[3] = w0.w;
+        wj[4] = w1.x, wj[5] = w1.y, wj[6] = w1.z, wj[7] = w1.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < TILE; ++j) wj[j] = sc[r][j];
+      }
       const float c = corr_s[r];
 #pragma unroll
       for (int e = 0; e < DPT; ++e) {
         float a = acc[r][e] * c;
 #pragma unroll
-        for (int j = 0; j < kTile; ++j) a = fmaf(wj[j], xt[j][e], a);
+        for (int j = 0; j < TILE; ++j) a = fmaf(wj[j], xt[j][e], a);
         acc[r][e] = a;
       }
     }
@@ -332,48 +363,59 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
 
   if (owns) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < KR; ++r) {
 #pragma unroll
       for (int e = 0; e < DPT; ++e)
         p.part[2 * n_part + (base + r) * p.Dm + d0 + e] = acc[r][e];
     }
   }
-  for (int r = tid; r < kRows; r += nthreads) {  // m_s / l_s are final since the last sync
+  for (int r = tid; r < KR; r += nthreads) {  // m_s / l_s are final since the last sync
     p.part[base + r] = m_s[r];
     p.part[n_part + base + r] = l_s[r];
   }
 }
 
+template <typename T, int DPT, bool kContig>
+__global__ void __launch_bounds__(kMaxThreads) split_kernel(Params p) {
+  split_body<T, DPT, kContig, kRows, kTile>(p);
+}
+
+template <typename T, int DPT, bool kContig, int KR, int TILE>
+__global__ void __launch_bounds__(kMaxThreads) wide_split_kernel(Params p) {
+  split_body<T, DPT, kContig, KR, TILE>(p);
+}
+
 // Pass 2: merge the S split partials of each query row; a split with l == 0
 // saw no visible key and is skipped (a row of length 0 returns zeros). The
 // first warp weighs the splits and lists the live ones; then every thread
-// sums its Dm elements over that list.
-template <typename T>
-__global__ void merge_kernel(Params p) {
+// sums its Dm elements over that list. merge_kernel (KR = kRows) and
+// wide_merge_kernel are this body.
+template <typename T, int KR>
+__device__ __forceinline__ void merge_body(const Params& p) {
   extern __shared__ float merge_s[];  // weight [S], then live split index [S]
   __shared__ float den_s;
   __shared__ int n_live;
   const int r = blockIdx.x, g = blockIdx.y;
-  const Row w = row_of(p, g, r);
+  const Row w = row_of<KR>(p, g, r);
   if (!w.alive) return;
-  const long n_part = (long)p.groups * p.S * kRows;
-  const long base = (long)g * p.S * kRows + r;  // split s at base + s * kRows
+  const long n_part = (long)p.groups * p.S * KR;
+  const long base = (long)g * p.S * KR + r;  // split s at base + s * KR
   float* wts = merge_s;
   int* live = reinterpret_cast<int*>(merge_s + p.S);
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     float M = -INFINITY;
     for (int s = lane; s < p.S; s += 32)
-      if (p.part[n_part + base + (long)s * kRows] > 0.f)
-        M = fmaxf(M, p.part[base + (long)s * kRows]);
+      if (p.part[n_part + base + (long)s * KR] > 0.f)
+        M = fmaxf(M, p.part[base + (long)s * KR]);
     for (int o = 16; o; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
     float den = 0.f;
     int count = 0;
     for (int s0 = 0; s0 < p.S; s0 += 32) {
       const int s = s0 + lane;
-      const float l = s < p.S ? p.part[n_part + base + (long)s * kRows] : 0.f;
+      const float l = s < p.S ? p.part[n_part + base + (long)s * KR] : 0.f;
       const bool on = l > 0.f;
-      const float wt = on ? expf(p.part[base + (long)s * kRows] - M) : 0.f;
+      const float wt = on ? expf(p.part[base + (long)s * KR] - M) : 0.f;
       den = fmaf(wt, l, den);
       const unsigned mask = __ballot_sync(0xffffffffu, on);
       if (on) {
@@ -397,38 +439,75 @@ __global__ void merge_kernel(Params p) {
   for (int d = threadIdx.x; d < p.Dm; d += blockDim.x) {
     float num = 0.f;
 #pragma unroll 4
-    for (int k = 0; k < nl; ++k) num = fmaf(wts[k], acc[(long)live[k] * kRows * p.Dm + d], num);
+    for (int k = 0; k < nl; ++k) num = fmaf(wts[k], acc[(long)live[k] * KR * p.Dm + d], num);
     op[d] = from_f<T>(den > 0.f ? num / den : 0.f);
   }
 }
 
-template <typename T, int DPT, bool kContig>
+template <typename T>
+__global__ void merge_kernel(Params p) {
+  merge_body<T, kRows>(p);
+}
+
+template <typename T, int KR>
+__global__ void wide_merge_kernel(Params p) {
+  merge_body<T, KR>(p);
+}
+
+// KR rows and TILE keys per block: kRows and kTile up to Dm 2048 (the
+// kernels' old names), fewer beyond (see the note at the top).
+template <typename T, int DPT, bool kContig, int KR, int TILE>
 int launch(Params p, int threads, cudaStream_t stream) {
-  const size_t dyn = sizeof(float) * ((size_t)kRows * p.Rr + (size_t)kTile * p.kv_r * p.Rr);
+  void (*split)(Params);
+  void (*merge)(Params);
+  if constexpr (KR == kRows && TILE == kTile) {
+    split = split_kernel<T, DPT, kContig>;
+    merge = merge_kernel<T>;
+  } else {
+    split = wide_split_kernel<T, DPT, kContig, KR, TILE>;
+    merge = wide_merge_kernel<T, KR>;
+  }
+  const size_t dyn = sizeof(float) * ((size_t)KR * p.Rr + (size_t)TILE * p.kv_r * p.Rr);
   if (dyn > kSmemOptIn) return cudaErrorInvalidValue;
   if (dyn > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(split_kernel<T, DPT, kContig>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)dyn);
     if (err != cudaSuccess) return err;
   }
-  split_kernel<T, DPT, kContig><<<dim3(p.S, p.groups), threads, dyn, stream>>>(p);
+  split<<<dim3(p.S, p.groups), threads, dyn, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_kernel<T><<<dim3(kRows, p.groups), 256, (sizeof(float) + sizeof(int)) * p.S,
-                    stream>>>(p);
+  merge<<<dim3(KR, p.groups), 256, (sizeof(float) + sizeof(int)) * p.S, stream>>>(p);
   return cudaGetLastError();
 }
 
+constexpr int kMaxDm = 8192;
+
 // Elements of Dm per thread: the block has Dm / DPT threads (at most 512).
-inline int dpt_of(int Dm) { return Dm <= 512 ? 1 : Dm <= 1024 ? 2 : 4; }
+inline int dpt_of(int Dm) {
+  return Dm <= 512 ? 1 : Dm <= 1024 ? 2 : Dm <= 2048 ? 4 : Dm <= 4096 ? 8 : 16;
+}
+
+// Query rows per block: kRows up to DPT 4, then 4 (DPT 8) and 2 (DPT 16).
+inline int rows_of(int dpt) { return dpt <= 4 ? kRows : dpt == 8 ? 4 : 2; }
+
+template <typename T, bool kContig>
+int launch_dpt(int dpt, Params p, int threads, cudaStream_t s) {
+  switch (dpt) {
+    case 1: return launch<T, 1, kContig, kRows, kTile>(p, threads, s);
+    case 2: return launch<T, 2, kContig, kRows, kTile>(p, threads, s);
+    case 4: return launch<T, 4, kContig, kRows, kTile>(p, threads, s);
+    case 8: return launch<T, 8, kContig, 4, 4>(p, threads, s);
+    default: return launch<T, 16, kContig, 2, 2>(p, threads, s);
+  }
+}
 
 // kContig: contiguous arenas (decomposed_decode.cu); the paged kernels
 // instantiate the default.
 template <bool kContig = false>
 int dispatch(int is_bf16, Params p, void* stream) {
   if (p.H < 1 || p.Dm < 1 || p.Rr < 0 || p.page < 1 || p.nb < 1 ||
-      p.pages_per_split < 1 || p.pages_per_split * p.page > kMaxSpan || p.Dm > 2048)
+      p.pages_per_split < 1 || p.pages_per_split * p.page > kMaxSpan || p.Dm > kMaxDm)
     return cudaErrorInvalidValue;
   if (p.Rr > 0 && (p.kv_r < 1 || p.H % p.kv_r != 0)) return cudaErrorInvalidValue;
   if (p.Rr == 0) p.kv_r = 1;
@@ -439,18 +518,13 @@ int dispatch(int is_bf16, Params p, void* stream) {
       reinterpret_cast<uintptr_t>(p.r) % (dpt * elt) != 0)
     return cudaErrorInvalidValue;
   const int threads = ((p.Dm / dpt + 31) / 32) * 32;
+  const int rows = rows_of(dpt);
   p.S = (p.nb + p.pages_per_split - 1) / p.pages_per_split;
-  p.head_groups = (p.H + kRows - 1) / kRows;
-  p.groups = p.prefill ? (p.H * p.C + kRows - 1) / kRows : p.B * p.head_groups;
+  p.head_groups = (p.H + rows - 1) / rows;
+  p.groups = p.prefill ? (p.H * p.C + rows - 1) / rows : p.B * p.head_groups;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (dpt == 1) return launch<__nv_bfloat16, 1, kContig>(p, threads, s);
-    if (dpt == 2) return launch<__nv_bfloat16, 2, kContig>(p, threads, s);
-    return launch<__nv_bfloat16, 4, kContig>(p, threads, s);
-  }
-  if (dpt == 1) return launch<float, 1, kContig>(p, threads, s);
-  if (dpt == 2) return launch<float, 2, kContig>(p, threads, s);
-  return launch<float, 4, kContig>(p, threads, s);
+  return is_bf16 ? launch_dpt<__nv_bfloat16, kContig>(dpt, p, threads, s)
+                 : launch_dpt<float, kContig>(dpt, p, threads, s);
 }
 
 }  // namespace decomposed_attn

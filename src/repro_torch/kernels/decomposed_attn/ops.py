@@ -26,7 +26,9 @@ key of the head's group: ``kr_pages`` holds ``kv_r`` groups, per kv head or
 one shared) times ``scale``, softmax in float32 with ``P`` accumulated in
 float32 and cast to the arena dtype. Physical page 0 is the null page;
 positions at or past a row's length contribute nothing and a row of length
-0 returns zeros. ``Rr == 0`` (absolute positions) has no roped term.
+0 returns zeros. ``Rr == 0`` (absolute positions) has no roped term. The
+CUDA kernels take d_model up to 8192 (a multiple of 8 past 2048, of 16 past
+4096).
 """
 from __future__ import annotations
 
@@ -50,7 +52,9 @@ SOURCES = {"paged_decomposed_decode": CSRC / "paged_decomposed_decode.cu",
 # runs of a served batch (a few thousand keys) still fit the 132 SMs in one
 # wave; each run writes a (16, Dm) float32 partial that pass 2 merges
 SPLIT_TOKENS = {"decode": 16, "prefill": 32}  # the contiguous decode as "decode"
-ROWS = 16          # query rows per block (kRows)
+# query rows per block (kRows) up to d_model 2048; wider models take 4 or 2
+# rows a block, whose partials fit in the buffer sized for 16
+ROWS = 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {

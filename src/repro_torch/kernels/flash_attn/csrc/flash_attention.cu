@@ -1,15 +1,20 @@
-// Contiguous flash attention forward (B8 of the port's kernel table).
+// Contiguous flash attention forward in float32 (B8's float32 prompt route
+// in the port's kernel table).
 //
-// Replaces the JAX package's Pallas TPU kernel `flash_attention_fwd`
-// (src/repro/kernels/flash_attn/kernel.py:276, body `_kernel` :26): GQA
-// attention of q (B, T, H, Dh) over k (B, S, KV, Dh) and v (B, S, KV, Dv),
-// query head h reading kv head h / (H / KV), causal (query token i sees keys
-// j <= i) or not, out (B, T, H, Dv) in q's dtype. The TPU kernel pads T and
-// S up to its block sizes and masks keys past S; here every tile and split
-// ends at S and every row block at T, which masks the same keys without
-// copying anything. Like the TPU kernel, a causal block skips the key tiles
-// its rows all mask: a row block stops at the last key its last row sees,
-// and a split that starts past it exits at once.
+// Replaces, for a float32 prompt, the JAX package's Pallas TPU kernel
+// `flash_attention_fwd` (src/repro/kernels/flash_attn/kernel.py:276, body
+// `_kernel` :26): GQA attention of q (B, T, H, Dh) over k (B, S, KV, Dh) and
+// v (B, S, KV, Dv), query head h reading kv head h / (H / KV), causal (query
+// token i sees keys j <= i) or not, out (B, T, H, Dv). A bf16 prompt runs
+// the tensor-core forward (flash_prompt.cu) and a decode token the
+// single-query kernel (flash_decode.cu); float32 stays on CUDA cores, the
+// only route that meets the float32 gate (TF32 tensor cores keep about three
+// decimal digits). The TPU kernel pads T and S up to its block sizes and
+// masks keys past S; here every tile and split ends at S and every row
+// block at T, which masks the same keys without copying anything. Like the
+// TPU kernel, a causal block skips the key tiles its rows all mask: a row
+// block stops at the last key its last row sees, and a split that starts
+// past it exits at once.
 //
 // The work is the dense paged kernels' own (../../paged_attn/csrc/
 // paged_attn.cuh): per (kv head, row b) the query rows are token-major,
@@ -18,22 +23,17 @@
 // online softmax in float32 on CUDA cores; the key range is cut into splits
 // whose partials a second pass merges. Without a block table the arenas are
 // read as one page of one token per row: key j of row b is arena row
-// b * s_stride + j, so k and v may be the written prefix of a longer arena
-// (the static engine's dense decode hands the kernel k[:, :L]).
+// b * s_stride + j, so k and v may be the written prefix of a longer arena.
 //
-// What bounds it: at the static prefill shape (8 rows of 512 tokens, 16
-// heads of 64, causal) the operations, 8.6 GFLOP, about 9 us at the bf16
-// tensor-core peak, while this first version computes in float32 on CUDA
-// cores (tensor-core tiles are later work); at the dense decode shape (one
-// query token over up to 575 keys) the K/V bytes, one read of each.
+// What bounds it: for a prompt of hundreds of tokens, the float32
+// operations on CUDA cores (67 TFLOP/s at the H100's peak).
 #include "../../paged_attn/csrc/paged_attn.cuh"
 
-extern "C" int flash_attention_launch(int is_bf16, const void* q, const void* k,
-                                      const void* v, void* out, void* part, int B,
-                                      int T, int S, int H, int KV, int Dh, int Dv,
-                                      long q_sb, long q_stok, int s_stride,
-                                      int split_tokens, int causal, float scale,
-                                      void* stream) {
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
+                                      void* out, void* part, int B, int T, int S, int H,
+                                      int KV, int Dh, int Dv, long q_sb, long q_stok,
+                                      int s_stride, int split_tokens, int causal,
+                                      float scale, void* stream) {
   if (KV < 1 || H % KV != 0 || B < 1 || T < 1 || S < 1 || s_stride < S)
     return cudaErrorInvalidValue;
   paged_attn::Params p{};
@@ -60,5 +60,5 @@ extern "C" int flash_attention_launch(int is_bf16, const void* q, const void* k,
   p.o_sb = (long)T * H * Dv;
   p.o_stok = (long)H * Dv;
   p.scale = scale;
-  return paged_attn::dispatch(is_bf16, p, stream);
+  return paged_attn::launch<float>(p, static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
 """Contiguous flash-attention kernel of the port: wrapper, plain version,
-counter.
+counters.
 
   ``flash_attention``   B8: replaces ``flash_attention_fwd``
                         (src/repro/kernels/flash_attn/kernel.py:276)
@@ -10,16 +10,27 @@ dense decode (one query token, non-causal, over the written prefix of the
 arena). Given CPU tensors it runs its plain version,
 ``flash_attention_plain``: ``core/flash_ref.attention_auto``, the dense
 oracle up to 1024 tokens and the flash forward beyond, which is what the
-JAX package's layers call there. Given CUDA tensors it launches the
-hand-written CUDA kernel ``csrc/flash_attention.cu`` on the current stream,
-or raises. It never falls back. Every launch adds one to
-``flash_attention.launches``.
+JAX package's layers call there. Given CUDA tensors it launches one of three
+hand-written CUDA kernels on the current stream, or raises; it never falls
+back. The route is picked by shape and dtype, explicitly:
+
+  ``prompt``      T > 1, bfloat16: the tensor-core forward
+                  ``csrc/flash_prompt.cu`` (mma.sync, no split)
+  ``prompt_f32``  T > 1, float32: the CUDA-core sweep
+                  ``csrc/flash_attention.cu`` (float32 FMAs; TF32 tensor
+                  cores would miss the float32 gate)
+  ``decode``      T == 1, either dtype: the single-query decode
+                  ``csrc/flash_decode.cu``
+
+Every launch adds one to ``flash_attention.launches`` and to its route's
+entry in ``ROUTE_LAUNCHES``.
 
 Semantics (the TPU kernel's): GQA with query head h reading kv head
 h // (H // KV), scores in float32 times ``scale``, causal meaning query
-token i sees keys j <= i, output in q's dtype. The kernel keeps the softmax
-weights in float32 where the plain version rounds them to v's dtype, which
-differs by bf16 rounding only.
+token i sees keys j <= i, output in q's dtype. The prompt route rounds the
+softmax weights to bf16 for the value product, as the plain version rounds
+them to v's dtype; the other routes keep them float32, which differs by
+bf16 rounding only.
 """
 from __future__ import annotations
 
@@ -29,27 +40,37 @@ from pathlib import Path
 import torch
 
 from repro_torch.core.flash_ref import attention_auto
-from repro_torch.kernels import build
+from repro_torch.kernels import build, single_query
 from repro_torch.kernels.paged_attn.ops import run
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = {"flash_attention": CSRC / "flash_attention.cu"}
-# pass 1 cuts each row's key range into splits of this many keys, one block
-# per (split, kv head, 16 query rows): short for a decode token (one query
-# row per kv head, so the splits are the parallelism), long for a prompt
-# (its row blocks already fill the card, and fewer splits mean fewer
-# partials to merge)
-SPLIT_TOKENS = {"decode": 64, "prefill": 256}
+SOURCES = {"flash_attention": CSRC / "flash_attention.cu",
+           "flash_prompt": CSRC / "flash_prompt.cu",
+           "flash_decode": CSRC / "flash_decode.cu"}
+ROUTE_LAUNCHES = {"prompt": 0, "prompt_f32": 0, "decode": 0}
+# the float32 prompt's sweep cuts each row's key range into splits of this
+# many keys, one block per (split, kv head, 16 query rows), merged by a
+# second pass
+SPLIT_TOKENS = 256
+MAX_HEAD_DIM = single_query.MAX_HEAD_DIM  # prompt and decode: Dh, Dv multiples of 16
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
-# is_bf16, q, k, v, out, part, B, T, S, H, KV, Dh, Dv, q_sb, q_stok, s_stride,
-# split_tokens, causal, scale, stream
-_ARGTYPES = [_I] + [_P] * 5 + [_I] * 7 + [_L, _L] + [_I] * 3 + [_F, _P]
+_ARGTYPES = {
+    # q, k, v, out, part, B, T, S, H, KV, Dh, Dv, q_sb, q_stok, s_stride,
+    # split_tokens, causal, scale, stream
+    "flash_attention": [_P] * 5 + [_I] * 7 + [_L, _L] + [_I] * 3 + [_F, _P],
+    # q, k, v, out, B, T, S, H, KV, Dh, Dv, q_sb, q_stok, s_stride, causal, scale, stream
+    "flash_prompt": [_P] * 4 + [_I] * 7 + [_L, _L] + [_I] * 2 + [_F, _P],
+    # is_bf16, q, k, v, out, part, counters, B, H, KV, Dh, Dv, q_sb, s_stride, len,
+    # splits, split_keys, scale, stream
+    "flash_decode": [_I] + [_P] * 6 + [_I] * 5 + [_L] + [_I] * 4 + [_F, _P],
+}
 
 
 def launcher(name: str = "flash_attention"):
-    """The C entry point ``flash_attention_launch``, building its library first."""
-    return build.c_function(SOURCES[name], f"{name}_launch", _ARGTYPES)
+    """The C entry point ``<name>_launch`` of one of B8's sources, building
+    its library first."""
+    return build.c_function(SOURCES[name], f"{name}_launch", _ARGTYPES[name])
 
 
 def flash_attention_plain(q, k, v, scale: float, causal: bool = True):
@@ -101,15 +122,34 @@ def flash_attention(q, k, v, scale: float, causal: bool = True):
     if _token_stride(v, "flash_attention") != stride or q.stride()[2:] != (Dh, 1):
         raise ValueError("flash_attention: k and v rows must share one stride and q's "
                          "heads be dense")
-    split = SPLIT_TOKENS["decode" if T == 1 else "prefill"]
-    splits = -(-stride // split)
+    bf16 = q.dtype == torch.bfloat16
+    route = "decode" if T == 1 else "prompt" if bf16 else "prompt_f32"
+    if route != "prompt_f32" and (Dh % 16 or Dv % 16 or max(Dh, Dv) > MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention: Dh={Dh}, Dv={Dv}; the {route} kernel takes "
+                         f"multiples of 16 up to {MAX_HEAD_DIM}")
     out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
-    part = torch.empty(B * H * T * splits * (Dv + 2), dtype=torch.float32, device=q.device)
-    run(launcher(), "flash_attention", q.device, int(q.dtype == torch.bfloat16),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
-        B, T, S, H, KV, Dh, Dv, q.stride(0), q.stride(1), stride, split, int(causal),
-        float(scale))
+    if route == "prompt":
+        run(launcher("flash_prompt"), "flash_attention", q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, H, KV, Dh, Dv,
+            q.stride(0), q.stride(1), stride, int(causal), float(scale))
+    elif route == "decode":
+        length = 1 if causal else S      # causal: the one query token sees key 0
+        G = H // KV
+        splits, keys = single_query.plan(B * KV * -(-G // 8), length, q.device)
+        part = torch.empty(B * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
+        run(launcher("flash_decode"), "flash_attention", q.device, int(bf16), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
+            single_query.counters(B * H, q.device).data_ptr(), B, H, KV, Dh, Dv,
+            q.stride(0), stride, length, splits, keys, float(scale))
+    else:
+        splits = -(-stride // SPLIT_TOKENS)
+        part = torch.empty(B * H * T * splits * (Dv + 2), dtype=torch.float32,
+                           device=q.device)
+        run(launcher("flash_attention"), "flash_attention", q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(), B, T, S, H, KV, Dh,
+            Dv, q.stride(0), q.stride(1), stride, SPLIT_TOKENS, int(causal), float(scale))
     flash_attention.launches += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 

@@ -31,6 +31,11 @@
 //     reads the same word at once (a broadcast, no bank conflict);
 //   * a block whose 128 positions all lie past the row's length writes its
 //     -1e30s without staging the query rows or touching a page.
+//
+// G = 1, 2, 4 and 8 are instantiations; any other G (phi4-mini has 24 heads
+// over 8 kv heads, G = 3) runs proxy_scores_any_g, which sums one query row
+// at a time over the key's codes, held in registers once, reading the rows'
+// factors through the read-only cache (every thread reads the same word).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,6 +108,49 @@ __global__ void __launch_bounds__(kThreads) proxy_scores_kernel(Params p) {
   for (int g = 0; g < G; ++g) o[(long)g * p.N] = acc[g] + qz[g];
 }
 
+// G query rows per kv head, G a runtime value: one row at a time over the
+// key's codes, held in registers once
+template <int NC>
+__global__ void __launch_bounds__(kThreads) proxy_scores_any_g(Params p, int G) {
+  constexpr int Dp = 16 * NC;
+  const int kv = blockIdx.y, b = blockIdx.z;
+  const long head = (long)b * p.KV + kv;
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  const int len = p.lengths[b];
+  float* o = p.out + head * G * (long)p.N + n;
+  if (n >= p.N) return;
+  if (n >= len) {
+    for (int g = 0; g < G; ++g) o[(long)g * p.N] = kNegInf;
+    return;
+  }
+  const int blk = n / p.page;
+  const int slot = n - blk * p.page;
+  const long pg = p.block_table[(long)b * p.nb + blk];
+  const uint4* src = reinterpret_cast<const uint4*>(
+      p.codes + ((pg * p.page + slot) * p.KV + kv) * (long)Dp);
+  uint4 chunk[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) chunk[c] = __ldg(src + c);
+  for (int g = 0; g < G; ++g) {
+    const float* qs = p.qs + (head * G + g) * Dp;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int8_t* code = reinterpret_cast<const int8_t*>(&chunk[c]);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc = fmaf(__ldg(qs + c * 16 + i), (float)code[i] + 128.f, acc);
+    }
+    o[(long)g * p.N] = acc + __ldg(p.qz + head * G + g);
+  }
+}
+
+template <int NC>
+cudaError_t launch_any_g(const Params& p, int G, int B, cudaStream_t stream) {
+  const dim3 grid((p.N + kThreads - 1) / kThreads, p.KV, B);
+  proxy_scores_any_g<NC><<<grid, kThreads, 0, stream>>>(p, G);
+  return cudaGetLastError();
+}
+
 template <int G>
 cudaError_t launch_g(const Params& p, int Dp, int B, cudaStream_t stream) {
   const dim3 grid((p.N + kThreads - 1) / kThreads, p.KV, B);
@@ -119,15 +167,15 @@ cudaError_t launch_g(const Params& p, int Dp, int B, cudaStream_t stream) {
 
 }  // namespace topk_retrieval
 
-// Dp must be 16, 32, 64, 128 or 256 and G 1, 2, 4 or 8; returns the CUDA
+// Dp must be 16, 32, 64, 128 or 256 and G at least 1; returns the CUDA
 // error of the launch (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int proxy_scores_launch(const void* qs, const void* qz, const void* codes,
                                    const void* block_table, const void* lengths,
                                    void* out, int B, int KV, int G, int Dp, int page,
                                    int nb, int N, void* stream) {
   using namespace topk_retrieval;
-  if (B < 0 || KV < 1 || page < 1 || nb < 1 || N < 0 || (long)N > (long)nb * page ||
-      Dp % 16 != 0 || Dp > kMaxDp)
+  if (B < 0 || KV < 1 || G < 1 || page < 1 || nb < 1 || N < 0 ||
+      (long)N > (long)nb * page || Dp % 16 != 0 || Dp > kMaxDp)
     return cudaErrorInvalidValue;
   if (B == 0 || N == 0) return cudaSuccess;
   Params p{};
@@ -147,6 +195,13 @@ extern "C" int proxy_scores_launch(const void* qs, const void* qz, const void* c
     case 2: return launch_g<2>(p, Dp, B, s);
     case 4: return launch_g<4>(p, Dp, B, s);
     case 8: return launch_g<8>(p, Dp, B, s);
+  }
+  switch (Dp / 16) {
+    case 1: return launch_any_g<1>(p, G, B, s);
+    case 2: return launch_any_g<2>(p, G, B, s);
+    case 4: return launch_any_g<4>(p, G, B, s);
+    case 8: return launch_any_g<8>(p, G, B, s);
+    case 16: return launch_any_g<16>(p, G, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

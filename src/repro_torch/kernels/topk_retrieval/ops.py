@@ -41,7 +41,6 @@ SOURCES["paged_proxy_scores"] = SOURCES["proxy_scores"]  # one kernel, two contr
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # qs, qz, codes, block_table, lengths, out, B, KV, G, Dp, page, nb, N, stream
 _ARGTYPES = [_P] * 6 + [_I] * 7 + [_P]
-GROUPS = (1, 2, 4, 8)        # query heads per kv head the kernel is built for
 MAX_DP = 256                 # proxy channels: a multiple of 16 up to this
 
 
@@ -76,9 +75,9 @@ def _check_cuda(name: str, qs, qz, codes, block_table, lengths):
         if t.dtype != kind:
             raise TypeError(f"{name}: a {t.dtype} tensor where the kernel takes {kind}")
     B, KV, G, Dp = qs.shape
-    if G not in GROUPS or Dp % 16 or not 16 <= Dp <= MAX_DP:
-        raise ValueError(f"{name}: G={G}, Dp={Dp}; the kernel takes G in {GROUPS} "
-                         f"and Dp a multiple of 16 up to {MAX_DP}")
+    if Dp % 16 or not 16 <= Dp <= MAX_DP:
+        raise ValueError(f"{name}: Dp={Dp}; the kernel takes Dp a multiple of 16 up "
+                         f"to {MAX_DP}")
     if codes.data_ptr() % 16:
         raise ValueError(f"{name}: code pages not 16-byte aligned")
 

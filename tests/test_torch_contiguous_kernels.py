@@ -14,8 +14,13 @@ rounds the softmax weights to bf16 where the port keeps them float32, as
 kernels' contracts: B9 with a roped key per kv head (kv_r = KV, qwen's T1
 cache) against the port's ``decomposed_attention``, and B10 with rounded
 tiles against ``cpq_chunked_decode_attention``, the functions the static
-engine serves. ``test_torch_kernels_cuda.py`` holds the CUDA kernels
-against these plain versions."""
+engine serves. The shared layouts of ``torch_paged_cases.py`` (the CUDA
+tests' cases: Dh up to 256, GQA and MQA, T no multiple of the kernel's
+64-row tile, d_model up to 4096) run here too: B8's plain version against
+``flash_attention_tpu`` on ``FLASH_CASES``, B9's against
+``decomposed_decode_fwd`` on the ``CONTIG_T1_CASES`` of the TPU kernel's
+layout. ``test_torch_kernels_cuda.py`` holds the CUDA kernels against these
+plain versions."""
 import numpy as np
 import pytest
 import torch
@@ -34,6 +39,8 @@ from repro_torch.core.decomposed_attention import decomposed_attention
 from repro_torch.kernels.cpq_attn import ops as cpq_ops
 from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.kernels.flash_attn import ops as fa_ops
+from torch_paged_cases import (CONTIG_T1_CASES, FLASH_CASES, contig_t1_inputs,
+                               flash_inputs)
 
 KEY = jax.random.PRNGKey(0)
 TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -65,6 +72,32 @@ def test_flash_attention_plain_matches_jax_kernel(T, S, H, KV, D, causal, bq, bk
     tol = 1e-5 if dtype == jnp.float32 else 2e-2
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=tol,
                                rtol=0)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_plain_matches_jax_kernel_on_shared_cases(case):
+    """The cases the CUDA routes are held to: k and v the first S keys of
+    a longer arena, causal or not, a decode token, Dh 16 to 256."""
+    q, k, v, scale = flash_inputs(*case)
+    S, causal = case[3], case[7]
+    k, v = k[:, :S], v[:, :S]
+    want = flash_attention_tpu(*(jnp.asarray(a) for a in (q, k, v)), scale, causal, 64, 64,
+                               interpret=True)
+    got = fa_ops.flash_attention(*(torch.tensor(a) for a in (q, k, v)), scale, causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", [c for c in CONTIG_T1_CASES if c[5] == 1 or c[6] == 0])
+def test_decomposed_decode_plain_matches_jax_kernel_on_shared_cases(case):
+    """The TPU kernel's layout (one shared roped key, or none) of the
+    cases the CUDA kernel is held to, d_model up to 4096."""
+    r, qr, x, kr, length, scale = contig_t1_inputs(*case)
+    want = decomposed_decode_fwd(*(jnp.asarray(a) for a in (r, qr, x, kr[:, :, 0])),
+                                 jnp.asarray(length, jnp.int32), scale=scale, block_n=16,
+                                 interpret=True)
+    got = t1_ops.decomposed_decode_fwd(*(torch.tensor(a) for a in (r, qr, x, kr)), length,
+                                       scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("H,Dm,N,Rr,bn,dtype", [

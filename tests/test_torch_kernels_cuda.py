@@ -14,10 +14,16 @@ return P, a weighted mean of X rows, and are held to 1e-5 / 2e-2, also at
 the widths they are built for (``T1_WIDE``). The T3 proxy-scoring kernel B7
 takes float32 query factors and int8 codes only; its scores are held to
 1e-5 x max |score| (float32 sums of 16-64 terms in another order) and its
-masked scores must be exactly -1e30. The contiguous kernels: B8 (flash
-attention, causal or not, k and v possibly a prefix of a longer arena) and
-B9 (contiguous T1 decode) at 1e-5 / 2e-2, B10 (contiguous T2 decode, float32
-output, tiles rounded or not) at 5e-5.
+masked scores must be exactly -1e30; it takes any number G of query heads
+per kv head (G = 3 is phi4-mini's, G = 12 runs its runtime-G kernel). The
+contiguous kernels: B8 (flash attention, causal or not, k and v possibly a
+prefix of a longer arena) and B9 (contiguous T1 decode) at 1e-5 / 2e-2, B10
+(contiguous T2 decode, float32 output, tiles rounded or not) at 5e-5. B8 has
+three routes, and each test checks that its call took the one it must: a
+bf16 prompt the tensor-core kernel, a float32 prompt the CUDA-core sweep, a
+decode token (either dtype) the single-query kernel. The T1 kernels B3, B4
+and B9 take d_model up to 8192 (the cases at 3072 and 4096, and the sweep of
+``T1_WIDE_DM``).
 """
 import numpy as np
 import pytest
@@ -172,6 +178,41 @@ def test_decomposed_prefill_kernel_matches_plain(cuda, case, dtype):
                                atol=TOL[dtype], rtol=0)
 
 
+T1_WIDE_DM = [(8, 2560, 8, 32), (24, 3072, 8, 32), (32, 4096, 32, 32),
+              (64, 8192, 8, 64)]  # H, Dm, kv_r, Rr: qwen3-4b, phi4-mini, opt-6.7b, jamba
+# float32 scores over up to 8192 products summed in another order than the
+# plain version's: chip_smoke.py's float32 gate, 5e-5 (bf16 as elsewhere)
+WIDE_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", T1_WIDE_DM)
+def test_decomposed_kernels_take_wide_d_model(cuda, width, dtype):
+    """B3, B4 and B9 past d_model 2048, where a block holds fewer rows (held
+    to WIDE_TOL)."""
+    H, Dm, kv_r, Rr = width
+    r, qr, xp, krp, bt, lengths, scale = t1_decode_inputs(11, 16, 4, 2, H, Dm, kv_r, Rr)
+    args = tensors(r, qr, xp, krp, bt, lengths, device="cuda", dtype=dtype)
+    out = t1_ops.paged_decomposed_decode_fwd(*args, scale)
+    torch.cuda.synchronize()
+    ref = t1_ops.paged_decomposed_decode_plain(*args, scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=WIDE_TOL[dtype], rtol=0)
+    r, qr, xp, krp, row, offset, valid, scale = t1_prefill_inputs(12, 9, 6, H, Dm, kv_r, Rr)
+    args = tensors(r, qr, xp, krp, row, device="cuda", dtype=dtype)
+    out = t1_ops.paged_decomposed_prefill_fwd(*args, offset, valid, scale)
+    torch.cuda.synchronize()
+    ref = t1_ops.paged_decomposed_prefill_plain(*args, offset, valid, scale)
+    torch.testing.assert_close(out[:valid].float(), ref[:valid].float(), atol=WIDE_TOL[dtype],
+                               rtol=0)
+    r, qr, x, kr, length, scale = contig_t1_inputs(13, 2, 40, H, Dm, kv_r, Rr, 37)
+    args = tensors(r, qr, x, kr, device="cuda", dtype=dtype)
+    out = t1_ops.decomposed_decode_fwd(*args, length, scale)
+    torch.cuda.synchronize()
+    ref = t1_ops.decomposed_decode_plain(*args, length, scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=WIDE_TOL[dtype], rtol=0)
+
+
 @pytest.mark.cuda
 def test_decomposed_wrappers_refuse_bad_inputs(cuda):
     r, qr, xp, krp, bt, lengths, scale = t1_decode_inputs(*T1_DECODE_CASES[0])
@@ -180,10 +221,10 @@ def test_decomposed_wrappers_refuse_bad_inputs(cuda):
         t1_ops.paged_decomposed_decode_fwd(*args[:4], args[4].long(), args[5], scale)
     with pytest.raises(ValueError, match="tensors on"):
         t1_ops.paged_decomposed_decode_fwd(*args[:3], args[3].cpu(), *args[4:], scale)
-    wide = torch.zeros((1, 4, 4096), device="cuda")
-    with pytest.raises(RuntimeError, match="kernel launch failed"):  # Dm > 2048
+    wide = torch.zeros((1, 4, 16384), device="cuda")
+    with pytest.raises(RuntimeError, match="kernel launch failed"):  # Dm > 8192
         t1_ops.paged_decomposed_decode_fwd(wide, args[1][:1], torch.zeros(
-            (3, 4, 4096), device="cuda"), args[3][:3], args[4][:1], args[5][:1], scale)
+            (3, 4, 16384), device="cuda"), args[3][:3], args[4][:1], args[5][:1], scale)
 
 
 # ---------------------------------------------------------------- T3 / B7
@@ -241,10 +282,12 @@ def test_proxy_scores_wrappers_refuse_bad_inputs(cuda):
         t3_ops.paged_proxy_scores(q, scale, zero, codes, bt.cpu(), lengths, n)
     with pytest.raises(ValueError):                       # n past the table
         t3_ops.paged_proxy_scores(q, scale, zero, codes, bt, lengths, n + 1)
-    with pytest.raises(ValueError, match="G="):           # 3 query heads per kv head
-        t3_ops.proxy_scores(torch.zeros((1, 1, 3, 16), device="cuda"),
-                            torch.zeros((1, 1, 3, 1), device="cuda"),
-                            torch.zeros((1, 4, 1, 16), dtype=torch.int8, device="cuda"), 4)
+    for g in (3, 12):            # served: G = 3 (phi4-mini) and a runtime G past 8
+        qs, qz, codes, length = contig_proxy_inputs(5, 2, 70, 2, g, 32, 61)
+        qs, qz, codes = (torch.tensor(a, device="cuda") for a in (qs, qz, codes))
+        out = t3_ops.proxy_scores(qs, qz, codes, length)
+        torch.cuda.synchronize()
+        _scores_close(out, t3_ops.proxy_scores_plain(qs, qz, codes, length))
 
 
 # ------------------------------------------------- contiguous: B8, B9, B10
@@ -260,11 +303,30 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     q, k, v = tensors(q, k, v, device="cuda", dtype=dtype)
     k, v = k[:, :S], v[:, :S]
     before = fa_ops.flash_attention.launches
+    routes = dict(fa_ops.ROUTE_LAUNCHES)
     out = fa_ops.flash_attention(q, k, v, scale, causal)
     torch.cuda.synchronize()
     assert fa_ops.flash_attention.launches == before + 1
+    route = ("decode" if q.shape[1] == 1 else "prompt" if dtype == torch.bfloat16
+             else "prompt_f32")
+    assert {r: n - routes[r] for r, n in fa_ops.ROUTE_LAUNCHES.items()} == {
+        r: int(r == route) for r in routes}
     ref = fa_ops.flash_attention_plain(q, k, v, scale, causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_prompt_route_by_dtype(cuda):
+    """A bf16 prompt moves the tensor-core route's counter and not the
+    float32 sweep's; a float32 prompt the other way round."""
+    q, k, v, scale = flash_inputs(*FLASH_CASES[0])
+    for dtype, route, other in ((torch.bfloat16, "prompt", "prompt_f32"),
+                                (torch.float32, "prompt_f32", "prompt")):
+        before = dict(fa_ops.ROUTE_LAUNCHES)
+        fa_ops.flash_attention(*tensors(q, k, v, device="cuda", dtype=dtype), scale, True)
+        torch.cuda.synchronize()
+        assert fa_ops.ROUTE_LAUNCHES[route] == before[route] + 1
+        assert fa_ops.ROUTE_LAUNCHES[other] == before[other]
 
 
 @pytest.mark.cuda
@@ -297,6 +359,29 @@ def test_contiguous_cpq_decode_kernel_matches_plain(cuda, case, round_tiles):
     assert cpq_ops.cpq_decode.launches == before + 1
     ref = cpq_ops.cpq_decode_plain(*args, length, scale, round_tiles)
     torch.testing.assert_close(out, ref, atol=CPQ_TOL[torch.float32], rtol=0)
+
+
+@pytest.mark.cuda
+def test_contiguous_cpq_decode_contract(cuda):
+    """B10's contract beyond the cases: a level outside [0, L) reads 0, a
+    stored -128 everywhere gives exactly 0, a length of 0 gives zeros, and
+    G past the kernel's 4 heads per block (gemma-2b: 8 over one kv head at
+    Dh 256) runs in head groups."""
+    q, kt, vt, length, scale = contig_cpq_inputs(3, 2, 90, 1, 8, 256, 4, 77)
+    kt[1][0] = np.where(np.arange(90)[:, None] % 3 == 0, 9, kt[1][0])  # levels past L
+    (ck, lk, sk, zk), (cv, lv, sv, zv) = ([torch.tensor(a, device="cuda") for a in t]
+                                          for t in (kt, vt))
+    qt = torch.tensor(q, device="cuda")
+    for n in (length, 0):
+        out = cpq_ops.cpq_decode_fwd(qt, ck, cv, sk, zk, sv, zv, lk, lv, n, scale, True)
+        torch.cuda.synchronize()
+        ref = cpq_ops.cpq_decode_plain(qt, ck, cv, sk, zk, sv, zv, lk, lv, n, scale, True)
+        torch.testing.assert_close(out, ref, atol=CPQ_TOL[torch.float32], rtol=0)
+    assert not out.any()
+    pruned = cpq_ops.cpq_decode_fwd(qt, ck, torch.full_like(cv, -128), sk, zk, sv, zv, lk, lv,
+                                    length, scale, True)
+    torch.cuda.synchronize()
+    assert not pruned.any()
 
 
 @pytest.mark.cuda

@@ -160,6 +160,8 @@ T1_DECODE_CASES = [  # seed, page, nb, B, H, Dm, kv_r, Rr
     (3, 8, 2, 2, 4, 16, 1, 0),      # absolute positions: no roped term
     (4, 5, 3, 1, 2, 8, 2, 8),       # odd page size
     (5, 16, 4, 3, 16, 64, 16, 8),   # the served page size, 16 heads = kv_r
+    (6, 4, 2, 2, 24, 3072, 8, 8),   # phi4-mini's d_model: 24 heads over 8 roped groups
+    (7, 8, 2, 2, 8, 4096, 1, 0),    # opt-6.7b's d_model, no roped term
 ]
 
 T1_PREFILL_CASES = [  # seed, offset, valid, H, Dm, kv_r, Rr
@@ -215,6 +217,7 @@ PROXY_CASES = [  # seed, page, nb, B, KV, g, Dp
     (3, 5, 4, 4, 2, 4, 16),      # odd page size, partial last pages
     (4, 4, 1, 1, 1, 8, 64),      # single block
     (5, 16, 4, 3, 16, 1, 64),    # the served page size, kv heads and Dp
+    (6, 4, 3, 2, 8, 3, 32),      # G = 3 (phi4-mini: 24 heads over 8 kv heads)
 ]
 
 CONTIG_PROXY_CASES = [  # seed, B, N, KV, g, Dp, length, block_n
@@ -222,6 +225,7 @@ CONTIG_PROXY_CASES = [  # seed, B, N, KV, g, Dp, length, block_n
     (1, 1, 37, 1, 4, 32, 20, 16),     # a partial length
     (2, 3, 64, 4, 2, 64, 0, 32),      # length 0: every score masked
     (3, 2, 50, 16, 1, 64, 33, 1024),  # one block wider than N
+    (4, 2, 45, 8, 3, 64, 40, 16),     # G = 3
 ]
 
 
@@ -265,6 +269,8 @@ FLASH_CASES = [  # seed, B, T, S, H, KV, D, causal, arena (S <= arena: k, v a pr
     (4, 2, 128, 128, 4, 4, 64, True, 128),
     (5, 3, 1, 75, 4, 4, 64, False, 80),       # a decode token over a written prefix
     (6, 1, 77, 77, 2, 2, 16, True, 77),       # T and S no block multiple
+    (7, 1, 70, 70, 8, 1, 256, True, 70),      # MQA at Dh 256 (gemma-2b), G = 8
+    (8, 2, 100, 100, 8, 2, 128, True, 128),   # GQA at Dh 128, T no multiple of 64
 ]
 
 
@@ -284,6 +290,8 @@ CONTIG_T1_CASES = [  # seed, B, N, H, Dm, kv_r, Rr, length
     (2, 2, 50, 8, 32, 4, 0, 49),       # no roped term
     (3, 2, 33, 16, 1024, 16, 32, 20),  # qwen1.5-0.5b's T1 widths
     (4, 1, 20, 16, 512, 1, 64, 7),     # an MLA-like shape
+    (5, 2, 24, 24, 3072, 1, 32, 21),   # phi4-mini's d_model, one shared roped key
+    (6, 1, 18, 8, 4096, 1, 0, 18),     # opt-6.7b's d_model, no roped term
 ]
 
 
