@@ -1,11 +1,14 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out report.json]
+    python3 chip_smoke.py [--out report.json] [--against PARENT_CHECKOUT]
 
 Phases, each of which fails the run (nonzero exit) on a miss:
   1. device   needs CUDA; prints the card's name and power limit
   2. build    compiles the port's CUDA kernels with nvcc from the checkout,
-              one nvcc per source, all started together
+              one nvcc per source, all started together; with --against,
+              also both trees afresh (repro_torch.kernels.build.compare),
+              printing the verdict and failing unless every kernel both
+              compile has an identical ptxas report
   3. kernels  every kernel against its plain PyTorch version, bf16 and f32,
               at qwen1.5-0.5b's shape (KV=16, G=1, Dh=64, page 16) and at a
               GQA shape (KV=8, G=4, Dh=128): B1 paged_decode and B2
@@ -13,8 +16,13 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               a poisoned null page, ragged and empty rows, partial last
               pages); B5 paged_cpq_decode and B6 paged_cpq_prefill over CPQ
               code pages of 4 and 8 bits, L = 4 levels, with the null page's
-              levels out of range, a live row over an all-null block row,
-              and prompt chunks at offset 0, mid-prompt and with valid < C;
+              levels out of range, a live row over an all-null block row;
+              B2 and B6 on prompt chunks of 16 at offset 0, mid-prompt, at a
+              mid-page offset, far in and with valid < C, and chunks of 8
+              (fewer than 16 query rows), also at Dh 24 and 12: each call
+              must take its route (bf16 at widths that are multiples of 8
+              the tensor-core kernel, float32 and Dh 12 the sweep), and the
+              log names each error's route;
               B3 paged_decomposed_decode and B4 paged_decomposed_prefill on
               the same layouts at qwen1.5-0.5b's T1 shape (H=16, Dm=1024,
               16 roped keys of 32), an MLA-like shape (H=16, Dm=512, one
@@ -47,12 +55,15 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               (enable_escalation=True, a dense arena small enough that rows
               are admitted into and escalated to the CPQ tier). Each run
               must launch its kernels 24 times per tick (T3: B7 per decode
-              tick, B2 per chunk tick); (a), (b), (d) and (e) then time
+              tick, B2 per chunk tick), every chunk launch of B2 and B6 on
+              the tensor-core route (route counters against launches);
+              (a), (b), (d) and (e) then time
               them at the shapes the run gave
               them, beside their bound, their plain version and one PyTorch
               library call (a yardstick only); each run is replayed under
-              torch.profiler over a window of decode-only ticks, (a) also
-              over a window of chunk ticks. Then the contiguous path: (f)
+              torch.profiler over a window of decode-only ticks, (a) and (b)
+              also over a window of chunk ticks (10 and 5). Then the
+              contiguous path: (f)
               the static ServeEngine on 8 prompts of 512 seeded tokens, 64
               new tokens, in the four modes: B8 launched 24 times for the
               prefill, and 24 times per decode step B8 (dense), B9
@@ -83,7 +94,7 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               gather path writes the K/V the kernel path wrote), since each
               path's 4-bit CPQ or 8-bit proxy codes would otherwise turn
               last-ulp K/V differences into whole steps. These continuous
-              serves run the first 6 of the 24 layers here, to keep the
+              serves run the first 8 of the 24 layers here, to keep the
               script well inside its time limit. Then, at full depth, the
               same checks for (g) (dense, each path on its own history)
               and for (f) in the four modes (CPQ and T3 in lockstep, T3
@@ -122,8 +133,8 @@ SEED = 0
 DEVICE = "cuda"
 # the namespaces of the attention kernels' device functions, as a profile
 # names them
-ATTENTION_KERNELS = ("paged_attn", "cpq_attn", "decomposed_attn", "topk_retrieval",
-                     "flash_prompt", "single_query")
+ATTENTION_KERNELS = ("paged_attn", "paged_chunk", "cpq_attn", "decomposed_attn",
+                     "topk_retrieval", "flash_prompt", "single_query")
 # B8's wrapper counts every launch; its kernels (routes) are counted apart,
 # under these names in a serve's launch counts
 COUNT_KEY = {"flash_attention": "flash_attention/decode",
@@ -171,8 +182,22 @@ def layout(rng, B, nb, page):
     return num_pages, lengths, bt
 
 
+def chunk_calls(long_len: int, C: int = 16) -> tuple:
+    """(offset, valid, C) of the prompt chunks a sweep runs over a long row:
+    a first chunk, valid < C, a mid-page offset, a chunk far in, the row's
+    last tokens, and chunks of 8 (fewer than 16 query rows at G = 1)."""
+    return ((0, C, C), (C, 5, C), (213, C, C), (512, C, C), (long_len - 3, 3, C),
+            (37, 8, 8), (300, 5, 8))
+
+
+def routes_moved(mod, before: dict) -> dict:
+    """The launches of each route of B2 or B6 since ``before``."""
+    return {r: n - before[r] for r, n in mod.ROUTE_LAUNCHES.items()}
+
+
 def sweep(ops, dtype, KV, G, Dh, page=16, nb=64, B=8, C=16):
-    """Max abs error of B1 and B2 against their plain versions."""
+    """Max abs error of B1 and B2 against their plain versions; every B2
+    call must take the route its dtype and width pick."""
     rng = np.random.default_rng(SEED)
     dev = DEVICE
     num_pages, lengths, bt = layout(rng, B, nb, page)
@@ -190,12 +215,18 @@ def sweep(ops, dtype, KV, G, Dh, page=16, nb=64, B=8, C=16):
     check(not out[0].any().item(), "paged_decode: an empty row is not zero")
     err_pre = 0.0
     row = bt_t[-1]                               # the long row's pages
-    for offset, valid in ((0, C), (C, 5), (512, C), (int(lengths[-1]) - 3, 3)):
-        qc = torch.randn(1, C, KV * G, Dh, device=dev).to(dtype)
+    calls = chunk_calls(int(lengths[-1]), C)
+    before = dict(ops.ROUTE_LAUNCHES)
+    for offset, valid, c in calls:
+        qc = torch.randn(1, c, KV * G, Dh, device=dev).to(dtype)
         o = ops.paged_prefill(qc, kp, vp, row, offset, valid, scale)
         torch.cuda.synchronize()
         r = ops.paged_prefill_plain(qc, kp, vp, row, offset, valid, scale)
         err_pre = max(err_pre, (o[0, :valid].float() - r[0, :valid].float()).abs().max().item())
+    route = ops.prefill_route(dtype, Dh, Dh)
+    moved = routes_moved(ops, before)
+    check(moved == {r: len(calls) * (r == route) for r in moved},
+          f"paged_prefill {dtype} Dh={Dh}: routes {moved}, want all {route}")
     return err_dec, err_pre
 
 
@@ -245,14 +276,20 @@ def sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits, page=16, nb=64, B=8, C=16):
     check(not out[0].any().item(), "paged_cpq_decode: an empty row is not zero")
     err_pre = 0.0
     row, slot = bt_t[-1], B - 1
-    for offset, valid in ((0, C), (3 * C, 5), (512, C), (int(lengths[-1]) - 3, 3)):
-        qc, k_raw, v_raw = (torch.randn((1, C, h, Dh), generator=gen, device=DEVICE).to(dtype)
+    calls = chunk_calls(int(lengths[-1]), C)
+    before = dict(cpq_ops.ROUTE_LAUNCHES)
+    for offset, valid, c in calls:
+        qc, k_raw, v_raw = (torch.randn((1, c, h, Dh), generator=gen, device=DEVICE).to(dtype)
                             for h in (KV * G, KV, KV))
         o = cpq_ops.paged_cpq_prefill(qc, kt, vt, k_raw, v_raw, slot, row, offset, valid, scale)
         torch.cuda.synchronize()
         r = cpq_ops.paged_cpq_prefill_plain(qc, kt, vt, k_raw, v_raw, slot, row, offset,
                                             valid, scale)
         err_pre = max(err_pre, (o[0, :valid].float() - r[0, :valid].float()).abs().max().item())
+    route = cpq_ops.cpq_prefill_route(dtype, Dh, Dh, kt.scale.shape[1])
+    moved = routes_moved(cpq_ops, before)
+    check(moved == {r: len(calls) * (r == route) for r in moved},
+          f"paged_cpq_prefill {dtype} Dh={Dh}: routes {moved}, want all {route}")
     return err_dec, err_pre
 
 
@@ -883,12 +920,32 @@ def profile_windows(make_engine, T, reqs, ticks, windows) -> list[dict]:
 
 def log_profile(what: str, prof: list[dict]) -> None:
     for w in prof:
+        n = w["ticks"][1] - w["ticks"][0]
         log(f"profile {what} ticks {w['ticks']} ({w['decode_only_ticks']} decode-only): "
             f"device busy {w['device_busy_ms']:.2f} ms of {w['unprofiled_wall_ms']:.2f} ms "
-            f"wall = {w['busy_share']:.1%}; attention kernels {w['attn_ms']:.2f} ms, "
-            f"GEMMs {w['gemm_ms']:.2f} ms")
+            f"wall = {w['busy_share']:.1%}; {w['device_busy_ms'] / n:.3f} ms device and "
+            f"{w['unprofiled_wall_ms'] / n:.3f} ms wall per tick; attention kernels "
+            f"{w['attn_ms']:.2f} ms, GEMMs {w['gemm_ms']:.2f} ms")
         for k in w["top_kernels"][:6]:
             log(f"profile:   {k['ms']:8.3f} ms {k['count']:5d}x {k['name'][:100]}")
+
+
+def zero_routes(route_mods: dict) -> None:
+    for mod in route_mods.values():
+        for r in mod.ROUTE_LAUNCHES:
+            mod.ROUTE_LAUNCHES[r] = 0
+
+
+def check_chunk_routes(what: str, route_mods: dict, counts: dict) -> dict:
+    """Every chunk launch of a bf16 serve (B2, B6) took the tensor-core
+    route: each route counter against the wrapper's launches. Returns the
+    route counts by kernel."""
+    routes = {name: dict(mod.ROUTE_LAUNCHES) for name, mod in route_mods.items()}
+    for name, got in routes.items():
+        n = counts.get(name, 0)
+        check(got == {"tensor_core": n, "sweep": 0},
+              f"{what}: {name} routes {got} for {n} chunk launches")
+    return routes
 
 
 def mid_decode_window(ticks) -> tuple[int, int]:
@@ -1732,6 +1789,10 @@ def log_timing(name, t, launches, per_tick, unit="tick") -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the report as JSON here")
+    ap.add_argument("--against", default=None,
+                    help="root of another checkout of the repository (for example the "
+                         "parent commit): build its kernels too and fail unless every "
+                         "kernel both builds compile has the same ptxas report")
     args = ap.parse_args()
     global T0
     T0 = time.perf_counter()
@@ -1767,6 +1828,7 @@ def main() -> int:
              "paged_proxy_scores": t3_ops, "flash_attention": fa_ops,
              "decomposed_decode": t1_ops, "cpq_decode": cpq_ops}
     counted = [(mod, name) for name, mod in kmods.items()] + [(t3_ops, "proxy_scores")]
+    route_mods = {"paged_prefill": ops, "paged_cpq_prefill": cpq_ops}  # B2, B6: two routes
 
     # 2) build: one nvcc per source, all started together (B7's two wrappers
     #    share one source, built once; B8's three routes have a source each)
@@ -1785,11 +1847,25 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"nvcc[{name}]: {line.strip()}", file=sys.stderr)
+    if args.against:  # the other tree built afresh (this one too, unless built above)
+        t0 = time.perf_counter()
+        cmp = build.compare(args.against, build.reports(sorted(build.KERNELS_DIR.glob(
+            "*/csrc/*.cu"))))
+        differ = sorted(k for k, same in cmp["compared"].items() if not same)
+        report["ptxas_against"] = {"against": args.against, "compared": cmp["compared"],
+                                   "seconds": time.perf_counter() - t0}
+        log(f"{build.verdict(cmp)} (against {args.against}, "
+            f"{report['ptxas_against']['seconds']:.1f} s)")
+        check(not differ, f"ptxas reports differ from {args.against}: {differ}")
 
     # 3) kernels against their plain versions
     errs = {name: {} for name in kmods}
+    report["prefill_routes"] = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for KV, G, Dh in ((16, 1, 64), (8, 4, 128)):
+        # qwen1.5-0.5b's shape, a GQA shape, and widths of 8-byte rows
+        # (Dh 24: the tensor-core route's half-chunk loads) and of no
+        # multiple of 8 (Dh 12: bf16 on the sweep)
+        for KV, G, Dh in ((16, 1, 64), (8, 4, 128), (4, 2, 24), (4, 2, 12)):
             tag = f"{str(dtype).removeprefix('torch.')} KV={KV} G={G} Dh={Dh}"
             e_dec, e_pre = sweep(ops, dtype, KV, G, Dh)
             errs["paged_decode"][tag], errs["paged_prefill"][tag] = e_dec, e_pre
@@ -1797,9 +1873,13 @@ def main() -> int:
                 e_cd, e_cp = sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits)
                 btag = f"{tag} bits={bits}"
                 errs["paged_cpq_decode"][btag], errs["paged_cpq_prefill"][btag] = e_cd, e_cp
-            log(f"sweep {tag}: paged_decode {e_dec:.3e}, paged_prefill {e_pre:.3e}, "
-                f"paged_cpq_decode {e_cd:.3e}, paged_cpq_prefill {e_cp:.3e} (bits 8; "
-                f"tol {TOL[dtype]})")
+            routes = (ops.prefill_route(dtype, Dh, Dh),
+                      cpq_ops.cpq_prefill_route(dtype, Dh, Dh, CPQ_LEVELS))
+            report["prefill_routes"][tag] = dict(zip(("paged_prefill", "paged_cpq_prefill"),
+                                                     routes))
+            log(f"sweep {tag}: paged_decode {e_dec:.3e}, paged_prefill {e_pre:.3e} "
+                f"({routes[0]} route), paged_cpq_decode {e_cd:.3e}, paged_cpq_prefill "
+                f"{e_cp:.3e} ({routes[1]} route; bits 8; tol {TOL[dtype]})")
         for H, Dm, kv_r, Rr in T1_SHAPES:
             tag = f"{str(dtype).removeprefix('torch.')} H={H} Dm={Dm} kv_r={kv_r} Rr={Rr}"
             e_dec, e_pre = sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr)
@@ -1891,13 +1971,16 @@ def main() -> int:
                                       device=DEVICE)
         recs = recorders_of(dec, pre)
         run = make_requests(T, cfg.vocab_size)  # a served Request keeps its tokens
+        zero_routes(route_mods)
         results, stats, ticks, wall, counts = serve_recorded(eng, T, run, recs)
         check_finished(results, run, mode)
         check(counts[dec] == L * stats["decode_steps"] and counts[pre] == L * stats["prefill_chunks"],
               f"{mode}: launch counts {counts} vs {stats['decode_steps']} decode ticks and "
               f"{stats['prefill_chunks']} chunks")
+        routes = check_chunk_routes(mode, route_mods, counts)
         serves[mode] = serve_metrics(stats, ticks, wall, mode)
         serves[mode]["launches"] = counts
+        serves[mode]["routes"] = routes
         log(f"[{time.perf_counter() - T0:.0f} s] served {mode}")
         for name in (dec, pre):
             if name in timing:  # B2 again, under T3: its launches are logged only
@@ -1918,7 +2001,9 @@ def main() -> int:
                 f"{d['arena_bytes']} bytes")
         del eng, recs
         torch.cuda.empty_cache()
-        windows = ([(40, 50)] if mode == "dense" else []) + [mid_decode_window(ticks)]
+        # chunk ticks: 10 dense, 5 cpq (its host-bound chunk tick is slow to profile)
+        chunk = {"dense": [(40, 50)], "cpq": [(40, 45)]}.get(mode, [])
+        windows = chunk + [mid_decode_window(ticks)]
         report["profile"][mode] = profile_windows(
             lambda: T.ContinuousServeEngine(cfg, params, rt=rts[mode], serving=serving,
                                             device=DEVICE),
@@ -1945,6 +2030,7 @@ def main() -> int:
                       "paged_cpq_prefill")
     for name, mod in kmods.items():
         getattr(mod, name).launches = 0
+    zero_routes(route_mods)
     S.Scheduler.admit_next = admit_counted
     run = make_requests(T, cfg.vocab_size)
     try:
@@ -1952,13 +2038,14 @@ def main() -> int:
     finally:
         S.Scheduler.admit_next = admit
     counts = {name: kmods[name].__dict__[name].launches for name in tiered_kernels}
+    routes = check_chunk_routes("tiered", route_mods, counts)
     check(not any(getattr(mod, name).launches for name, mod in kmods.items()
                   if name not in tiered_kernels), "tiered: a T1 or T3 kernel launched")
     check_finished(results, run, "tiered")
     serves["tiered"] = serve_metrics(stats, ticks, wall, "tiered")
     serves["tiered"].update(
         escalations=stats["escalations"], cpq_admissions=int(sum(tiers)),
-        admissions=len(tiers), launches=counts,
+        admissions=len(tiers), launches=counts, routes=routes,
         dense_pages_leaked=stats["dense_pages_leaked"],
         cpq_pages_leaked=stats["cpq_pages_leaked"],
         serving={k: getattr(tiered, k) for k in ("num_pages", "escalated_pages",
@@ -2166,6 +2253,11 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library": library[name], "timed_samples": t["samples"],
             "launches_by_serve": by_serve})
+        if name in route_mods:  # B2, B6: the bf16 chunks' tensor-core kernel
+            kernels[-1].update(
+                tensor_core_source=os.path.relpath(str(ops.CSRC / "paged_chunk.cuh"), root),
+                routes_by_serve={mode: sv["routes"][name] for mode, sv in serves.items()
+                                 if sv.get("routes", {}).get(name, {}).get("tensor_core")})
     report["kernels"] = kernels
     report["run_s"] = time.perf_counter() - T0
     if args.out:

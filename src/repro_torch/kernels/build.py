@@ -10,12 +10,13 @@ reused. Nothing here
 runs at import time: this module is imported on machines with no GPU and no
 ``nvcc``.
 
-Run as a script, it compiles every source of this checkout (and, with
-``--against DIR``, of another checkout of the repository at DIR, with the
-same flags; one nvcc per source, a tree's all started together) and prints
-nvcc's time per source, ptxas's report of each kernel (registers, spills,
-shared memory), and whether the two builds' reports of each kernel they
-share are identical:
+Run as a script (or through ``compare``, as ``chip_smoke.py --against``
+does), it compiles every source of this checkout (and, with ``--against
+DIR``, of another checkout of the repository at DIR, with the same flags;
+one nvcc per source, a tree's all started together) and prints nvcc's time
+per source, ptxas's report of each kernel (registers, spills, shared
+memory), and whether the two builds' reports of each kernel they share are
+identical:
 
     PYTHONPATH=src python -m repro_torch.kernels.build [--against DIR] [--out FILE]
 """
@@ -137,16 +138,50 @@ def ptxas_report(log: str) -> dict[str, list[str]]:
     return report
 
 
-def _reports(kernels_dir: Path, out_dir: Path) -> dict[str, dict[str, list[str]]]:
-    """Build every source under ``kernels_dir`` afresh into ``out_dir`` and
-    return the ptxas report of each, by source path, with nvcc's wall time
-    under ``"nvcc s"``."""
-    sources = sorted(kernels_dir.glob("*/csrc/*.cu"))
-    BUILD_LOGS.clear()
-    build(sources, out_dir)
+def reports(sources: list[Path], kernels_dir: Path = KERNELS_DIR) -> dict | None:
+    """The ptxas report of each source that this process built (its
+    ``BUILD_LOGS``), by source path, with nvcc's wall time under
+    ``"nvcc s"``; None if one of them was not built here."""
+    if not all(src.stem in BUILD_LOGS for src in sources):
+        return None
     return {str(src.relative_to(kernels_dir.parent)): {
         "nvcc s": [f"{BUILD_SECONDS[src.stem]:.1f}"], **ptxas_report(BUILD_LOGS[src.stem])}
         for src in sources}
+
+
+def _reports(kernels_dir: Path, out_dir: Path) -> dict[str, dict[str, list[str]]]:
+    """Build every source under ``kernels_dir`` afresh into ``out_dir`` and
+    return ``reports`` of them."""
+    sources = sorted(kernels_dir.glob("*/csrc/*.cu"))
+    BUILD_LOGS.clear()
+    build(sources, out_dir)
+    return reports(sources, kernels_dir)
+
+
+def compare(against: str | None, mine: dict | None = None) -> dict:
+    """Build every source of this checkout (unless ``mine`` holds their
+    ``reports`` already), and of the checkout at ``against`` if given,
+    afresh with the same flags; returns the reports (``this``, ``against``)
+    and, for each kernel both builds compile, whether its ptxas report is
+    identical (``compared``)."""
+    with tempfile.TemporaryDirectory() as mine_dir, tempfile.TemporaryDirectory() as other_dir:
+        mine = mine or _reports(KERNELS_DIR, Path(mine_dir))
+        other = {}
+        if against:
+            other = _reports(Path(against) / "src" / "repro_torch" / "kernels",
+                             Path(other_dir))
+    compared = {f"{src} {name}": other[src][name] == lines
+                for src, kernels in mine.items() for name, lines in kernels.items()
+                if name != "nvcc s" and name in other.get(src, {})}
+    return {"this": mine, "against": other, "compared": compared}
+
+
+def verdict(result: dict) -> str:
+    """One line: how many kernels both builds compile, and how many of
+    their ptxas reports are identical."""
+    same = result["compared"]
+    return (f"ptxas: {sum(same.values())} of {len(same)} kernels that both builds "
+            f"compile are identical")
 
 
 def main(argv=None) -> int:
@@ -154,25 +189,15 @@ def main(argv=None) -> int:
     ap.add_argument("--against", default=None, help="root of another checkout to compare")
     ap.add_argument("--out", default=None, help="also write the reports as JSON here")
     args = ap.parse_args(argv)
-    with tempfile.TemporaryDirectory() as mine_dir, tempfile.TemporaryDirectory() as other_dir:
-        mine = _reports(KERNELS_DIR, Path(mine_dir))
-        other = {}
-        if args.against:
-            other = _reports(Path(args.against) / "src" / "repro_torch" / "kernels",
-                             Path(other_dir))
-    result = {"this": mine, "against": other, "compared": {}}
-    for src, kernels in mine.items():
+    result = compare(args.against)
+    for src, kernels in result["this"].items():
         for name, lines in kernels.items():
             print(f"ptxas {src} {name}: {'; '.join(lines)}")
-            if name != "nvcc s" and name in other.get(src, {}):
-                same = other[src][name] == lines
-                result["compared"][f"{src} {name}"] = same
-                if not same:
-                    print(f"  differs from {args.against}: {'; '.join(other[src][name])}")
+            if not result["compared"].get(f"{src} {name}", True):
+                print(f"  differs from {args.against}: "
+                      f"{'; '.join(result['against'][src][name])}")
     if args.against:
-        n = len(result["compared"])
-        print(f"ptxas: {sum(result['compared'].values())} of {n} kernels that both builds "
-              f"compile are identical")
+        print(verdict(result))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

@@ -19,6 +19,13 @@ given CUDA tensors it launches the hand-written CUDA kernel in ``csrc/`` on
 the current stream, or raises. It never falls back. Every launch adds one to
 the wrapper's ``launches`` counter.
 
+B6 has two routes, picked by ``cpq_prefill_route`` from dtype, widths and
+levels before the launch and counted apart in ``ROUTE_LAUNCHES``:
+``tensor_core`` (bf16, Dh and Dv multiples of 8 up to 256, up to
+``MAX_CHUNK_LEVELS`` levels: mma.sync over tiles dequantized in registers,
+``paged_attn/csrc/paged_chunk.cuh``) and ``sweep`` (everything else: the
+CUDA-core sweep of ``csrc/cpq_attn.cuh``).
+
 Semantics (the TPU kernels'): a stored code ``c8`` means ``c = c8 + 128``;
 ``c == 0`` is exactly 0, else ``(c - 1) * scale[level] + zero[level]``; a
 level outside [0, L) reads scale = zero = 0. The dequantized K and V are
@@ -38,12 +45,15 @@ import torch
 
 from repro_torch.core.cpq import CPQTensor, decode_codes, take_levels
 from repro_torch.kernels import build, single_query
-from repro_torch.kernels.paged_attn.ops import NEG_INF, SPLIT_TOKENS, run
+from repro_torch.kernels.paged_attn.ops import (NEG_INF, SPLIT_TOKENS, aligned16,
+                                                chunk_plan, prefill_route, run)
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = {"paged_cpq_decode": CSRC / "paged_cpq_decode.cu",
            "paged_cpq_prefill": CSRC / "paged_cpq_prefill.cu",
            "cpq_decode": CSRC / "cpq_decode.cu"}
+ROUTE_LAUNCHES = {"tensor_core": 0, "sweep": 0}
+MAX_CHUNK_LEVELS = 16  # the tensor-core route keeps the slot's tables in shared memory
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -56,6 +66,10 @@ _ARGTYPES = {
     # C, H, KV, Dh, Dv, page, nb, L, pages_per_split, page_splits, offset,
     # valid, scale, stream
     "paged_cpq_prefill": [_I] + [_P] * 14 + [_I] * 12 + [_F, _P],
+    # q, codes_k, codes_v, level_k, level_v, scale_k, zero_k, scale_v, zero_v,
+    # k_raw, v_raw, block_row, out, part, counters,
+    # C, H, KV, Dh, Dv, page, nb, L, offset, valid, splits, split_keys, scale, stream
+    "paged_cpq_prefill_mma": [_P] * 15 + [_I] * 12 + [_F, _P],
     # round_tiles, q, codes_k, codes_v, level_k, level_v, scale_k, zero_k,
     # scale_v, zero_v, out, part, counters, B, KV, G, Dh, Dv, N, L, length,
     # splits, split_keys, scale, stream
@@ -63,9 +77,20 @@ _ARGTYPES = {
 }
 
 
-def launcher(name: str):
-    """The C entry point ``<name>_launch``, building its library first."""
-    return build.c_function(SOURCES[name], f"{name}_launch", _ARGTYPES[name])
+def launcher(name: str, entry: str | None = None):
+    """The C entry point ``<entry or name>_launch`` of ``name``'s source,
+    building its library first."""
+    entry = entry or name
+    return build.c_function(SOURCES[name], f"{entry}_launch", _ARGTYPES[entry])
+
+
+def cpq_prefill_route(dtype: torch.dtype, Dh: int, Dv: int, levels: int) -> str:
+    """The route B6 takes on the card: ``tensor_core`` where B2 would take
+    it and the tables have at most ``MAX_CHUNK_LEVELS`` levels, ``sweep``
+    otherwise."""
+    if levels <= MAX_CHUNK_LEVELS and prefill_route(dtype, Dh, Dv) == "tensor_core":
+        return "tensor_core"
+    return "sweep"
 
 
 def _check_cuda(name: str, q: torch.Tensor, kt, vt, ints: list[torch.Tensor],
@@ -221,24 +246,38 @@ def paged_cpq_prefill(q, kt, vt, k_raw, v_raw, slot: int, block_row,
         raise ValueError(
             f"paged_cpq_prefill: shapes q {tuple(q.shape)}, k_raw {tuple(k_raw.shape)}, "
             f"v_raw {tuple(v_raw.shape)}, block_row {tuple(block_row.shape)}, slot {slot}")
-    if not (offset >= 0 and 1 <= valid <= C):
-        raise ValueError(f"paged_cpq_prefill: offset={offset}, valid={valid}, C={C}")
+    if not (offset >= 0 and 1 <= valid <= C and offset <= nb * page):
+        raise ValueError(f"paged_cpq_prefill: offset={offset}, valid={valid}, C={C}, "
+                         f"{nb} pages of {page}")
     k_raw, v_raw = k_raw.contiguous(), v_raw.contiguous()
     _check_cuda("paged_cpq_prefill", q, kt, vt, [block_row], (k_raw, v_raw))
-    pps = max(1, SPLIT_TOKENS // page)
-    page_splits = -(-min(-(-offset // page), nb) // pps)
-    splits = page_splits + 1                       # + the raw chunk tail
     out = torch.empty((1, C, H, Dv), dtype=q.dtype, device=q.device)
-    part = torch.empty(C * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
-    run(launcher("paged_cpq_prefill"), "paged_cpq_prefill", q.device,
-        int(q.dtype == torch.bfloat16), q.data_ptr(),
-        kt.codes.data_ptr(), vt.codes.data_ptr(), kt.level.data_ptr(),
-        vt.level.data_ptr(), kt.scale[slot].data_ptr(), kt.zero[slot].data_ptr(),
-        vt.scale[slot].data_ptr(), vt.zero[slot].data_ptr(), k_raw.data_ptr(),
-        v_raw.data_ptr(), block_row.data_ptr(), out.data_ptr(), part.data_ptr(),
-        C, H, KV, Dh, Dv, page, nb, L, pps, page_splits, int(offset), int(valid),
-        float(scale))
+    tables = (kt.scale[slot], kt.zero[slot], vt.scale[slot], vt.zero[slot])
+    route = cpq_prefill_route(q.dtype, Dh, Dv, L)
+    if route == "tensor_core":
+        splits, keys, part, counters = chunk_plan(C, H // KV, KV, offset + valid, Dv,
+                                                  q.device)
+        q, k_raw, v_raw = aligned16(q), aligned16(k_raw), aligned16(v_raw)
+        run(launcher("paged_cpq_prefill", "paged_cpq_prefill_mma"), "paged_cpq_prefill",
+            q.device, q.data_ptr(), kt.codes.data_ptr(), vt.codes.data_ptr(),
+            kt.level.data_ptr(), vt.level.data_ptr(), *(t.data_ptr() for t in tables),
+            k_raw.data_ptr(), v_raw.data_ptr(), block_row.data_ptr(), out.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), C, H, KV, Dh, Dv, page, nb, L,
+            int(offset), int(valid), splits, keys, float(scale))
+    else:
+        pps = max(1, SPLIT_TOKENS // page)
+        page_splits = -(-min(-(-offset // page), nb) // pps)
+        splits = page_splits + 1                       # + the raw chunk tail
+        part = torch.empty(C * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
+        run(launcher("paged_cpq_prefill"), "paged_cpq_prefill", q.device,
+            int(q.dtype == torch.bfloat16), q.data_ptr(),
+            kt.codes.data_ptr(), vt.codes.data_ptr(), kt.level.data_ptr(),
+            vt.level.data_ptr(), *(t.data_ptr() for t in tables), k_raw.data_ptr(),
+            v_raw.data_ptr(), block_row.data_ptr(), out.data_ptr(), part.data_ptr(),
+            C, H, KV, Dh, Dv, page, nb, L, pps, page_splits, int(offset), int(valid),
+            float(scale))
     paged_cpq_prefill.launches += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 

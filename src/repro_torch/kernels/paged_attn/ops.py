@@ -11,6 +11,16 @@ kernels); given CUDA tensors it launches the hand-written CUDA kernel in
 ``csrc/`` on the current stream, or raises. It never falls back. Every launch
 adds one to the wrapper's ``launches`` counter.
 
+B2 has two routes, picked by ``prefill_route`` from dtype and widths before
+the launch and counted apart in ``ROUTE_LAUNCHES``:
+
+  ``tensor_core``  bf16, Dh and Dv multiples of 8 up to 256: mma.sync
+                   (``csrc/paged_chunk.cuh``), one launch, splits merged by
+                   the last block on ``single_query.counters``
+  ``sweep``        float32 (TF32 would miss the float32 gate) and any other
+                   bf16 width: the CUDA-core sweep (``csrc/paged_attn.cuh``)
+                   and its merge pass
+
 Masking convention (the JAX package's): physical page 0 is the null page
 whose contents are garbage; every position at or past a row's length
 contributes nothing; a row of length 0 returns zeros.
@@ -22,15 +32,19 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, single_query
 
 NEG_INF = -1e30
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = {"paged_decode": CSRC / "paged_decode.cu",
            "paged_prefill": CSRC / "paged_prefill.cu"}
-# pass 1 of the kernels splits a row's key range into runs of whole pages of
+ROUTE_LAUNCHES = {"tensor_core": 0, "sweep": 0}
+# pass 1 of the sweep splits a row's key range into runs of whole pages of
 # about this many tokens, one block each (see csrc/paged_attn.cuh)
 SPLIT_TOKENS = 64
+CHUNK_ROWS = 16     # the tensor-core route's query rows per block (one m16 tile)
+CHUNK_SPLIT_KEYS = 512  # ... its least keys per split (a block's warps take 16-key tiles)
+MAX_CHUNK_SPLITS = 32   # ... and most splits (the merge keeps their weights in shared memory)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -40,12 +54,46 @@ _ARGTYPES = {
     # is_bf16, q, k, v, block_row, out, part,
     # C, H, KV, Dh, Dv, page, nb, pages_per_split, offset, valid, scale, stream
     "paged_prefill": [_I] + [_P] * 6 + [_I] * 10 + [_F, _P],
+    # q, k, v, block_row, out, part, counters,
+    # C, H, KV, Dh, Dv, page, nb, offset, valid, splits, split_keys, scale, stream
+    "paged_prefill_mma": [_P] * 7 + [_I] * 11 + [_F, _P],
 }
 
 
-def launcher(name: str):
-    """The C entry point ``<name>_launch``, building its library first."""
-    return build.c_function(SOURCES[name], f"{name}_launch", _ARGTYPES[name])
+def launcher(name: str, entry: str | None = None):
+    """The C entry point ``<entry or name>_launch`` of ``name``'s source,
+    building its library first."""
+    entry = entry or name
+    return build.c_function(SOURCES[name], f"{entry}_launch", _ARGTYPES[entry])
+
+
+def prefill_route(dtype: torch.dtype, Dh: int, Dv: int) -> str:
+    """The route a chunked prefill (B2, and B6 with few enough levels)
+    takes on the card: ``tensor_core`` for bf16 with Dh and Dv multiples of
+    8 up to 256, ``sweep`` otherwise."""
+    if (dtype == torch.bfloat16 and Dh % 8 == 0 and Dv % 8 == 0
+            and 8 <= min(Dh, Dv) and max(Dh, Dv) <= single_query.MAX_HEAD_DIM):
+        return "tensor_core"
+    return "sweep"
+
+
+def chunk_plan(C: int, G: int, KV: int, end: int, Dv: int, device: torch.device):
+    """The tensor-core route's key splits (``single_query.plan`` over the
+    (kv head, 16-row tile) pairs and ``end`` keys: about one wave, at least
+    CHUNK_SPLIT_KEYS keys and at most MAX_CHUNK_SPLITS splits), its partials
+    buffer and its counters: (splits, split_keys, part, counters)."""
+    tiles = -(-C * G // CHUNK_ROWS)
+    splits, keys = single_query.plan(KV * tiles, end, device, CHUNK_SPLIT_KEYS,
+                                     MAX_CHUNK_SPLITS)
+    part = torch.empty(KV * tiles * CHUNK_ROWS * splits * (Dv + 2), dtype=torch.float32,
+                       device=device)
+    return splits, keys, part, single_query.counters(KV * tiles, device)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy when its data does not start on 16 bytes (the
+    tensor-core route's 16-byte loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_cuda(name: str, floats: list[torch.Tensor], ints: list[torch.Tensor]):
@@ -178,18 +226,31 @@ def paged_prefill(q, k_pages, v_pages, block_row, offset: int, valid: int,
         raise ValueError(
             f"paged_prefill: shapes q {tuple(q.shape)}, k {tuple(k_pages.shape)}, "
             f"v {tuple(v_pages.shape)}, block_row {tuple(block_row.shape)}")
-    if not (offset >= 0 and 1 <= valid <= C):
-        raise ValueError(f"paged_prefill: offset={offset}, valid={valid}, C={C}")
+    if not (offset >= 0 and 1 <= valid <= C and offset + valid <= nb * page):
+        raise ValueError(f"paged_prefill: offset={offset}, valid={valid}, C={C}, "
+                         f"{nb} pages of {page}")
     _check_cuda("paged_prefill", [q, k_pages, v_pages], [block_row])
-    pps = max(1, SPLIT_TOKENS // page)
-    splits = -(-nb // pps)
     out = torch.empty((1, C, H, Dv), dtype=q.dtype, device=q.device)
-    part = torch.empty(C * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
-    _launch("paged_prefill", q.device, int(q.dtype == torch.bfloat16),
+    route = prefill_route(q.dtype, Dh, Dv)
+    if route == "tensor_core":
+        splits, keys, part, counters = chunk_plan(C, H // KV, KV, offset + valid, Dv,
+                                                  q.device)
+        q = aligned16(q)
+        run(launcher("paged_prefill", "paged_prefill_mma"), "paged_prefill", q.device,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_row.data_ptr(), out.data_ptr(), part.data_ptr(),
-            C, H, KV, Dh, Dv, page, nb, pps, int(offset), int(valid), float(scale))
+            block_row.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+            C, H, KV, Dh, Dv, page, nb, int(offset), int(valid), splits, keys,
+            float(scale))
+    else:
+        pps = max(1, SPLIT_TOKENS // page)
+        splits = -(-nb // pps)
+        part = torch.empty(C * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
+        _launch("paged_prefill", q.device, int(q.dtype == torch.bfloat16),
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                block_row.data_ptr(), out.data_ptr(), part.data_ptr(),
+                C, H, KV, Dh, Dv, page, nb, pps, int(offset), int(valid), float(scale))
     paged_prefill.launches += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 

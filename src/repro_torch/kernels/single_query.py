@@ -1,7 +1,8 @@
-"""Launch plan of the single-query decode kernels (B8's decode route and B10,
-``flash_attn/csrc/single_query.cuh``): how the key range is split, and the
-counters on which the last block of each (row, kv head) learns that it
-merges the splits.
+"""Launch plan of the kernels that merge key splits in their last block (B8's
+decode route and B10, ``flash_attn/csrc/single_query.cuh``; the tensor-core
+route of B2 and B6, ``paged_attn/csrc/paged_chunk.cuh``): how the key range
+is split, and the counters on which the last block of each unit learns that
+it merges the splits.
 
 The splits are sized so that the grid holds at most ``BLOCKS_PER_SM``
 blocks per SM (all resident at once: the kernels take up to 128 registers a
@@ -25,12 +26,14 @@ SPLIT_ALIGN = 16
 _counters: dict[torch.device, torch.Tensor] = {}
 
 
-def plan(pairs: int, length: int, device: torch.device) -> tuple[int, int]:
+def plan(pairs: int, length: int, device: torch.device, min_keys: int = MIN_SPLIT_KEYS,
+         max_splits: int | None = None) -> tuple[int, int]:
     """(splits, keys per split) for ``pairs`` (row, kv head, head group)
-    units over ``length`` keys each."""
+    units over ``length`` keys each: splits of at least ``min_keys`` keys,
+    and at most ``max_splits`` of them."""
     sms = _sm_count(device)
-    most = max(1, -(-length // MIN_SPLIT_KEYS))
-    splits = min(most, max(1, BLOCKS_PER_SM * sms // pairs))
+    most = max(1, -(-length // min_keys))
+    splits = min(most, max(1, BLOCKS_PER_SM * sms // pairs), max_splits or most)
     keys = -(-max(length, 1) // splits)
     keys = -(-keys // SPLIT_ALIGN) * SPLIT_ALIGN
     return -(-max(length, 1) // keys), keys

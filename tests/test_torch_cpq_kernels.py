@@ -26,8 +26,9 @@ from repro.serving import paged_cache as jpgc
 from repro_torch.core import attention as t_attn
 from repro_torch.kernels.cpq_attn import ops
 from repro_torch.serving import paged_cache as tpgc
-from torch_paged_cases import (CPQ_DECODE_CASES, CPQ_PREFILL_CASES, cpq_arena,
-                               cpq_decode_inputs, cpq_prefill_inputs)
+from torch_paged_cases import (CPQ_DECODE_CASES, CPQ_PREFILL_CASES, SERVED_PREFILL_CASES,
+                               cpq_arena, cpq_decode_inputs, cpq_prefill_inputs,
+                               served_cpq_prefill_inputs)
 
 ATOL = 1e-5
 
@@ -53,9 +54,13 @@ def test_plain_cpq_decode_matches_jax_kernel(case):
     assert not out[torch.tensor(lengths == 0)].any()  # empty rows -> zeros
 
 
-@pytest.mark.parametrize("case", CPQ_PREFILL_CASES)
+def _cpq_prefill_case(case):
+    return (cpq_prefill_inputs if case in CPQ_PREFILL_CASES else served_cpq_prefill_inputs)(*case)
+
+
+@pytest.mark.parametrize("case", CPQ_PREFILL_CASES + SERVED_PREFILL_CASES)
 def test_plain_cpq_prefill_matches_jax_kernel(case):
-    q, kp, vp, k_raw, v_raw, slot, row, offset, valid, scale = cpq_prefill_inputs(*case)
+    q, kp, vp, k_raw, v_raw, slot, row, offset, valid, scale = _cpq_prefill_case(case)
     ref = paged_cpq_prefill_tpu(jnp.asarray(q), jax_arena(kp), jax_arena(vp),
                                 jnp.asarray(k_raw), jnp.asarray(v_raw),
                                 jnp.asarray(slot, jnp.int32), jnp.asarray(row),

@@ -23,7 +23,11 @@ three routes, and each test checks that its call took the one it must: a
 bf16 prompt the tensor-core kernel, a float32 prompt the CUDA-core sweep, a
 decode token (either dtype) the single-query kernel. The T1 kernels B3, B4
 and B9 take d_model up to 8192 (the cases at 3072 and 4096, and the sweep of
-``T1_WIDE_DM``).
+``T1_WIDE_DM``). B2 and B6 have two routes each: bf16 chunks whose widths
+are multiples of 8 up to 256 take the tensor-core kernel, float32 chunks
+(and other bf16 widths) the CUDA-core sweep; each prefill test checks that
+its call took the route it must, on the layouts of the CPU tests and on
+``SERVED_PREFILL_CASES``.
 """
 import numpy as np
 import pytest
@@ -36,12 +40,14 @@ from repro_torch.kernels.paged_attn import ops
 from repro_torch.kernels.topk_retrieval import ops as t3_ops
 from torch_paged_cases import (CONTIG_CPQ_CASES, CONTIG_PROXY_CASES, CONTIG_T1_CASES,
                                CPQ_DECODE_CASES, CPQ_PREFILL_CASES, DECODE_CASES,
-                               FLASH_CASES, PREFILL_CASES, PROXY_CASES, T1_DECODE_CASES,
-                               T1_PREFILL_CASES, T1_WIDE, contig_cpq_inputs,
-                               contig_proxy_inputs, contig_t1_inputs, cpq_arena,
-                               cpq_decode_inputs, cpq_prefill_inputs, decode_inputs,
-                               flash_inputs, prefill_inputs, proxy_inputs, t1_decode_inputs,
-                               t1_prefill_inputs, tensors)
+                               FLASH_CASES, PREFILL_CASES, PROXY_CASES,
+                               SERVED_PREFILL_CASES, T1_DECODE_CASES, T1_PREFILL_CASES,
+                               T1_WIDE, contig_cpq_inputs, contig_proxy_inputs,
+                               contig_t1_inputs, cpq_arena, cpq_decode_inputs,
+                               cpq_prefill_inputs, decode_inputs, flash_inputs,
+                               prefill_inputs, proxy_inputs, served_cpq_prefill_inputs,
+                               served_prefill_inputs, t1_decode_inputs, t1_prefill_inputs,
+                               tensors)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 CPQ_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
@@ -68,19 +74,89 @@ def test_decode_kernel_matches_plain(cuda, case, dtype):
     assert not out[args[4] == 0].any()  # empty rows -> zeros
 
 
+def _route_moved(routes: dict, before: dict) -> dict:
+    return {r: n - before[r] for r, n in routes.items()}
+
+
+def _chunk_route(dtype) -> str:
+    return "tensor_core" if dtype == torch.bfloat16 else "sweep"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", PREFILL_CASES)
+@pytest.mark.parametrize("case", PREFILL_CASES + SERVED_PREFILL_CASES)
 def test_prefill_kernel_matches_plain(cuda, case, dtype):
-    q, kp, vp, row, offset, valid, scale = prefill_inputs(*case)
+    make = prefill_inputs if case in PREFILL_CASES else served_prefill_inputs
+    q, kp, vp, row, offset, valid, scale = make(*case)
     args = tensors(q, kp, vp, row, device="cuda", dtype=dtype)
-    before = ops.paged_prefill.launches
+    before, routes = ops.paged_prefill.launches, dict(ops.ROUTE_LAUNCHES)
     out = ops.paged_prefill(*args, offset, valid, scale)
     torch.cuda.synchronize()
     assert ops.paged_prefill.launches == before + 1
+    assert _route_moved(ops.ROUTE_LAUNCHES, routes) == {
+        r: int(r == _chunk_route(dtype)) for r in routes}
     ref = ops.paged_prefill_plain(*args, offset, valid, scale)
     torch.testing.assert_close(out[0, :valid].float(), ref[0, :valid].float(),
                                atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SERVED_PREFILL_CASES)
+def test_prefill_kernels_merge_many_splits(cuda, case, monkeypatch):
+    """B2 and B6 on the tensor-core route with splits of 16 keys (up to the
+    kernel's 32 splits): the last block's merge of the splits' partials,
+    which served chunks of up to 512 keys never need."""
+    monkeypatch.setattr(ops, "CHUNK_SPLIT_KEYS", 16)
+    q, kp, vp, row, offset, valid, scale = served_prefill_inputs(*case)
+    args = tensors(q, kp, vp, row, device="cuda", dtype=torch.bfloat16)
+    out = ops.paged_prefill(*args, offset, valid, scale)
+    torch.cuda.synchronize()
+    ref = ops.paged_prefill_plain(*args, offset, valid, scale)
+    torch.testing.assert_close(out[0, :valid].float(), ref[0, :valid].float(),
+                               atol=TOL[torch.bfloat16], rtol=0)
+    q, kp, vp, k_raw, v_raw, slot, row, offset, valid, scale = served_cpq_prefill_inputs(*case)
+    q, k_raw, v_raw = _cpq_tensors(torch.bfloat16, q, k_raw, v_raw)
+    kt, vt = cpq_arena(kp, "cuda"), cpq_arena(vp, "cuda")
+    row = torch.tensor(row, device="cuda")
+    out = cpq_ops.paged_cpq_prefill(q, kt, vt, k_raw, v_raw, slot, row, offset, valid, scale)
+    torch.cuda.synchronize()
+    ref = cpq_ops.paged_cpq_prefill_plain(q, kt, vt, k_raw, v_raw, slot, row, offset, valid,
+                                          scale)
+    torch.testing.assert_close(out[0, :valid].float(), ref[0, :valid].float(),
+                               atol=CPQ_TOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.cuda
+def test_prefill_route_by_dtype(cuda):
+    """B2 and B6 at Dh 64: a bf16 chunk moves the tensor-core route's
+    counter, a float32 chunk the sweep's; a bf16 chunk at Dh 12 (no multiple
+    of 8) takes the sweep and matches its plain version."""
+    case = SERVED_PREFILL_CASES[1]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kp, vp, row, offset, valid, scale = served_prefill_inputs(*case)
+        before = dict(ops.ROUTE_LAUNCHES)
+        ops.paged_prefill(*tensors(q, kp, vp, row, device="cuda", dtype=dtype), offset,
+                          valid, scale)
+        q, kp, vp, k_raw, v_raw, slot, row, offset, valid, scale = \
+            served_cpq_prefill_inputs(*case)
+        cpq_before = dict(cpq_ops.ROUTE_LAUNCHES)
+        cpq_ops.paged_cpq_prefill(*_cpq_tensors(dtype, q), cpq_arena(kp, "cuda"),
+                                  cpq_arena(vp, "cuda"), *_cpq_tensors(dtype, k_raw, v_raw),
+                                  slot, torch.tensor(row, device="cuda"), offset, valid,
+                                  scale)
+        torch.cuda.synchronize()
+        want = {r: int(r == _chunk_route(dtype)) for r in before}
+        assert _route_moved(ops.ROUTE_LAUNCHES, before) == want
+        assert _route_moved(cpq_ops.ROUTE_LAUNCHES, cpq_before) == want
+    q, kp, vp, row, offset, valid, scale = prefill_inputs(3, 9, 6, 2, 2, Dh=12)
+    args = tensors(q, kp, vp, row, device="cuda", dtype=torch.bfloat16)
+    before = dict(ops.ROUTE_LAUNCHES)
+    out = ops.paged_prefill(*args, offset, valid, scale)
+    torch.cuda.synchronize()
+    assert _route_moved(ops.ROUTE_LAUNCHES, before) == {"tensor_core": 0, "sweep": 1}
+    ref = ops.paged_prefill_plain(*args, offset, valid, scale)
+    torch.testing.assert_close(out[0, :valid].float(), ref[0, :valid].float(),
+                               atol=TOL[torch.bfloat16], rtol=0)
 
 
 @pytest.mark.cuda
@@ -122,16 +198,19 @@ def test_cpq_decode_kernel_matches_plain(cuda, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", CPQ_PREFILL_CASES)
+@pytest.mark.parametrize("case", CPQ_PREFILL_CASES + SERVED_PREFILL_CASES)
 def test_cpq_prefill_kernel_matches_plain(cuda, case, dtype):
-    q, kp, vp, k_raw, v_raw, slot, row, offset, valid, scale = cpq_prefill_inputs(*case)
+    make = cpq_prefill_inputs if case in CPQ_PREFILL_CASES else served_cpq_prefill_inputs
+    q, kp, vp, k_raw, v_raw, slot, row, offset, valid, scale = make(*case)
     q, k_raw, v_raw = _cpq_tensors(dtype, q, k_raw, v_raw)
     kt, vt = cpq_arena(kp, "cuda"), cpq_arena(vp, "cuda")
     row = torch.tensor(row, device="cuda")
-    before = cpq_ops.paged_cpq_prefill.launches
+    before, routes = cpq_ops.paged_cpq_prefill.launches, dict(cpq_ops.ROUTE_LAUNCHES)
     out = cpq_ops.paged_cpq_prefill(q, kt, vt, k_raw, v_raw, slot, row, offset, valid, scale)
     torch.cuda.synchronize()
     assert cpq_ops.paged_cpq_prefill.launches == before + 1
+    assert _route_moved(cpq_ops.ROUTE_LAUNCHES, routes) == {
+        r: int(r == _chunk_route(dtype)) for r in routes}
     ref = cpq_ops.paged_cpq_prefill_plain(q, kt, vt, k_raw, v_raw, slot, row, offset,
                                           valid, scale)
     torch.testing.assert_close(out[0, :valid].float(), ref[0, :valid].float(),

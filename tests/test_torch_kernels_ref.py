@@ -20,8 +20,8 @@ from repro.kernels.flash_attn.ops import paged_flash_decode_tpu, paged_flash_pre
 from repro_torch.configs import AttentionRuntime
 from repro_torch.kernels.paged_attn import ops
 from repro_torch.serving import paged_cache as pgc
-from torch_paged_cases import (DECODE_CASES, PREFILL_CASES, decode_inputs, prefill_inputs,
-                               tensors)
+from torch_paged_cases import (DECODE_CASES, PREFILL_CASES, SERVED_PREFILL_CASES,
+                               decode_inputs, prefill_inputs, served_prefill_inputs, tensors)
 
 ATOL = 1e-5
 
@@ -37,9 +37,13 @@ def test_plain_decode_matches_jax_kernel(case):
     assert not out[torch.tensor(lengths == 0)].any()  # empty rows -> zeros
 
 
-@pytest.mark.parametrize("case", PREFILL_CASES)
+def _prefill_case(case):
+    return (prefill_inputs if case in PREFILL_CASES else served_prefill_inputs)(*case)
+
+
+@pytest.mark.parametrize("case", PREFILL_CASES + SERVED_PREFILL_CASES)
 def test_plain_prefill_matches_jax_kernel(case):
-    q, kp, vp, row, offset, valid, scale = prefill_inputs(*case)
+    q, kp, vp, row, offset, valid, scale = _prefill_case(case)
     ref = paged_flash_prefill_tpu(*map(jnp.asarray, (q, kp, vp, row)),
                                   jnp.asarray(offset, jnp.int32),
                                   jnp.asarray(valid, jnp.int32), scale)

@@ -18,6 +18,32 @@ PREFILL_CASES = [  # seed, offset, valid, KV, g
     (4, 12, 5, 4, 1), (5, 21, 8, 2, 4),
 ]
 
+# chunks at the served shape and around it, for B2 (prefill_inputs) and B6
+# (cpq_prefill_inputs): qwen1.5-0.5b's chunk of 16 tokens over pages of 16
+# at Dh 64 and G 1 (a first chunk, a mid-page offset, valid < C), a GQA
+# chunk (G 4, Dh 128: four 16-row tiles per kv head), a chunk of 8 (R = 8 <
+# 16 query rows) and one past 512 keys, which the card's tensor-core route
+# splits across blocks
+SERVED_PREFILL_CASES = [  # seed, offset, valid, KV, g, Dh, page, nb, C
+    (10, 0, 16, 16, 1, 64, 16, 32, 16),
+    (11, 213, 16, 16, 1, 64, 16, 32, 16),
+    (12, 300, 11, 16, 1, 64, 16, 32, 16),
+    (13, 150, 16, 2, 4, 128, 16, 16, 16),
+    (14, 37, 8, 4, 1, 64, 16, 8, 8),
+    (15, 901, 10, 4, 1, 64, 16, 64, 16),
+]
+
+
+def served_prefill_inputs(seed, offset, valid, KV, g, Dh, page, nb, C):
+    """``prefill_inputs`` of a SERVED_PREFILL_CASES case."""
+    return prefill_inputs(seed, offset, valid, KV, g, page=page, nb=nb, C=C, Dh=Dh)
+
+
+def served_cpq_prefill_inputs(seed, offset, valid, KV, g, Dh, page, nb, C):
+    """``cpq_prefill_inputs`` (4-bit codes, as served) of a
+    SERVED_PREFILL_CASES case."""
+    return cpq_prefill_inputs(seed, offset, valid, KV, g, Dh, page=page, nb=nb, C=C, bits=4)
+
 
 def pool_layout(rng, B, nb, page):
     """Random paged layout: per-row lengths (0..capacity), pages assigned in
