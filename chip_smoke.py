@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out report.json] [--against PARENT_CHECKOUT]
+    python3 chip_smoke.py [--out report.json] [--against PARENT_CHECKOUT [--changed KEYS]]
 
 Phases, each of which fails the run (nonzero exit) on a miss:
   1. device   needs CUDA; prints the card's name and power limit
@@ -8,7 +8,10 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               one nvcc per source, all started together; with --against,
               also both trees afresh (repro_torch.kernels.build.compare),
               printing the verdict and failing unless every kernel both
-              compile has an identical ptxas report
+              compile has an identical ptxas report, apart from those a
+              change names on purpose with --changed (substrings of
+              "<source> <kernel>": for example a redesigned kernel's
+              source)
   3. kernels  every kernel against its plain PyTorch version, bf16 and f32,
               at qwen1.5-0.5b's shape (KV=16, G=1, Dh=64, page 16) and at a
               GQA shape (KV=8, G=4, Dh=128): B1 paged_decode and B2
@@ -16,7 +19,9 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               a poisoned null page, ragged and empty rows, partial last
               pages); B5 paged_cpq_decode and B6 paged_cpq_prefill over CPQ
               code pages of 4 and 8 bits, L = 4 levels, with the null page's
-              levels out of range, a live row over an all-null block row;
+              levels out of range, a live row over an all-null block row
+              (each B5 call must take its route: widths that are multiples
+              of 16 the single-query kernel, Dh 24 and 12 the sweep);
               B2 and B6 on prompt chunks of 16 at offset 0, mid-prompt, at a
               mid-page offset, far in and with valid < C, and chunks of 8
               (fewer than 16 query rows), also at Dh 24 and 12: each call
@@ -24,10 +29,12 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               the tensor-core kernel, float32 and Dh 12 the sweep), and the
               log names each error's route;
               B3 paged_decomposed_decode and B4 paged_decomposed_prefill on
-              the same layouts at qwen1.5-0.5b's T1 shape (H=16, Dm=1024,
-              16 roped keys of 32), an MLA-like shape (H=16, Dm=512, one
-              shared roped key of 64), a no-rope shape (H=8, Dm=256) and
-              past d_model 2048 (Dm 2560, 3072, 4096, 8192); B7
+              the same layouts and chunks at qwen1.5-0.5b's T1 shape (H=16,
+              Dm=1024, 16 roped keys of 32), an MLA-like shape (H=16,
+              Dm=512, one shared roped key of 64), a no-rope shape (H=8,
+              Dm=256) and past d_model 2048 (Dm 2560, 3072, 4096, 8192),
+              each B4 call on its route (bf16 up to Dm 1024 the tensor-core
+              kernel, float32 and wider models the sweep); B7
               paged_proxy_scores in float32 (its inputs are float32 query
               factors and int8 codes) at qwen1.5-0.5b's T3 shape (KV=16,
               G=1, Dp=64) and GQA shapes (KV=8, G=4 and G=3, Dp=128) on the
@@ -55,14 +62,15 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               (enable_escalation=True, a dense arena small enough that rows
               are admitted into and escalated to the CPQ tier). Each run
               must launch its kernels 24 times per tick (T3: B7 per decode
-              tick, B2 per chunk tick), every chunk launch of B2 and B6 on
-              the tensor-core route (route counters against launches);
+              tick, B2 per chunk tick), every chunk launch of B2, B4 and B6
+              on the tensor-core route and every decode launch of B5 on the
+              single-query route (route counters against launches);
               (a), (b), (d) and (e) then time
               them at the shapes the run gave
               them, beside their bound, their plain version and one PyTorch
               library call (a yardstick only); each run is replayed under
-              torch.profiler over a window of decode-only ticks, (a) and (b)
-              also over a window of chunk ticks (10 and 5). Then the
+              torch.profiler over a window of decode-only ticks, (a), (b)
+              and (d) also over a window of chunk ticks (10, 5 and 5). Then the
               contiguous path: (f)
               the static ServeEngine on 8 prompts of 512 seeded tokens, 64
               new tokens, in the four modes: B8 launched 24 times for the
@@ -134,7 +142,7 @@ DEVICE = "cuda"
 # the namespaces of the attention kernels' device functions, as a profile
 # names them
 ATTENTION_KERNELS = ("paged_attn", "paged_chunk", "cpq_attn", "decomposed_attn",
-                     "topk_retrieval", "flash_prompt", "single_query")
+                     "decomposed_chunk", "topk_retrieval", "flash_prompt", "single_query")
 # B8's wrapper counts every launch; its kernels (routes) are counted apart,
 # under these names in a serve's launch counts
 COUNT_KEY = {"flash_attention": "flash_attention/decode",
@@ -190,9 +198,10 @@ def chunk_calls(long_len: int, C: int = 16) -> tuple:
             (37, 8, 8), (300, 5, 8))
 
 
-def routes_moved(mod, before: dict) -> dict:
-    """The launches of each route of B2 or B6 since ``before``."""
-    return {r: n - before[r] for r, n in mod.ROUTE_LAUNCHES.items()}
+def routes_moved(routes: dict, before: dict) -> dict:
+    """The launches of each route of a kernel (``routes``, its module's
+    counter dict) since ``before``."""
+    return {r: n - before[r] for r, n in routes.items()}
 
 
 def sweep(ops, dtype, KV, G, Dh, page=16, nb=64, B=8, C=16):
@@ -224,7 +233,7 @@ def sweep(ops, dtype, KV, G, Dh, page=16, nb=64, B=8, C=16):
         r = ops.paged_prefill_plain(qc, kp, vp, row, offset, valid, scale)
         err_pre = max(err_pre, (o[0, :valid].float() - r[0, :valid].float()).abs().max().item())
     route = ops.prefill_route(dtype, Dh, Dh)
-    moved = routes_moved(ops, before)
+    moved = routes_moved(ops.ROUTE_LAUNCHES, before)
     check(moved == {r: len(calls) * (r == route) for r in moved},
           f"paged_prefill {dtype} Dh={Dh}: routes {moved}, want all {route}")
     return err_dec, err_pre
@@ -269,8 +278,13 @@ def sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits, page=16, nb=64, B=8, C=16):
     bt_t = torch.tensor(bt, device=DEVICE)
     len_t = torch.tensor(lengths, device=DEVICE)
     scale = Dh ** -0.5
+    before = dict(cpq_ops.DECODE_ROUTE_LAUNCHES)
     out = cpq_ops.paged_cpq_decode(q, kt, vt, bt_t, len_t, scale)
     torch.cuda.synchronize()
+    route = cpq_ops.cpq_decode_route(Dh, Dh)
+    moved = routes_moved(cpq_ops.DECODE_ROUTE_LAUNCHES, before)
+    check(moved == {r: int(r == route) for r in moved},
+          f"paged_cpq_decode {dtype} Dh={Dh}: routes {moved}, want {route}")
     ref = cpq_ops.paged_cpq_decode_plain(q, kt, vt, bt_t, len_t, scale)
     err_dec = (out.float() - ref.float()).abs().max().item()
     check(not out[0].any().item(), "paged_cpq_decode: an empty row is not zero")
@@ -287,7 +301,7 @@ def sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits, page=16, nb=64, B=8, C=16):
                                             valid, scale)
         err_pre = max(err_pre, (o[0, :valid].float() - r[0, :valid].float()).abs().max().item())
     route = cpq_ops.cpq_prefill_route(dtype, Dh, Dh, kt.scale.shape[1])
-    moved = routes_moved(cpq_ops, before)
+    moved = routes_moved(cpq_ops.ROUTE_LAUNCHES, before)
     check(moved == {r: len(calls) * (r == route) for r in moved},
           f"paged_cpq_prefill {dtype} Dh={Dh}: routes {moved}, want all {route}")
     return err_dec, err_pre
@@ -301,7 +315,10 @@ T1_SHAPES = ((16, 1024, 16, 32), (16, 512, 1, 64), (8, 256, 1, 0),  # H, Dm, kv_
 def sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr, page=16, nb=64, B=8, C=16):
     """Max abs error of B3 and B4 against their plain versions on the layout
     of ``sweep``: an empty row, ragged rows, a long row with a partial last
-    page serving the prefill chunks, a poisoned null page."""
+    page serving the prefill chunks of ``chunk_calls`` (at qwen1.5-0.5b's
+    widths the served chunks: a first chunk, valid < C, a mid-page offset,
+    past 512 keys, chunks of 8), a poisoned null page. Every B4 call must
+    take the route its dtype and widths pick."""
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     num_pages, lengths, bt = layout(rng, B, nb, page)
@@ -322,13 +339,19 @@ def sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr, page=16, nb=64, B=8, C=16):
     check(not out[0].any().item(), "paged_decomposed_decode: an empty row is not zero")
     err_pre = 0.0
     row = bt_t[-1]
-    for offset, valid in ((0, C), (C, 5), (512, C), (int(lengths[-1]) - 3, 3)):
-        rc, qc = randn(C, H, Dm), randn(C, H, Rr)
+    calls = chunk_calls(int(lengths[-1]), C)
+    before = dict(t1_ops.ROUTE_LAUNCHES)
+    for offset, valid, c in calls:
+        rc, qc = randn(c, H, Dm), randn(c, H, Rr)
         o = t1_ops.paged_decomposed_prefill_fwd(rc, qc, xp, krp, row, offset, valid, scale)
         torch.cuda.synchronize()
         ref = t1_ops.paged_decomposed_prefill_plain(rc, qc, xp, krp, row, offset, valid,
                                                     scale)
         err_pre = max(err_pre, (o[:valid].float() - ref[:valid].float()).abs().max().item())
+    route = t1_ops.t1_prefill_route(dtype, Dm, Rr)
+    moved = routes_moved(t1_ops.ROUTE_LAUNCHES, before)
+    check(moved == {r: len(calls) * (r == route) for r in moved},
+          f"paged_decomposed_prefill {dtype} Dm={Dm} Rr={Rr}: routes {moved}, want all {route}")
     return err_dec, err_pre
 
 
@@ -930,21 +953,22 @@ def log_profile(what: str, prof: list[dict]) -> None:
             log(f"profile:   {k['ms']:8.3f} ms {k['count']:5d}x {k['name'][:100]}")
 
 
-def zero_routes(route_mods: dict) -> None:
-    for mod in route_mods.values():
-        for r in mod.ROUTE_LAUNCHES:
-            mod.ROUTE_LAUNCHES[r] = 0
+def zero_routes(routed: dict) -> None:
+    for counter, _ in routed.values():
+        for r in counter:
+            counter[r] = 0
 
 
-def check_chunk_routes(what: str, route_mods: dict, counts: dict) -> dict:
-    """Every chunk launch of a bf16 serve (B2, B6) took the tensor-core
-    route: each route counter against the wrapper's launches. Returns the
-    route counts by kernel."""
-    routes = {name: dict(mod.ROUTE_LAUNCHES) for name, mod in route_mods.items()}
+def check_routes(what: str, routed: dict, counts: dict) -> dict:
+    """Every launch of a kernel with two routes took the route a bf16 serve
+    gives it (B2, B4 and B6 the tensor cores, B5 the single-query decode):
+    each route counter against the wrapper's launches. Returns the route
+    counts by kernel."""
+    routes = {name: dict(counter) for name, (counter, _) in routed.items()}
     for name, got in routes.items():
-        n = counts.get(name, 0)
-        check(got == {"tensor_core": n, "sweep": 0},
-              f"{what}: {name} routes {got} for {n} chunk launches")
+        n, served = counts.get(name, 0), routed[name][1]
+        check(got == {r: n * (r == served) for r in got},
+              f"{what}: {name} routes {got} for {n} launches, want all {served}")
     return routes
 
 
@@ -1793,6 +1817,10 @@ def main() -> int:
                     help="root of another checkout of the repository (for example the "
                          "parent commit): build its kernels too and fail unless every "
                          "kernel both builds compile has the same ptxas report")
+    ap.add_argument("--changed", default="",
+                    help="with --against: comma-separated substrings of '<source> "
+                         "<kernel>' whose ptxas reports may differ (kernels changed on "
+                         "purpose); every difference is still printed")
     args = ap.parse_args()
     global T0
     T0 = time.perf_counter()
@@ -1828,7 +1856,12 @@ def main() -> int:
              "paged_proxy_scores": t3_ops, "flash_attention": fa_ops,
              "decomposed_decode": t1_ops, "cpq_decode": cpq_ops}
     counted = [(mod, name) for name, mod in kmods.items()] + [(t3_ops, "proxy_scores")]
-    route_mods = {"paged_prefill": ops, "paged_cpq_prefill": cpq_ops}  # B2, B6: two routes
+    # the kernels with two routes: their route counters, and the route every
+    # launch of a bf16 serve takes
+    routed = {"paged_prefill": (ops.ROUTE_LAUNCHES, "tensor_core"),
+              "paged_cpq_prefill": (cpq_ops.ROUTE_LAUNCHES, "tensor_core"),
+              "paged_decomposed_prefill": (t1_ops.ROUTE_LAUNCHES, "tensor_core"),
+              "paged_cpq_decode": (cpq_ops.DECODE_ROUTE_LAUNCHES, "single_query")}
 
     # 2) build: one nvcc per source, all started together (B7's two wrappers
     #    share one source, built once; B8's three routes have a source each)
@@ -1852,11 +1885,18 @@ def main() -> int:
         cmp = build.compare(args.against, build.reports(sorted(build.KERNELS_DIR.glob(
             "*/csrc/*.cu"))))
         differ = sorted(k for k, same in cmp["compared"].items() if not same)
+        named = [c for c in args.changed.split(",") if c]
+        unnamed = [k for k in differ if not any(c in k for c in named)]
         report["ptxas_against"] = {"against": args.against, "compared": cmp["compared"],
+                                   "changed": named, "differ": differ,
                                    "seconds": time.perf_counter() - t0}
         log(f"{build.verdict(cmp)} (against {args.against}, "
-            f"{report['ptxas_against']['seconds']:.1f} s)")
-        check(not differ, f"ptxas reports differ from {args.against}: {differ}")
+            f"{report['ptxas_against']['seconds']:.1f} s); differ, named by --changed: "
+            f"{len(differ) - len(unnamed)}")
+        for k in differ:
+            src, name = k.split(" ", 1)
+            log(f"ptxas differs: {k}: {cmp['this'][src][name]} (was {cmp['against'][src][name]})")
+        check(not unnamed, f"ptxas reports differ from {args.against}: {unnamed}")
 
     # 3) kernels against their plain versions
     errs = {name: {} for name in kmods}
@@ -1886,7 +1926,8 @@ def main() -> int:
             errs["paged_decomposed_decode"][tag] = e_dec
             errs["paged_decomposed_prefill"][tag] = e_pre
             log(f"sweep {tag}: paged_decomposed_decode {e_dec:.3e}, "
-                f"paged_decomposed_prefill {e_pre:.3e} (tol {TOL[dtype]})")
+                f"paged_decomposed_prefill {e_pre:.3e} "
+                f"({t1_ops.t1_prefill_route(dtype, Dm, Rr)} route; tol {TOL[dtype]})")
         dname = str(dtype).removeprefix("torch.")
         for name, sweep_fn, mod in (("flash_attention", sweep_flash, fa_ops),
                                     ("decomposed_decode", sweep_t1c, t1_ops)):
@@ -1971,13 +2012,13 @@ def main() -> int:
                                       device=DEVICE)
         recs = recorders_of(dec, pre)
         run = make_requests(T, cfg.vocab_size)  # a served Request keeps its tokens
-        zero_routes(route_mods)
+        zero_routes(routed)
         results, stats, ticks, wall, counts = serve_recorded(eng, T, run, recs)
         check_finished(results, run, mode)
         check(counts[dec] == L * stats["decode_steps"] and counts[pre] == L * stats["prefill_chunks"],
               f"{mode}: launch counts {counts} vs {stats['decode_steps']} decode ticks and "
               f"{stats['prefill_chunks']} chunks")
-        routes = check_chunk_routes(mode, route_mods, counts)
+        routes = check_routes(mode, routed, counts)
         serves[mode] = serve_metrics(stats, ticks, wall, mode)
         serves[mode]["launches"] = counts
         serves[mode]["routes"] = routes
@@ -2001,8 +2042,9 @@ def main() -> int:
                 f"{d['arena_bytes']} bytes")
         del eng, recs
         torch.cuda.empty_cache()
-        # chunk ticks: 10 dense, 5 cpq (its host-bound chunk tick is slow to profile)
-        chunk = {"dense": [(40, 50)], "cpq": [(40, 45)]}.get(mode, [])
+        # chunk ticks: 10 dense, 5 cpq (its host-bound chunk tick is slow to
+        # profile) and 5 decomposed
+        chunk = {"dense": [(40, 50)], "cpq": [(40, 45)], "decomposed": [(40, 45)]}.get(mode, [])
         windows = chunk + [mid_decode_window(ticks)]
         report["profile"][mode] = profile_windows(
             lambda: T.ContinuousServeEngine(cfg, params, rt=rts[mode], serving=serving,
@@ -2030,7 +2072,7 @@ def main() -> int:
                       "paged_cpq_prefill")
     for name, mod in kmods.items():
         getattr(mod, name).launches = 0
-    zero_routes(route_mods)
+    zero_routes(routed)
     S.Scheduler.admit_next = admit_counted
     run = make_requests(T, cfg.vocab_size)
     try:
@@ -2038,7 +2080,7 @@ def main() -> int:
     finally:
         S.Scheduler.admit_next = admit
     counts = {name: kmods[name].__dict__[name].launches for name in tiered_kernels}
-    routes = check_chunk_routes("tiered", route_mods, counts)
+    routes = check_routes("tiered", routed, counts)
     check(not any(getattr(mod, name).launches for name, mod in kmods.items()
                   if name not in tiered_kernels), "tiered: a T1 or T3 kernel launched")
     check_finished(results, run, "tiered")
@@ -2210,6 +2252,11 @@ def main() -> int:
                 "decomposed_decode": "src/repro/kernels/decomposed_attn/kernel.py:298",
                 "cpq_decode": "src/repro/kernels/cpq_dequant_attn/kernel.py:338"}
     source = {name: mod.SOURCES[name] for name, mod in kmods.items()}
+    route_source = {  # the header of each served route
+        "paged_prefill": ops.CSRC / "paged_chunk.cuh",
+        "paged_cpq_prefill": ops.CSRC / "paged_chunk.cuh",
+        "paged_decomposed_prefill": t1_ops.CSRC / "paged_decomposed_chunk.cuh",
+        "paged_cpq_decode": fa_ops.CSRC / "single_query.cuh"}
     source.update(flash_attention=fa_ops.SOURCES["flash_decode"],
                   flash_attention_prompt=fa_ops.SOURCES["flash_prompt"])
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
@@ -2253,11 +2300,12 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library": library[name], "timed_samples": t["samples"],
             "launches_by_serve": by_serve})
-        if name in route_mods:  # B2, B6: the bf16 chunks' tensor-core kernel
-            kernels[-1].update(
-                tensor_core_source=os.path.relpath(str(ops.CSRC / "paged_chunk.cuh"), root),
-                routes_by_serve={mode: sv["routes"][name] for mode, sv in serves.items()
-                                 if sv.get("routes", {}).get(name, {}).get("tensor_core")})
+        if name in routed:  # B2, B4, B6: the tensor-core kernel; B5: the single-query one
+            route = routed[name][1]
+            kernels[-1].update({
+                f"{route}_source": os.path.relpath(str(route_source[name]), root),
+                "routes_by_serve": {mode: sv["routes"][name] for mode, sv in serves.items()
+                                    if sv.get("routes", {}).get(name, {}).get(route)}})
     report["kernels"] = kernels
     report["run_s"] = time.perf_counter() - T0
     if args.out:

@@ -1,14 +1,17 @@
 // T2 attention straight over int8 CPQ code pages, for Hopper (sm_90a).
 //
-// Shared device code of the port's three CPQ kernels: paged_cpq_decode.cu
-// (one query token per request row), paged_cpq_prefill.cu (one prompt
-// chunk of one slot: the slot's earlier code pages, then the chunk's own raw
-// K/V under a causal mask) and cpq_decode.cu (one query token per row over
-// contiguous (B, N, KV, D) code arenas with one length: no block table,
-// page 1, token t of row b at arena row b * N + t). The arena holds int8 codes `c8 = code - 128`
-// (P, page, KV, D), one int32 HQE level per (token, kv head) (P, page, KV)
-// and, per request slot, a float32 scale and zero table (L, KV, D) for K
-// and for V. A code dequantizes to exactly 0 when code == 0 and to
+// The CUDA-core sweep of the port's paged CPQ kernels: the sweep route of
+// B6 (paged_cpq_prefill.cu: one prompt chunk of one slot, the slot's
+// earlier code pages, then the chunk's own raw K/V under a causal mask;
+// float32 chunks and widths its tensor-core route does not take) and of B5
+// (paged_cpq_decode.cu: one query token per request row; only at widths
+// that are not multiples of 16). bf16 chunks of B6 run
+// ../../paged_attn/csrc/paged_chunk.cuh; B5 at multiples of 16, and B10
+// (cpq_decode.cu), run ../../flash_attn/csrc/single_query.cuh. The arena
+// holds int8 codes `c8 = code - 128` (P, page, KV, D), one int32 HQE level
+// per (token, kv head) (P, page, KV) and, per request slot, a float32 scale
+// and zero table (L, KV, D) for K and for V. A code dequantizes to exactly
+// 0 when code == 0 and to
 // (code - 1) * scale[level][d] + zero[level][d] otherwise.
 //
 // What bounds it: device-memory traffic, now of one byte per K/V element
@@ -25,10 +28,8 @@
 // Numerics follow the TPU kernels (src/repro/kernels/cpq_dequant_attn/
 // kernel.py): the paged kernels round the dequantized K and V tiles to bf16
 // and back to float (:112-117, :184-187), and the chunk's raw K/V tail is
-// not rounded (:200-201); the contiguous kernel rounds under the
-// compile-time switch kRound (its TPU kernel does not, :30-40, while the
-// contiguous decode the static engine serves, cpq_chunked_decode_attention,
-// does).
+// not rounded (:200-201). (kRound off, float32 tiles, was the function of
+// B10's first version; the port instantiates these kernels with it on.)
 // The dequantization (code - 1) * scale + zero is one fused multiply-add,
 // rounded once, as XLA compiles it for the reference and as the plain
 // version computes it, so no value lands on the other side of a bf16

@@ -26,6 +26,14 @@ levels before the launch and counted apart in ``ROUTE_LAUNCHES``:
 ``paged_attn/csrc/paged_chunk.cuh``) and ``sweep`` (everything else: the
 CUDA-core sweep of ``csrc/cpq_attn.cuh``).
 
+B5 has two routes too, picked by ``cpq_decode_route`` from the widths and
+counted apart in ``DECODE_ROUTE_LAUNCHES``: ``single_query`` (Dh and Dv
+multiples of 16 up to 256, bf16 or float32: the single-query decode of
+``flash_attn/csrc/single_query.cuh`` with its code loader and paged
+addressing, splits of ``DECODE_SPLIT_KEYS`` planned from the arena's
+capacity and merged by the last block) and ``sweep`` (other widths:
+``csrc/cpq_attn.cuh``'s sweep).
+
 Semantics (the TPU kernels'): a stored code ``c8`` means ``c = c8 + 128``;
 ``c == 0`` is exactly 0, else ``(c - 1) * scale[level] + zero[level]``; a
 level outside [0, L) reads scale = zero = 0. The dequantized K and V are
@@ -52,8 +60,14 @@ CSRC = Path(__file__).parent / "csrc"
 SOURCES = {"paged_cpq_decode": CSRC / "paged_cpq_decode.cu",
            "paged_cpq_prefill": CSRC / "paged_cpq_prefill.cu",
            "cpq_decode": CSRC / "cpq_decode.cu"}
-ROUTE_LAUNCHES = {"tensor_core": 0, "sweep": 0}
+ROUTE_LAUNCHES = {"tensor_core": 0, "sweep": 0}  # B6's launches by route
+DECODE_ROUTE_LAUNCHES = {"single_query": 0, "sweep": 0}  # B5's
 MAX_CHUNK_LEVELS = 16  # the tensor-core route keeps the slot's tables in shared memory
+# B5's single_query route: keys per split, one pass of a block's 4 warps of
+# 32 keys at the served width (faster than 64 or 256 on an H100: PERF.md,
+# section 6), and most splits, past which long arenas take longer splits
+DECODE_SPLIT_KEYS = 128
+DECODE_MAX_SPLITS = 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -61,6 +75,10 @@ _ARGTYPES = {
     # scale_v, zero_v, block_table, lengths, out, part,
     # B, H, KV, Dh, Dv, page, nb, L, pages_per_split, scale, stream
     "paged_cpq_decode": [_I] + [_P] * 13 + [_I] * 9 + [_F, _P],
+    # is_bf16, q, codes_k, codes_v, level_k, level_v, scale_k, zero_k,
+    # scale_v, zero_v, block_table, lengths, out, part, counters,
+    # B, H, KV, Dh, Dv, page, nb, L, splits, split_keys, scale, stream
+    "paged_cpq_decode_sq": [_I] + [_P] * 14 + [_I] * 10 + [_F, _P],
     # is_bf16, q, codes_k, codes_v, level_k, level_v, scale_k, zero_k,
     # scale_v, zero_v, k_raw, v_raw, block_row, out, part,
     # C, H, KV, Dh, Dv, page, nb, L, pages_per_split, page_splits, offset,
@@ -91,6 +109,26 @@ def cpq_prefill_route(dtype: torch.dtype, Dh: int, Dv: int, levels: int) -> str:
     if levels <= MAX_CHUNK_LEVELS and prefill_route(dtype, Dh, Dv) == "tensor_core":
         return "tensor_core"
     return "sweep"
+
+
+def cpq_decode_route(Dh: int, Dv: int) -> str:
+    """The route B5 takes on the card: ``single_query`` for Dh and Dv
+    multiples of 16 (the code loader's 16-byte chunk) up to 256, ``sweep``
+    otherwise; either dtype."""
+    if (Dh % 16 == 0 and Dv % 16 == 0 and 16 <= min(Dh, Dv)
+            and max(Dh, Dv) <= single_query.MAX_HEAD_DIM):
+        return "single_query"
+    return "sweep"
+
+
+def decode_plan(capacity: int) -> tuple[int, int]:
+    """B5's single_query key splits over ``capacity`` = nb * page keys,
+    planned on the host without reading the lengths (they live on the
+    card; the blocks of splits past a row's length exit at once): splits of
+    DECODE_SPLIT_KEYS keys, longer ones (a multiple of 16) past
+    DECODE_MAX_SPLITS of them. Returns (splits, keys per split)."""
+    keys = max(DECODE_SPLIT_KEYS, -(-capacity // (16 * DECODE_MAX_SPLITS)) * 16)
+    return -(-capacity // keys), keys
 
 
 def _check_cuda(name: str, q: torch.Tensor, kt, vt, ints: list[torch.Tensor],
@@ -182,18 +220,28 @@ def paged_cpq_decode(q, kt, vt, block_table, lengths, scale: float):
             f"{tuple(kt.scale.shape)}, block_table {tuple(block_table.shape)}, "
             f"lengths {tuple(lengths.shape)}")
     _check_cuda("paged_cpq_decode", q, kt, vt, [block_table, lengths])
-    pps = max(1, SPLIT_TOKENS // page)
-    splits = -(-nb // pps)
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
-    part = torch.empty(B * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
-    run(launcher("paged_cpq_decode"), "paged_cpq_decode", q.device,
-        int(q.dtype == torch.bfloat16), q.data_ptr(),
-        kt.codes.data_ptr(), vt.codes.data_ptr(), kt.level.data_ptr(),
-        vt.level.data_ptr(), kt.scale.data_ptr(), kt.zero.data_ptr(),
-        vt.scale.data_ptr(), vt.zero.data_ptr(), block_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
-        B, H, KV, Dh, Dv, page, nb, L, pps, float(scale))
+    arenas = (kt.codes.data_ptr(), vt.codes.data_ptr(), kt.level.data_ptr(),
+              vt.level.data_ptr(), kt.scale.data_ptr(), kt.zero.data_ptr(),
+              vt.scale.data_ptr(), vt.zero.data_ptr(), block_table.data_ptr(),
+              lengths.data_ptr(), out.data_ptr())
+    route = cpq_decode_route(Dh, Dv)
+    if route == "single_query":
+        splits, keys = decode_plan(nb * page)
+        part = torch.empty(B * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
+        run(launcher("paged_cpq_decode", "paged_cpq_decode_sq"), "paged_cpq_decode",
+            q.device, int(q.dtype == torch.bfloat16), q.data_ptr(), *arenas,
+            part.data_ptr(), single_query.counters(B * H, q.device).data_ptr(),
+            B, H, KV, Dh, Dv, page, nb, L, splits, keys, float(scale))
+    else:
+        pps = max(1, SPLIT_TOKENS // page)
+        splits = -(-nb // pps)
+        part = torch.empty(B * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
+        run(launcher("paged_cpq_decode"), "paged_cpq_decode", q.device,
+            int(q.dtype == torch.bfloat16), q.data_ptr(), *arenas, part.data_ptr(),
+            B, H, KV, Dh, Dv, page, nb, L, pps, float(scale))
     paged_cpq_decode.launches += 1
+    DECODE_ROUTE_LAUNCHES[route] += 1
     return out
 
 

@@ -18,7 +18,14 @@
 // its key split again (from L2 after the first block). Bound by the slot's
 // live X and roped-key bytes; near the bf16 tensor-core ridge in flops
 // (see paged_decomposed.cuh for the design).
+//
+// Two routes, picked by the wrapper before the launch (t1_prefill_route in
+// ../ops.py): bf16 chunks of the widths paged_decomposed_chunk.cuh takes run
+// on the tensor cores (paged_decomposed_prefill_mma_launch); float32 chunks
+// and other widths run the CUDA-core sweep of paged_decomposed.cuh
+// (paged_decomposed_prefill_launch), described above.
 #include "paged_decomposed.cuh"
+#include "paged_decomposed_chunk.cuh"
 
 extern "C" int paged_decomposed_prefill_launch(
     int is_bf16, const void* r, const void* q_rope, const void* x_pages,
@@ -49,4 +56,32 @@ extern "C" int paged_decomposed_prefill_launch(
   p.pages_per_split = pages_per_split;
   p.scale = scale;
   return decomposed_attn::dispatch(is_bf16, p, stream);
+}
+
+// The tensor-core route: r, q_rope, x_pages, kr_pages, out bf16; splits and
+// split_keys as decomposed_chunk::launch says.
+extern "C" int paged_decomposed_prefill_mma_launch(
+    const void* r, const void* q_rope, const void* x_pages, const void* kr_pages,
+    const void* block_row, void* out, int C, int H, int kv_r, int Rr, int Dm, int page,
+    int nb, int offset, int valid, int splits, int split_keys, float scale, void* stream) {
+  if (valid < 1 || valid > C) return cudaErrorInvalidValue;
+  using decomposed_chunk::bf16;
+  decomposed_chunk::Params p{};
+  p.r = static_cast<const bf16*>(r);
+  p.qr = static_cast<const bf16*>(q_rope);
+  p.x = static_cast<const bf16*>(x_pages);
+  p.kr = static_cast<const bf16*>(kr_pages);
+  p.block_row = static_cast<const int*>(block_row);
+  p.out = static_cast<bf16*>(out);
+  p.C = C;
+  p.H = H;
+  p.kv_r = kv_r;
+  p.Rr = Rr;
+  p.Dm = Dm;
+  p.page = page;
+  p.offset = offset;
+  p.end = offset + valid;
+  p.splits = splits;
+  p.split_keys = split_keys;
+  return decomposed_chunk::launch(p, nb, scale, stream);
 }

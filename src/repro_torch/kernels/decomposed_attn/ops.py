@@ -29,6 +29,18 @@ positions at or past a row's length contribute nothing and a row of length
 0 returns zeros. ``Rr == 0`` (absolute positions) has no roped term. The
 CUDA kernels take d_model up to 8192 (a multiple of 8 past 2048, of 16 past
 4096).
+
+B4 has two routes, picked by ``t1_prefill_route`` from dtype and widths
+before the launch and counted apart in ``ROUTE_LAUNCHES``:
+
+  ``tensor_core``  bf16, d_model a multiple of 8 up to ``MAX_CHUNK_DM``, a
+                   roped slice of 0 or a multiple of 8 up to
+                   ``MAX_CHUNK_RR``: mma.sync (``csrc/paged_decomposed_chunk.cuh``),
+                   one launch, a row tile's key splits one thread-block
+                   cluster that merges through distributed shared memory
+  ``sweep``        float32 (TF32 would miss the float32 gate) and every
+                   other width: the CUDA-core sweep (``csrc/paged_decomposed.cuh``,
+                   which B3 and B9 share) and its merge pass
 """
 from __future__ import annotations
 
@@ -37,8 +49,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.paged_attn.ops import NEG_INF, run
+from repro_torch.kernels import build, single_query
+from repro_torch.kernels.paged_attn.ops import NEG_INF, aligned16, run
 from repro_torch.kernels.paged_attn.ops import _check_cuda as _check_common
 
 CSRC = Path(__file__).parent / "csrc"
@@ -55,6 +67,16 @@ SPLIT_TOKENS = {"decode": 16, "prefill": 32}  # the contiguous decode as "decode
 # query rows per block (kRows) up to d_model 2048; wider models take 4 or 2
 # rows a block, whose partials fit in the buffer sized for 16
 ROWS = 16
+ROUTE_LAUNCHES = {"tensor_core": 0, "sweep": 0}  # B4's launches by route
+MAX_CHUNK_DM = 1024   # the tensor-core route: d_model (its warps' slices of O in registers)
+MAX_CHUNK_RR = 64     # ... and the roped slice (k16 steps of the first warps)
+CHUNK_ROWS = 16       # ... query rows per block (one m16 tile of one roped group)
+CHUNK_KEYS = 32       # ... keys per tile
+CHUNK_SPLIT_KEYS = 64  # ... least keys per split (two tiles)
+# ... and most splits: a row tile's splits are one thread-block cluster, and
+# on an H100 16 clusters of 8 blocks of 184 KB of shared memory did not fit
+# the card at once where clusters of 4 did (PERF.md, section 6)
+MAX_CHUNK_SPLITS = 4
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -64,15 +86,42 @@ _ARGTYPES = {
     # is_bf16, r, q_rope, x_pages, kr_pages, block_row, out, part,
     # C, H, kv_r, Rr, Dm, page, nb, pages_per_split, offset, valid, scale, stream
     "paged_decomposed_prefill": [_I] + [_P] * 7 + [_I] * 10 + [_F, _P],
+    # r, q_rope, x_pages, kr_pages, block_row, out,
+    # C, H, kv_r, Rr, Dm, page, nb, offset, valid, splits, split_keys, scale, stream
+    "paged_decomposed_prefill_mma": [_P] * 6 + [_I] * 11 + [_F, _P],
     # is_bf16, r, q_rope, x, k_rope, out, part,
     # B, H, kv_r, Rr, Dm, N, length, split_tokens, scale, stream
     "decomposed_decode": [_I] + [_P] * 6 + [_I] * 8 + [_F, _P],
 }
 
 
-def launcher(name: str):
-    """The C entry point ``<name>_launch``, building its library first."""
-    return build.c_function(SOURCES[name], f"{name}_launch", _ARGTYPES[name])
+def launcher(name: str, entry: str | None = None):
+    """The C entry point ``<entry or name>_launch`` of ``name``'s source,
+    building its library first."""
+    entry = entry or name
+    return build.c_function(SOURCES[name], f"{entry}_launch", _ARGTYPES[entry])
+
+
+def t1_prefill_route(dtype: torch.dtype, Dm: int, Rr: int) -> str:
+    """The route B4 takes on the card: ``tensor_core`` for bf16 with d_model
+    a multiple of 8 up to MAX_CHUNK_DM and a roped slice of 0 or a multiple
+    of 8 up to MAX_CHUNK_RR, ``sweep`` otherwise."""
+    if (dtype == torch.bfloat16 and Dm % 8 == 0 and 8 <= Dm <= MAX_CHUNK_DM
+            and Rr % 8 == 0 and 0 <= Rr <= MAX_CHUNK_RR):
+        return "tensor_core"
+    return "sweep"
+
+
+def t1_chunk_plan(C: int, H: int, kv_r: int, end: int, device: torch.device):
+    """The tensor-core route's key splits over its row tiles (CHUNK_ROWS rows
+    of one roped group each): ``single_query.plan`` over the tiles and
+    ``end`` keys (about one wave, at least CHUNK_SPLIT_KEYS keys and at most
+    MAX_CHUNK_SPLITS splits), in whole tiles of CHUNK_KEYS. Returns
+    (splits, split_keys)."""
+    tiles = kv_r * -(-(H // kv_r) * C // CHUNK_ROWS)
+    splits, keys = single_query.plan(tiles, end, device, CHUNK_SPLIT_KEYS, MAX_CHUNK_SPLITS)
+    keys = -(-keys // CHUNK_KEYS) * CHUNK_KEYS
+    return -(-end // keys), keys
 
 
 def _kv_r(q_rope, kr_pages) -> int:
@@ -250,16 +299,27 @@ def paged_decomposed_prefill_fwd(r, q_rope, x_pages, kr_pages, block_row, offset
     if not (offset >= 0 and 1 <= valid <= C):
         raise ValueError(f"paged_decomposed_prefill: offset={offset}, valid={valid}, C={C}")
     _check_cuda("paged_decomposed_prefill", r, q_rope, x_pages, kr_pages, [block_row])
-    pps = _pages_per_split("prefill", page)
-    splits = -(-nb // pps)
     out = torch.empty((C, H, Dm), dtype=x_pages.dtype, device=x_pages.device)
-    part = _partials(-(-H * C // ROWS), splits, Dm, x_pages.device)
-    run(launcher("paged_decomposed_prefill"), "paged_decomposed_prefill", x_pages.device,
-        int(x_pages.dtype == torch.bfloat16), r.data_ptr(), q_rope.data_ptr(),
-        x_pages.data_ptr(), kr_pages.data_ptr(), block_row.data_ptr(), out.data_ptr(),
-        part.data_ptr(), C, H, kv_r, Rr, Dm, page, nb, pps, int(offset), int(valid),
-        float(scale))
+    route = t1_prefill_route(x_pages.dtype, Dm, Rr)
+    if route == "tensor_core":
+        splits, keys = t1_chunk_plan(C, H, kv_r, offset + valid, x_pages.device)
+        r, q_rope = aligned16(r), aligned16(q_rope)
+        run(launcher("paged_decomposed_prefill", "paged_decomposed_prefill_mma"),
+            "paged_decomposed_prefill", x_pages.device, r.data_ptr(), q_rope.data_ptr(),
+            x_pages.data_ptr(), kr_pages.data_ptr(), block_row.data_ptr(), out.data_ptr(),
+            C, H, kv_r, Rr, Dm, page, nb, int(offset), int(valid), splits, keys,
+            float(scale))
+    else:
+        pps = _pages_per_split("prefill", page)
+        splits = -(-nb // pps)
+        part = _partials(-(-H * C // ROWS), splits, Dm, x_pages.device)
+        run(launcher("paged_decomposed_prefill"), "paged_decomposed_prefill",
+            x_pages.device, int(x_pages.dtype == torch.bfloat16), r.data_ptr(),
+            q_rope.data_ptr(), x_pages.data_ptr(), kr_pages.data_ptr(),
+            block_row.data_ptr(), out.data_ptr(), part.data_ptr(), C, H, kv_r, Rr, Dm,
+            page, nb, pps, int(offset), int(valid), float(scale))
     paged_decomposed_prefill.launches += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 

@@ -1,17 +1,22 @@
-// Single-query decode attention over contiguous arenas, for Hopper (sm_90a).
+// Single-query decode attention, for Hopper (sm_90a).
 //
-// Shared device code of the port's two contiguous decodes: the decode route
-// of B8 (flash_decode.cu: one query token per row over the written prefix
-// of a dense K/V arena, bf16 or float32) and B10 (../../cpq_attn/csrc/
-// cpq_decode.cu: the same over int8 CPQ codes). The element loader is the
-// template parameter: DenseKV reads K/V rows, CodeKV reads code rows and
-// their HQE levels and dequantizes in registers against the row's scale and
-// zero tables, which it keeps in shared memory.
+// Shared device code of the port's three single-query decodes: the decode
+// route of B8 (flash_decode.cu: one query token per row over the written
+// prefix of a dense K/V arena, bf16 or float32), B10 (../../cpq_attn/csrc/
+// cpq_decode.cu: the same over int8 CPQ codes) and B5 (../../cpq_attn/csrc/
+// paged_cpq_decode.cu: one token per request row over that row's CPQ code
+// pages). The element loader is a template parameter: DenseKV reads K/V
+// rows, CodeKV reads code rows and their HQE levels and dequantizes in
+// registers against the row's scale and zero tables, which it keeps in
+// shared memory. So is the addressing of key rows: ContigRows (B8, B10:
+// decode_kernel) or PagedRows (B5: paged_decode_kernel, the same body).
 //
 // Per (row b, kv head) the G query heads of the kv head share every key:
-// query row (b, kv, g) at b * q_sb + (kv * G + g) * Dh; key j of row b at
-// arena row (b * s_stride + j) * KV + kv; the first `len` keys of every row
-// are live; out (B, KV * G, Dv) in q's type.
+// query row (b, kv, g) at b * q_sb + (kv * G + g) * Dh; out (B, KV * G, Dv)
+// in q's type. ContigRows: key j of row b at arena row (b * s_stride + j) *
+// KV + kv, the first `len` keys of every row live. PagedRows: key j of row
+// b at arena row (block_table[b, j / page] * page + j % page) * KV + kv,
+// the first lengths[b] keys live (read on the device).
 //
 // What bounds it: the bytes of the live keys and values, read once (a few
 // operations per byte). A decode of 8 rows over 575 keys moves 10-19 MB,
@@ -33,7 +38,15 @@
 //     last block of a (row, kv head) to finish, counted on an atomic counter,
 //     merges them and writes the output: no merge kernel. It leaves the
 //     counter at zero for the next launch (launches that share a counter
-//     buffer must not overlap).
+//     buffer must not overlap). PagedRows plans the splits on the host from
+//     the arena's capacity, nb * page, since the lengths live on the card:
+//     the blocks whose split lies wholly past their row's length exit at
+//     once without arriving, the row's live splits (at least one) count
+//     and merge, and they arrive after one acquire-release atomic behind a
+//     block barrier (paged_chunk.cuh's, whose lesson was that a
+//     sequentially consistent fence in every thread costs more than a small
+//     attention); each block reads its split's block-table entries once,
+//     into shared memory.
 //   * A block serves GMAX query heads of its kv head (more heads take more
 //     blocks). Scores are exp2 of dot products with the query pre-scaled by
 //     scale * log2(e).
@@ -43,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "../../paged_attn/csrc/paged_chunk.cuh"
 
 namespace single_query {
 
@@ -199,10 +214,23 @@ struct CodeKV {
   }
 };
 
+// Key rows of contiguous arenas (B8's decode route, B10).
+struct ContigRows {
+  static constexpr bool kPaged = false;
+};
+
+// Key rows of a block-paged arena (B5); the null page is 0.
+struct PagedRows {
+  static constexpr bool kPaged = true;
+  const int* block_table;  // (B, nb)
+  const int* lengths;      // (B,)
+  int page, nb;
+};
+
 // One block per (split, kv head x head group, row b). QT: q and out; DP:
 // Dh and Dv padded to a power of two; GMAX query heads per block.
-template <class KVL, typename QT, int DP, int GMAX>
-__global__ void __launch_bounds__(kThreads) decode_kernel(Params p, KVL kvl) {
+template <class Rows, class KVL, typename QT, int DP, int GMAX>
+__device__ __forceinline__ void decode_body(const Params& p, KVL& kvl, const Rows& rows) {
   constexpr int EPL = KVL::kEPL;
   constexpr int NCH = DP / EPL;                      // 16-byte chunks per padded row
   constexpr int LPR = NCH < 32 ? NCH : 32;           // lanes per key row
@@ -219,7 +247,13 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params p, KVL kvl) {
   const int g0 = (blockIdx.y % p.head_groups) * GMAX;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = lane / LPR, c0 = lane % LPR;
-  const int k0 = split * p.split_keys, k1 = min(p.len, k0 + p.split_keys);
+  int len = p.len, nsplit = p.splits;  // the row's live keys and splits
+  if constexpr (Rows::kPaged) {
+    len = min(__ldg(rows.lengths + b), rows.nb * rows.page);
+    nsplit = max(1, (len + p.split_keys - 1) / p.split_keys);
+    if (split >= nsplit) return;  // the split lies wholly past the row's length
+  }
+  const int k0 = split * p.split_keys, k1 = min(len, k0 + p.split_keys);
 
   // this lane's slices of the query rows, pre-scaled (loaded while the
   // loader's tables come in)
@@ -237,6 +271,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params p, KVL kvl) {
       }
   kvl.setup(p, b, kv, smem);
   float* wpart = smem + kvl.table_bytes(p) / sizeof(float);  // [kWarps][GMAX][DP + 2]
+  // PagedRows: the physical pages of the split's keys, from page pg0 on
+  int* pages_s = reinterpret_cast<int*>(wpart + kWarps * GMAX * (DP + 2));
+  int pg0 = 0;
+  if constexpr (Rows::kPaged) {
+    pg0 = k0 / rows.page;
+    const int npg = k1 > k0 ? (k1 - 1) / rows.page - pg0 + 1 : 0;
+    const int* bt = rows.block_table + (long)b * rows.nb + pg0;
+    for (int i = tid; i < npg; i += kThreads) pages_s[i] = __ldg(bt + i);
+  }
   __syncthreads();
   float m[GMAX], l[GMAX], acc[GMAX][CPL][EPL];
 #pragma unroll
@@ -256,7 +299,14 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params p, KVL kvl) {
     for (int u = 0; u < U; ++u) {  // every load of the iteration first
       const int j = base + u * RPW + grp;
       live[u] = j < k1;
-      const long row = ((long)b * p.s_stride + j) * p.KV + kv;
+      long row;
+      if constexpr (Rows::kPaged) {
+        row = 0;  // past the split: no page looked up, nothing loaded
+        if (live[u])
+          row = ((long)pages_s[j / rows.page - pg0] * rows.page + j % rows.page) * p.KV + kv;
+      } else {
+        row = ((long)b * p.s_stride + j) * p.KV + kv;
+      }
 #pragma unroll
       for (int cc = 0; cc < CPL; ++cc) {
         kr[u][cc] = kvl.load(false, row, c0 + cc * LPR, p.Dh, live[u]);
@@ -358,11 +408,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params p, KVL kvl) {
   }
   __syncthreads();
 
-  const int rows = min(GMAX, p.G - g0);
+  const int nrow = min(GMAX, p.G - g0);
   const long row0 = ((long)b * p.KV + kv) * p.G + g0;  // first output row of the block
   QT* op = static_cast<QT*>(p.out);
   const long n_rows = (long)p.B * p.KV * p.G * p.splits;
-  for (int i = tid; i < rows * p.Dv; i += kThreads) {
+  for (int i = tid; i < nrow * p.Dv; i += kThreads) {
     const int g = i / p.Dv, d = i % p.Dv;
     float M = -INFINITY;
 #pragma unroll
@@ -377,7 +427,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params p, KVL kvl) {
         den = fmaf(wt, x[1], den);
       }
     }
-    if (p.splits == 1) {
+    if (nsplit == 1) {
       op[(row0 + g) * p.Dv + d] = from_f<QT>(den > 0.f ? num / den : 0.f);
     } else {
       const long at = (row0 + g) * p.splits + split;
@@ -388,24 +438,31 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params p, KVL kvl) {
       p.part[2 * n_rows + at * p.Dv + d] = num;
     }
   }
-  if (p.splits == 1) return;
+  if (nsplit == 1) return;
 
   // the last block of this (row, kv head, head group) merges the splits
-  __threadfence();
-  __syncthreads();
   int* counter = p.counters + (long)b * gridDim.y + blockIdx.y;
-  if (tid == 0) last_s = atomicAdd(counter, 1) == p.splits - 1;
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-  for (int i = tid; i < rows * p.Dv; i += kThreads) {
+  if constexpr (Rows::kPaged) {
+    __syncthreads();  // the block's partial stores precede thread 0's release
+    if (tid == 0) last_s = paged_chunk::atomic_add_acq_rel(counter, 1) == nsplit - 1;
+    __syncthreads();
+    if (!last_s) return;
+  } else {
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last_s = atomicAdd(counter, 1) == nsplit - 1;
+    __syncthreads();
+    if (!last_s) return;
+    __threadfence();
+  }
+  for (int i = tid; i < nrow * p.Dv; i += kThreads) {
     const int g = i / p.Dv, d = i % p.Dv;
     const long at = (row0 + g) * p.splits;
     float M = -INFINITY;
-    for (int s = 0; s < p.splits; ++s)
+    for (int s = 0; s < nsplit; ++s)
       if (__ldcg(p.part + n_rows + at + s) > 0.f) M = fmaxf(M, __ldcg(p.part + at + s));
     float num = 0.f, den = 0.f;
-    for (int s = 0; s < p.splits; ++s) {
+    for (int s = 0; s < nsplit; ++s) {
       const float ls = __ldcg(p.part + n_rows + at + s);
       if (ls > 0.f) {
         const float wt = exp2f(__ldcg(p.part + at + s) - M);
@@ -418,48 +475,75 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params p, KVL kvl) {
   if (tid == 0) *counter = 0;  // ready for the next launch
 }
 
+template <class KVL, typename QT, int DP, int GMAX>
+__global__ void __launch_bounds__(kThreads) decode_kernel(Params p, KVL kvl) {
+  decode_body<ContigRows, KVL, QT, DP, GMAX>(p, kvl, ContigRows{});
+}
+
+template <class KVL, typename QT, int DP, int GMAX>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p, KVL kvl,
+                                                                PagedRows rows) {
+  decode_body<PagedRows, KVL, QT, DP, GMAX>(p, kvl, rows);
+}
+
 // Launch with GMAX heads per block (G up to GMAX in one block, more in
 // head groups) and Dh, Dv padded to DP.
-template <class KVL, typename QT, int DP, int GMAX>
-int launch_g(Params p, const KVL& kvl, cudaStream_t stream) {
+template <class Rows, class KVL, typename QT, int DP, int GMAX>
+int launch_g(Params p, const KVL& kvl, const Rows& rows, cudaStream_t stream) {
   p.head_groups = (p.G + GMAX - 1) / GMAX;
-  const size_t bytes = kvl.table_bytes(p) + sizeof(float) * kWarps * GMAX * (DP + 2);
+  size_t bytes = kvl.table_bytes(p) + sizeof(float) * kWarps * GMAX * (DP + 2);
+  if constexpr (Rows::kPaged) bytes += sizeof(int) * (p.split_keys / rows.page + 2);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(decode_kernel<KVL, QT, DP, GMAX>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
   const dim3 grid(p.splits, p.KV * p.head_groups, p.B);
-  decode_kernel<KVL, QT, DP, GMAX><<<grid, kThreads, bytes, stream>>>(p, kvl);
+  if constexpr (Rows::kPaged) {
+    if (bytes > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<KVL, QT, DP, GMAX>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)bytes);
+      if (err != cudaSuccess) return err;
+    }
+    paged_decode_kernel<KVL, QT, DP, GMAX><<<grid, kThreads, bytes, stream>>>(p, kvl, rows);
+  } else {
+    if (bytes > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(decode_kernel<KVL, QT, DP, GMAX>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)bytes);
+      if (err != cudaSuccess) return err;
+    }
+    decode_kernel<KVL, QT, DP, GMAX><<<grid, kThreads, bytes, stream>>>(p, kvl);
+  }
   return cudaGetLastError();
 }
 
 // One head a block (MHA), or 4, or kMaxG, the most heads a block takes
 // (the int8 loader's registers allow 4, the dense loader's 8).
-template <class KVL, typename QT, int DP, int kMaxG>
-int launch_dp(const Params& p, const KVL& kvl, cudaStream_t stream) {
-  if (p.G == 1) return launch_g<KVL, QT, DP, 1>(p, kvl, stream);
-  if (p.G <= 4 || kMaxG == 4) return launch_g<KVL, QT, DP, 4>(p, kvl, stream);
-  return launch_g<KVL, QT, DP, kMaxG>(p, kvl, stream);
+template <class Rows, class KVL, typename QT, int DP, int kMaxG>
+int launch_dp(const Params& p, const KVL& kvl, const Rows& rows, cudaStream_t stream) {
+  if (p.G == 1) return launch_g<Rows, KVL, QT, DP, 1>(p, kvl, rows, stream);
+  if (p.G <= 4 || kMaxG == 4) return launch_g<Rows, KVL, QT, DP, 4>(p, kvl, rows, stream);
+  return launch_g<Rows, KVL, QT, DP, kMaxG>(p, kvl, rows, stream);
 }
 
 // Dh and Dv multiples of the loader's chunk up to 256, padded to a power of
 // two from 32; the counters hold B * KV * ceil(G / kMaxG) zeros or more.
-template <class KVL, typename QT, int kMaxG>
-int launch(Params p, const KVL& kvl, void* stream) {
+// PagedRows: p.len and p.s_stride are the capacity nb * page, which the
+// splits cover.
+template <class KVL, typename QT, int kMaxG, class Rows = ContigRows>
+int launch(Params p, const KVL& kvl, void* stream, const Rows& rows = Rows{}) {
   constexpr int EPL = KVL::kEPL;
   if (p.B < 1 || p.KV < 1 || p.G < 1 || p.len < 0 || p.s_stride < p.len ||
       p.splits < 1 || p.split_keys < 1 || (long)p.splits * p.split_keys < p.len ||
       p.Dh < 1 || p.Dv < 1 || p.Dh % EPL || p.Dv % EPL || p.Dh > 256 || p.Dv > 256)
     return cudaErrorInvalidValue;
+  if constexpr (Rows::kPaged) {
+    if (rows.page < 1 || rows.nb < 1 || p.len != rows.nb * rows.page) return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int D = p.Dh > p.Dv ? p.Dh : p.Dv;
-  if (D <= 32) return launch_dp<KVL, QT, 32, kMaxG>(p, kvl, s);
-  if (D <= 64) return launch_dp<KVL, QT, 64, kMaxG>(p, kvl, s);
-  if (D <= 128) return launch_dp<KVL, QT, 128, kMaxG>(p, kvl, s);
-  return launch_dp<KVL, QT, 256, kMaxG>(p, kvl, s);
+  if (D <= 32) return launch_dp<Rows, KVL, QT, 32, kMaxG>(p, kvl, rows, s);
+  if (D <= 64) return launch_dp<Rows, KVL, QT, 64, kMaxG>(p, kvl, rows, s);
+  if (D <= 128) return launch_dp<Rows, KVL, QT, 128, kMaxG>(p, kvl, rows, s);
+  return launch_dp<Rows, KVL, QT, 256, kMaxG>(p, kvl, rows, s);
 }
 
 }  // namespace single_query

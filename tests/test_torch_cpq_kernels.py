@@ -26,8 +26,9 @@ from repro.serving import paged_cache as jpgc
 from repro_torch.core import attention as t_attn
 from repro_torch.kernels.cpq_attn import ops
 from repro_torch.serving import paged_cache as tpgc
-from torch_paged_cases import (CPQ_DECODE_CASES, CPQ_PREFILL_CASES, SERVED_PREFILL_CASES,
-                               cpq_arena, cpq_decode_inputs, cpq_prefill_inputs,
+from torch_paged_cases import (CPQ_DECODE_CASES, CPQ_PREFILL_CASES, SERVED_CPQ_DECODE_CASES,
+                               SERVED_PREFILL_CASES, cpq_arena, cpq_decode_inputs,
+                               cpq_prefill_inputs, served_cpq_decode_inputs,
                                served_cpq_prefill_inputs)
 
 ATOL = 1e-5
@@ -41,9 +42,13 @@ def jax_arena(pool):
                                jnp.zeros((slots, KV, D), jnp.float32))
 
 
-@pytest.mark.parametrize("case", CPQ_DECODE_CASES)
+def _cpq_decode_case(case):
+    return (cpq_decode_inputs if case in CPQ_DECODE_CASES else served_cpq_decode_inputs)(*case)
+
+
+@pytest.mark.parametrize("case", CPQ_DECODE_CASES + SERVED_CPQ_DECODE_CASES)
 def test_plain_cpq_decode_matches_jax_kernel(case):
-    q, kp, vp, bt, lengths, scale = cpq_decode_inputs(*case)
+    q, kp, vp, bt, lengths, scale = _cpq_decode_case(case)
     ref = paged_cpq_decode_tpu(jnp.asarray(q), jax_arena(kp), jax_arena(vp),
                                jnp.asarray(bt), jnp.asarray(lengths), scale)
     before = ops.paged_cpq_decode.launches

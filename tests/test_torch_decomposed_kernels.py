@@ -29,8 +29,9 @@ from repro.kernels.decomposed_attn.ops import (paged_decomposed_decode_tpu,
                                                paged_decomposed_prefill_tpu)
 from repro_torch.core.decomposed_attention import decomposed_attention as t_decomposed
 from repro_torch.kernels.decomposed_attn import ops
-from torch_paged_cases import (T1_DECODE_CASES, T1_PREFILL_CASES, T1_WIDE,
-                               t1_decode_inputs, t1_prefill_inputs, tensors)
+from torch_paged_cases import (SERVED_T1_PREFILL_CASES, T1_DECODE_CASES, T1_PREFILL_CASES,
+                               T1_WIDE, served_t1_prefill_inputs, t1_decode_inputs,
+                               t1_prefill_inputs, tensors)
 
 ATOL = 1e-5
 
@@ -48,9 +49,10 @@ def test_plain_decomposed_decode_matches_jax_kernel(case):
     assert not out[torch.tensor(lengths == 0)].any()  # empty rows -> zeros
 
 
-@pytest.mark.parametrize("case", T1_PREFILL_CASES)
+@pytest.mark.parametrize("case", T1_PREFILL_CASES + SERVED_T1_PREFILL_CASES)
 def test_plain_decomposed_prefill_matches_jax_kernel(case):
-    r, qr, xp, krp, row, offset, valid, scale = t1_prefill_inputs(*case)
+    make = t1_prefill_inputs if case in T1_PREFILL_CASES else served_t1_prefill_inputs
+    r, qr, xp, krp, row, offset, valid, scale = make(*case)
     ref = paged_decomposed_prefill_fwd(*map(jnp.asarray, (r, qr, xp, krp, row)),
                                        jnp.asarray(offset, jnp.int32),
                                        jnp.asarray(valid, jnp.int32), scale=scale,

@@ -27,26 +27,38 @@ and B9 take d_model up to 8192 (the cases at 3072 and 4096, and the sweep of
 are multiples of 8 up to 256 take the tensor-core kernel, float32 chunks
 (and other bf16 widths) the CUDA-core sweep; each prefill test checks that
 its call took the route it must, on the layouts of the CPU tests and on
-``SERVED_PREFILL_CASES``.
+``SERVED_PREFILL_CASES``. B4 has two routes as well: bf16 chunks with
+d_model a multiple of 8 up to 1024 and a roped slice of 0 or a multiple of
+8 up to 64 take its tensor-core kernel, float32 chunks and other widths the
+sweep (``SERVED_T1_PREFILL_CASES``: qwen1.5-0.5b's chunks; the tensor-core
+route's cluster merge forced with small splits). B5 runs Dh and Dv
+multiples of 16 on the single-query decode, either dtype, and other widths
+on the sweep (``SERVED_CPQ_DECODE_CASES`` and ``CARD_CPQ_DECODE_CASES``:
+lengths on split boundaries, empty rows, a live row over an all-null block
+row, at the served shape and at GQA; two launches back to back leave the
+shared split counters at zero).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import single_query
 from repro_torch.kernels.cpq_attn import ops as cpq_ops
 from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.paged_attn import ops
 from repro_torch.kernels.topk_retrieval import ops as t3_ops
-from torch_paged_cases import (CONTIG_CPQ_CASES, CONTIG_PROXY_CASES, CONTIG_T1_CASES,
-                               CPQ_DECODE_CASES, CPQ_PREFILL_CASES, DECODE_CASES,
-                               FLASH_CASES, PREFILL_CASES, PROXY_CASES,
-                               SERVED_PREFILL_CASES, T1_DECODE_CASES, T1_PREFILL_CASES,
+from torch_paged_cases import (CARD_CPQ_DECODE_CASES, CONTIG_CPQ_CASES, CONTIG_PROXY_CASES,
+                               CONTIG_T1_CASES, CPQ_DECODE_CASES, CPQ_PREFILL_CASES,
+                               DECODE_CASES, FLASH_CASES, PREFILL_CASES, PROXY_CASES,
+                               SERVED_CPQ_DECODE_CASES, SERVED_PREFILL_CASES,
+                               SERVED_T1_PREFILL_CASES, T1_DECODE_CASES, T1_PREFILL_CASES,
                                T1_WIDE, contig_cpq_inputs, contig_proxy_inputs,
                                contig_t1_inputs, cpq_arena, cpq_decode_inputs,
                                cpq_prefill_inputs, decode_inputs, flash_inputs,
-                               prefill_inputs, proxy_inputs, served_cpq_prefill_inputs,
-                               served_prefill_inputs, t1_decode_inputs, t1_prefill_inputs,
+                               prefill_inputs, proxy_inputs, served_cpq_decode_inputs,
+                               served_cpq_prefill_inputs, served_prefill_inputs,
+                               served_t1_prefill_inputs, t1_decode_inputs, t1_prefill_inputs,
                                tensors)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -187,13 +199,59 @@ def test_cpq_decode_kernel_matches_plain(cuda, case, dtype):
     q, = _cpq_tensors(dtype, q)
     kt, vt = cpq_arena(kp, "cuda"), cpq_arena(vp, "cuda")
     bt, lengths = torch.tensor(bt, device="cuda"), torch.tensor(lengths, device="cuda")
-    before = cpq_ops.paged_cpq_decode.launches
+    before, routes = cpq_ops.paged_cpq_decode.launches, dict(cpq_ops.DECODE_ROUTE_LAUNCHES)
     out = cpq_ops.paged_cpq_decode(q, kt, vt, bt, lengths, scale)
     torch.cuda.synchronize()
     assert cpq_ops.paged_cpq_decode.launches == before + 1
+    route = cpq_ops.cpq_decode_route(q.shape[-1], vt.codes.shape[-1])
+    assert _route_moved(cpq_ops.DECODE_ROUTE_LAUNCHES, routes) == {
+        r: int(r == route) for r in routes}
     ref = cpq_ops.paged_cpq_decode_plain(q, kt, vt, bt, lengths, scale)
     torch.testing.assert_close(out.float(), ref.float(), atol=CPQ_TOL[dtype], rtol=0)
     assert not out[lengths == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SERVED_CPQ_DECODE_CASES + CARD_CPQ_DECODE_CASES)
+def test_cpq_decode_single_query_route(cuda, case, dtype, monkeypatch):
+    """B5 on the single-query route at the served page size and head dims:
+    lengths on split boundaries, an empty row, a live row over an all-null
+    block row (its codes' levels out of range: zeros, read in bounds). The
+    8-page cases take splits of 64 keys, so that their rows span two."""
+    if case in SERVED_CPQ_DECODE_CASES:
+        monkeypatch.setattr(cpq_ops, "DECODE_SPLIT_KEYS", 64)
+    q, kp, vp, bt, lengths, scale = served_cpq_decode_inputs(*case)
+    q, = _cpq_tensors(dtype, q)
+    kt, vt = cpq_arena(kp, "cuda"), cpq_arena(vp, "cuda")
+    bt, lengths = torch.tensor(bt, device="cuda"), torch.tensor(lengths, device="cuda")
+    routes = dict(cpq_ops.DECODE_ROUTE_LAUNCHES)
+    out = cpq_ops.paged_cpq_decode(q, kt, vt, bt, lengths, scale)
+    torch.cuda.synchronize()
+    assert _route_moved(cpq_ops.DECODE_ROUTE_LAUNCHES, routes) == {"single_query": 1, "sweep": 0}
+    ref = cpq_ops.paged_cpq_decode_plain(q, kt, vt, bt, lengths, scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=CPQ_TOL[dtype], rtol=0)
+    assert not out[lengths == 0].any()
+
+
+@pytest.mark.cuda
+def test_cpq_decode_back_to_back_leaves_counters_at_zero(cuda):
+    """Two B5 launches in a row share the split counters (as the tiered tick
+    runs B1 and B5, and as a CUDA graph replays them): each merges its own
+    rows, and the counters are back at zero after them."""
+    outs, refs = [], []
+    for case in CARD_CPQ_DECODE_CASES:
+        q, kp, vp, bt, lengths, scale = served_cpq_decode_inputs(*case)
+        q, = _cpq_tensors(torch.bfloat16, q)
+        kt, vt = cpq_arena(kp, "cuda"), cpq_arena(vp, "cuda")
+        bt, lengths = torch.tensor(bt, device="cuda"), torch.tensor(lengths, device="cuda")
+        outs.append(cpq_ops.paged_cpq_decode(q, kt, vt, bt, lengths, scale))
+        refs.append(cpq_ops.paged_cpq_decode_plain(q, kt, vt, bt, lengths, scale))
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        torch.testing.assert_close(out.float(), ref.float(), atol=CPQ_TOL[torch.bfloat16],
+                                   rtol=0)
+    assert not single_query.counters(1, torch.device("cuda")).any()
 
 
 @pytest.mark.cuda
@@ -247,14 +305,43 @@ def test_decomposed_prefill_kernel_matches_plain(cuda, case, dtype):
     C = 8 if case in T1_PREFILL_CASES else 16
     kw = {} if C == 8 else dict(page=16, nb=8, C=16)
     r, qr, xp, krp, row, offset, valid, scale = t1_prefill_inputs(*case, **kw)
+    _check_t1_prefill(dtype, r, qr, xp, krp, row, offset, valid, scale)
+
+
+def _check_t1_prefill(dtype, r, qr, xp, krp, row, offset, valid, scale, route=None):
+    """B4 on the card against its plain version; the call must move the
+    route t1_prefill_route picks (and ``route`` if given)."""
     args = tensors(r, qr, xp, krp, row, device="cuda", dtype=dtype)
-    before = t1_ops.paged_decomposed_prefill.launches
+    before, routes = t1_ops.paged_decomposed_prefill.launches, dict(t1_ops.ROUTE_LAUNCHES)
     out = t1_ops.paged_decomposed_prefill_fwd(*args, offset, valid, scale)
     torch.cuda.synchronize()
     assert t1_ops.paged_decomposed_prefill.launches == before + 1
+    want = t1_ops.t1_prefill_route(dtype, r.shape[-1], qr.shape[-1])
+    assert route in (None, want)
+    assert _route_moved(t1_ops.ROUTE_LAUNCHES, routes) == {r_: int(r_ == want) for r_ in routes}
     ref = t1_ops.paged_decomposed_prefill_plain(*args, offset, valid, scale)
     torch.testing.assert_close(out[:valid].float(), ref[:valid].float(),
                                atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SERVED_T1_PREFILL_CASES)
+def test_decomposed_prefill_served_chunks(cuda, case, dtype):
+    """B4 on qwen1.5-0.5b's chunks: bf16 on the tensor cores, float32 on the
+    sweep."""
+    _check_t1_prefill(dtype, *served_t1_prefill_inputs(*case),
+                      route="tensor_core" if dtype == torch.bfloat16 else "sweep")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SERVED_T1_PREFILL_CASES)
+def test_decomposed_prefill_merge_many_splits(cuda, case, monkeypatch):
+    """B4's tensor-core route with splits of one 32-key tile (up to its 8
+    splits): the cluster's merge of its splits through distributed shared
+    memory, and splits past a tile's keys."""
+    monkeypatch.setattr(t1_ops, "CHUNK_SPLIT_KEYS", t1_ops.CHUNK_KEYS)
+    _check_t1_prefill(torch.bfloat16, *served_t1_prefill_inputs(*case), route="tensor_core")
 
 
 T1_WIDE_DM = [(8, 2560, 8, 32), (24, 3072, 8, 32), (32, 4096, 32, 32),

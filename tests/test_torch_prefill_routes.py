@@ -1,16 +1,26 @@
-"""The route a chunked prefill takes on the card, chosen before the launch
-from dtype and widths (and, for B6, the tables' levels): B2
+"""The route a kernel with two routes takes on the card, chosen before the
+launch from dtype and widths (and, for B6, the tables' levels): B2
 ``paged_prefill`` and B6 ``paged_cpq_prefill`` run bf16 chunks whose Dh and
 Dv are multiples of 8 up to 256 on the tensor-core kernel
-(``paged_attn/csrc/paged_chunk.cuh``) and everything else on the CUDA-core
-sweep. The choice is a plain function, so it is tested here without a card;
-``test_torch_kernels_cuda.py`` checks on the card that each call moves its
-route's counter."""
+(``paged_attn/csrc/paged_chunk.cuh``), B4 ``paged_decomposed_prefill`` bf16
+chunks with d_model a multiple of 8 up to 1024 and a roped slice of 0 or a
+multiple of 8 up to 64 on its own (``decomposed_attn/csrc/
+paged_decomposed_chunk.cuh``), and everything else on the CUDA-core sweep;
+B5 ``paged_cpq_decode`` runs Dh and Dv multiples of 16 up to 256 on the
+single-query decode (``flash_attn/csrc/single_query.cuh``), either dtype,
+and other widths on the sweep. The choices, and the split plans of B4's and
+B5's new routes, are plain functions, so they are tested here without a
+card; ``test_torch_kernels_cuda.py`` checks on the card that each call moves
+its route's counter."""
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import single_query
 from repro_torch.kernels.cpq_attn import ops as cpq_ops
+from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.kernels.paged_attn import ops
+from torch_paged_cases import cpq_arena, cpq_pool
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -45,15 +55,98 @@ def test_cpq_prefill_route(dtype, D, levels, route):
     assert cpq_ops.cpq_prefill_route(dtype, D, D, levels) == route
 
 
+@pytest.mark.parametrize("dtype, Dm, Rr, route", [
+    (BF16, 1024, 32, "tensor_core"),  # qwen1.5-0.5b, as served
+    (BF16, 512, 64, "tensor_core"),   # MLA-like: one shared roped key of 64
+    (BF16, 256, 0, "tensor_core"),    # no roped term
+    (BF16, 8, 8, "tensor_core"),      # the narrowest
+    (BF16, 1000, 16, "tensor_core"),  # a multiple of 8, not of the warps' slice
+    (F32, 1024, 32, "sweep"),         # float32: TF32 would miss the float32 gate
+    (F32, 256, 0, "sweep"),
+    (BF16, 2560, 32, "sweep"),        # past MAX_CHUNK_DM: qwen3-4b ...
+    (BF16, 3072, 32, "sweep"),        # phi4-mini
+    (BF16, 4096, 32, "sweep"),        # opt-6.7b
+    (BF16, 8192, 64, "sweep"),        # jamba
+    (BF16, 1032, 32, "sweep"),        # just past MAX_CHUNK_DM
+    (BF16, 1020, 32, "sweep"),        # d_model no multiple of 8
+    (BF16, 1024, 4, "sweep"),         # a roped slice no multiple of 8
+    (BF16, 1024, 72, "sweep"),        # a roped slice past MAX_CHUNK_RR
+    (torch.float16, 1024, 32, "sweep"),
+])
+def test_t1_prefill_route(dtype, Dm, Rr, route):
+    assert t1_ops.t1_prefill_route(dtype, Dm, Rr) == route
+
+
+@pytest.mark.parametrize("Dh, Dv, route", [
+    (64, 64, "single_query"),         # qwen1.5-0.5b, as served
+    (128, 128, "single_query"),
+    (16, 16, "single_query"),
+    (256, 256, "single_query"),       # gemma-2b's head dim
+    (64, 128, "single_query"),
+    (24, 24, "sweep"),                # no multiple of the code loader's 16-byte chunk
+    (8, 8, "sweep"),
+    (12, 12, "sweep"),
+    (272, 272, "sweep"),              # past 256
+])
+def test_cpq_decode_route(Dh, Dv, route):
+    assert cpq_ops.cpq_decode_route(Dh, Dv) == route
+
+
 def test_route_counters_name_both_routes():
-    assert set(ops.ROUTE_LAUNCHES) == set(cpq_ops.ROUTE_LAUNCHES) == {"tensor_core", "sweep"}
+    assert (set(ops.ROUTE_LAUNCHES) == set(cpq_ops.ROUTE_LAUNCHES)
+            == set(t1_ops.ROUTE_LAUNCHES) == {"tensor_core", "sweep"})
+    assert set(cpq_ops.DECODE_ROUTE_LAUNCHES) == {"single_query", "sweep"}
+
+
+@pytest.mark.parametrize("capacity, want", [
+    (1024, (8, 128)),    # the served decode: 64 pages of 16
+    (128, (1, 128)),
+    (40, (1, 128)),      # a short arena: one split
+    (2048, (16, 128)),   # the most splits of DECODE_SPLIT_KEYS
+    (4096, (16, 256)),   # past them: longer splits
+    (5000, (16, 320)),   # a multiple of 16 keys
+])
+def test_cpq_decode_plan(capacity, want):
+    """B5's splits, planned from the capacity nb * page without reading the
+    lengths: they cover the capacity, at most DECODE_MAX_SPLITS of them."""
+    splits, keys = cpq_ops.decode_plan(capacity)
+    assert (splits, keys) == want
+    assert splits * keys >= capacity > (splits - 1) * keys and keys % 16 == 0
+    assert splits <= cpq_ops.DECODE_MAX_SPLITS
+
+
+@pytest.mark.parametrize("C, H, kv_r, end, want", [
+    (16, 16, 16, 16, (1, 32)),       # a first chunk: one split of one 32-key tile
+    (16, 16, 16, 128, (2, 64)),      # 16 row tiles (one a head): two splits of 64 keys
+    (16, 16, 16, 528, (4, 160)),     # past 512 keys: at most MAX_CHUNK_SPLITS splits
+    (8, 16, 16, 300, (4, 96)),       # a chunk of 8: still one tile a head (half padding)
+    (16, 16, 1, 200, (4, 64)),       # one shared roped key: tiles of one head each
+    (16, 8, 1, 4000, (4, 1024)),     # long: longer splits
+])
+def test_t1_chunk_plan(monkeypatch, C, H, kv_r, end, want):
+    """B4's tensor-core splits: whole 32-key tiles, at least CHUNK_SPLIT_KEYS
+    keys and at most MAX_CHUNK_SPLITS splits (a cluster) covering [0, end)."""
+    monkeypatch.setattr(single_query, "_sm_count", lambda device: 132)
+    splits, keys = t1_ops.t1_chunk_plan(C, H, kv_r, end, torch.device("cpu"))
+    assert (splits, keys) == want
+    assert splits * keys >= end > (splits - 1) * keys and keys % t1_ops.CHUNK_KEYS == 0
+    assert splits <= t1_ops.MAX_CHUNK_SPLITS
 
 
 def test_cpu_tensors_take_no_route():
     """On the CPU the wrappers run their plain versions: no route counter
-    moves, whatever the dtype."""
-    before, cpq_before = dict(ops.ROUTE_LAUNCHES), dict(cpq_ops.ROUTE_LAUNCHES)
+    moves, whatever the dtype (B2, B4, B5)."""
+    counters = (ops.ROUTE_LAUNCHES, cpq_ops.ROUTE_LAUNCHES, t1_ops.ROUTE_LAUNCHES,
+                cpq_ops.DECODE_ROUTE_LAUNCHES)
+    before = [dict(c) for c in counters]
     q = torch.randn(1, 4, 2, 16, dtype=BF16)
     kp = torch.randn(3, 4, 2, 16, dtype=BF16)
-    ops.paged_prefill(q, kp, kp, torch.tensor([1, 2], dtype=torch.int32), 2, 3, 0.25)
-    assert ops.ROUTE_LAUNCHES == before and cpq_ops.ROUTE_LAUNCHES == cpq_before
+    row = torch.tensor([1, 2], dtype=torch.int32)
+    ops.paged_prefill(q, kp, kp, row, 2, 3, 0.25)
+    r, qr = torch.randn(4, 2, 64, dtype=BF16), torch.randn(4, 2, 8, dtype=BF16)
+    x, kr = torch.randn(3, 4, 64, dtype=BF16), torch.randn(3, 4, 2, 8, dtype=BF16)
+    t1_ops.paged_decomposed_prefill_fwd(r, qr, x, kr, row, 2, 3, 0.25)
+    kt = cpq_arena(cpq_pool(np.random.default_rng(0), 3, 4, 2, 16, 1, 4, 4))
+    cpq_ops.paged_cpq_decode(q[:, :1], kt, kt, row[None], torch.tensor([5], dtype=torch.int32),
+                             0.25)
+    assert [dict(c) for c in counters] == before

@@ -103,6 +103,24 @@ CPQ_DECODE_CASES = [  # seed, page, nb, B, KV, g, Dh, bits
     (4, 16, 4, 3, 4, 1, 64, 4),   # the served page size and head dim
 ]
 
+# decodes at the served page size and head dim, for B5 on the CPU (against
+# the JAX kernel) and on the card: a row of length 0, a row whose length
+# ends on a split boundary or spans two splits (of 64 keys: the card test
+# sets them so), and the last row live over an all-null block row (the CPQ
+# arm of a tiered decode); at qwen1.5-0.5b's 16 kv heads and at a GQA shape
+# (G 4, Dh 128)
+SERVED_CPQ_DECODE_CASES = [  # seed, page, nb, B, KV, g, Dh, bits, lengths
+    (30, 16, 8, 3, 16, 1, 64, 4, (0, 128, 17)),
+    (31, 16, 8, 3, 16, 1, 64, 4, (100, 64, 33)),
+    (32, 16, 8, 3, 8, 4, 128, 4, (64, 0, 40)),
+]
+# the card only: the served decode's shape (B 8, 64 pages of 16, 8 splits of
+# 128 keys), lengths on split boundaries, and at GQA
+CARD_CPQ_DECODE_CASES = [  # seed, page, nb, B, KV, g, Dh, bits, lengths
+    (33, 16, 64, 8, 16, 1, 64, 4, (0, 256, 512, 1024, 77, 300, 767, 33)),
+    (34, 16, 64, 8, 8, 4, 128, 4, (512, 0, 1000, 256, 65, 1, 700, 129)),
+]
+
 CPQ_PREFILL_CASES = [  # seed, offset, valid, KV, g, Dh
     (0, 0, 8, 2, 2, 8),           # first chunk: the raw tail only
     (1, 8, 4, 2, 2, 8),
@@ -146,6 +164,23 @@ def cpq_decode_inputs(seed, page, nb, B, KV, g, Dh, bits, poison_levels=True):
     vt = cpq_pool(rng, num_pages, page, KV, Dh, B, bits, CPQ_LEVELS, poison_levels)
     q = rng.normal(size=(B, 1, KV * g, Dh)).astype(np.float32)
     return q, kt, vt, bt, lengths, 0.17
+
+
+def served_cpq_decode_inputs(seed, page, nb, B, KV, g, Dh, bits, lengths):
+    """``cpq_decode_inputs`` with the given ``lengths`` (permuted pages, the
+    unmapped tail of every row at the null page), the last row live over an
+    all-null block row."""
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + B * nb
+    perm = rng.permutation(np.arange(1, num_pages)).tolist()
+    bt = np.zeros((B, nb), np.int32)
+    for b in range(B - 1):
+        for j in range(-(-lengths[b] // page)):
+            bt[b, j] = perm.pop()
+    kt = cpq_pool(rng, num_pages, page, KV, Dh, B, bits, CPQ_LEVELS)
+    vt = cpq_pool(rng, num_pages, page, KV, Dh, B, bits, CPQ_LEVELS)
+    q = rng.normal(size=(B, 1, KV * g, Dh)).astype(np.float32)
+    return q, kt, vt, bt, np.array(lengths, np.int32), 0.17
 
 
 def cpq_prefill_inputs(seed, offset, valid, KV, g, Dh, page=4, nb=8, C=8, bits=8,
@@ -203,6 +238,19 @@ T1_PREFILL_CASES = [  # seed, offset, valid, H, Dm, kv_r, Rr
 # one shared roped key of 64) and a no-rope shape
 T1_WIDE = [(16, 1024, 16, 32), (16, 512, 1, 64), (8, 256, 1, 0)]  # H, Dm, kv_r, Rr
 
+# chunks at qwen1.5-0.5b's served T1 shape (C 16 over pages of 16, H 16,
+# Dm 1024, 16 roped groups of 32), for B4 on the CPU (against the JAX
+# kernel) and on the card: a first chunk, a mid-page offset, valid < C, a
+# chunk of 8 (half of each 16-row tile is padding on the card's tensor-core
+# route) and one past 512 keys (several key splits there)
+SERVED_T1_PREFILL_CASES = [  # seed, offset, valid, H, Dm, kv_r, Rr, page, nb, C
+    (20, 0, 16, 16, 1024, 16, 32, 16, 8, 16),
+    (21, 213, 16, 16, 1024, 16, 32, 16, 16, 16),
+    (22, 300, 11, 16, 1024, 16, 32, 16, 20, 16),
+    (23, 37, 8, 16, 1024, 16, 32, 16, 4, 8),
+    (24, 520, 16, 16, 1024, 16, 32, 16, 34, 16),
+]
+
 
 def t1_decode_inputs(seed, page, nb, B, H, Dm, kv_r, Rr):
     """r, q_rope, X and roped-key pools (null page poisoned), block table,
@@ -215,6 +263,11 @@ def t1_decode_inputs(seed, page, nb, B, H, Dm, kv_r, Rr):
     r = rng.normal(size=(B, H, Dm)).astype(np.float32)
     qr = rng.normal(size=(B, H, Rr)).astype(np.float32)
     return r, qr, xp, krp, bt, lengths, (Dm + Rr) ** -0.5
+
+
+def served_t1_prefill_inputs(seed, offset, valid, H, Dm, kv_r, Rr, page, nb, C):
+    """``t1_prefill_inputs`` of a SERVED_T1_PREFILL_CASES case."""
+    return t1_prefill_inputs(seed, offset, valid, H, Dm, kv_r, Rr, page=page, nb=nb, C=C)
 
 
 def t1_prefill_inputs(seed, offset, valid, H, Dm, kv_r, Rr, page=4, nb=8, C=8):
