@@ -1,4 +1,4 @@
-"""Device time per launch of three of the port's kernels at fixed shapes, on
+"""Device time per launch of five of the port's kernels at fixed shapes, on
 one NVIDIA GPU, for comparing two checkouts (or two settings of a kernel
 module's constants) in one machine:
 
@@ -10,17 +10,22 @@ module's constants) in one machine:
   b8_f32  flash_attention's decode route (B8) in float32 at 8 query heads a
           kv head (KV = 2, G = 8), Dh 32 and 64: the two instantiations of
           single_query.cuh whose registers moved when B5 came to share it
+  b3      paged_decomposed_decode (B3) on a served T1 decode: the rows of b5
+          over 64 pages of 16, H = 16, Dm = 1024, 16 roped groups of 32, bf16
+  b9      decomposed_decode (B9) on the static T1 decode: 8 rows, N = 576,
+          lengths 128, 320 and 575, the widths of b3
 
 Each case is timed as the model runs it: one launch per layer over 24
 layer arenas (the next layer's pages cold in L2), captured in a CUDA graph
 and replayed; the time is the graph's device time over 24.
 
-    PYTHONPATH=src python benchmarks/torch_kernel_times.py [--cases b4,b5,b8_f32]
+    PYTHONPATH=src python benchmarks/torch_kernel_times.py [--cases b3,b4,b5,b8_f32,b9]
         [--set decomposed_attn.MAX_CHUNK_SPLITS=8 ...]
 
 ``--set`` overrides an integer constant of a kernel family's ``ops`` module
 (split sizes: ``decomposed_attn.CHUNK_SPLIT_KEYS``, ``MAX_CHUNK_SPLITS``,
-``cpq_attn.DECODE_SPLIT_KEYS``) for this run. With PYTHONPATH at another
+``TOKEN_SPLIT_KEYS``, ``TOKEN_KEYS``, ``cpq_attn.DECODE_SPLIT_KEYS``) for this
+run. With PYTHONPATH at another
 checkout's ``src`` it times that checkout's kernels. Prints one JSON object
 per line: the case, its shape, the settings and ``us`` per launch.
 """
@@ -84,8 +89,7 @@ def b5():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, KV, Dh, page, nb, L = 8, 16, 64, 16, 64, 4
-    lengths = torch.tensor([64, 576, 300, 151, 420, 97, 512, 233], dtype=torch.int32,
-                           device="cuda")
+    lengths = torch.tensor(B5_LENGTHS, dtype=torch.int32, device="cuda")
     bt = torch.zeros((B, nb), dtype=torch.int32, device="cuda")
     perm = torch.randperm(B * nb, generator=gen, device="cuda").int() + 1
     for b in range(B):
@@ -111,6 +115,53 @@ def b5():
     yield {"case": "b5", "B": B, "KV": KV, "Dh": Dh, "us": graph_us(run) / LAYERS}
 
 
+B5_LENGTHS = (64, 576, 300, 151, 420, 97, 512, 233)
+
+
+def b3():
+    from repro_torch.kernels.decomposed_attn import ops as t1_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, H, Dm, kv_r, Rr, page, nb = 8, 16, 1024, 16, 32, 16, 64
+    lengths = torch.tensor(B5_LENGTHS, dtype=torch.int32, device="cuda")
+    bt = torch.zeros((B, nb), dtype=torch.int32, device="cuda")
+    perm = torch.randperm(B * nb, generator=gen, device="cuda").int() + 1
+    for b in range(B):
+        n = -(-int(lengths[b]) // page)
+        bt[b, :n] = perm[b * nb:b * nb + n]
+    x = [torch.randn((1 + B * nb, page, Dm), generator=gen, device="cuda").bfloat16()
+         for _ in range(LAYERS)]
+    kr = [torch.randn((1 + B * nb, page, kv_r, Rr), generator=gen, device="cuda").bfloat16()
+          for _ in range(LAYERS)]
+    r = torch.randn((B, H, Dm), generator=gen, device="cuda").bfloat16()
+    qr = torch.randn((B, H, Rr), generator=gen, device="cuda").bfloat16()
+
+    def run():
+        for layer in range(LAYERS):
+            t1_ops.paged_decomposed_decode_fwd(r, qr, x[layer], kr[layer], bt, lengths,
+                                               (Dm + Rr) ** -0.5)
+    yield {"case": "b3", "B": B, "lengths": list(B5_LENGTHS), "us": graph_us(run) / LAYERS}
+
+
+def b9():
+    from repro_torch.kernels.decomposed_attn import ops as t1_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, N, H, Dm, kv_r, Rr = 8, 576, 16, 1024, 16, 32
+    x = [torch.randn((B, N, Dm), generator=gen, device="cuda").bfloat16()
+         for _ in range(LAYERS)]
+    kr = [torch.randn((B, N, kv_r, Rr), generator=gen, device="cuda").bfloat16()
+          for _ in range(LAYERS)]
+    r = torch.randn((B, H, Dm), generator=gen, device="cuda").bfloat16()
+    qr = torch.randn((B, H, Rr), generator=gen, device="cuda").bfloat16()
+    for length in (128, 320, 575):
+        def run():
+            for layer in range(LAYERS):
+                t1_ops.decomposed_decode_fwd(r, qr, x[layer], kr[layer], length,
+                                             (Dm + Rr) ** -0.5)
+        yield {"case": "b9", "B": B, "length": length, "us": graph_us(run) / LAYERS}
+
+
 def b8_f32():
     from repro_torch.kernels.flash_attn import ops as fa_ops
 
@@ -130,7 +181,8 @@ def b8_f32():
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cases", default="b4,b5,b8_f32", help="comma-separated cases to time")
+    ap.add_argument("--cases", default="b3,b4,b5,b8_f32,b9",
+                    help="comma-separated cases to time")
     ap.add_argument("--set", action="append", default=[], metavar="FAMILY.NAME=VALUE",
                     help="override an integer constant of repro_torch.kernels.FAMILY.ops")
     args = ap.parse_args()
@@ -148,7 +200,7 @@ def main() -> int:
             raise SystemExit(f"torch_kernel_times: {family}.ops has no {const}")
         setattr(mod, const, int(value))
         settings[name] = int(value)
-    cases = {"b4": b4, "b5": b5, "b8_f32": b8_f32}
+    cases = {"b3": b3, "b4": b4, "b5": b5, "b8_f32": b8_f32, "b9": b9}
     for name in args.cases.split(","):
         for rec in cases[name]():
             print(json.dumps({**rec, "set": settings, "card": card}), flush=True)

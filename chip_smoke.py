@@ -33,8 +33,11 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               Dm=1024, 16 roped keys of 32), an MLA-like shape (H=16,
               Dm=512, one shared roped key of 64), a no-rope shape (H=8,
               Dm=256) and past d_model 2048 (Dm 2560, 3072, 4096, 8192),
-              each B4 call on its route (bf16 up to Dm 1024 the tensor-core
-              kernel, float32 and wider models the sweep); B7
+              each B3 and B4 call on its route (bf16 up to Dm 1024 the
+              tensor-core kernel, float32 and wider models the sweep), and
+              B3 at the served shape over 8 rows of 64 pages with lengths
+              on its split boundaries, 0 and the full capacity, with the
+              planned and with the most splits; B7
               paged_proxy_scores in float32 (its inputs are float32 query
               factors and int8 codes) at qwen1.5-0.5b's T3 shape (KV=16,
               G=1, Dp=64) and GQA shapes (KV=8, G=4 and G=3, Dp=128) on the
@@ -48,8 +51,10 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               prefix of a 576-key arena), T = S = 77, and at Dh 32, 64, 128
               and 256 with G of 1, 4 and 8 a prompt of 200 (causal and not)
               and a decode token; B9 decomposed_decode at qwen's T1 shape
-              (kv_r 16, Rr 32, length < N), an MLA-like shape (kv_r 1, Rr
-              64), a no-rope shape, N = 77 and Dm 2560-8192; B10 cpq_decode
+              (kv_r 16, Rr 32, length < N, past one key split, length 0),
+              an MLA-like shape (kv_r 1, Rr 64), a no-rope shape, 32 heads,
+              N = 77 and Dm 2560-8192, each call on its route (as B3's);
+              B10 cpq_decode
               with 4- and 8-bit codes, G of 1, 4 and 8 (Dh 256), tiles
               rounded and not, pruned codes, length < N and N = 77 (float32
               output, its tolerance)
@@ -63,8 +68,9 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               are admitted into and escalated to the CPQ tier). Each run
               must launch its kernels 24 times per tick (T3: B7 per decode
               tick, B2 per chunk tick), every chunk launch of B2, B4 and B6
-              on the tensor-core route and every decode launch of B5 on the
-              single-query route (route counters against launches);
+              and every decode launch of B3 on the tensor-core route and
+              every decode launch of B5 on the single-query route (route
+              counters against launches);
               (a), (b), (d) and (e) then time
               them at the shapes the run gave
               them, beside their bound, their plain version and one PyTorch
@@ -76,10 +82,11 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               new tokens, in the four modes: B8 launched 24 times for the
               prefill, and 24 times per decode step B8 (dense), B9
               (decomposed), B10 (cpq) or B7's contiguous form (retrieval);
-              every bf16 prefill through B8's tensor-core route and every
-              dense decode step through its single-query route (counted per
-              route); B8 (prompt and decode shapes), B9 and B10 timed at
-              the shapes the runs gave them, ten dense decode steps
+              every bf16 prefill through B8's tensor-core route, every
+              dense decode step through its single-query route and every B9
+              launch through its tensor-core route (counted per route); B8
+              (prompt and decode shapes), B9 and B10 timed at the shapes the
+              runs gave them, ten dense and ten decomposed decode steps
               profiled; (g) ContinuousServeEngine with prefill_chunk=0
               (one-shot admission), dense, on the traffic of (a): B8's
               tensor-core route 24 times per admission, B1 24 times per
@@ -142,7 +149,8 @@ DEVICE = "cuda"
 # the namespaces of the attention kernels' device functions, as a profile
 # names them
 ATTENTION_KERNELS = ("paged_attn", "paged_chunk", "cpq_attn", "decomposed_attn",
-                     "decomposed_chunk", "topk_retrieval", "flash_prompt", "single_query")
+                     "decomposed_chunk", "t1_token", "topk_retrieval", "flash_prompt",
+                     "single_query")
 # B8's wrapper counts every launch; its kernels (routes) are counted apart,
 # under these names in a serve's launch counts
 COUNT_KEY = {"flash_attention": "flash_attention/decode",
@@ -312,6 +320,59 @@ T1_SHAPES = ((16, 1024, 16, 32), (16, 512, 1, 64), (8, 256, 1, 0),  # H, Dm, kv_
              (32, 2560, 8, 32), (24, 3072, 8, 32), (32, 4096, 32, 32), (64, 8192, 8, 64))
 
 
+def t1_decode_err(t1_ops, dtype, r, qr, xp, krp, bt, lengths, scale) -> float:
+    """Max abs error of one B3 call against its plain version; the call must
+    take the route its dtype and widths pick, and its empty rows be zero."""
+    before = dict(t1_ops.DECODE_ROUTE_LAUNCHES)
+    out = t1_ops.paged_decomposed_decode_fwd(r, qr, xp, krp, bt, lengths, scale)
+    torch.cuda.synchronize()
+    route = t1_ops.t1_decode_route(dtype, r.shape[1], r.shape[2], krp.shape[2], qr.shape[2])
+    moved = routes_moved(t1_ops.DECODE_ROUTE_LAUNCHES, before)
+    check(moved == {k: int(k == route) for k in moved},
+          f"paged_decomposed_decode {dtype} {tuple(r.shape)}: routes {moved}, want {route}")
+    ref = t1_ops.paged_decomposed_decode_plain(r, qr, xp, krp, bt, lengths, scale)
+    check(not out[lengths == 0].any().item(), "paged_decomposed_decode: an empty row is not zero")
+    return (out.float() - ref.float()).abs().max().item()
+
+
+# B3 at the served T1 shape over the served decode's capacity (8 rows over
+# 64 pages of 16): lengths on the tensor-core route's split boundaries, 0
+# and the full capacity, each case also with the most splits
+# (TOKEN_MAX_SPLITS of 64 keys: many partials merged by the last block of
+# each rank)
+T1_SERVED_DECODE = ((0, 1024, 576, 77, 300, 129, 64, 1), (640, 128, 0, 511, 257, 1000, 16, 33))
+
+
+def sweep_t1_served(t1_ops, dtype, H=16, Dm=1024, kv_r=16, Rr=32, page=16, nb=64) -> float:
+    """Max abs error of B3 against its plain version on T1_SERVED_DECODE,
+    with the planned splits and with the most splits, each call on its
+    route."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    err = 0.0
+    for lengths in T1_SERVED_DECODE:
+        B = len(lengths)
+        pages = torch.randperm(B * nb, generator=gen, device=DEVICE).int() + 1
+        bt = torch.zeros((B, nb), dtype=torch.int32, device=DEVICE)
+        for b, n in enumerate(lengths):
+            bt[b, :-(-n // page)] = pages[b * nb:b * nb + -(-n // page)]
+        xp = torch.randn((1 + B * nb, page, Dm), generator=gen, device=DEVICE).to(dtype)
+        krp = torch.randn((1 + B * nb, page, kv_r, Rr), generator=gen, device=DEVICE).to(dtype)
+        xp[0] = krp[0] = 1e3                     # poisoned null page
+        r = torch.randn((B, H, Dm), generator=gen, device=DEVICE).to(dtype)
+        qr = torch.randn((B, H, Rr), generator=gen, device=DEVICE).to(dtype)
+        len_t = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+        plan, most = t1_ops.t1_decode_plan, t1_ops.TOKEN_MAX_SPLITS
+        try:
+            for forced in (None, (most, -(-nb * page // most))):
+                if forced:
+                    t1_ops.t1_decode_plan = lambda *a: forced  # noqa: E731
+                err = max(err, t1_decode_err(t1_ops, dtype, r, qr, xp, krp, bt, len_t,
+                                             (Dm + Rr) ** -0.5))
+        finally:
+            t1_ops.t1_decode_plan = plan
+    return err
+
+
 def sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr, page=16, nb=64, B=8, C=16):
     """Max abs error of B3 and B4 against their plain versions on the layout
     of ``sweep``: an empty row, ragged rows, a long row with a partial last
@@ -332,11 +393,7 @@ def sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr, page=16, nb=64, B=8, C=16):
     len_t = torch.tensor(lengths, device=DEVICE)
     scale = (Dm + Rr) ** -0.5
     r, qr = randn(B, H, Dm), randn(B, H, Rr)
-    out = t1_ops.paged_decomposed_decode_fwd(r, qr, xp, krp, bt_t, len_t, scale)
-    torch.cuda.synchronize()
-    ref = t1_ops.paged_decomposed_decode_plain(r, qr, xp, krp, bt_t, len_t, scale)
-    err_dec = (out.float() - ref.float()).abs().max().item()
-    check(not out[0].any().item(), "paged_decomposed_decode: an empty row is not zero")
+    err_dec = t1_decode_err(t1_ops, dtype, r, qr, xp, krp, bt_t, len_t, scale)
     err_pre = 0.0
     row = bt_t[-1]
     calls = chunk_calls(int(lengths[-1]), C)
@@ -430,6 +487,9 @@ T1C_SWEEP = (  # B, N, H, Dm, kv_r, Rr, length
     (2, 100, 24, 3072, 8, 32, 77),           # phi4-mini
     (2, 64, 32, 4096, 1, 64, 64),            # opt-6.7b / llama-vision widths
     (2, 50, 64, 8192, 8, 64, 33),            # jamba
+    (2, 300, 16, 1024, 16, 32, 290),         # qwen's widths past one key split
+    (2, 300, 32, 512, 8, 16, 257),           # 32 heads: two head tiles
+    (2, 40, 16, 1024, 16, 32, 0),            # length 0: zeros
 )
 CPQC_SWEEP = (  # B, N, KV, G, Dh, bits, length
     (8, 576, 16, 1, 64, 4, 575),             # qwen1.5-0.5b's static T2 decode
@@ -456,7 +516,9 @@ def sweep_flash(fa_ops, dtype) -> dict:
 
 
 def sweep_t1c(t1_ops, dtype) -> dict:
-    """Max abs error of B9 against its plain version per T1C_SWEEP case."""
+    """Max abs error of B9 against its plain version per T1C_SWEEP case; each
+    call must take the route its dtype and widths pick, and a length of 0
+    give zeros."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     out = {}
     for B, N, H, Dm, kv_r, Rr, length in T1C_SWEEP:
@@ -464,11 +526,17 @@ def sweep_t1c(t1_ops, dtype) -> dict:
                         for shape in ((B, H, Dm), (B, H, Rr), (B, N, Dm), (B, N, kv_r, Rr)))
         x[:, length:] = 1e3                      # unwritten slots: never read
         scale = (Dm + Rr) ** -0.5
+        before = dict(t1_ops.CONTIG_ROUTE_LAUNCHES)
         got = t1_ops.decomposed_decode_fwd(r, qr, x, kr, length, scale)
         torch.cuda.synchronize()
+        route = t1_ops.t1_decode_route(dtype, H, Dm, kv_r, Rr)
+        moved = routes_moved(t1_ops.CONTIG_ROUTE_LAUNCHES, before)
+        tag = f"B={B} N={N} H={H} Dm={Dm} kv_r={kv_r} Rr={Rr} length={length}"
+        check(moved == {k: int(k == route) for k in moved},
+              f"decomposed_decode {dtype} {tag}: routes {moved}, want {route}")
+        check(length > 0 or not got.any().item(), f"decomposed_decode {tag}: not zero")
         ref = t1_ops.decomposed_decode_plain(r, qr, x, kr, length, scale)
-        out[f"B={B} N={N} H={H} Dm={Dm} kv_r={kv_r} Rr={Rr} length={length}"] = (
-            (got.float() - ref.float()).abs().max().item())
+        out[tag] = (got.float() - ref.float()).abs().max().item()
     return out
 
 
@@ -961,7 +1029,8 @@ def zero_routes(routed: dict) -> None:
 
 def check_routes(what: str, routed: dict, counts: dict) -> dict:
     """Every launch of a kernel with two routes took the route a bf16 serve
-    gives it (B2, B4 and B6 the tensor cores, B5 the single-query decode):
+    gives it (B2, B3, B4, B6 and B9 the tensor cores, B5 the single-query
+    decode):
     each route counter against the wrapper's launches. Returns the route
     counts by kernel."""
     routes = {name: dict(counter) for name, (counter, _) in routed.items()}
@@ -1861,7 +1930,10 @@ def main() -> int:
     routed = {"paged_prefill": (ops.ROUTE_LAUNCHES, "tensor_core"),
               "paged_cpq_prefill": (cpq_ops.ROUTE_LAUNCHES, "tensor_core"),
               "paged_decomposed_prefill": (t1_ops.ROUTE_LAUNCHES, "tensor_core"),
+              "paged_decomposed_decode": (t1_ops.DECODE_ROUTE_LAUNCHES, "tensor_core"),
               "paged_cpq_decode": (cpq_ops.DECODE_ROUTE_LAUNCHES, "single_query")}
+    # ... and those of the static serves (B9)
+    static_routed = {"decomposed_decode": (t1_ops.CONTIG_ROUTE_LAUNCHES, "tensor_core")}
 
     # 2) build: one nvcc per source, all started together (B7's two wrappers
     #    share one source, built once; B8's three routes have a source each)
@@ -1925,10 +1997,17 @@ def main() -> int:
             e_dec, e_pre = sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr)
             errs["paged_decomposed_decode"][tag] = e_dec
             errs["paged_decomposed_prefill"][tag] = e_pre
-            log(f"sweep {tag}: paged_decomposed_decode {e_dec:.3e}, "
+            log(f"sweep {tag}: paged_decomposed_decode {e_dec:.3e} "
+                f"({t1_ops.t1_decode_route(dtype, H, Dm, kv_r, Rr)} route), "
                 f"paged_decomposed_prefill {e_pre:.3e} "
                 f"({t1_ops.t1_prefill_route(dtype, Dm, Rr)} route; tol {TOL[dtype]})")
         dname = str(dtype).removeprefix("torch.")
+        tag = f"{dname} served rows H=16 Dm=1024 kv_r=16 Rr=32"
+        errs["paged_decomposed_decode"][tag] = sweep_t1_served(t1_ops, dtype)
+        log(f"sweep {tag}: paged_decomposed_decode "
+            f"{errs['paged_decomposed_decode'][tag]:.3e} over {len(T1_SERVED_DECODE)} layouts, "
+            f"planned and most splits "
+            f"({t1_ops.t1_decode_route(dtype, 16, 1024, 16, 32)} route; tol {TOL[dtype]})")
         for name, sweep_fn, mod in (("flash_attention", sweep_flash, fa_ops),
                                     ("decomposed_decode", sweep_t1c, t1_ops)):
             for case, err in sweep_fn(mod, dtype).items():
@@ -2137,8 +2216,10 @@ def main() -> int:
                 lambda q, kt, vt, ln, *r: (q[:, 0].reshape(q.shape[0], kt.codes.shape[2], -1,
                                                            q.shape[3]).float().contiguous(),
                                            ln)))
+        zero_routes(static_routed)
         out, stats, timer, wall, counts = serve_static(eng, T, M, prompts, n_new, recs, counted,
                                                        fa_ops.ROUTE_LAUNCHES)
+        static_routes = check_routes(f"static {mode}", static_routed, counts)
         steps = stats["decode_steps"]
         check(out.shape == (len(prompts), n_new) and steps == n_new - 1
               and stats["generated_tokens"] == out.size, f"static {mode}: {out.shape}, {stats}")
@@ -2152,6 +2233,7 @@ def main() -> int:
         check(counts == want, f"static {mode}: launch counts {counts}, want {want}")
         serves[f"static {mode}"] = static_metrics(out, stats, timer, wall, mode)
         serves[f"static {mode}"]["launches"] = {k: n for k, n in counts.items() if n}
+        serves[f"static {mode}"]["routes"] = static_routes
         if mode == "dense":
             name = "flash_attention_prompt"
             timing[name] = time_kernel(recs["flash_attention"][1].pre,
@@ -2174,11 +2256,11 @@ def main() -> int:
             history = tuple(t.clone() for t in recs["flash_attention"][1].pre.arenas[0])
         del eng, recs, timer
         torch.cuda.empty_cache()
-        if mode == "dense":
-            report["profile"]["static dense"] = [profile_static(
-                lambda: T.ServeEngine(cfg, params, rt=rts["dense"], device=DEVICE), T, M,
+        if mode in ("dense", "decomposed"):
+            report["profile"][f"static {mode}"] = [profile_static(
+                lambda: T.ServeEngine(cfg, params, rt=rts[mode], device=DEVICE), T, M,
                 prompts, n_new, step_ms, 30, 40)]
-            log_profile("static dense", report["profile"]["static dense"])
+            log_profile(f"static {mode}", report["profile"][f"static {mode}"])
         log(f"[{time.perf_counter() - T0:.0f} s] served static {mode}")
 
     # 4g) one-shot admission (prefill_chunk=0), dense, on the traffic of 4a:
@@ -2256,6 +2338,8 @@ def main() -> int:
         "paged_prefill": ops.CSRC / "paged_chunk.cuh",
         "paged_cpq_prefill": ops.CSRC / "paged_chunk.cuh",
         "paged_decomposed_prefill": t1_ops.CSRC / "paged_decomposed_chunk.cuh",
+        "paged_decomposed_decode": t1_ops.CSRC / "t1_token.cuh",
+        "decomposed_decode": t1_ops.CSRC / "t1_token.cuh",
         "paged_cpq_decode": fa_ops.CSRC / "single_query.cuh"}
     source.update(flash_attention=fa_ops.SOURCES["flash_decode"],
                   flash_attention_prompt=fa_ops.SOURCES["flash_prompt"])
@@ -2300,8 +2384,9 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library": library[name], "timed_samples": t["samples"],
             "launches_by_serve": by_serve})
-        if name in routed:  # B2, B4, B6: the tensor-core kernel; B5: the single-query one
-            route = routed[name][1]
+        if name in routed or name in static_routed:
+            # B2, B3, B4, B6, B9: the tensor-core kernel; B5: the single-query one
+            route = {**routed, **static_routed}[name][1]
             kernels[-1].update({
                 f"{route}_source": os.path.relpath(str(route_source[name]), root),
                 "routes_by_serve": {mode: sv["routes"][name] for mode, sv in serves.items()

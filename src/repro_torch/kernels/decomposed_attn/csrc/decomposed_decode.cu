@@ -19,7 +19,14 @@
 // TPU kernel rounds the softmax weights to x's dtype before the value
 // product, they stay float32 here, as in B3. Bound by device-memory
 // traffic: the live X rows and roped keys, one read each.
+//
+// Two routes, picked by the wrapper before the launch (t1_decode_route in
+// ../ops.py): bf16 calls of the widths t1_token.cuh takes run on the tensor
+// cores (decomposed_decode_mma_launch, B3's tensor-core kernel over
+// contiguous rows); float32 calls and other widths run the sweep described
+// above (decomposed_decode_launch).
 #include "paged_decomposed.cuh"
+#include "t1_token.cuh"
 
 extern "C" int decomposed_decode_launch(int is_bf16, const void* r, const void* q_rope,
                                         const void* x, const void* k_rope, void* out,
@@ -49,4 +56,32 @@ extern "C" int decomposed_decode_launch(int is_bf16, const void* r, const void* 
   p.pages_per_split = split_tokens;
   p.scale = scale;
   return decomposed_attn::dispatch<true>(is_bf16, p, stream);
+}
+
+// The tensor-core route: r, q_rope, x, k_rope, out bf16; part and counters
+// and the splits (planned from `length`) as t1_token::launch says.
+extern "C" int decomposed_decode_mma_launch(const void* r, const void* q_rope, const void* x,
+                                            const void* k_rope, void* out, void* part,
+                                            void* counters, int B, int H, int kv_r, int Rr,
+                                            int Dm, int N, int length, int splits,
+                                            int split_keys, float scale, void* stream) {
+  using t1_token::bf16;
+  if (N < 1 || length < 0 || length > N) return cudaErrorInvalidValue;
+  t1_token::Params p{};
+  p.r = static_cast<const bf16*>(r);
+  p.qr = static_cast<const bf16*>(q_rope);
+  p.x = static_cast<const bf16*>(x);
+  p.kr = static_cast<const bf16*>(k_rope);
+  p.out = static_cast<bf16*>(out);
+  p.part = static_cast<float*>(part);
+  p.counters = static_cast<int*>(counters);
+  p.B = B;
+  p.H = H;
+  p.kv_r = kv_r;
+  p.Rr = Rr;
+  p.Dm = Dm;
+  p.splits = splits;
+  p.split_keys = split_keys;
+  return t1_token::launch(p, t1_token::ContigRows{N, length}, length, scale,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -23,8 +23,12 @@
 // What bounds it: the X and roped-key bytes of the live pages (3072 bytes
 // per token at qwen1.5-0.5b's widths in bf16) against about 4 * H * Dm
 // flops per token per row, ~22 flops per byte: below the bf16 tensor-core
-// ridge, near the ridge of float32 CUDA-core math. This first version runs
-// on CUDA cores in float32; wgmma tiles are left for later work.
+// ridge, near the ridge of float32 CUDA-core math. This sweep runs on CUDA
+// cores in float32. It serves float32 calls (TF32 would miss the float32
+// gate) and the widths the tensor-core routes refuse: bf16 decodes of B3
+// and B9 of other widths (their tensor-core kernel is t1_token.cuh) and
+// bf16 chunks of B4 of other widths (paged_decomposed_chunk.cuh), d_model
+// past 1024 among them.
 //
 // The design, against what the TPU kernel leaves to VMEM:
 //

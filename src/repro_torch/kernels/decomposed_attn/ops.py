@@ -30,17 +30,28 @@ positions at or past a row's length contribute nothing and a row of length
 CUDA kernels take d_model up to 8192 (a multiple of 8 past 2048, of 16 past
 4096).
 
-B4 has two routes, picked by ``t1_prefill_route`` from dtype and widths
-before the launch and counted apart in ``ROUTE_LAUNCHES``:
+Each kernel has two routes, picked from dtype and widths before the launch
+and counted apart, each kernel in its own counter: B4 by
+``t1_prefill_route`` in ``ROUTE_LAUNCHES``, B3 and B9 by
+``t1_decode_route`` in ``DECODE_ROUTE_LAUNCHES`` and
+``CONTIG_ROUTE_LAUNCHES``:
 
-  ``tensor_core``  bf16, d_model a multiple of 8 up to ``MAX_CHUNK_DM``, a
-                   roped slice of 0 or a multiple of 8 up to
+  ``tensor_core``  B4: bf16, d_model a multiple of 8 up to ``MAX_CHUNK_DM``,
+                   a roped slice of 0 or a multiple of 8 up to
                    ``MAX_CHUNK_RR``: mma.sync (``csrc/paged_decomposed_chunk.cuh``),
                    one launch, a row tile's key splits one thread-block
-                   cluster that merges through distributed shared memory
+                   cluster that merges through distributed shared memory.
+                   B3 and B9: bf16, d_model a multiple of 8 up to
+                   ``TOKEN_SLICE * TOKEN_MAX_CLUSTER``, a roped slice of 0 or
+                   a multiple of 8 whose kv_r groups a cluster's
+                   ``TOKEN_ROPE_STEPS`` hold: mma.sync (``csrc/t1_token.cuh``),
+                   one launch, d_model cut over a thread-block cluster that
+                   shares partial scores through distributed shared memory,
+                   key splits (``t1_decode_plan``) merged by the last block on
+                   ``single_query.counters``
   ``sweep``        float32 (TF32 would miss the float32 gate) and every
                    other width: the CUDA-core sweep (``csrc/paged_decomposed.cuh``,
-                   which B3 and B9 share) and its merge pass
+                   which the three kernels share) and its merge pass
 """
 from __future__ import annotations
 
@@ -77,6 +88,20 @@ CHUNK_SPLIT_KEYS = 64  # ... least keys per split (two tiles)
 # on an H100 16 clusters of 8 blocks of 184 KB of shared memory did not fit
 # the card at once where clusters of 4 did (PERF.md, section 6)
 MAX_CHUNK_SPLITS = 4
+DECODE_ROUTE_LAUNCHES = {"tensor_core": 0, "sweep": 0}  # B3's launches by route
+CONTIG_ROUTE_LAUNCHES = {"tensor_core": 0, "sweep": 0}  # B9's launches by route
+TOKEN_ROWS = 16         # B3's and B9's tensor-core route: heads per block (one m16 tile)
+TOKEN_SLICE = 128       # ... d_model columns per block, one rank of a cluster
+TOKEN_MAX_CLUSTER = 8   # ... blocks per cluster (portable): d_model up to 1024
+TOKEN_ROPE_STEPS = 4    # ... roped k16 steps per block
+TOKEN_KEYS = 192        # ... most keys per split (a block holds its split's keys at once)
+# ... B3's splits, planned from the capacity: at least this many keys, and
+# at most TOKEN_MAX_SPLITS of them or single_query.BLOCKS_PER_SM blocks an
+# SM (most splits of a served batch lie past their rows' lengths and exit
+# at once, as B5's do). B9 plans from its length, and there the fewest
+# splits were fastest (PERF.md, section 6)
+TOKEN_SPLIT_KEYS = 128
+TOKEN_MAX_SPLITS = 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -92,6 +117,12 @@ _ARGTYPES = {
     # is_bf16, r, q_rope, x, k_rope, out, part,
     # B, H, kv_r, Rr, Dm, N, length, split_tokens, scale, stream
     "decomposed_decode": [_I] + [_P] * 6 + [_I] * 8 + [_F, _P],
+    # r, q_rope, x_pages, kr_pages, block_table, lengths, out, part, counters,
+    # B, H, kv_r, Rr, Dm, page, nb, splits, split_keys, scale, stream
+    "paged_decomposed_decode_mma": [_P] * 9 + [_I] * 9 + [_F, _P],
+    # r, q_rope, x, k_rope, out, part, counters,
+    # B, H, kv_r, Rr, Dm, N, length, splits, split_keys, scale, stream
+    "decomposed_decode_mma": [_P] * 7 + [_I] * 9 + [_F, _P],
 }
 
 
@@ -122,6 +153,52 @@ def t1_chunk_plan(C: int, H: int, kv_r: int, end: int, device: torch.device):
     splits, keys = single_query.plan(tiles, end, device, CHUNK_SPLIT_KEYS, MAX_CHUNK_SPLITS)
     keys = -(-keys // CHUNK_KEYS) * CHUNK_KEYS
     return -(-end // keys), keys
+
+
+def t1_decode_route(dtype: torch.dtype, H: int, Dm: int, kv_r: int, Rr: int) -> str:
+    """The route B3 and B9 take on the card: ``tensor_core`` for bf16 with
+    d_model a multiple of 8 up to TOKEN_SLICE * TOKEN_MAX_CLUSTER and a
+    roped slice of 0 or a multiple of 8 whose kv_r groups (one key's kv_r *
+    Rr roped columns, cut in k16 steps over the cluster's blocks) need at
+    most TOKEN_ROPE_STEPS steps a block; ``sweep`` otherwise."""
+    if (dtype != torch.bfloat16 or Dm % 8 or not 8 <= Dm <= TOKEN_SLICE * TOKEN_MAX_CLUSTER
+            or H < 1 or Rr < 0 or Rr % 8):
+        return "sweep"
+    cluster = -(-Dm // TOKEN_SLICE)
+    steps = -(-(kv_r * Rr) // 16) if Rr else 0
+    return "tensor_core" if -(-steps // cluster) <= TOKEN_ROPE_STEPS else "sweep"
+
+
+def t1_decode_plan(B: int, H: int, Dm: int, capacity: int, device: torch.device,
+                   of: str = "length"):
+    """The tensor-core route's key splits over ``capacity`` keys a row, ``of``
+    "length" (B9: its host length; the fewest splits of at most TOKEN_KEYS
+    keys) or "capacity" (B3: the arena's nb * page, planned on the host
+    without reading the lengths, which live on the card; splits of at least
+    TOKEN_SPLIT_KEYS keys, at most TOKEN_MAX_SPLITS of them or
+    single_query.BLOCKS_PER_SM blocks an SM over the B * ceil(H / 16) *
+    ceil(Dm / 128) blocks of a split, then as many more as keep every split
+    within TOKEN_KEYS keys). Keys a multiple of 16. Returns (splits,
+    split_keys)."""
+    n = max(capacity, 1)
+    splits = 1
+    if of == "capacity":
+        units = B * -(-H // TOKEN_ROWS) * -(-Dm // TOKEN_SLICE)
+        room = max(1, single_query.BLOCKS_PER_SM * single_query._sm_count(device) // units)
+        splits = min(-(-n // TOKEN_SPLIT_KEYS), room, TOKEN_MAX_SPLITS)
+    per = -(-n // max(splits, -(-n // TOKEN_KEYS)))  # keys per split, at most TOKEN_KEYS
+    keys = -(-per // 16) * 16
+    return -(-n // keys), keys
+
+
+def _token_scratch(B: int, H: int, Dm: int, splits: int, device):
+    """(partials, counters) of a tensor-core T1 decode: the split partials
+    (m, l and a 16 x TOKEN_SLICE float32 slice of O per block and split)
+    and one zeroed counter per block of a split."""
+    units = B * -(-H // TOKEN_ROWS) * -(-Dm // TOKEN_SLICE)
+    n = units * splits * TOKEN_ROWS * (TOKEN_SLICE + 2) if splits > 1 else 1
+    return (torch.empty(n, dtype=torch.float32, device=device),
+            single_query.counters(units, device))
 
 
 def _kv_r(q_rope, kr_pages) -> int:
@@ -218,16 +295,28 @@ def paged_decomposed_decode_fwd(r, q_rope, x_pages, kr_pages, block_table, lengt
             f"lengths {tuple(lengths.shape)}")
     _check_cuda("paged_decomposed_decode", r, q_rope, x_pages, kr_pages,
                 [block_table, lengths])
-    pps = _pages_per_split("decode", page)
-    splits = -(-nb // pps)
-    out = torch.empty((B, H, Dm), dtype=x_pages.dtype, device=x_pages.device)
-    part = _partials(B * -(-H // ROWS), splits, Dm, x_pages.device)
-    run(launcher("paged_decomposed_decode"), "paged_decomposed_decode", x_pages.device,
-        int(x_pages.dtype == torch.bfloat16), r.data_ptr(), q_rope.data_ptr(),
-        x_pages.data_ptr(), kr_pages.data_ptr(), block_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, kv_r, Rr, Dm, page,
-        nb, pps, float(scale))
+    dev = x_pages.device
+    out = torch.empty((B, H, Dm), dtype=x_pages.dtype, device=dev)
+    route = t1_decode_route(x_pages.dtype, H, Dm, kv_r, Rr)
+    if route == "tensor_core":
+        splits, keys = t1_decode_plan(B, H, Dm, nb * page, dev, "capacity")
+        part, counters = _token_scratch(B, H, Dm, splits, dev)
+        r, q_rope = aligned16(r), aligned16(q_rope)
+        run(launcher("paged_decomposed_decode", "paged_decomposed_decode_mma"),
+            "paged_decomposed_decode", dev, r.data_ptr(), q_rope.data_ptr(),
+            x_pages.data_ptr(), kr_pages.data_ptr(), block_table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, H,
+            kv_r, Rr, Dm, page, nb, splits, keys, float(scale))
+    else:
+        pps = _pages_per_split("decode", page)
+        part = _partials(B * -(-H // ROWS), -(-nb // pps), Dm, dev)
+        run(launcher("paged_decomposed_decode"), "paged_decomposed_decode", dev,
+            int(x_pages.dtype == torch.bfloat16), r.data_ptr(), q_rope.data_ptr(),
+            x_pages.data_ptr(), kr_pages.data_ptr(), block_table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, kv_r, Rr, Dm, page,
+            nb, pps, float(scale))
     paged_decomposed_decode.launches += 1
+    DECODE_ROUTE_LAUNCHES[route] += 1
     return out
 
 
@@ -383,14 +472,25 @@ def decomposed_decode_fwd(r, q_rope, x, k_rope, length: int, scale: float):
             f"decomposed_decode: shapes r {tuple(r.shape)}, q_rope {tuple(q_rope.shape)}, "
             f"x {tuple(x.shape)}, k_rope {tuple(k_rope.shape)}, length {int(length)}")
     _check_cuda("decomposed_decode", r, q_rope, x, k_rope, [])
-    split = SPLIT_TOKENS["decode"]
     out = torch.empty((B, H, Dm), dtype=x.dtype, device=x.device)
-    part = _partials(B * -(-H // ROWS), -(-N // split), Dm, x.device)
-    run(launcher("decomposed_decode"), "decomposed_decode", x.device,
-        int(x.dtype == torch.bfloat16), r.data_ptr(), q_rope.data_ptr(), x.data_ptr(),
-        k_rope.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, kv_r, Rr, Dm, N,
-        int(length), split, float(scale))
+    route = t1_decode_route(x.dtype, H, Dm, kv_r, Rr)
+    if route == "tensor_core":
+        splits, keys = t1_decode_plan(B, H, Dm, int(length), x.device)
+        part, counters = _token_scratch(B, H, Dm, splits, x.device)
+        r, q_rope = aligned16(r), aligned16(q_rope)
+        run(launcher("decomposed_decode", "decomposed_decode_mma"), "decomposed_decode",
+            x.device, r.data_ptr(), q_rope.data_ptr(), x.data_ptr(), k_rope.data_ptr(),
+            out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, H, kv_r, Rr, Dm, N,
+            int(length), splits, keys, float(scale))
+    else:
+        split = SPLIT_TOKENS["decode"]
+        part = _partials(B * -(-H // ROWS), -(-N // split), Dm, x.device)
+        run(launcher("decomposed_decode"), "decomposed_decode", x.device,
+            int(x.dtype == torch.bfloat16), r.data_ptr(), q_rope.data_ptr(), x.data_ptr(),
+            k_rope.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, kv_r, Rr, Dm, N,
+            int(length), split, float(scale))
     decomposed_decode.launches += 1
+    CONTIG_ROUTE_LAUNCHES[route] += 1
     return out
 
 

@@ -19,8 +19,11 @@ tests' cases: Dh up to 256, GQA and MQA, T no multiple of the kernel's
 64-row tile, d_model up to 4096) run here too: B8's plain version against
 ``flash_attention_tpu`` on ``FLASH_CASES``, B9's against
 ``decomposed_decode_fwd`` on the ``CONTIG_T1_CASES`` of the TPU kernel's
-layout. ``test_torch_kernels_cuda.py`` holds the CUDA kernels against these
-plain versions."""
+layout, and on the cases with a roped key per group of heads (qwen's
+layout, past one key split of the card's tensor-core route) against the
+paged TPU kernel over the same arenas as pages.
+``test_torch_kernels_cuda.py`` holds the CUDA kernels against these plain
+versions."""
 import numpy as np
 import pytest
 import torch
@@ -31,7 +34,8 @@ import jax.numpy as jnp
 from repro.configs.base import CPQCfg as JCPQCfg
 from repro.core import cpq as JC
 from repro.kernels.cpq_dequant_attn.kernel import cpq_decode_fwd
-from repro.kernels.decomposed_attn.kernel import decomposed_decode_fwd
+from repro.kernels.decomposed_attn.kernel import (decomposed_decode_fwd,
+                                                  paged_decomposed_decode_fwd)
 from repro.kernels.flash_attn.ops import flash_attention_tpu
 from repro_torch.core import cpq as TC
 from repro_torch.core.attention import cpq_chunked_decode_attention
@@ -95,6 +99,25 @@ def test_decomposed_decode_plain_matches_jax_kernel_on_shared_cases(case):
     want = decomposed_decode_fwd(*(jnp.asarray(a) for a in (r, qr, x, kr[:, :, 0])),
                                  jnp.asarray(length, jnp.int32), scale=scale, block_n=16,
                                  interpret=True)
+    got = t1_ops.decomposed_decode_fwd(*(torch.tensor(a) for a in (r, qr, x, kr)), length,
+                                       scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", [c for c in CONTIG_T1_CASES if c[5] > 1 and c[6] > 0])
+def test_decomposed_decode_plain_matches_jax_paged_kernel_per_group(case):
+    """The cases with a roped key per group of heads (qwen's T1 cache, which
+    the contiguous TPU kernel does not take), against the JAX package's
+    paged T1 kernel over the same arenas as pages: row b is page b + 1 of
+    N tokens, behind a poisoned null page."""
+    r, qr, x, kr, length, scale = contig_t1_inputs(*case)
+    B, N = x.shape[:2]
+    xp = np.concatenate([np.full((1, *x.shape[1:]), 1e3, np.float32), x])
+    krp = np.concatenate([np.full((1, *kr.shape[1:]), 1e3, np.float32), kr])
+    bt = np.arange(1, B + 1, dtype=np.int32)[:, None]
+    want = paged_decomposed_decode_fwd(*(jnp.asarray(a) for a in (r, qr, xp, krp, bt)),
+                                       jnp.full((B,), length, jnp.int32), scale=scale,
+                                       interpret=True)
     got = t1_ops.decomposed_decode_fwd(*(torch.tensor(a) for a in (r, qr, x, kr)), length,
                                        scale)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)

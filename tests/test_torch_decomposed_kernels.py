@@ -29,9 +29,10 @@ from repro.kernels.decomposed_attn.ops import (paged_decomposed_decode_tpu,
                                                paged_decomposed_prefill_tpu)
 from repro_torch.core.decomposed_attention import decomposed_attention as t_decomposed
 from repro_torch.kernels.decomposed_attn import ops
-from torch_paged_cases import (SERVED_T1_PREFILL_CASES, T1_DECODE_CASES, T1_PREFILL_CASES,
-                               T1_WIDE, served_t1_prefill_inputs, t1_decode_inputs,
-                               t1_prefill_inputs, tensors)
+from torch_paged_cases import (SERVED_T1_DECODE_CASES, SERVED_T1_PREFILL_CASES,
+                               T1_DECODE_CASES, T1_PREFILL_CASES, T1_WIDE,
+                               served_t1_decode_inputs, served_t1_prefill_inputs,
+                               t1_decode_inputs, t1_prefill_inputs, tensors)
 
 ATOL = 1e-5
 
@@ -47,6 +48,18 @@ def test_plain_decomposed_decode_matches_jax_kernel(case):
     assert ops.paged_decomposed_decode.launches == before  # the CPU path launches nothing
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
     assert not out[torch.tensor(lengths == 0)].any()  # empty rows -> zeros
+
+
+@pytest.mark.parametrize("case", SERVED_T1_DECODE_CASES)
+def test_plain_decomposed_decode_matches_jax_kernel_on_served_cases(case):
+    """B3 at qwen1.5-0.5b's served T1 shape: an empty row, a full row,
+    partial last pages, rows the card's tensor-core route splits."""
+    r, qr, xp, krp, bt, lengths, scale = served_t1_decode_inputs(*case)
+    ref = paged_decomposed_decode_fwd(*map(jnp.asarray, (r, qr, xp, krp, bt, lengths)),
+                                      scale=scale, interpret=True)
+    out = ops.paged_decomposed_decode_fwd(*tensors(r, qr, xp, krp, bt, lengths), scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    assert not out[torch.tensor(lengths == 0)].any()
 
 
 @pytest.mark.parametrize("case", T1_PREFILL_CASES + SERVED_T1_PREFILL_CASES)

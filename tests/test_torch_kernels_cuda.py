@@ -36,7 +36,14 @@ multiples of 16 on the single-query decode, either dtype, and other widths
 on the sweep (``SERVED_CPQ_DECODE_CASES`` and ``CARD_CPQ_DECODE_CASES``:
 lengths on split boundaries, empty rows, a live row over an all-null block
 row, at the served shape and at GQA; two launches back to back leave the
-shared split counters at zero).
+shared split counters at zero). B3 and B9 have two routes the same way:
+bf16 calls with d_model a multiple of 8 up to 1024 and a roped slice of 0
+or a multiple of 8 (as many roped groups as a cluster's rope steps hold)
+take their tensor-core kernel, float32 calls and other widths the sweep
+(``SERVED_T1_DECODE_CASES`` and the card's cases: the served shapes, empty
+and full rows, 8 and 32 heads; splits forced small so that the last block
+of each rank merges many partials; B3 and B9 back to back leave the split
+counters at zero).
 """
 import numpy as np
 import pytest
@@ -52,14 +59,15 @@ from torch_paged_cases import (CARD_CPQ_DECODE_CASES, CONTIG_CPQ_CASES, CONTIG_P
                                CONTIG_T1_CASES, CPQ_DECODE_CASES, CPQ_PREFILL_CASES,
                                DECODE_CASES, FLASH_CASES, PREFILL_CASES, PROXY_CASES,
                                SERVED_CPQ_DECODE_CASES, SERVED_PREFILL_CASES,
-                               SERVED_T1_PREFILL_CASES, T1_DECODE_CASES, T1_PREFILL_CASES,
+                               SERVED_T1_DECODE_CASES, SERVED_T1_PREFILL_CASES,
+                               T1_DECODE_CASES, T1_PREFILL_CASES,
                                T1_WIDE, contig_cpq_inputs, contig_proxy_inputs,
                                contig_t1_inputs, cpq_arena, cpq_decode_inputs,
                                cpq_prefill_inputs, decode_inputs, flash_inputs,
                                prefill_inputs, proxy_inputs, served_cpq_decode_inputs,
                                served_cpq_prefill_inputs, served_prefill_inputs,
-                               served_t1_prefill_inputs, t1_decode_inputs, t1_prefill_inputs,
-                               tensors)
+                               served_t1_decode_inputs, served_t1_prefill_inputs,
+                               t1_decode_inputs, t1_prefill_inputs, tensors)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 CPQ_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
@@ -287,15 +295,82 @@ T1_PREFILL_ALL = T1_PREFILL_CASES + [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", T1_DECODE_ALL)
 def test_decomposed_decode_kernel_matches_plain(cuda, case, dtype):
-    r, qr, xp, krp, bt, lengths, scale = t1_decode_inputs(*case)
+    _check_t1_decode(dtype, *t1_decode_inputs(*case))
+
+
+def _check_t1_decode(dtype, r, qr, xp, krp, bt, lengths, scale, route=None):
+    """B3 on the card against its plain version; the call must move the
+    route t1_decode_route picks (and ``route`` if given)."""
     args = tensors(r, qr, xp, krp, bt, lengths, device="cuda", dtype=dtype)
     before = t1_ops.paged_decomposed_decode.launches
+    routes = dict(t1_ops.DECODE_ROUTE_LAUNCHES)
     out = t1_ops.paged_decomposed_decode_fwd(*args, scale)
     torch.cuda.synchronize()
     assert t1_ops.paged_decomposed_decode.launches == before + 1
+    want = t1_ops.t1_decode_route(dtype, *r.shape[1:], krp.shape[2], qr.shape[-1])
+    assert route in (None, want)
+    assert _route_moved(t1_ops.DECODE_ROUTE_LAUNCHES, routes) == {
+        r_: int(r_ == want) for r_ in routes}
     ref = t1_ops.paged_decomposed_decode_plain(*args, scale)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
     assert not out[args[5] == 0].any()  # empty rows -> zeros
+
+
+# the card only: B3 at the served decode's shape (8 rows over 64 pages of 16:
+# 8 key splits of 128 on the tensor-core route), lengths on split
+# boundaries, 0 and the full capacity; an MLA-like shape; 8 heads without a
+# roped term (a padded head tile); 32 heads in groups of 4 (two head tiles)
+CARD_T1_DECODE_CASES = [  # seed, page, nb, B, H, Dm, kv_r, Rr, lengths
+    (43, 16, 64, 8, 16, 1024, 16, 32, (0, 1024, 576, 77, 300, 129, 64, 1)),
+    (44, 16, 16, 3, 16, 512, 1, 64, (200, 0, 256)),
+    (45, 16, 16, 3, 8, 256, 1, 0, (256, 33, 0)),
+    (46, 16, 16, 2, 32, 512, 8, 16, (150, 256)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SERVED_T1_DECODE_CASES + CARD_T1_DECODE_CASES)
+def test_decomposed_decode_served_rows(cuda, case, dtype, monkeypatch):
+    """B3 at the served T1 shape and the route's other shapes: bf16 on the
+    tensor cores, float32 on the sweep. The 8-page cases take splits of 64
+    keys, so that their rows span two."""
+    if case in SERVED_T1_DECODE_CASES:
+        monkeypatch.setattr(t1_ops, "TOKEN_SPLIT_KEYS", 64)
+    _check_t1_decode(dtype, *served_t1_decode_inputs(*case),
+                     route="tensor_core" if dtype == torch.bfloat16 else "sweep")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SERVED_T1_DECODE_CASES + CARD_T1_DECODE_CASES)
+def test_decomposed_decode_merge_many_splits(cuda, case, monkeypatch):
+    """B3's tensor-core route with splits of 16 keys: the last block of each
+    rank merges many partials (64 at the served capacity), and most clusters
+    of the short rows lie past their length."""
+    monkeypatch.setattr(t1_ops, "TOKEN_KEYS", 16)
+    _check_t1_decode(torch.bfloat16, *served_t1_decode_inputs(*case), route="tensor_core")
+
+
+@pytest.mark.cuda
+def test_decomposed_decode_back_to_back_leaves_counters_at_zero(cuda):
+    """B3 and B9 launched in a row with split merges, sharing the split
+    counters (as consecutive layers, and a CUDA graph of them, run): each
+    merges its own rows, and the counters are back at zero after them."""
+    outs, refs = [], []
+    for case in CARD_T1_DECODE_CASES[:2]:
+        r, qr, xp, krp, bt, lengths, scale = served_t1_decode_inputs(*case)
+        args = tensors(r, qr, xp, krp, bt, lengths, device="cuda", dtype=torch.bfloat16)
+        outs.append(t1_ops.paged_decomposed_decode_fwd(*args, scale))
+        refs.append(t1_ops.paged_decomposed_decode_plain(*args, scale))
+    for case in (CONTIG_T1_CASES[-1], CONTIG_T1_CASES[3]):
+        r, qr, x, kr, length, scale = contig_t1_inputs(*case)
+        args = tensors(r, qr, x, kr, device="cuda", dtype=torch.bfloat16)
+        outs.append(t1_ops.decomposed_decode_fwd(*args, length, scale))
+        refs.append(t1_ops.decomposed_decode_plain(*args, length, scale))
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[torch.bfloat16], rtol=0)
+    assert not single_query.counters(1, torch.device("cuda")).any()
 
 
 @pytest.mark.cuda
@@ -499,14 +574,48 @@ def test_flash_attention_prompt_route_by_dtype(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", CONTIG_T1_CASES)
 def test_contiguous_decomposed_decode_kernel_matches_plain(cuda, case, dtype):
-    r, qr, x, kr, length, scale = contig_t1_inputs(*case)
+    _check_t1_contig(dtype, *contig_t1_inputs(*case))
+
+
+def _check_t1_contig(dtype, r, qr, x, kr, length, scale, route=None):
+    """B9 on the card against its plain version; the call must move the
+    route t1_decode_route picks (and ``route`` if given)."""
     args = tensors(r, qr, x, kr, device="cuda", dtype=dtype)
-    before = t1_ops.decomposed_decode.launches
+    before, routes = t1_ops.decomposed_decode.launches, dict(t1_ops.CONTIG_ROUTE_LAUNCHES)
     out = t1_ops.decomposed_decode_fwd(*args, length, scale)
     torch.cuda.synchronize()
     assert t1_ops.decomposed_decode.launches == before + 1
+    want = t1_ops.t1_decode_route(dtype, *r.shape[1:], kr.shape[2], qr.shape[-1])
+    assert route in (None, want)
+    assert _route_moved(t1_ops.CONTIG_ROUTE_LAUNCHES, routes) == {
+        r_: int(r_ == want) for r_ in routes}
     ref = t1_ops.decomposed_decode_plain(*args, length, scale)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+
+
+# the card only: B9 at the static decode's shape (8 rows, N 576, length
+# 575), 8 heads without a roped term (a padded head tile), 32 heads in
+# groups of 4 (two head tiles), length 0
+CARD_CONTIG_T1_CASES = [  # seed, B, N, H, Dm, kv_r, Rr, length
+    (8, 8, 576, 16, 1024, 16, 32, 575),
+    (9, 3, 200, 8, 256, 1, 0, 150),
+    (10, 2, 300, 32, 512, 8, 16, 257),
+    (11, 2, 40, 16, 1024, 16, 32, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CARD_CONTIG_T1_CASES + CONTIG_T1_CASES[-1:])
+def test_contiguous_decomposed_decode_route(cuda, case, dtype, monkeypatch):
+    """B9 at the static decode's shape and the route's other shapes: bf16 on
+    the tensor cores, float32 on the sweep; then, in bf16, with splits of
+    16 keys (many partials merged by the last block of each rank)."""
+    route = "tensor_core" if dtype == torch.bfloat16 else "sweep"
+    _check_t1_contig(dtype, *contig_t1_inputs(*case), route=route)
+    if dtype == torch.bfloat16:
+        monkeypatch.setattr(t1_ops, "TOKEN_KEYS", 16)
+        _check_t1_contig(dtype, *contig_t1_inputs(*case), route=route)
 
 
 @pytest.mark.cuda

@@ -8,9 +8,13 @@ multiple of 8 up to 64 on its own (``decomposed_attn/csrc/
 paged_decomposed_chunk.cuh``), and everything else on the CUDA-core sweep;
 B5 ``paged_cpq_decode`` runs Dh and Dv multiples of 16 up to 256 on the
 single-query decode (``flash_attn/csrc/single_query.cuh``), either dtype,
-and other widths on the sweep. The choices, and the split plans of B4's and
-B5's new routes, are plain functions, so they are tested here without a
-card; ``test_torch_kernels_cuda.py`` checks on the card that each call moves
+and other widths on the sweep; B3 ``paged_decomposed_decode`` and B9
+``decomposed_decode`` run bf16 with d_model a multiple of 8 up to 1024 and
+a roped slice of 0 or a multiple of 8 (as many roped groups as a cluster's
+rope steps hold) on their tensor-core kernel
+(``decomposed_attn/csrc/t1_token.cuh``), everything else on the sweep. The
+choices, and the split plans of B3's, B4's, B5's and B9's new routes, are
+plain functions, so they are tested here without a card; ``test_torch_kernels_cuda.py`` checks on the card that each call moves
 its route's counter."""
 import numpy as np
 import pytest
@@ -92,9 +96,58 @@ def test_cpq_decode_route(Dh, Dv, route):
     assert cpq_ops.cpq_decode_route(Dh, Dv) == route
 
 
+@pytest.mark.parametrize("dtype, H, Dm, kv_r, Rr, route", [
+    (BF16, 16, 1024, 16, 32, "tensor_core"),  # qwen1.5-0.5b, as served: 16 groups of 32
+    (BF16, 16, 512, 1, 64, "tensor_core"),    # MLA-like: one shared roped key of 64
+    (BF16, 8, 256, 1, 0, "tensor_core"),      # no roped term, 8 heads (a padded tile)
+    (BF16, 32, 512, 8, 16, "tensor_core"),    # two head tiles
+    (BF16, 4, 16, 2, 8, "tensor_core"),       # one block, no cluster
+    (BF16, 16, 1000, 16, 32, "tensor_core"),  # a multiple of 8, not of the 128-column slice
+    (F32, 16, 1024, 16, 32, "sweep"),         # float32: TF32 would miss the float32 gate
+    (F32, 8, 256, 1, 0, "sweep"),
+    (BF16, 32, 2560, 8, 32, "sweep"),         # past TOKEN_SLICE * TOKEN_MAX_CLUSTER: qwen3-4b ...
+    (BF16, 24, 3072, 8, 32, "sweep"),         # phi4-mini
+    (BF16, 32, 4096, 32, 32, "sweep"),        # opt-6.7b
+    (BF16, 64, 8192, 8, 64, "sweep"),         # jamba
+    (BF16, 16, 1032, 16, 32, "sweep"),        # just past 1024
+    (BF16, 16, 1020, 16, 32, "sweep"),        # d_model no multiple of 8
+    (BF16, 16, 1024, 16, 4, "sweep"),         # a roped slice no multiple of 8
+    (BF16, 16, 256, 16, 32, "sweep"),         # 32 roped steps over a cluster of 2
+    (torch.float16, 16, 1024, 16, 32, "sweep"),
+])
+def test_t1_decode_route(dtype, H, Dm, kv_r, Rr, route):
+    assert t1_ops.t1_decode_route(dtype, H, Dm, kv_r, Rr) == route
+
+
+@pytest.mark.parametrize("B, H, Dm, capacity, of, want", [
+    (8, 16, 1024, 1024, "capacity", (8, 128)),  # B3 as served: 64 pages of 16, 4 blocks an SM
+    (8, 16, 1024, 575, "length", (3, 192)),     # B9 as served: the fewest splits
+    (8, 16, 1024, 320, "length", (2, 160)),
+    (3, 16, 1024, 40, "length", (1, 48)),       # short: one split
+    (8, 16, 1024, 0, "length", (1, 16)),        # length 0: one split without keys
+    (8, 16, 1024, 4096, "length", (22, 192)),   # long: splits of at most TOKEN_KEYS
+    (64, 16, 1024, 1024, "capacity", (6, 176)),  # many rows fill the card with few splits
+    (3, 16, 1024, 128, "capacity", (1, 128)),  # the served cases' capacity: one split
+    (1, 16, 128, 8192, "length", (43, 192)),    # one block a split
+    (4, 32, 512, 300, "length", (2, 160)),      # two head tiles over a cluster of 4
+])
+def test_t1_decode_plan(monkeypatch, B, H, Dm, capacity, of, want):
+    """B3's and B9's tensor-core splits: B9 the fewest of at most TOKEN_KEYS
+    keys; B3, from the capacity, at least TOKEN_SPLIT_KEYS keys and at most
+    TOKEN_MAX_SPLITS splits where they fill the card, and never more than
+    TOKEN_KEYS keys a split; both covering the capacity."""
+    monkeypatch.setattr(single_query, "_sm_count", lambda device: 132)
+    splits, keys = t1_ops.t1_decode_plan(B, H, Dm, capacity, torch.device("cpu"), of)
+    assert (splits, keys) == want
+    assert splits * keys >= capacity > (splits - 1) * keys or capacity == 0
+    assert keys <= t1_ops.TOKEN_KEYS and keys % 16 == 0
+    assert splits <= t1_ops.TOKEN_MAX_SPLITS or keys > t1_ops.TOKEN_KEYS - 16
+
+
 def test_route_counters_name_both_routes():
     assert (set(ops.ROUTE_LAUNCHES) == set(cpq_ops.ROUTE_LAUNCHES)
-            == set(t1_ops.ROUTE_LAUNCHES) == {"tensor_core", "sweep"})
+            == set(t1_ops.ROUTE_LAUNCHES) == set(t1_ops.DECODE_ROUTE_LAUNCHES)
+            == set(t1_ops.CONTIG_ROUTE_LAUNCHES) == {"tensor_core", "sweep"})
     assert set(cpq_ops.DECODE_ROUTE_LAUNCHES) == {"single_query", "sweep"}
 
 
@@ -135,9 +188,10 @@ def test_t1_chunk_plan(monkeypatch, C, H, kv_r, end, want):
 
 def test_cpu_tensors_take_no_route():
     """On the CPU the wrappers run their plain versions: no route counter
-    moves, whatever the dtype (B2, B4, B5)."""
+    moves, whatever the dtype (B2, B3, B4, B5, B9)."""
     counters = (ops.ROUTE_LAUNCHES, cpq_ops.ROUTE_LAUNCHES, t1_ops.ROUTE_LAUNCHES,
-                cpq_ops.DECODE_ROUTE_LAUNCHES)
+                cpq_ops.DECODE_ROUTE_LAUNCHES, t1_ops.DECODE_ROUTE_LAUNCHES,
+                t1_ops.CONTIG_ROUTE_LAUNCHES)
     before = [dict(c) for c in counters]
     q = torch.randn(1, 4, 2, 16, dtype=BF16)
     kp = torch.randn(3, 4, 2, 16, dtype=BF16)
@@ -146,6 +200,9 @@ def test_cpu_tensors_take_no_route():
     r, qr = torch.randn(4, 2, 64, dtype=BF16), torch.randn(4, 2, 8, dtype=BF16)
     x, kr = torch.randn(3, 4, 64, dtype=BF16), torch.randn(3, 4, 2, 8, dtype=BF16)
     t1_ops.paged_decomposed_prefill_fwd(r, qr, x, kr, row, 2, 3, 0.25)
+    t1_ops.paged_decomposed_decode_fwd(r[:1], qr[:1], x, kr, row[None],
+                                       torch.tensor([5], dtype=torch.int32), 0.25)
+    t1_ops.decomposed_decode_fwd(r[:1], qr[:1], x[:1], kr[:1], 3, 0.25)
     kt = cpq_arena(cpq_pool(np.random.default_rng(0), 3, 4, 2, 16, 1, 4, 4))
     cpq_ops.paged_cpq_decode(q[:, :1], kt, kt, row[None], torch.tensor([5], dtype=torch.int32),
                              0.25)

@@ -252,6 +252,18 @@ SERVED_T1_PREFILL_CASES = [  # seed, offset, valid, H, Dm, kv_r, Rr, page, nb, C
 ]
 
 
+# decodes at qwen1.5-0.5b's served T1 shape (pages of 16, H 16, Dm 1024, 16
+# roped groups of 32), for B3 on the CPU (against the JAX kernel) and on the
+# card: a row of length 0, a full row, partial last pages, and rows over
+# more than one key split of the card's tensor-core route (of 64 keys: the
+# card tests set them so)
+SERVED_T1_DECODE_CASES = [  # seed, page, nb, B, H, Dm, kv_r, Rr, lengths
+    (40, 16, 8, 3, 16, 1024, 16, 32, (0, 128, 77)),
+    (41, 16, 8, 3, 16, 1024, 16, 32, (100, 64, 17)),
+    (42, 16, 8, 2, 16, 1024, 16, 32, (1, 65)),
+]
+
+
 def t1_decode_inputs(seed, page, nb, B, H, Dm, kv_r, Rr):
     """r, q_rope, X and roped-key pools (null page poisoned), block table,
     lengths, scale for the T1 decode sweep."""
@@ -263,6 +275,24 @@ def t1_decode_inputs(seed, page, nb, B, H, Dm, kv_r, Rr):
     r = rng.normal(size=(B, H, Dm)).astype(np.float32)
     qr = rng.normal(size=(B, H, Rr)).astype(np.float32)
     return r, qr, xp, krp, bt, lengths, (Dm + Rr) ** -0.5
+
+
+def served_t1_decode_inputs(seed, page, nb, B, H, Dm, kv_r, Rr, lengths):
+    """``t1_decode_inputs`` with the given ``lengths``: permuted pages, the
+    unmapped tail of every row at the poisoned null page."""
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + B * nb
+    perm = rng.permutation(np.arange(1, num_pages)).tolist()
+    bt = np.zeros((B, nb), np.int32)
+    for b in range(B):
+        for j in range(-(-lengths[b] // page)):
+            bt[b, j] = perm.pop()
+    xp = rng.normal(size=(num_pages, page, Dm)).astype(np.float32)
+    krp = rng.normal(size=(num_pages, page, kv_r, Rr)).astype(np.float32)
+    xp[0] = krp[0] = 1e3
+    r = rng.normal(size=(B, H, Dm)).astype(np.float32)
+    qr = rng.normal(size=(B, H, Rr)).astype(np.float32)
+    return r, qr, xp, krp, bt, np.array(lengths, np.int32), (Dm + Rr) ** -0.5
 
 
 def served_t1_prefill_inputs(seed, offset, valid, H, Dm, kv_r, Rr, page, nb, C):
@@ -371,6 +401,7 @@ CONTIG_T1_CASES = [  # seed, B, N, H, Dm, kv_r, Rr, length
     (4, 1, 20, 16, 512, 1, 64, 7),     # an MLA-like shape
     (5, 2, 24, 24, 3072, 1, 32, 21),   # phi4-mini's d_model, one shared roped key
     (6, 1, 18, 8, 4096, 1, 0, 18),     # opt-6.7b's d_model, no roped term
+    (7, 2, 300, 16, 1024, 16, 32, 290),  # qwen1.5-0.5b's widths past one key split
 ]
 
 
