@@ -1,7 +1,17 @@
-"""Device time per launch of five of the port's kernels at fixed shapes, on
+"""Device time per launch of seven of the port's kernels at fixed shapes, on
 one NVIDIA GPU, for comparing two checkouts (or two settings of a kernel
 module's constants) in one machine:
 
+  b1      paged_decode (B1) on a served dense decode: 8 rows of 64-576 keys
+          over 64 pages of 16, KV = H = 16, Dh = 64, bf16, and on rows of
+          16-200 keys (801 in all, about the live keys of chip_smoke.py's
+          sampled dense decode calls)
+  b7      paged_proxy_scores (B7) on a served T3 decode: the two row sets of
+          b1, KV = H = 16, Dp = 64, int8 codes over 64 pages of 16, n = 1024
+          positions, a bf16 query; form "wrapper" times the wrapper on a pre-scaled query
+          (the factors and the kernel), form "served" the served call with
+          the query's scale (an eager multiply and the wrapper where the
+          wrapper takes no scale)
   b4      paged_decomposed_prefill (B4) on qwen1.5-0.5b's T1 chunks: C = 16
           over pages of 16, H = 16, Dm = 1024, 16 roped groups of 32, bf16,
           chunks ending at 16, 128, 256 and 512 keys
@@ -19,7 +29,7 @@ Each case is timed as the model runs it: one launch per layer over 24
 layer arenas (the next layer's pages cold in L2), captured in a CUDA graph
 and replayed; the time is the graph's device time over 24.
 
-    PYTHONPATH=src python benchmarks/torch_kernel_times.py [--cases b3,b4,b5,b8_f32,b9]
+    PYTHONPATH=src python benchmarks/torch_kernel_times.py [--cases b1,b3,b4,b5,b7,b8_f32,b9]
         [--set decomposed_attn.MAX_CHUNK_SPLITS=8 ...]
 
 ``--set`` overrides an integer constant of a kernel family's ``ops`` module
@@ -33,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import inspect
 import json
 import subprocess
 
@@ -116,6 +127,70 @@ def b5():
 
 
 B5_LENGTHS = (64, 576, 300, 151, 420, 97, 512, 233)
+B1_LIGHT_LENGTHS = (16, 64, 200, 33, 150, 96, 180, 62)
+
+
+def _served_rows(gen, B, nb, page, rows=None):
+    """Block table (permuted pages, unmapped entries at the null page 0) and
+    lengths of ``rows`` (B5_LENGTHS) over nb pages of ``page``."""
+    lengths = torch.tensor(rows or B5_LENGTHS, dtype=torch.int32, device="cuda")
+    bt = torch.zeros((B, nb), dtype=torch.int32, device="cuda")
+    perm = torch.randperm(B * nb, generator=gen, device="cuda").int() + 1
+    for b in range(B):
+        n = -(-int(lengths[b]) // page)
+        bt[b, :n] = perm[b * nb:b * nb + n]
+    return bt, lengths
+
+
+def b1():
+    from repro_torch.kernels.paged_attn import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, KV, Dh, page, nb = 8, 16, 64, 16, 64
+    kv = [(torch.randn((1 + B * nb, page, KV, Dh), generator=gen, device="cuda").bfloat16(),
+           torch.randn((1 + B * nb, page, KV, Dh), generator=gen, device="cuda").bfloat16())
+          for _ in range(LAYERS)]
+    q = torch.randn((B, 1, KV, Dh), generator=gen, device="cuda").bfloat16()
+    for rows in (B5_LENGTHS, B1_LIGHT_LENGTHS):
+        bt, lengths = _served_rows(gen, B, nb, page, rows)
+
+        def run():
+            for k, v in kv:
+                ops.paged_decode(q, k, v, bt, lengths, Dh ** -0.5)
+        yield {"case": "b1", "B": B, "KV": KV, "Dh": Dh, "lengths": list(rows),
+               "us": graph_us(run) / LAYERS}
+
+
+def b7():
+    from repro_torch.kernels.topk_retrieval import ops as t3_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, KV, Dp, page, nb = 8, 16, 64, 16, 64
+    codes = [torch.randint(-128, 128, (1 + B * nb, page, KV, Dp), generator=gen,
+                           device="cuda").to(torch.int8) for _ in range(LAYERS)]
+    scale = 0.005 + 0.025 * torch.rand((B, KV, Dp), generator=gen, device="cuda")
+    zero = -1.5 + 0.3 * torch.randn((B, KV, Dp), generator=gen, device="cuda")
+    q = torch.randn((B, 1, KV, Dp), generator=gen, device="cuda").bfloat16()
+    takes_scale = "q_scale" in inspect.signature(t3_ops.paged_proxy_scores).parameters
+    n, qscale = nb * page, Dp ** -0.5
+
+    for rows in (B5_LENGTHS, B1_LIGHT_LENGTHS):
+        bt, lengths = _served_rows(gen, B, nb, page, rows)
+
+        def wrapper():
+            for c in codes:
+                t3_ops.paged_proxy_scores(q[:, 0], scale, zero, c, bt, lengths, n)
+
+        def served():
+            for c in codes:
+                if takes_scale:
+                    t3_ops.paged_proxy_scores(q[:, 0], scale, zero, c, bt, lengths, n,
+                                              q_scale=qscale)
+                else:
+                    t3_ops.paged_proxy_scores(q[:, 0] * qscale, scale, zero, c, bt, lengths, n)
+        for form, fn in (("wrapper", wrapper), ("served", served)):
+            yield {"case": "b7", "form": form, "B": B, "KV": KV, "Dp": Dp, "n": n,
+                   "lengths": list(rows), "us": graph_us(fn) / LAYERS}
 
 
 def b3():
@@ -181,7 +256,7 @@ def b8_f32():
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cases", default="b3,b4,b5,b8_f32,b9",
+    ap.add_argument("--cases", default="b1,b3,b4,b5,b7,b8_f32,b9",
                     help="comma-separated cases to time")
     ap.add_argument("--set", action="append", default=[], metavar="FAMILY.NAME=VALUE",
                     help="override an integer constant of repro_torch.kernels.FAMILY.ops")
@@ -200,7 +275,7 @@ def main() -> int:
             raise SystemExit(f"torch_kernel_times: {family}.ops has no {const}")
         setattr(mod, const, int(value))
         settings[name] = int(value)
-    cases = {"b3": b3, "b4": b4, "b5": b5, "b8_f32": b8_f32, "b9": b9}
+    cases = {"b1": b1, "b3": b3, "b4": b4, "b5": b5, "b7": b7, "b8_f32": b8_f32, "b9": b9}
     for name in args.cases.split(","):
         for rec in cases[name]():
             print(json.dumps({**rec, "set": settings, "card": card}), flush=True)

@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 # the namespaces of the port's attention kernels, as a profile names them
-ATTENTION = ("paged_attn", "paged_chunk", "cpq_attn", "decomposed_attn", "decomposed_chunk",
-             "t1_token", "topk_retrieval", "flash_prompt", "single_query")
+ATTENTION = ("paged_attn", "paged_chunk", "paged_token", "cpq_attn", "decomposed_attn",
+             "decomposed_chunk", "t1_token", "topk_retrieval", "flash_prompt", "single_query")
 
 
 def requests(T, vocab: int):

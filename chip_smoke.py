@@ -17,8 +17,13 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               GQA shape (KV=8, G=4, Dh=128): B1 paged_decode and B2
               paged_prefill on the layouts of the CPU tests (permuted pages,
               a poisoned null page, ragged and empty rows, partial last
-              pages); B5 paged_cpq_decode and B6 paged_cpq_prefill over CPQ
-              code pages of 4 and 8 bits, L = 4 levels, with the null page's
+              pages), each B1 call on its route (widths that are multiples
+              of 16 the ring kernel, either dtype; Dh 24 and 12 the sweep),
+              and B1 at the served decode's capacity (8 rows over 64 pages
+              of 16, lengths 0, 1, on 16-key tiles and full) at both shapes
+              with the planned and with the most cluster ranks; B5
+              paged_cpq_decode and B6 paged_cpq_prefill over CPQ code pages
+              of 4 and 8 bits, L = 4 levels, with the null page's
               levels out of range, a live row over an all-null block row
               (each B5 call must take its route: widths that are multiples
               of 16 the single-query kernel, Dh 24 and 12 the sweep);
@@ -38,11 +43,14 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               B3 at the served shape over 8 rows of 64 pages with lengths
               on its split boundaries, 0 and the full capacity, with the
               planned and with the most splits; B7
-              paged_proxy_scores in float32 (its inputs are float32 query
-              factors and int8 codes) at qwen1.5-0.5b's T3 shape (KV=16,
-              G=1, Dp=64) and GQA shapes (KV=8, G=4 and G=3, Dp=128) on the
-              same layouts, and in its contiguous one-page-per-row form,
-              held to 1e-5 x max |score|; the contiguous kernels: B8
+              paged_proxy_scores (one launch forming the query factors from
+              q in float32 or bf16, rows at a wider query's stride, its
+              scale given or not, and the slot's float32 tables; int8
+              codes) at qwen1.5-0.5b's T3 shape (KV=16, G=1, Dp=64) and GQA
+              shapes (KV=8, G=4 and G=3, Dp=128) on the same layouts, and
+              in its contiguous form (the factors given, and formed from a
+              bf16 query as the static T3 decode does), held to 1e-5 x max
+              |score|; the contiguous kernels: B8
               flash_attention (a bf16 prompt on its tensor-core route, a
               float32 prompt on its CUDA-core sweep, a decode token on its
               single-query route) on the five cases of tests/test_kernels.py,
@@ -68,9 +76,10 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               are admitted into and escalated to the CPQ tier). Each run
               must launch its kernels 24 times per tick (T3: B7 per decode
               tick, B2 per chunk tick), every chunk launch of B2, B4 and B6
-              and every decode launch of B3 on the tensor-core route and
-              every decode launch of B5 on the single-query route (route
-              counters against launches);
+              and every decode launch of B3 on the tensor-core route, every
+              decode launch of B5 on the single-query route and every decode
+              launch of B1 on the ring route (route counters against
+              launches; B1's also in (g));
               (a), (b), (d) and (e) then time
               them at the shapes the run gave
               them, beside their bound, their plain version and one PyTorch
@@ -148,9 +157,9 @@ SEED = 0
 DEVICE = "cuda"
 # the namespaces of the attention kernels' device functions, as a profile
 # names them
-ATTENTION_KERNELS = ("paged_attn", "paged_chunk", "cpq_attn", "decomposed_attn",
-                     "decomposed_chunk", "t1_token", "topk_retrieval", "flash_prompt",
-                     "single_query")
+ATTENTION_KERNELS = ("paged_attn", "paged_chunk", "paged_token", "cpq_attn",
+                     "decomposed_attn", "decomposed_chunk", "t1_token", "topk_retrieval",
+                     "flash_prompt", "single_query")
 # B8's wrapper counts every launch; its kernels (routes) are counted apart,
 # under these names in a serve's launch counts
 COUNT_KEY = {"flash_attention": "flash_attention/decode",
@@ -212,9 +221,62 @@ def routes_moved(routes: dict, before: dict) -> dict:
     return {r: n - before[r] for r, n in routes.items()}
 
 
+def decode_err(ops, dtype, q, kp, vp, bt, lengths, scale) -> float:
+    """Max abs error of one B1 call against its plain version; the call must
+    take the route its dtype and widths pick, and its empty rows be zero."""
+    before = dict(ops.DECODE_ROUTE_LAUNCHES)
+    out = ops.paged_decode(q, kp, vp, bt, lengths, scale)
+    torch.cuda.synchronize()
+    route = ops.decode_route(dtype, kp.shape[-1], vp.shape[-1], bt.shape[1])
+    moved = routes_moved(ops.DECODE_ROUTE_LAUNCHES, before)
+    check(moved == {k: int(k == route) for k in moved},
+          f"paged_decode {dtype} {tuple(kp.shape)}: routes {moved}, want {route}")
+    ref = ops.paged_decode_plain(q, kp, vp, bt, lengths, scale)
+    check(not out[lengths == 0].any().item(), "paged_decode: an empty row is not zero")
+    return (out.float() - ref.float()).abs().max().item()
+
+
+# B1 at the served decode's capacity (8 rows over 64 pages of 16): lengths
+# 0, 1, on the ring route's 16-key tiles and at the full capacity, at
+# qwen1.5-0.5b's shape (KV 16, G 1, Dh 64: one block a unit) and at GQA (KV
+# 8, G 4, Dh 128: two ranks a unit), each also with every unit over the most
+# ranks of a cluster (8)
+SERVED_DECODE = ((0, 1, 256, 1024, 77, 576, 767, 16), (640, 128, 0, 511, 257, 1000, 17, 33))
+
+
+def sweep_decode_served(ops, dtype, page=16, nb=64) -> dict:
+    """Max abs error of B1 against its plain version on SERVED_DECODE, with
+    the planned ranks and with the most, each call on its route."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    errs = {}
+    for KV, G, Dh in ((16, 1, 64), (8, 4, 128)):
+        err = 0.0
+        for lengths in SERVED_DECODE:
+            B = len(lengths)
+            pages = torch.randperm(B * nb, generator=gen, device=DEVICE).int() + 1
+            bt = torch.zeros((B, nb), dtype=torch.int32, device=DEVICE)
+            for b, n in enumerate(lengths):
+                bt[b, :-(-n // page)] = pages[b * nb:b * nb + -(-n // page)]
+            kp = torch.randn((1 + B * nb, page, KV, Dh), generator=gen, device=DEVICE).to(dtype)
+            vp = torch.randn((1 + B * nb, page, KV, Dh), generator=gen, device=DEVICE).to(dtype)
+            kp[0] = vp[0] = 1e3                  # poisoned null page
+            q = torch.randn((B, 1, KV * G, Dh), generator=gen, device=DEVICE).to(dtype)
+            len_t = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+            plan = ops.decode_plan
+            try:
+                for forced in (None, ops.RING_MAX_CLUSTER):
+                    if forced:
+                        ops.decode_plan = lambda *a: forced  # noqa: E731
+                    err = max(err, decode_err(ops, dtype, q, kp, vp, bt, len_t, Dh ** -0.5))
+            finally:
+                ops.decode_plan = plan
+        errs[f"KV={KV} G={G} Dh={Dh}"] = err
+    return errs
+
+
 def sweep(ops, dtype, KV, G, Dh, page=16, nb=64, B=8, C=16):
-    """Max abs error of B1 and B2 against their plain versions; every B2
-    call must take the route its dtype and width pick."""
+    """Max abs error of B1 and B2 against their plain versions; every B1 and
+    B2 call must take the route its dtype and width pick."""
     rng = np.random.default_rng(SEED)
     dev = DEVICE
     num_pages, lengths, bt = layout(rng, B, nb, page)
@@ -225,11 +287,7 @@ def sweep(ops, dtype, KV, G, Dh, page=16, nb=64, B=8, C=16):
     bt_t = torch.tensor(bt, device=dev)
     len_t = torch.tensor(lengths, device=dev)
     scale = Dh ** -0.5
-    out = ops.paged_decode(q, kp, vp, bt_t, len_t, scale)
-    torch.cuda.synchronize()
-    ref = ops.paged_decode_plain(q, kp, vp, bt_t, len_t, scale)
-    err_dec = (out.float() - ref.float()).abs().max().item()
-    check(not out[0].any().item(), "paged_decode: an empty row is not zero")
+    err_dec = decode_err(ops, dtype, q, kp, vp, bt_t, len_t, scale)
     err_pre = 0.0
     row = bt_t[-1]                               # the long row's pages
     calls = chunk_calls(int(lengths[-1]), C)
@@ -429,10 +487,14 @@ def t3_err(got, want) -> tuple[float, float]:
 
 def sweep_t3(t3_ops, KV, G, Dp, page=16, nb=64, B=8, N=1000):
     """Max abs error of B7 against its plain version, each case checked
-    against its own tolerance (T3_REL x its max |score|): over code pages on the layout of ``sweep`` (an empty row, ragged rows, a
-    long row with a partial last page, a poisoned null page), then in the
-    contiguous one-page-per-row form at N = 1000 (not a multiple of the
-    kernel's 128-key tile) with lengths 777 and 0."""
+    against its own tolerance (T3_REL x its max |score|): the served call
+    (the query factors formed in the kernel from q in float32 and bf16,
+    rows at the stride of a wider query, its scale given or not, n at and
+    short of the capacity) over code pages on the layout of ``sweep`` (an
+    empty row, ragged rows, a long row with a partial last page, a poisoned
+    null page), then in the contiguous form at N = 1000 (not a multiple of
+    the kernel's 128-key blocks) with the factors given at lengths 777 and 0, and
+    formed from a bf16 query (the static T3 decode's ``proxy_scores_q``)."""
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     num_pages, lengths, bt = layout(rng, B, nb, page)
@@ -444,12 +506,19 @@ def sweep_t3(t3_ops, KV, G, Dp, page=16, nb=64, B=8, N=1000):
     q = torch.randn((B, KV * G, Dp), generator=gen, device=DEVICE) * Dp ** -0.5
     bt_t = torch.tensor(bt, device=DEVICE)
     len_t = torch.tensor(lengths, device=DEVICE)
-    n = nb * page
-    out = t3_ops.paged_proxy_scores(q, scale, zero, codes, bt_t, len_t, n)
-    torch.cuda.synchronize()
-    errs = [t3_err(out, t3_ops.paged_proxy_scores_plain(q, scale, zero, codes, bt_t,
-                                                       len_t, n))]
-    check(bool((out[0] == -1e30).all().item()), "paged_proxy_scores: an empty row is live")
+    errs = []
+    # the served call: the query as rows of a (B, 1, H, 2 Dp) tensor in q's
+    # type, its scale given (float32 and bf16), and n short of the capacity
+    wide = torch.cat([q, q.flip(-1)], -1)[:, None]
+    for qdt, q_scale, n in ((torch.float32, None, nb * page), (torch.bfloat16, 0.125, nb * page),
+                            (torch.float32, 0.125, nb * page - 37)):
+        qv = wide.to(qdt)[:, 0, :, :Dp]
+        out = t3_ops.paged_proxy_scores(qv, scale, zero, codes, bt_t, len_t, n, q_scale=q_scale)
+        torch.cuda.synchronize()
+        q_eff = qv if q_scale is None else qv * q_scale
+        errs.append(t3_err(out, t3_ops.paged_proxy_scores_plain(q_eff, scale, zero, codes,
+                                                               bt_t, len_t, n)))
+        check(bool((out[0] == -1e30).all().item()), "paged_proxy_scores: an empty row is live")
     cont = torch.randint(-128, 128, (B, N, KV, Dp), generator=gen, device=DEVICE).to(torch.int8)
     qs = 0.02 * torch.randn((B, KV, G, Dp), generator=gen, device=DEVICE)
     qz = torch.randn((B, KV, G, 1), generator=gen, device=DEVICE)
@@ -457,6 +526,12 @@ def sweep_t3(t3_ops, KV, G, Dp, page=16, nb=64, B=8, N=1000):
         o = t3_ops.proxy_scores(qs, qz, cont, length)
         torch.cuda.synchronize()
         errs.append(t3_err(o, t3_ops.proxy_scores_plain(qs, qz, cont, length)))
+    # the static T3 decode's form: the factors formed over contiguous codes
+    fq = torch.randn((B, KV * G, Dp), generator=gen, device=DEVICE).bfloat16()
+    o = t3_ops.proxy_scores_q(fq, scale, zero, cont, torch.tensor(777, dtype=torch.int32))
+    torch.cuda.synchronize()
+    fs, fz = t3_ops.query_factors(fq, scale, zero)
+    errs.append(t3_err(o, t3_ops.proxy_scores_plain(fs, fz, cont, 777).reshape(o.shape)))
     for err, tol in errs:
         check(err <= tol, f"proxy scores KV={KV} G={G} Dp={Dp}: error {err} > {tol}")
     return max(e for e, _ in errs)
@@ -598,13 +673,13 @@ class Recorder(StandIn):
         self.split, self.snap = split, snap
         self.calls, self.arenas, self.samples = 0, [], []
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         if len(self.arenas) < self.n_layers:
             self.arenas.append(self.split(*args))
         if self.calls % (self.n_layers * self.every) == 0:
-            self.samples.append(self.snap(*args))
+            self.samples.append(self.snap(*args, **kw))
         self.calls += 1
-        return self.fn(*args)
+        return self.fn(*args, **kw)
 
 
 def served_config(T):
@@ -948,19 +1023,22 @@ def t1_prefill_case(t1_ops, scale):
 
 
 def t3_decode_case(t3_ops):
-    """B7 at one sampled decode call (the served ``paged_proxy_scores``:
-    query factors, then the kernel); the yardstick is torch.matmul of the
-    query factors against the rows' codes gathered, shifted by 128 and
+    """B7 at one sampled decode call (the served ``paged_proxy_scores``: one
+    launch that forms the query factors from the query slice and its scale,
+    then scores); the yardstick is torch.matmul of the query factors,
+    formed beforehand, against the rows' codes gathered, shifted by 128 and
     converted to float32 beforehand, plus qz: the same scores, unmasked."""
     from repro_torch.serving.paged_cache import gather_pages
 
     def make(sample, codes0, tables0):
-        q, bt, lengths, n = sample
-        qs, qz = t3_ops.query_factors(q, *tables0)
+        q, bt, lengths, n, q_scale = sample
+        q_eff = q if q_scale is None else q * q_scale
+        qs, qz = t3_ops.query_factors(q_eff, *tables0)
         cg = (gather_pages(codes0, bt)[:, :n].float() + 128.0).permute(0, 2, 3, 1).contiguous()
         return (lambda codes, tables: t3_ops.paged_proxy_scores(q, *tables, codes, bt,
-                                                                 lengths, n),
-                lambda: t3_ops.paged_proxy_scores_plain(q, *tables0, codes0, bt, lengths, n),
+                                                                 lengths, n, q_scale=q_scale),
+                lambda: t3_ops.paged_proxy_scores_plain(q_eff, *tables0, codes0, bt, lengths,
+                                                        n),
                 lambda: torch.matmul(qs, cg) + qz,
                 t3_bound(q, tables0, bt, lengths, n, codes0))
     return make
@@ -1030,7 +1108,7 @@ def zero_routes(routed: dict) -> None:
 def check_routes(what: str, routed: dict, counts: dict) -> dict:
     """Every launch of a kernel with two routes took the route a bf16 serve
     gives it (B2, B3, B4, B6 and B9 the tensor cores, B5 the single-query
-    decode):
+    decode, B1 the ring):
     each route counter against the wrapper's launches. Returns the route
     counts by kernel."""
     routes = {name: dict(counter) for name, (counter, _) in routed.items()}
@@ -1450,8 +1528,9 @@ class TopkWitness(StandIn):
     def _sets(self, s, lengths):
         return self.select(s[:, None], lengths, self.cfg)[:, 0].sort(-1).values
 
-    def __call__(self, q, sc, z, codes, bt, lengths, n):
-        out = self.fn(q, sc, z, codes, bt, lengths, n)
+    def __call__(self, q, sc, z, codes, bt, lengths, n, q_scale=None):
+        out = self.fn(q, sc, z, codes, bt, lengths, n, q_scale=q_scale)
+        q = q if q_scale is None else q * q_scale  # the pre-scaled query, as served
         if (self.calls // self.n_layers) % self.every == 0:
             plain = self.ops.paged_proxy_scores_plain(q, sc, z, codes, bt, lengths, n)
             gather = self.ret_lib.proxy_scores(
@@ -1927,7 +2006,8 @@ def main() -> int:
     counted = [(mod, name) for name, mod in kmods.items()] + [(t3_ops, "proxy_scores")]
     # the kernels with two routes: their route counters, and the route every
     # launch of a bf16 serve takes
-    routed = {"paged_prefill": (ops.ROUTE_LAUNCHES, "tensor_core"),
+    routed = {"paged_decode": (ops.DECODE_ROUTE_LAUNCHES, "ring"),
+              "paged_prefill": (ops.ROUTE_LAUNCHES, "tensor_core"),
               "paged_cpq_prefill": (cpq_ops.ROUTE_LAUNCHES, "tensor_core"),
               "paged_decomposed_prefill": (t1_ops.ROUTE_LAUNCHES, "tensor_core"),
               "paged_decomposed_decode": (t1_ops.DECODE_ROUTE_LAUNCHES, "tensor_core"),
@@ -1989,7 +2069,8 @@ def main() -> int:
                       cpq_ops.cpq_prefill_route(dtype, Dh, Dh, CPQ_LEVELS))
             report["prefill_routes"][tag] = dict(zip(("paged_prefill", "paged_cpq_prefill"),
                                                      routes))
-            log(f"sweep {tag}: paged_decode {e_dec:.3e}, paged_prefill {e_pre:.3e} "
+            log(f"sweep {tag}: paged_decode {e_dec:.3e} "
+                f"({ops.decode_route(dtype, Dh, Dh, 64)} route), paged_prefill {e_pre:.3e} "
                 f"({routes[0]} route), paged_cpq_decode {e_cd:.3e}, paged_cpq_prefill "
                 f"{e_cp:.3e} ({routes[1]} route; bits 8; tol {TOL[dtype]})")
         for H, Dm, kv_r, Rr in T1_SHAPES:
@@ -2002,6 +2083,11 @@ def main() -> int:
                 f"paged_decomposed_prefill {e_pre:.3e} "
                 f"({t1_ops.t1_prefill_route(dtype, Dm, Rr)} route; tol {TOL[dtype]})")
         dname = str(dtype).removeprefix("torch.")
+        for shape, err in sweep_decode_served(ops, dtype).items():
+            errs["paged_decode"][f"{dname} served rows {shape}"] = err
+            log(f"sweep {dname} served rows {shape}: paged_decode {err:.3e} over "
+                f"{len(SERVED_DECODE)} layouts, planned and most ranks "
+                f"({ops.decode_route(dtype, 64, 64, 64)} route; tol {TOL[dtype]})")
         tag = f"{dname} served rows H=16 Dm=1024 kv_r=16 Rr=32"
         errs["paged_decomposed_decode"][tag] = sweep_t1_served(t1_ops, dtype)
         log(f"sweep {tag}: paged_decomposed_decode "
@@ -2067,8 +2153,8 @@ def main() -> int:
         "paged_decomposed_prefill": (x_arenas, lambda qn, qr, x, kr, row, off, val, wk, wv, s: (
             t1_ops.query_rows(qn, wk, x.dtype)[0], qr[0].to(x.dtype).contiguous(),
             row.clone(), off, val)),
-        "paged_proxy_scores": (code_arenas, lambda q, sc, z, codes, bt, ln, n: (
-            q.clone(), bt.clone(), ln.clone(), n)),
+        "paged_proxy_scores": (code_arenas, lambda q, sc, z, codes, bt, ln, n, q_scale=None: (
+            q.clone(), bt.clone(), ln.clone(), n, q_scale)),
     }
     cases = {"paged_decode": decode_case(ops, scale), "paged_prefill": prefill_case(ops, scale),
              "paged_cpq_decode": cpq_decode_case(cpq_ops, scale),
@@ -2268,9 +2354,11 @@ def main() -> int:
     eng = T.ContinuousServeEngine(cfg, params, serving=dataclasses.replace(
         serving, prefill_chunk=0), device=DEVICE)
     zero_launches(counted, fa_ops.ROUTE_LAUNCHES)
+    zero_routes(routed)
     run = make_requests(T, cfg.vocab_size)
     results, stats, ticks, wall = serve_timed(eng, T, run)
     counts = counted_launches(counted, fa_ops.ROUTE_LAUNCHES)
+    oneshot_routes = check_routes("oneshot", {"paged_decode": routed["paged_decode"]}, counts)
     check_finished(results, run, "oneshot")
     want = {name: 0 for name in counts}
     want.update({"flash_attention": L * stats["admitted"],
@@ -2280,6 +2368,7 @@ def main() -> int:
           f"oneshot: launch counts {counts}, want {want}; {stats['admitted']} admissions")
     serves["oneshot"] = serve_metrics(stats, ticks, wall, "oneshot dense")
     serves["oneshot"]["launches"] = {k: n for k, n in counts.items() if n}
+    serves["oneshot"]["routes"] = oneshot_routes
     del eng
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - T0:.0f} s] served oneshot")
@@ -2335,6 +2424,7 @@ def main() -> int:
                 "cpq_decode": "src/repro/kernels/cpq_dequant_attn/kernel.py:338"}
     source = {name: mod.SOURCES[name] for name, mod in kmods.items()}
     route_source = {  # the header of each served route
+        "paged_decode": ops.CSRC / "paged_token.cuh",
         "paged_prefill": ops.CSRC / "paged_chunk.cuh",
         "paged_cpq_prefill": ops.CSRC / "paged_chunk.cuh",
         "paged_decomposed_prefill": t1_ops.CSRC / "paged_decomposed_chunk.cuh",
@@ -2385,7 +2475,8 @@ def main() -> int:
             "library": library[name], "timed_samples": t["samples"],
             "launches_by_serve": by_serve})
         if name in routed or name in static_routed:
-            # B2, B3, B4, B6, B9: the tensor-core kernel; B5: the single-query one
+            # B2, B3, B4, B6, B9: the tensor-core kernel; B5: the single-query
+            # one; B1: the ring
             route = {**routed, **static_routed}[name][1]
             kernels[-1].update({
                 f"{route}_source": os.path.relpath(str(route_source[name]), root),

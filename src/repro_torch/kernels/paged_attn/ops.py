@@ -11,6 +11,19 @@ kernels); given CUDA tensors it launches the hand-written CUDA kernel in
 ``csrc/`` on the current stream, or raises. It never falls back. Every launch
 adds one to the wrapper's ``launches`` counter.
 
+B1 has two routes, picked by ``decode_route`` from dtype, widths and the
+block table's width before the launch and counted apart in
+``DECODE_ROUTE_LAUNCHES``:
+
+  ``ring``         bf16 or float32, Dh and Dv multiples of 16 up to 256, at
+                   most RING_MAX_PAGES pages a row: one launch, a block per
+                   (row, kv head) holding the row's K/V in flight in a ring
+                   of asynchronous copies (``csrc/paged_token.cuh``); a unit's
+                   keys split over a thread-block cluster only where the
+                   units are too few to fill the card (``decode_plan``)
+  ``sweep``        any other width: the CUDA-core sweep
+                   (``csrc/paged_attn.cuh``) and its merge pass
+
 B2 has two routes, picked by ``prefill_route`` from dtype and widths before
 the launch and counted apart in ``ROUTE_LAUNCHES``:
 
@@ -38,7 +51,11 @@ NEG_INF = -1e30
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = {"paged_decode": CSRC / "paged_decode.cu",
            "paged_prefill": CSRC / "paged_prefill.cu"}
-ROUTE_LAUNCHES = {"tensor_core": 0, "sweep": 0}
+ROUTE_LAUNCHES = {"tensor_core": 0, "sweep": 0}      # B2's
+DECODE_ROUTE_LAUNCHES = {"ring": 0, "sweep": 0}        # B1's
+RING_MAX_PAGES = 4096   # the ring route's block-table entries a row (staged in shared memory)
+RING_MIN_KEYS = 128     # ... its least keys of the capacity a cluster rank takes
+RING_MAX_CLUSTER = 8    # ... and most ranks a unit (the portable cluster size)
 # pass 1 of the sweep splits a row's key range into runs of whole pages of
 # about this many tokens, one block each (see csrc/paged_attn.cuh)
 SPLIT_TOKENS = 64
@@ -51,6 +68,9 @@ _ARGTYPES = {
     # is_bf16, q, k, v, block_table, lengths, out, part,
     # B, H, KV, Dh, Dv, page, nb, pages_per_split, scale, stream
     "paged_decode": [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
+    # is_bf16, q, k, v, block_table, lengths, out,
+    # B, H, KV, Dh, Dv, page, nb, cluster size, scale, stream
+    "paged_decode_ring": [_I] + [_P] * 6 + [_I] * 8 + [_F, _P],
     # is_bf16, q, k, v, block_row, out, part,
     # C, H, KV, Dh, Dv, page, nb, pages_per_split, offset, valid, scale, stream
     "paged_prefill": [_I] + [_P] * 6 + [_I] * 10 + [_F, _P],
@@ -65,6 +85,32 @@ def launcher(name: str, entry: str | None = None):
     building its library first."""
     entry = entry or name
     return build.c_function(SOURCES[name], f"{entry}_launch", _ARGTYPES[entry])
+
+
+def decode_route(dtype: torch.dtype, Dh: int, Dv: int, nb: int) -> str:
+    """The route a paged decode (B1) takes on the card: ``ring`` for bf16 or
+    float32 with Dh and Dv multiples of 16 up to 256 over at most
+    RING_MAX_PAGES pages a row, ``sweep`` otherwise."""
+    if (dtype in (torch.bfloat16, torch.float32) and Dh % 16 == 0 and Dv % 16 == 0
+            and 16 <= min(Dh, Dv) and max(Dh, Dv) <= single_query.MAX_HEAD_DIM
+            and nb <= RING_MAX_PAGES):
+        return "ring"
+    return "sweep"
+
+
+def decode_plan(B: int, KV: int, G: int, capacity: int, device: torch.device) -> int:
+    """The ring route's ranks a unit, planned on the host from the units
+    (rows x kv heads x head groups of 4, or 1 at G = 1) and the capacity
+    nb * page, since the lengths live on the card: doubled up to
+    RING_MAX_CLUSTER while the blocks still fit one to an SM and every rank
+    keeps at least RING_MIN_KEYS keys of the capacity."""
+    units = B * KV * (1 if G == 1 else -(-G // 4))
+    sms = single_query._sm_count(device)
+    cs = 1
+    while (cs < RING_MAX_CLUSTER and 2 * cs * units <= sms
+           and capacity >= 2 * cs * RING_MIN_KEYS):
+        cs *= 2
+    return cs
 
 
 def prefill_route(dtype: torch.dtype, Dh: int, Dv: int) -> str:
@@ -168,15 +214,27 @@ def paged_decode(q, k_pages, v_pages, block_table, lengths, scale: float):
             f"v {tuple(v_pages.shape)}, block_table {tuple(block_table.shape)}, "
             f"lengths {tuple(lengths.shape)}")
     _check_cuda("paged_decode", [q, k_pages, v_pages], [block_table, lengths])
-    pps = max(1, SPLIT_TOKENS // page)
-    splits = -(-nb // pps)
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
-    part = torch.empty(B * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
-    _launch("paged_decode", q.device, int(q.dtype == torch.bfloat16),
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part.data_ptr(), B, H, KV, Dh, Dv, page, nb, pps, float(scale))
+    route = decode_route(q.dtype, Dh, Dv, nb)
+    if route == "ring":
+        if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+            raise ValueError("paged_decode: K/V arenas not 16-byte aligned")
+        q = aligned16(q)
+        cs = decode_plan(B, KV, H // KV, nb * page, q.device)
+        run(launcher("paged_decode", "paged_decode_ring"), "paged_decode", q.device,
+            int(q.dtype == torch.bfloat16), q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), B, H, KV, Dh, Dv, page, nb, cs, float(scale))
+    else:
+        pps = max(1, SPLIT_TOKENS // page)
+        splits = -(-nb // pps)
+        part = torch.empty(B * H * splits * (Dv + 2), dtype=torch.float32, device=q.device)
+        _launch("paged_decode", q.device, int(q.dtype == torch.bfloat16),
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                part.data_ptr(), B, H, KV, Dh, Dv, page, nb, pps, float(scale))
     paged_decode.launches += 1
+    DECODE_ROUTE_LAUNCHES[route] += 1
     return out
 
 

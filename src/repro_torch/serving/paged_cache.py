@@ -755,9 +755,9 @@ def retrieval_decode_paged(cache: PagedRetrievalCache, block_table: torch.Tensor
     B, _, H, Dh = q.shape
     page, KV = cache.k.shape[1], cache.k.shape[2]
     dp = cfg.proxy_dim or Dh
-    sp = t3_ops.paged_proxy_scores(q[:, 0, :, :dp] * scale, cache.proxy_scale,
-                                   cache.proxy_zero, cache.proxy, block_table, lengths,
-                                   block_table.shape[1] * page)[:, None]
+    sp = t3_ops.paged_proxy_scores(q[:, 0, :, :dp], cache.proxy_scale, cache.proxy_zero,
+                                   cache.proxy, block_table, lengths,
+                                   block_table.shape[1] * page, q_scale=scale)[:, None]
     idx = ret_lib.select_topk(sp, lengths, cfg)                  # (B, 1, H, K) logical
     phys = torch.gather(block_table.long(), 1,
                         (idx // page).reshape(B, -1)).reshape(idx.shape)

@@ -43,7 +43,14 @@ take their tensor-core kernel, float32 calls and other widths the sweep
 (``SERVED_T1_DECODE_CASES`` and the card's cases: the served shapes, empty
 and full rows, 8 and 32 heads; splits forced small so that the last block
 of each rank merges many partials; B3 and B9 back to back leave the split
-counters at zero).
+counters at zero). B1 runs head widths that are multiples of 16, bf16 or
+float32, on its ring kernel and other widths on the sweep
+(``SERVED_DECODE_CASES`` and ``CARD_DECODE_CASES``: lengths 0 and 1, on
+tile boundaries and at the full capacity, at the served shape and at GQA,
+with the planned cluster and with the most ranks). The served B7 call forms
+the query factors in its kernel from q in bf16 or float32, rows at any
+stride, its scale given or not (``SERVED_PROXY_CASES``), held to its plain
+version on the pre-scaled query at 1e-5 x max |score|.
 """
 import numpy as np
 import pytest
@@ -55,17 +62,20 @@ from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.paged_attn import ops
 from repro_torch.kernels.topk_retrieval import ops as t3_ops
-from torch_paged_cases import (CARD_CPQ_DECODE_CASES, CONTIG_CPQ_CASES, CONTIG_PROXY_CASES,
-                               CONTIG_T1_CASES, CPQ_DECODE_CASES, CPQ_PREFILL_CASES,
-                               DECODE_CASES, FLASH_CASES, PREFILL_CASES, PROXY_CASES,
-                               SERVED_CPQ_DECODE_CASES, SERVED_PREFILL_CASES,
+from torch_paged_cases import (CARD_CPQ_DECODE_CASES, CARD_DECODE_CASES, CONTIG_CPQ_CASES,
+                               CONTIG_PROXY_CASES, CONTIG_T1_CASES, CPQ_DECODE_CASES,
+                               CPQ_PREFILL_CASES, DECODE_CASES, FLASH_CASES, PREFILL_CASES,
+                               PROXY_CASES, SERVED_CPQ_DECODE_CASES, SERVED_DECODE_CASES,
+                               SERVED_PREFILL_CASES, SERVED_PROXY_CASES,
                                SERVED_T1_DECODE_CASES, SERVED_T1_PREFILL_CASES,
                                T1_DECODE_CASES, T1_PREFILL_CASES,
                                T1_WIDE, contig_cpq_inputs, contig_proxy_inputs,
                                contig_t1_inputs, cpq_arena, cpq_decode_inputs,
                                cpq_prefill_inputs, decode_inputs, flash_inputs,
-                               prefill_inputs, proxy_inputs, served_cpq_decode_inputs,
-                               served_cpq_prefill_inputs, served_prefill_inputs,
+                               prefill_inputs, proxy_inputs, proxy_tables,
+                               served_cpq_decode_inputs,
+                               served_cpq_prefill_inputs, served_decode_inputs,
+                               served_prefill_inputs, served_proxy_inputs,
                                served_t1_decode_inputs, served_t1_prefill_inputs,
                                t1_decode_inputs, t1_prefill_inputs, tensors)
 
@@ -85,13 +95,86 @@ def cuda():
 def test_decode_kernel_matches_plain(cuda, case, dtype):
     q, kp, vp, bt, lengths, scale = decode_inputs(*case)
     args = tensors(q, kp, vp, bt, lengths, device="cuda", dtype=dtype)
-    before = ops.paged_decode.launches
+    before, routes = ops.paged_decode.launches, dict(ops.DECODE_ROUTE_LAUNCHES)
     out = ops.paged_decode(*args, scale)
     torch.cuda.synchronize()
     assert ops.paged_decode.launches == before + 1
+    route = ops.decode_route(dtype, kp.shape[-1], vp.shape[-1], bt.shape[1])
+    assert _route_moved(ops.DECODE_ROUTE_LAUNCHES, routes) == {
+        r: int(r == route) for r in routes}
     ref = ops.paged_decode_plain(*args, scale)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
     assert not out[args[4] == 0].any()  # empty rows -> zeros
+
+
+def _check_ring_decode(case, dtype):
+    q, kp, vp, bt, lengths, scale = served_decode_inputs(*case)
+    args = tensors(q, kp, vp, bt, lengths, device="cuda", dtype=dtype)
+    routes = dict(ops.DECODE_ROUTE_LAUNCHES)
+    out = ops.paged_decode(*args, scale)
+    torch.cuda.synchronize()
+    assert _route_moved(ops.DECODE_ROUTE_LAUNCHES, routes) == {"ring": 1, "sweep": 0}
+    ref = ops.paged_decode_plain(*args, scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+    assert not out[args[4] == 0].any()
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SERVED_DECODE_CASES + CARD_DECODE_CASES)
+def test_decode_ring_served_rows(cuda, case, dtype):
+    """B1 on the ring route at the served page size and head dims, the
+    cluster planned from the units and the capacity (one block a unit at
+    the served shape, two ranks at its GQA shape): lengths 0 and 1, on tile
+    and rank boundaries, at the full capacity of 1024 keys."""
+    _check_ring_decode(case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SERVED_DECODE_CASES + CARD_DECODE_CASES)
+def test_decode_ring_most_ranks(cuda, case, dtype, monkeypatch):
+    """B1 with every unit cut over the most ranks a cluster takes (8): the
+    ranks' merge through distributed shared memory, short rows leaving
+    ranks without a tile."""
+    monkeypatch.setattr(ops, "decode_plan", lambda *a: ops.RING_MAX_CLUSTER)
+    _check_ring_decode(case, dtype)
+
+
+@pytest.mark.cuda
+def test_decode_ring_back_to_back(cuda):
+    """B1 launches in a row on one stream, of other shapes and clusters,
+    with one synchronization at the end: each matches its plain version
+    (the ring route keeps no state between launches)."""
+    outs, refs = [], []
+    for case in SERVED_DECODE_CASES + CARD_DECODE_CASES:
+        q, kp, vp, bt, lengths, scale = served_decode_inputs(*case)
+        args = tensors(q, kp, vp, bt, lengths, device="cuda", dtype=torch.bfloat16)
+        outs.append(ops.paged_decode(*args, scale))
+        refs.append(ops.paged_decode_plain(*args, scale))
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.cuda
+def test_decode_route_by_width(cuda):
+    """B1's route counter: bf16 and float32 at Dh 64 and 16 take the ring,
+    Dh 8 and 24 (no multiple of 16) the sweep; each matches its plain
+    version."""
+    for dtype, Dh, route in ((torch.bfloat16, 64, "ring"), (torch.float32, 64, "ring"),
+                             (torch.float32, 16, "ring"), (torch.bfloat16, 24, "sweep"),
+                             (torch.float32, 8, "sweep")):
+        q, kp, vp, bt, lengths, scale = decode_inputs(3, 5, 4, 4, 2, 4, Dh)
+        args = tensors(q, kp, vp, bt, lengths, device="cuda", dtype=dtype)
+        before = dict(ops.DECODE_ROUTE_LAUNCHES)
+        out = ops.paged_decode(*args, scale)
+        torch.cuda.synchronize()
+        assert _route_moved(ops.DECODE_ROUTE_LAUNCHES, before) == {
+            r: int(r == route) for r in before}
+        ref = ops.paged_decode_plain(*args, scale)
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
 
 
 def _route_moved(routes: dict, before: dict) -> dict:
@@ -190,6 +273,13 @@ def test_wrappers_refuse_bad_inputs(cuda):
         ops.paged_decode(strided_q, *args[1:], scale)
     with pytest.raises(ValueError, match="tensors on"):
         ops.paged_decode(args[0], args[1].cpu(), *args[2:], scale)
+    assert ops.decode_route(torch.float32, 16, 16, args[3].shape[1]) == "ring"
+    shifted = torch.empty(args[1].numel() + 1, device="cuda")[1:].view(args[1].shape)
+    shifted.copy_(args[1])                                # contiguous, 4 bytes off 16
+    with pytest.raises(ValueError, match="aligned"):
+        ops.paged_decode(args[0], shifted, *args[2:], scale)
+    with pytest.raises(ValueError, match="shapes"):       # lengths of another batch
+        ops.paged_decode(*args[:4], args[4][:-1], scale)
 
 
 # ---------------------------------------------------------------- T2 / CPQ
@@ -507,6 +597,55 @@ def test_contiguous_proxy_scores_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_scale", [None, 0.125])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SERVED_PROXY_CASES)
+def test_paged_proxy_scores_fused_matches_plain(cuda, case, dtype, q_scale):
+    """The served B7 call, one launch forming the query factors from q in
+    its type (as rows of a wider (B, 1, H, 2 Dp) query, the served slice's
+    strides) and the slot's tables: against its plain version, at G 1, 3
+    and 4, Dp 64 and 128, empty rows and n short of the capacity."""
+    q, scale, zero, codes, bt, lengths, n = served_proxy_inputs(*case)
+    wide = torch.tensor(np.concatenate([q, q[..., ::-1]], -1)[:, None], device="cuda",
+                        dtype=dtype)
+    qv = wide[:, 0, :, :q.shape[-1]]                      # rows at the wide stride
+    scale, zero, codes, bt, lengths = (torch.tensor(a, device="cuda")
+                                       for a in (scale, zero, codes, bt, lengths))
+    before = t3_ops.paged_proxy_scores.launches
+    out = t3_ops.paged_proxy_scores(qv, scale, zero, codes, bt, lengths, n, q_scale=q_scale)
+    torch.cuda.synchronize()
+    assert t3_ops.paged_proxy_scores.launches == before + 1
+    q_eff = qv if q_scale is None else qv * q_scale
+    _scores_close(out, t3_ops.paged_proxy_scores_plain(q_eff, scale, zero, codes, bt,
+                                                       lengths, n))
+    assert (out[lengths == 0] == -1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONTIG_PROXY_CASES)
+def test_proxy_scores_q_fused_matches_plain(cuda, case):
+    """The static T3 decode's ``proxy_scores_q``: one launch forming the
+    factors over contiguous codes, counted under ``proxy_scores``, with the
+    length on the host and on the card."""
+    seed, B, N, KV, g, Dp, length, _ = case
+    rng = np.random.default_rng(seed)
+    q = torch.tensor((rng.normal(size=(B, KV * g, Dp)) * 0.1).astype(np.float32),
+                     device="cuda")
+    scale, zero = (torch.tensor(a, device="cuda") for a in proxy_tables(rng, B, KV, Dp))
+    codes = torch.tensor(rng.integers(-128, 128, size=(B, N, KV, Dp)).astype(np.int8),
+                         device="cuda")
+    qs, qz = t3_ops.query_factors(q, scale, zero)
+    want = t3_ops.proxy_scores_plain(qs, qz, codes, length).reshape(B, KV * g, N)
+    for ln in (length, torch.tensor(length, dtype=torch.int32),
+               torch.tensor(length, device="cuda")):
+        before = t3_ops.proxy_scores.launches
+        out = t3_ops.proxy_scores_q(q, scale, zero, codes, ln)
+        torch.cuda.synchronize()
+        assert t3_ops.proxy_scores.launches == before + 1
+        _scores_close(out, want)
+
+
+@pytest.mark.cuda
 def test_proxy_scores_wrappers_refuse_bad_inputs(cuda):
     q, scale, zero, codes, bt, lengths = (torch.tensor(a, device="cuda")
                                           for a in proxy_inputs(*PROXY_CASES[0]))
@@ -523,6 +662,20 @@ def test_proxy_scores_wrappers_refuse_bad_inputs(cuda):
         t3_ops.paged_proxy_scores(q, scale, zero, codes, bt.cpu(), lengths, n)
     with pytest.raises(ValueError):                       # n past the table
         t3_ops.paged_proxy_scores(q, scale, zero, codes, bt, lengths, n + 1)
+    with pytest.raises(TypeError):                        # bf16 proxy tables
+        t3_ops.paged_proxy_scores(q, scale.bfloat16(), zero, codes, bt, lengths, n)
+    with pytest.raises(ValueError):                       # lengths of another batch
+        t3_ops.paged_proxy_scores(q, scale, zero, codes, bt, lengths[:-1], n)
+    with pytest.raises(ValueError):                       # lengths on the host
+        t3_ops.paged_proxy_scores(q, scale, zero, codes, bt, lengths.cpu(), n)
+    with pytest.raises(ValueError):                       # q of other channels than the codes
+        t3_ops.paged_proxy_scores(q[..., :8].contiguous(), scale, zero, codes, bt, lengths, n)
+    qs, qz, cont, length = contig_proxy_inputs(*CONTIG_PROXY_CASES[0][:-1])
+    qs, qz, cont = (torch.tensor(a, device="cuda") for a in (qs, qz, cont))
+    with pytest.raises(ValueError):                       # qz without its trailing 1
+        t3_ops.proxy_scores(qs, qz[..., 0], cont, length)
+    with pytest.raises(TypeError):                        # float64 factors
+        t3_ops.proxy_scores(qs.double(), qz, cont, length)
     for g in (3, 12):            # served: G = 3 (phi4-mini) and a runtime G past 8
         qs, qz, codes, length = contig_proxy_inputs(5, 2, 70, 2, g, 32, 61)
         qs, qz, codes = (torch.tensor(a, device="cuda") for a in (qs, qz, codes))

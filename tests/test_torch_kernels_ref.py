@@ -20,15 +20,17 @@ from repro.kernels.flash_attn.ops import paged_flash_decode_tpu, paged_flash_pre
 from repro_torch.configs import AttentionRuntime
 from repro_torch.kernels.paged_attn import ops
 from repro_torch.serving import paged_cache as pgc
-from torch_paged_cases import (DECODE_CASES, PREFILL_CASES, SERVED_PREFILL_CASES,
-                               decode_inputs, prefill_inputs, served_prefill_inputs, tensors)
+from torch_paged_cases import (DECODE_CASES, PREFILL_CASES, SERVED_DECODE_CASES,
+                               SERVED_PREFILL_CASES, decode_inputs, prefill_inputs,
+                               served_decode_inputs, served_prefill_inputs, tensors)
 
 ATOL = 1e-5
 
 
-@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("case", DECODE_CASES + SERVED_DECODE_CASES)
 def test_plain_decode_matches_jax_kernel(case):
-    q, kp, vp, bt, lengths, scale = decode_inputs(*case)
+    make = decode_inputs if case in DECODE_CASES else served_decode_inputs
+    q, kp, vp, bt, lengths, scale = make(*case)
     ref = paged_flash_decode_tpu(*map(jnp.asarray, (q, kp, vp, bt, lengths)), scale)
     before = ops.paged_decode.launches
     out = ops.paged_decode(*tensors(q, kp, vp, bt, lengths), scale)

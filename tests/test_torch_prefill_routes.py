@@ -1,5 +1,9 @@
 """The route a kernel with two routes takes on the card, chosen before the
-launch from dtype and widths (and, for B6, the tables' levels): B2
+launch from dtype and widths (and, for B6, the tables' levels): B1
+``paged_decode`` runs bf16 and float32 whose Dh and Dv are multiples of 16
+up to 256 (over at most RING_MAX_PAGES pages a row) on its ring of
+asynchronous copies (``paged_attn/csrc/paged_token.cuh``), other widths on
+the sweep; B2
 ``paged_prefill`` and B6 ``paged_cpq_prefill`` run bf16 chunks whose Dh and
 Dv are multiples of 8 up to 256 on the tensor-core kernel
 (``paged_attn/csrc/paged_chunk.cuh``), B4 ``paged_decomposed_prefill`` bf16
@@ -13,8 +17,9 @@ and other widths on the sweep; B3 ``paged_decomposed_decode`` and B9
 a roped slice of 0 or a multiple of 8 (as many roped groups as a cluster's
 rope steps hold) on their tensor-core kernel
 (``decomposed_attn/csrc/t1_token.cuh``), everything else on the sweep. The
-choices, and the split plans of B3's, B4's, B5's and B9's new routes, are
-plain functions, so they are tested here without a card; ``test_torch_kernels_cuda.py`` checks on the card that each call moves
+choices, the split plans of B1's, B3's, B4's, B5's and B9's new routes and
+how B7's wrappers pass a length are plain functions, so they are tested
+here without a card; ``test_torch_kernels_cuda.py`` checks on the card that each call moves
 its route's counter."""
 import numpy as np
 import pytest
@@ -24,6 +29,7 @@ from repro_torch.kernels import single_query
 from repro_torch.kernels.cpq_attn import ops as cpq_ops
 from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.kernels.paged_attn import ops
+from repro_torch.kernels.topk_retrieval import ops as t3_ops
 from torch_paged_cases import cpq_arena, cpq_pool
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -45,6 +51,64 @@ BF16, F32 = torch.bfloat16, torch.float32
 ])
 def test_prefill_route(dtype, Dh, Dv, route):
     assert ops.prefill_route(dtype, Dh, Dv) == route
+
+
+@pytest.mark.parametrize("dtype, Dh, Dv, nb, route", [
+    (BF16, 64, 64, 64, "ring"),         # qwen1.5-0.5b, as served
+    (F32, 64, 64, 64, "ring"),          # float32: the same float32 arithmetic
+    (BF16, 128, 128, 64, "ring"),       # the GQA shape of chip_smoke.py
+    (BF16, 16, 16, 1, "ring"),          # the narrowest: one 16-byte chunk in bf16
+    (F32, 256, 256, 64, "ring"),        # gemma-2b's head dim, the widest tile
+    (BF16, 64, 128, 64, "ring"),        # Dv apart from Dh
+    (BF16, 48, 48, 64, "ring"),         # a multiple of 16, not a power of two
+    (BF16, 64, 64, ops.RING_MAX_PAGES, "ring"),
+    (BF16, 64, 64, ops.RING_MAX_PAGES + 1, "sweep"),  # the block table past shared memory's share
+    (BF16, 24, 24, 64, "sweep"),        # a multiple of 8, not of 16
+    (F32, 8, 8, 4, "sweep"),
+    (BF16, 64, 40, 64, "sweep"),
+    (BF16, 272, 272, 64, "sweep"),      # past 256
+    (torch.float16, 64, 64, 64, "sweep"),
+])
+def test_decode_route(dtype, Dh, Dv, nb, route):
+    assert ops.decode_route(dtype, Dh, Dv, nb) == route
+
+
+@pytest.mark.parametrize("B, KV, G, capacity, want", [
+    (8, 16, 1, 1024, 1),     # B1 as served: 128 units fill the card, one block each
+    (8, 8, 4, 1024, 2),      # the GQA shape: 64 units, two ranks each
+    (1, 16, 1, 1024, 8),     # one row: the most ranks
+    (1, 16, 1, 512, 4),      # ... while each keeps RING_MIN_KEYS of the capacity
+    (1, 2, 1, 100, 1),       # a short arena: one block
+    (4, 8, 8, 2048, 2),      # G 8: two head groups of 4 a kv head
+    (64, 16, 1, 1024, 1),    # more units than SMs
+])
+def test_decode_plan(monkeypatch, B, KV, G, capacity, want):
+    """B1's ranks a unit: planned from the units and the capacity (not the
+    lengths, which live on the card), 1, 2, 4 or 8, the blocks at most one
+    an SM where there are ranks to spare, at least RING_MIN_KEYS keys of
+    the capacity each."""
+    monkeypatch.setattr(single_query, "_sm_count", lambda device: 132)
+    cs = ops.decode_plan(B, KV, G, capacity, torch.device("cpu"))
+    assert cs == want and cs in (1, 2, 4, 8) and cs <= ops.RING_MAX_CLUSTER
+    units = B * KV * (1 if G == 1 else -(-G // 4))
+    assert cs == 1 or (cs * units <= 132 and capacity >= cs * ops.RING_MIN_KEYS)
+
+
+@pytest.mark.parametrize("length, by_value", [
+    (77, 77),                                          # an int: by value
+    (torch.tensor(77, dtype=torch.int32), 77),         # the static engine's () host length
+    (torch.tensor([77], dtype=torch.int64), 77),       # one element, any integer type
+    (torch.tensor([5, 9], dtype=torch.int32), None),   # a length a row: by pointer
+])
+def test_proxy_scores_lengths(length, by_value):
+    """How B7's wrappers hand a length to the kernel: a host scalar by
+    value (no copy to the card, no sync), a length a row by pointer, with
+    the stride that reads row b's."""
+    lens, stride, host = t3_ops._lengths(length)
+    if by_value is None:
+        assert torch.equal(lens, length) and stride == 1 and host == 0
+    else:
+        assert lens is None and stride == 0 and host == by_value
 
 
 @pytest.mark.parametrize("dtype, D, levels, route", [
@@ -149,6 +213,7 @@ def test_route_counters_name_both_routes():
             == set(t1_ops.ROUTE_LAUNCHES) == set(t1_ops.DECODE_ROUTE_LAUNCHES)
             == set(t1_ops.CONTIG_ROUTE_LAUNCHES) == {"tensor_core", "sweep"})
     assert set(cpq_ops.DECODE_ROUTE_LAUNCHES) == {"single_query", "sweep"}
+    assert set(ops.DECODE_ROUTE_LAUNCHES) == {"ring", "sweep"}
 
 
 @pytest.mark.parametrize("capacity, want", [
@@ -188,15 +253,16 @@ def test_t1_chunk_plan(monkeypatch, C, H, kv_r, end, want):
 
 def test_cpu_tensors_take_no_route():
     """On the CPU the wrappers run their plain versions: no route counter
-    moves, whatever the dtype (B2, B3, B4, B5, B9)."""
+    moves, whatever the dtype (B1, B2, B3, B4, B5, B9)."""
     counters = (ops.ROUTE_LAUNCHES, cpq_ops.ROUTE_LAUNCHES, t1_ops.ROUTE_LAUNCHES,
                 cpq_ops.DECODE_ROUTE_LAUNCHES, t1_ops.DECODE_ROUTE_LAUNCHES,
-                t1_ops.CONTIG_ROUTE_LAUNCHES)
+                t1_ops.CONTIG_ROUTE_LAUNCHES, ops.DECODE_ROUTE_LAUNCHES)
     before = [dict(c) for c in counters]
     q = torch.randn(1, 4, 2, 16, dtype=BF16)
     kp = torch.randn(3, 4, 2, 16, dtype=BF16)
     row = torch.tensor([1, 2], dtype=torch.int32)
     ops.paged_prefill(q, kp, kp, row, 2, 3, 0.25)
+    ops.paged_decode(q[:, :1], kp, kp, row[None], torch.tensor([5], dtype=torch.int32), 0.25)
     r, qr = torch.randn(4, 2, 64, dtype=BF16), torch.randn(4, 2, 8, dtype=BF16)
     x, kr = torch.randn(3, 4, 64, dtype=BF16), torch.randn(3, 4, 2, 8, dtype=BF16)
     t1_ops.paged_decomposed_prefill_fwd(r, qr, x, kr, row, 2, 3, 0.25)

@@ -32,8 +32,9 @@ from repro_torch.configs import RetrievalCfg
 from repro_torch.core import kv_cache as tkvc
 from repro_torch.kernels.topk_retrieval import ops
 from repro_torch.serving import paged_cache as tpgc
-from torch_paged_cases import (CONTIG_PROXY_CASES, PROXY_CASES, contig_proxy_inputs,
-                               proxy_inputs, proxy_tables)
+from torch_paged_cases import (CONTIG_PROXY_CASES, PROXY_CASES, SERVED_PROXY_CASES,
+                               contig_proxy_inputs, proxy_inputs, proxy_tables,
+                               served_proxy_inputs)
 
 REL = 1e-5
 NEG_INF = -1e30
@@ -94,6 +95,29 @@ def test_plain_paged_proxy_scores_match_gather_path(case):
     assert got.shape == (B, H, n)
     _scores_close(got.numpy(), want)
     assert (got[torch.tensor(lengths == 0)] == NEG_INF).all()  # empty rows
+
+
+@pytest.mark.parametrize("case", SERVED_PROXY_CASES)
+def test_plain_paged_proxy_scores_scale_the_query_slice(case):
+    """The served call as the engine makes it: the query given as the first
+    Dp columns of wider rows and its scale apart (``q_scale``), against the
+    reference's gather path on the pre-scaled query, with n short of the
+    capacity and rows past n."""
+    q, scale, zero, codes, bt, lengths, n = served_proxy_inputs(*case)
+    wide = np.concatenate([q, q[..., ::-1]], -1)[:, None]      # (B, 1, H, 2 Dp)
+    q_scale = 0.3
+    gathered = jpgc.gather_pages(jnp.asarray(codes), jnp.asarray(bt))[:, :n]
+    s = JR.proxy_scores(jnp.asarray(q * np.float32(q_scale))[:, None], gathered,
+                        jnp.asarray(scale), jnp.asarray(zero))[:, 0]
+    want = np.where(np.arange(n)[None, None, :] < lengths[:, None, None], np.asarray(s),
+                    np.float32(NEG_INF))
+    qv = torch.tensor(wide)[:, 0, :, :q.shape[-1]]
+    got = ops.paged_proxy_scores(qv, *(torch.tensor(a) for a in (scale, zero, codes, bt,
+                                                                 lengths)), n,
+                                 q_scale=q_scale)
+    assert got.shape == (q.shape[0], q.shape[1], n)
+    _scores_close(got.numpy(), want)
+    assert (got[torch.tensor(lengths == 0)] == NEG_INF).all()
 
 
 def _retrieval_cache(rng, B, N, KV, Dh, length, proxy_dim=0):

@@ -72,6 +72,41 @@ def decode_inputs(seed, page, nb, B, KV, g, Dh):
     return q, kp, vp, bt, lengths, Dh ** -0.5
 
 
+# decodes at the served page size and head dims, for B1 on the CPU (against
+# the JAX kernel) and on the card: a row of length 0, of length 1, rows
+# ending on a 16-key tile boundary, a row at the full capacity, at
+# qwen1.5-0.5b's 16 kv heads and at a GQA shape (G 4, Dh 128)
+SERVED_DECODE_CASES = [  # seed, page, nb, B, KV, g, Dh, lengths
+    (50, 16, 8, 3, 16, 1, 64, (0, 128, 17)),
+    (51, 16, 8, 3, 16, 1, 64, (1, 64, 48)),
+    (52, 16, 8, 3, 8, 4, 128, (64, 0, 40)),
+]
+# the card only: the served decode's shape (8 rows over 64 pages of 16, a
+# capacity of 1024 keys) with lengths 0, 1, on tile and rank boundaries and
+# at the full capacity, and the same at GQA (KV 8, G 4, Dh 128)
+CARD_DECODE_CASES = [  # seed, page, nb, B, KV, g, Dh, lengths
+    (53, 16, 64, 8, 16, 1, 64, (0, 1, 256, 1024, 77, 576, 767, 16)),
+    (54, 16, 64, 8, 8, 4, 128, (0, 1024, 512, 33, 300, 128, 1000, 1)),
+]
+
+
+def served_decode_inputs(seed, page, nb, B, KV, g, Dh, lengths):
+    """``decode_inputs`` with the given ``lengths``: permuted pages, the
+    unmapped tail of every row at the poisoned null page."""
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + B * nb
+    perm = rng.permutation(np.arange(1, num_pages)).tolist()
+    bt = np.zeros((B, nb), np.int32)
+    for b in range(B):
+        for j in range(-(-lengths[b] // page)):
+            bt[b, j] = perm.pop()
+    kp = rng.normal(size=(num_pages, page, KV, Dh)).astype(np.float32)
+    vp = rng.normal(size=(num_pages, page, KV, Dh)).astype(np.float32)
+    kp[0] = vp[0] = 1e3
+    q = rng.normal(size=(B, 1, KV * g, Dh)).astype(np.float32)
+    return q, kp, vp, bt, np.array(lengths, np.int32), Dh ** -0.5
+
+
 def prefill_inputs(seed, offset, valid, KV, g, page=4, nb=8, C=8, Dh=16):
     """q, k/v pools (null page poisoned), the slot's permuted block row with
     its unmapped tail at the null page, offset, valid, scale."""
@@ -329,6 +364,15 @@ PROXY_CASES = [  # seed, page, nb, B, KV, g, Dp
     (6, 4, 3, 2, 8, 3, 32),      # G = 3 (phi4-mini: 24 heads over 8 kv heads)
 ]
 
+# the served call's shape (qwen1.5-0.5b: 8 rows over 64 pages of 16, KV 16,
+# G 1, Dp 64), n short of the capacity, and GQA shapes (G 3, phi4-mini's,
+# and G 4 at Dp 128), each with an empty row and a row past n
+SERVED_PROXY_CASES = [  # seed, page, nb, B, KV, g, Dp, lengths, n
+    (20, 16, 64, 8, 16, 1, 64, (0, 1, 64, 1024, 77, 576, 767, 1000), 1000),
+    (21, 16, 8, 3, 8, 3, 128, (128, 0, 33), 100),
+    (22, 16, 8, 4, 8, 4, 128, (0, 128, 17, 90), 128),
+]
+
 CONTIG_PROXY_CASES = [  # seed, B, N, KV, g, Dp, length, block_n
     (0, 2, 40, 2, 1, 16, 40, 16),     # N not a multiple of the block
     (1, 1, 37, 1, 4, 32, 20, 16),     # a partial length
@@ -356,6 +400,23 @@ def proxy_inputs(seed, page, nb, B, KV, g, Dp):
     scale, zero = proxy_tables(rng, B, KV, Dp)
     q = (rng.normal(size=(B, KV * g, Dp)) * Dp ** -0.5).astype(np.float32)
     return q, scale, zero, codes, bt, lengths
+
+
+def served_proxy_inputs(seed, page, nb, B, KV, g, Dp, lengths, n):
+    """``proxy_inputs`` with the given ``lengths`` (permuted pages, the
+    unmapped tail of every row at the poisoned null page), and n."""
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + B * nb
+    perm = rng.permutation(np.arange(1, num_pages)).tolist()
+    bt = np.zeros((B, nb), np.int32)
+    for b in range(B):
+        for j in range(-(-lengths[b] // page)):
+            bt[b, j] = perm.pop()
+    codes = rng.integers(-128, 128, size=(num_pages, page, KV, Dp)).astype(np.int8)
+    codes[0] = 127
+    scale, zero = proxy_tables(rng, B, KV, Dp)
+    q = (rng.normal(size=(B, KV * g, Dp)) * Dp ** -0.5).astype(np.float32)
+    return q, scale, zero, codes, bt, np.array(lengths, np.int32), n
 
 
 def contig_proxy_inputs(seed, B, N, KV, g, Dp, length):
