@@ -65,7 +65,11 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               B10 cpq_decode
               with 4- and 8-bit codes, G of 1, 4 and 8 (Dh 256), tiles
               rounded and not, pruned codes, length < N and N = 77 (float32
-              output, its tolerance)
+              output, its tolerance); B2 at the speculative verify chunk's
+              shapes (C = 2, 5, 9 rows, valid = C or 3, at offsets 0, 1,
+              15, 17 and 1024 - C, G 1 and 2, over a draft's block row:
+              another slot's pages, then scratch pages seeded with the
+              frontier page's payload), each call on its route
   4. serve    full-width qwen1.5-0.5b (24 layers, vocab 151936, random
               weights from a seed) in bf16 through ContinuousServeEngine:
               8 greedy requests, prompts of 64-512 tokens, 64 new tokens
@@ -99,7 +103,24 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               profiled; (g) ContinuousServeEngine with prefill_chunk=0
               (one-shot admission), dense, on the traffic of (a): B8's
               tensor-core route 24 times per admission, B1 24 times per
-              decode tick, B2 never. No gate: layer 0's K/V of the static
+              decode tick, B2 never. Then the rest of the continuous tick on
+              (a)'s arena, B1 and B2 alone launched (24 times a decode step,
+              a chunk or a verify chunk; every chunk on B2's tensor cores,
+              every decode on B1's ring) and no page leaked: (h) prefix
+              sharing with copy-on-write and defrag every 4 retirements on
+              make_templated_workload (8 sessions of 3 turns behind one
+              256-token system prompt; sessions 0, 2, 4, 6 sampled at
+              temperature 0.8, top-k 50, top-p 0.9, seed 100 + rid): prefix
+              hits and defrags; its prompts diverge at page boundaries, so
+              a probe behind the same system prompt (a request diverging 10
+              tokens into a page) must split a shared page (copy-on-write);
+              (i) speculative decoding (spec_len 4, n-grams of 3) on
+              make_loopy_workload (8 greedy requests, a 32-token motif
+              tiled 4 times, 64 new tokens): verify steps and accepted
+              drafts; (j) make_slo_workload (24 requests, interactive and
+              batch classes) through the port's run_trace under the slo
+              and fifo policies, with per-class tails. No gate: layer 0's
+              K/V of the static
               prompts encoded by the HQE compression (448 tokens at once,
               64 appended) and the T3 proxy encode on the card and on the
               CPU, and how many codes, levels and tables differ
@@ -123,7 +144,15 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               same checks for (g) (dense, each path on its own history)
               and for (f) in the four modes (CPQ and T3 in lockstep, T3
               pinned): the prefill and first-decode logits of the batch,
-              and the greedy streams
+              and the greedy streams. Then (h), its copy-on-write probe and
+              (i) at the parity depth, kernels on and off: identical greedy
+              and sampled streams (greedy near-ties excused as above) and
+              identical counters; sharing on against off and speculation
+              on against off: identical streams. Last, the sampler on the
+              card against the CPU on 32 rows of 151936 float32 logits:
+              identical Threefry bits and uniforms, and identical draws but
+              where the CPU's top-2 perturbed logits lie within 1e-6
+              (relative), counted. Each added phase prints its seconds
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -303,6 +332,50 @@ def sweep(ops, dtype, KV, G, Dh, page=16, nb=64, B=8, C=16):
     check(moved == {r: len(calls) * (r == route) for r in moved},
           f"paged_prefill {dtype} Dh={Dh}: routes {moved}, want all {route}")
     return err_dec, err_pre
+
+
+# B2 at the speculative verify chunk's shapes: C = spec_len + 1 query rows
+# (2, 5, 9; most of a 16-row tile is padding), valid = C or fewer, at offsets
+# 0, 1, 15, 17 and the block ceiling less C (the last chunk a row at the
+# ceiling can verify), over a draft's block row: another slot's pages for
+# the history, scratch pages from the frontier block on, the first seeded
+# with the frontier page's payload as the engine's page copy does
+VERIFY_CHUNKS = ((2, 2), (5, 5), (9, 9), (9, 3))   # C, valid
+
+
+def sweep_verify(ops, dtype, G, page=16, nb=64, Dh=64) -> float:
+    """Max abs error of B2 against its plain version at the verify shapes
+    (KV = 16 / G kv heads); every call must take the route its dtype
+    picks."""
+    KV = 16 // G
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    P = 2 * nb + 8
+    kp = torch.randn((P, page, KV, Dh), generator=gen, device=DEVICE).to(dtype)
+    vp = torch.randn((P, page, KV, Dh), generator=gen, device=DEVICE).to(dtype)
+    kp[0] = vp[0] = 1e3                          # poisoned null page
+    perm = torch.randperm(P - 1, generator=gen, device=DEVICE).int() + 1
+    target = perm[:nb]                           # the other slot's block row
+    err, calls, before = 0.0, 0, dict(ops.ROUTE_LAUNCHES)
+    for C, valid in VERIFY_CHUNKS:
+        for offset in (0, 1, 15, 17, nb * page - C):
+            first, last = offset // page, (offset + valid - 1) // page
+            scratch = perm[nb:nb + last - first + 1]
+            row = target.clone()
+            row[first:last + 1] = scratch        # the draft's view of the row
+            if offset % page:                    # the partial frontier's payload
+                kp[scratch[0]] = kp[target[first]]
+                vp[scratch[0]] = vp[target[first]]
+            q = torch.randn((1, C, KV * G, Dh), generator=gen, device=DEVICE).to(dtype)
+            o = ops.paged_prefill(q, kp, vp, row, offset, valid, Dh ** -0.5)
+            torch.cuda.synchronize()
+            r = ops.paged_prefill_plain(q, kp, vp, row, offset, valid, Dh ** -0.5)
+            err = max(err, (o[0, :valid].float() - r[0, :valid].float()).abs().max().item())
+            calls += 1
+    route = ops.prefill_route(dtype, Dh, Dh)
+    moved = routes_moved(ops.ROUTE_LAUNCHES, before)
+    check(moved == {r: calls * (r == route) for r in moved},
+          f"paged_prefill verify {dtype} G={G}: routes {moved}, want all {route}")
+    return err
 
 
 def cpq_pool(gen, P, page, KV, D, slots, bits, L=CPQ_LEVELS):
@@ -1958,6 +2031,328 @@ def log_timing(name, t, launches, per_tick, unit="tick") -> None:
         f"{t['samples']} sampled calls; {launches} launches, {per_tick:.0f} per {unit}")
 
 
+# ------------------------------- phase 4: the rest of the continuous tick
+
+TURNS = 3                   # make_templated_workload's turns per session (h)
+COUNTERS = ("prefix_hits", "shared_prefix_tokens", "shared_prefix_pages", "cow_copies",
+            "defrags", "spec_steps", "spec_drafted", "spec_accepted", "preemptions",
+            "timeouts")
+SAMPLE_GAP = 1e-6           # relative top-2 gap of perturbed logits below which a draw is a tie
+
+
+def templated_requests(T, work):
+    """(h)'s requests: the turns of sessions 0, 2, 4 and 6 sampled
+    (temperature 0.8, top-k 50, top-p 0.9, seed 100 + rid), the others
+    greedy. make_templated_workload numbers a session's turns in a row, so
+    a request's session is rid // TURNS."""
+    out = []
+    for w in work:
+        sess = w.rid // TURNS
+        sp = (T.SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=100 + w.rid,
+                               max_tokens=w.target) if sess % 2 == 0
+              else T.SamplingParams(max_tokens=w.target))
+        out.append(T.ServeRequest(prompt=w.prompt, rid=w.rid, sampling=sp, arrival=w.arrival,
+                                  session_id=f"s{sess}"))
+    return out
+
+
+def loopy_requests(T, work):
+    """(i)'s greedy requests."""
+    return [T.Request(rid=w.rid, prompt=w.prompt, max_new_tokens=w.target, arrival=w.arrival)
+            for w in work]
+
+
+def cow_probe(T, eng, sys_prompt, vocab: int):
+    """Two greedy requests behind (h)'s system prompt of 256 tokens: A, and
+    B, which diverges from it 250 tokens in (10 tokens into its 16th page)
+    and is added once A's 20 prompt chunks have landed. B mounts 15 pages
+    and shares the 16th mid-page, and its first tail write splits that page
+    (copy-on-write). (h)'s own prompts diverge at page boundaries only.
+    Returns (results, stats)."""
+    rng = np.random.default_rng(SEED + 1)
+    a = np.concatenate([sys_prompt, rng.integers(1, vocab, 64)]).astype(np.int32)
+    b = np.concatenate([sys_prompt[:250], rng.integers(1, vocab, 40)]).astype(np.int32)
+    eng.reset(T.GenerationConfig())
+    eng.add_request(T.Request(rid=0, prompt=a, max_new_tokens=16))
+    for _ in range(22):
+        eng.step()
+    eng.add_request(T.Request(rid=1, prompt=b, max_new_tokens=16))
+    while eng.has_unfinished():
+        eng.step()
+    return eng.results(), eng.stats()
+
+
+def check_targets(results, targets: dict, what: str) -> None:
+    for rid, n in targets.items():
+        got = results[rid]
+        check(got["finish_reason"] == "max_tokens" and len(got["tokens"]) == n,
+              f"{what}: request {rid}: {got['finish_reason']}, {len(got['tokens'])} of {n}")
+
+
+def check_tick_launches(what: str, counts: dict, stats: dict, L: int) -> None:
+    """B1 and B2 alone launched, 24 times a decode step and a chunk or
+    verify chunk; a verify chunk counts as a decode step in ``stats``."""
+    spec = stats["spec_steps"]
+    want = {name: 0 for name in counts}
+    want.update(paged_decode=L * (stats["decode_steps"] - spec),
+                paged_prefill=L * (stats["prefill_chunks"] + spec))
+    check(counts == want and want["paged_decode"] > 0 and want["paged_prefill"] > 0,
+          f"{what}: launch counts {counts}, want {want}")
+    check(stats["dense_pages_leaked"] == 0, f"{what}: {stats['dense_pages_leaked']} pages leaked")
+
+
+def log_counters(what: str, stats: dict) -> dict:
+    out = {k: stats[k] for k in COUNTERS}
+    log(f"serve {what}: " + ", ".join(f"{k} {v}" for k, v in out.items()))
+    return out
+
+
+def watch_gaps(eng, gaps: dict) -> None:
+    """File the top-2 logit gap of every greedy draw of ``eng`` under (rid,
+    stream index): first tokens, the decode step's rows and every position
+    of a verify chunk. A row's later draw of the same index overwrites an
+    earlier filing (a row that was not active in that decode step)."""
+    one, active, verify = eng._sample_one, eng._sample_active, eng._verify_draws
+
+    def greedy(req):
+        return req.sampling is None or req.sampling.temperature <= 0
+
+    def sample_one(req, logits):
+        if greedy(req):
+            gaps[(req.rid, req.num_generated)] = top2_gap(logits[0]).item()
+        return one(req, logits)
+
+    def sample_active(st, logits):
+        g = top2_gap(logits).tolist()
+        for slot, req in enumerate(st.sched.slots):
+            if req is not None and greedy(req):
+                gaps[(req.rid, req.num_generated)] = g[slot]
+        return active(st, logits)
+
+    def verify_draws(req, logits):
+        if greedy(req):
+            for j, x in enumerate(top2_gap(logits).tolist()):
+                gaps[(req.rid, req.num_generated + j)] = x
+        return verify(req, logits)
+
+    eng._sample_one, eng._sample_active, eng._verify_draws = sample_one, sample_active, verify_draws
+
+
+def tick_parity(T, cfg, params, what: str, serving, off: dict, drive) -> dict:
+    """Float32, TF32 off: ``drive(eng) -> (results, stats)`` on the kernel
+    path and on the plain path with ``serving``, and on the kernel path with
+    the feature off (``serving`` updated by ``off``). The paths' streams
+    (greedy and sampled) identical but for a greedy first divergence below
+    ARGMAX_GAP of the plain path's top-2 gap, and then their counters too;
+    the feature on and off give identical streams the same way."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for key, fused, sv in (("kernels", True, serving), ("plain", False, serving),
+                           ("off", True, dataclasses.replace(serving, **off))):
+        eng = T.ContinuousServeEngine(cfg, params, rt=T.AttentionRuntime(paged_kernels=fused),
+                                      serving=sv, device=DEVICE)
+        gaps = {}
+        watch_gaps(eng, gaps)
+        results, stats = drive(eng)
+        runs[key] = ({rid: r["tokens"] for rid, r in results.items()}, stats, gaps)
+        del eng
+        torch.cuda.empty_cache()
+    lengths = {rid: len(t) for rid, t in runs["plain"][0].items()}
+    out = {"counters": {k: runs["kernels"][1][k] for k in COUNTERS}}
+    same = compare_streams(what, {True: runs["kernels"][0], False: runs["plain"][0]},
+                           runs["plain"][2], lengths)
+    out["streams_identical"] = same
+    keys = COUNTERS + ("decode_steps", "prefill_chunks", "generated_tokens")
+    if same == len(lengths):
+        differ = {k: (runs["kernels"][1][k], runs["plain"][1][k]) for k in keys
+                  if runs["kernels"][1][k] != runs["plain"][1][k]}
+        check(not differ, f"parity {what}: counters differ, kernels vs plain: {differ}")
+        log(f"parity {what}: counters identical, kernels vs plain: {out['counters']}")
+    out["on_off_identical"] = compare_streams(
+        f"{what} on vs off", {True: runs["kernels"][0], False: runs["off"][0]},
+        runs["off"][2], lengths)
+    return out
+
+
+def sampler_parity(teng, prng) -> dict:
+    """The sampler on the card against itself on the CPU, on the same
+    float32 logits (32 rows of 151936), temperatures, top-k, top-p, seeds
+    and stream indices: the Threefry bits and uniforms bit for bit, and the
+    same draws but where the CPU's top-2 perturbed logits lie within
+    SAMPLE_GAP (relative) and the two draws are those two (excused,
+    counted). Gumbel noise: its largest difference in ulps at the scale of
+    max(|g|, 1) (no gate). Also the card's time of one 8-row call."""
+    rng = np.random.default_rng(SEED)
+    B, V = 32, 151936
+    host = [torch.tensor(a) for a in (
+        (rng.normal(size=(B, V)) * 3).astype(np.float32),
+        rng.choice([0.0, 0.5, 0.8, 1.0, 1.3], size=B).astype(np.float32),
+        rng.choice([0, 50, 1000], size=B).astype(np.int32),
+        rng.choice([1.0, 0.9, 0.6], size=B).astype(np.float32),
+        rng.integers(0, 2**31 - 1, size=B).astype(np.int32),
+        rng.integers(0, 4096, size=B).astype(np.int32))]
+    card = [t.to(DEVICE) for t in host]
+    keys = [prng.fold_in(prng.PRNGKey(a[4]), a[5]) for a in (host, card)]
+    check(torch.equal(prng.random_bits(keys[1], (V,)).cpu(), prng.random_bits(keys[0], (V,))),
+          "sampler: the card's Threefry bits differ from the CPU's")
+    check(torch.equal(prng.uniform(keys[1], (V,)).cpu(), prng.uniform(keys[0], (V,))),
+          "sampler: the card's uniforms differ from the CPU's")
+    g = [prng.gumbel(k, (V,)).double().cpu() for k in keys]
+    ulps = ((g[1] - g[0]).abs() / torch.from_numpy(np.spacing(
+        np.maximum(g[0].abs().numpy(), 1.0).astype(np.float32))).double()).max().item()
+    got = [teng.sample_token_rows(*a).cpu() for a in (host, card)]
+    pert = teng.perturbed_logits(*host)
+    diff = torch.nonzero(got[1] != got[0])[:, 0].tolist()
+    for b in diff:
+        top2 = pert[b].topk(2)
+        a0, a1 = top2.values.tolist()
+        tie = abs(a0 - a1) <= SAMPLE_GAP * max(abs(a0), abs(a1), 1.0)
+        check(host[1][b] > 0 and tie and {int(got[0][b]), int(got[1][b])}
+              == set(top2.indices.tolist()),
+              f"sampler: row {b} draws {int(got[1][b])} on the card, {int(got[0][b])} on "
+              f"the CPU, top-2 perturbed {a0!r} {a1!r}")
+    ms = cuda_ms(lambda: teng.sample_token_rows(*[t[:8] for t in card]), 20)
+    out = {"draws": B, "excused": len(diff), "gumbel_max_ulps": ulps,
+           "sample_token_rows_8_rows_ms": ms}
+    log(f"sampler, card vs CPU: bits and uniforms identical; {B} draws, {len(diff)} excused "
+        f"(top-2 perturbed within {SAMPLE_GAP} relative); gumbel within {ulps:.1f} ulp of "
+        f"max(|g|, 1) (no gate); sample_token_rows over 8 rows of {V}: {ms:.3f} ms on the card")
+    return out
+
+
+def serve_rest(T, cfg, params, serving, counted: list, routed: dict, fa_routes: dict,
+               serves: dict, new_s: dict) -> dict:
+    """Phase 4's serves of the rest of the continuous engine's tick, on
+    serve (a)'s arena (``serving``), each with every launch and route count
+    set to 0 just before and read just after; B1 and B2 alone launch, 24
+    times a decode step and a prompt or verify chunk, every chunk on B2's
+    tensor cores, every decode on B1's ring. Fills ``serves`` and the
+    seconds ``new_s``; returns the traffic phase 5 replays."""
+    # 4h) prefix sharing with copy-on-write and defrag: multi-turn sessions
+    #     behind one system prompt, sessions 0, 2, 4, 6 sampled, the others
+    #     greedy; then the copy-on-write probe behind the same prompt
+    # 4i) speculative decoding on self-similar prompts, greedy
+    # 4j) mixed interactive and batch traffic through run_trace, under the
+    #     slo policy and under fifo
+    from repro_torch.serving import trace
+
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    work_h = trace.make_templated_workload(seed=0, n_sessions=8, vocab=cfg.vocab_size,
+                                           rate=0.5, sys_tokens=256, turns=TURNS,
+                                           turn_step=64)
+    work_i = trace.make_loopy_workload(seed=0, n_requests=8, vocab=cfg.vocab_size, motif=32,
+                                       reps=4, target=64)
+    shared = dataclasses.replace(serving, share_prefix=True, defrag_every=4)
+    spec = dataclasses.replace(serving, spec_len=4, spec_ngram=3)
+    sys_prompt = work_h[0].prompt[:256]
+    for what, sv, run, targets in (
+            ("shared", shared, templated_requests(T, work_h), {w.rid: w.target for w in work_h}),
+            ("shared cow", dataclasses.replace(shared, defrag_every=0), None, {0: 16, 1: 16}),
+            ("speculative", spec, loopy_requests(T, work_i), {w.rid: w.target for w in work_i})):
+        eng = T.ContinuousServeEngine(cfg, params, serving=sv, device=DEVICE)
+        zero_launches(counted, fa_routes)
+        zero_routes(routed)
+        t1 = time.perf_counter()
+        if run is None:
+            results, stats = cow_probe(T, eng, sys_prompt, cfg.vocab_size)
+            torch.cuda.synchronize()
+            wall, ticks = time.perf_counter() - t1, None
+        else:
+            results, stats, ticks, wall = serve_timed(eng, T, run)
+        counts = counted_launches(counted, fa_routes)
+        routes = check_routes(what, routed, counts)
+        check_targets(results, targets, what)
+        check_tick_launches(what, counts, stats, L)
+        serves[what] = (serve_metrics(stats, ticks, wall, what) if ticks else
+                        {"serve_wall_s": wall, "generated_tokens": stats["generated_tokens"],
+                         "end_to_end_tokens_per_s": stats["generated_tokens"] / wall,
+                         "arena_bytes": stats["arena_bytes_total"]})
+        serves[what].update(launches={k: n for k, n in counts.items() if n}, routes=routes,
+                            counters=log_counters(what, stats))
+        new_s[what] = time.perf_counter() - t1
+        del eng
+        torch.cuda.empty_cache()
+        log(f"[{time.perf_counter() - T0:.0f} s] served {what} in {new_s[what]:.1f} s")
+    h, c, i = serves["shared"]["counters"], serves["shared cow"]["counters"], \
+        serves["speculative"]["counters"]
+    check(h["prefix_hits"] > 0 and h["defrags"] > 0, f"shared: counters {h}")
+    check(c["cow_copies"] >= 1 and c["shared_prefix_tokens"] == 250,
+          f"shared cow: counters {c}")
+    check(i["spec_steps"] > 0 and i["spec_accepted"] > 0, f"speculative: counters {i}")
+    work_j, slos_j = trace.make_slo_workload(seed=0, n_requests=24, vocab=cfg.vocab_size,
+                                             rate=0.5)
+    kept = []
+
+    class Kept(T.ContinuousServeEngine):  # run_trace's engine, for its leak count
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            kept.append(self)
+
+    made = trace.ContinuousServeEngine
+    for pol in ("slo", "fifo"):
+        what = f"slo workload, policy {pol}"
+        zero_launches(counted, fa_routes)
+        zero_routes(routed)
+        t1 = time.perf_counter()
+        trace.ContinuousServeEngine = Kept
+        try:
+            m = trace.run_trace(cfg, params, work_j, serving, policy=pol, slos=slos_j)
+        finally:
+            trace.ContinuousServeEngine = made
+        counts = counted_launches(counted, fa_routes)
+        routes = check_routes(what, routed, counts)
+        stats = kept.pop().stats()
+        check(stats["policy"] == pol, f"{what}: policy {stats['policy']}")
+        check_targets(m["results"], {w.rid: w.target for w in work_j}, what)
+        check_tick_launches(what, counts, stats, L)
+        tails = trace.class_tails(m, work_j, slos_j)
+        serves[what] = {k: m[k] for k in ("wall_time_s", "tokens_per_s", "decode_steps",
+                                          "tokens_per_step", "latency_mean", "latency_p90",
+                                          "ttft_p50", "ttft_p95", "itl_p50", "itl_p95")}
+        serves[what].update(class_tails=tails, launches={k: n for k, n in counts.items() if n},
+                            routes=routes, counters=log_counters(what, stats))
+        new_s[what] = time.perf_counter() - t1
+        log(f"serve {what}: wall {m['wall_time_s']:.2f} s, {m['tokens_per_s']:.1f} tokens/s "
+            f"end to end, {m['decode_steps']} decode steps; ticks: ttft p50 "
+            f"{m['ttft_p50']:.2f} p95 {m['ttft_p95']:.2f}, itl p50 {m['itl_p50']:.2f} p95 "
+            f"{m['itl_p95']:.2f}; class tails {tails}")
+        torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - T0:.0f} s] served (h)-(j) in {time.perf_counter() - t0:.1f} s")
+    return {"work_h": work_h, "work_i": work_i, "sys_prompt": sys_prompt}
+
+
+def parity_rest(T, cfg, params, rest: dict, vocab: int, report: dict, new_s: dict) -> None:
+    """Phase 5's checks of the rest of the tick: (h), its copy-on-write
+    probe and (i) in float32 through ``tick_parity`` (``cfg``, ``params``:
+    the parity depth), then the sampler on the card against the CPU."""
+    from repro_torch.serving import engine as teng, prng
+
+    work_h, work_i, sys_prompt = rest["work_h"], rest["work_i"], rest["sys_prompt"]
+    serving_p = T.ServingCfg(num_slots=8, page_size=16, num_pages=513, max_blocks_per_slot=64)
+    for what, sv, off, drive in (
+            ("shared", dataclasses.replace(serving_p, share_prefix=True, defrag_every=4),
+             dict(share_prefix=False, defrag_every=0),
+             lambda eng: serve_timed(eng, T, templated_requests(T, work_h))[:2]),
+            ("shared cow", dataclasses.replace(serving_p, share_prefix=True),
+             dict(share_prefix=False),
+             lambda eng: cow_probe(T, eng, sys_prompt, vocab)),
+            ("speculative", dataclasses.replace(serving_p, spec_len=4, spec_ngram=3),
+             dict(spec_len=0), lambda eng: serve_timed(eng, T, loopy_requests(T, work_i))[:2])):
+        t1 = time.perf_counter()
+        report["parity"][what] = tick_parity(T, cfg, params, what, sv, off, drive)
+        new_s[f"parity {what}"] = time.perf_counter() - t1
+        log(f"[{time.perf_counter() - T0:.0f} s] parity {what} in "
+            f"{new_s[f'parity {what}']:.1f} s")
+    t1 = time.perf_counter()
+    report["sampler"] = sampler_parity(teng, prng)
+    new_s["sampler"] = time.perf_counter() - t1
+    report["new_phase_s"] = new_s
+    log(f"[{time.perf_counter() - T0:.0f} s] the rest of the tick checked; seconds of the "
+        f"added phases: " + ", ".join(f"{k} {v:.1f}" for k, v in new_s.items()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the report as JSON here")
@@ -2051,6 +2446,7 @@ def main() -> int:
         check(not unnamed, f"ptxas reports differ from {args.against}: {unnamed}")
 
     # 3) kernels against their plain versions
+    new_s = {}  # seconds of the phases added with the rest of the tick (h-j)
     errs = {name: {} for name in kmods}
     report["prefill_routes"] = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -2083,6 +2479,15 @@ def main() -> int:
                 f"paged_decomposed_prefill {e_pre:.3e} "
                 f"({t1_ops.t1_prefill_route(dtype, Dm, Rr)} route; tol {TOL[dtype]})")
         dname = str(dtype).removeprefix("torch.")
+        t0 = time.perf_counter()
+        for G in (1, 2):  # B2 at the speculative verify chunk's shapes
+            tag = f"{dname} verify KV={16 // G} G={G} Dh=64"
+            errs["paged_prefill"][tag] = sweep_verify(ops, dtype, G)
+            log(f"sweep {tag}: paged_prefill {errs['paged_prefill'][tag]:.3e} over "
+                f"{5 * len(VERIFY_CHUNKS)} verify chunks (C, valid) in {VERIFY_CHUNKS} at "
+                f"offsets 0, 1, 15, 17 and 1024 - C ({ops.prefill_route(dtype, 64, 64)} "
+                f"route; tol {TOL[dtype]})")
+        new_s["verify sweep"] = new_s.get("verify sweep", 0.0) + time.perf_counter() - t0
         for shape, err in sweep_decode_served(ops, dtype).items():
             errs["paged_decode"][f"{dname} served rows {shape}"] = err
             log(f"sweep {dname} served rows {shape}: paged_decode {err:.3e} over "
@@ -2373,6 +2778,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - T0:.0f} s] served oneshot")
 
+    # 4h-4j) the rest of the continuous engine's tick
+    rest = serve_rest(T, cfg, params, serving, counted, routed, fa_ops.ROUTE_LAUNCHES, serves,
+                      new_s)
+
     # C3: the T2 (HQE) and T3 (proxy) encoders on the card and on the CPU, on
     #     layer 0's K/V of the static prompts (448 at once, 64 appended)
     report["encode_parity"] = encode_parity(*history, rts["cpq"].cpq, t3_cfg, 448)
@@ -2402,6 +2811,9 @@ def main() -> int:
         f"decode calls, {witness.differ_plain} differ between B7's scores and its plain "
         f"version's, {witness.differ_gather} between B7's and the gather path's (no gate)")
     log(f"[{time.perf_counter() - T0:.0f} s] parity checked (continuous)")
+    # the rest of the tick: (h), its copy-on-write probe and (i), kernels on
+    # and off, the feature on and off; then the sampler, card against CPU
+    parity_rest(T, cfg_p, params_p, rest, cfg.vocab_size, report, new_s)
     report["parity"]["oneshot"] = parity(T, M, cfg32, params32, reqs, "dense",
                                          serving_kw=dict(prefill_chunk=0))
     for mode in ("dense", "decomposed", "cpq", "retrieval"):

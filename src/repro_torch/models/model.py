@@ -2,7 +2,9 @@
 embed -> layers -> final norm -> LM head, over contiguous arenas (``prefill``
 and ``decode_step``: the static engine and one-shot admission, whose B=1
 prefill ``pack_prefill_caches`` scatters into a slot's pages) and over
-paged arenas (continuous batching).
+paged arenas (continuous batching): the decode step, prompt chunks, the
+speculative verify chunk, tier escalation, defrag and the copy-on-write
+page copy.
 
 The JAX package scans over stacked block parameters and caches; here a
 Python loop walks the layers, each with its own parameter dict and its own
@@ -149,6 +151,43 @@ def prefill_chunk_rows(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first:
                        valid, caches)
     x = apply_norm(cfg, params["final_norm"], x[:, valid - 1:valid])
     return lm_logits(cfg, params, x)[:, 0], caches
+
+
+def verify_chunk_rows(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first: bool,
+                      params, tokens: torch.Tensor, slot: int,
+                      block_row: torch.Tensor, offset: int, valid: int, caches):
+    """Speculative verification chunk: the chunked paged forward pass of
+    ``prefill_chunk_rows`` (writes land in the draft's scratch pages through
+    ``block_row``) with the logits of every position kept: position
+    ``offset + i`` scores candidate ``i + 1``. Returns (logits (1, C, V)
+    f32, caches); rows at ``i >= valid`` are padding."""
+    x = _chunk_forward(cfg, rt, tier, first, params, tokens, slot, block_row, offset,
+                       valid, caches)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params, x), caches
+
+
+def _attn_arenas(cfg: ModelConfig, caches):
+    return (c for (mixer, _), c in zip(cfg.layer_kinds, per_layer(cfg, caches))
+            if mixer in ("attn", "mla"))
+
+
+def defrag_caches(cfg: ModelConfig, rt: AttentionRuntime, caches, perm: torch.Tensor):
+    """Apply a scheduler defrag permutation (``Scheduler.plan_defrag``) to
+    every attention layer's base arena pools, in place: mapped pages move
+    onto the lowest physical ids."""
+    for c in _attn_arenas(cfg, caches):
+        pgc.permute_pool(c, perm)
+    return caches
+
+
+def copy_page_caches(cfg: ModelConfig, rt: AttentionRuntime, caches, src: int, dst: int):
+    """Copy physical page ``src -> dst`` in every attention layer's base
+    arena pools, in place: the copy-on-write split behind prefix sharing
+    (a tiered arena copies its dense arm)."""
+    for c in _attn_arenas(cfg, caches):
+        pgc.copy_page(c, src, dst)
+    return caches
 
 
 def escalate_slot(cfg: ModelConfig, rt: AttentionRuntime, caches,

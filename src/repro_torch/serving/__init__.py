@@ -1,1 +1,2 @@
-"""Paged KV arenas, scheduler, policies and the continuous engine."""
+"""Paged KV arenas, scheduler, policies, seeded sampling, speculative
+decoding, serving traces and the engines."""

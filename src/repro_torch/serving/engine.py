@@ -30,12 +30,27 @@ to the CPQ tier while the dense arena's free fraction is below
 cannot grow) running dense rows are re-compressed into it. As in the
 reference, escalation with any other mode leaves the engine untiered.
 
+Sampling is per request: ``SamplingParams`` fill per-row temperature /
+top-k / top-p / seed arrays read by one sampler (``sample_token_rows``), and a
+row's token ``i`` is drawn with ``fold_in(PRNGKey(seed), i)`` through the
+port's Threefry (``serving/prng.py``), so seeded streams are the reference's
+and survive preemption. A batch whose rows are all greedy takes the single
+argmax and never enters the sampler.
+
+The continuous engine also serves the rest of the reference's tick: prefix
+sharing with copy-on-write (``ServingCfg.share_prefix``; admissions mount
+registered full pages of an earlier context, and a write into a shared page
+splits it first), periodic defrag of the base arenas (``defrag_every``),
+the ``priority`` and ``slo`` scheduling policies, and speculative decoding
+(``spec_len``: prompt-lookup drafts verified by one chunked forward pass
+through B2, see ``serving/speculative.py``). Sharing and speculation follow
+the reference's gate: chunked admissions over the dense or T1 arena (the
+dense arm of a tiered arena).
+
 Both engines run on the GPU unless ``device`` names another device. They
 refuse, with ``SchedulerConfigError``, every knob the port does not
 implement yet instead of ignoring it: the T1+T2 attention mode, non-token
-inputs and sampled (``temperature > 0``) requests, and, in the continuous
-engine, prefix sharing, speculative decoding, defrag, a device mesh and
-non-FIFO policies.
+inputs and a device mesh.
 """
 from __future__ import annotations
 
@@ -50,6 +65,7 @@ from repro_torch.configs import AttentionRuntime, CPQCfg, ModelConfig, ServingCf
 from repro_torch.models import model as M
 from repro_torch.params import model_defs, resolve_device, to_device
 from repro_torch.serving import paged_cache as pgc
+from repro_torch.serving import prng
 from repro_torch.serving.policies import derive_deadlines, make_policy, slo_of
 from repro_torch.serving.request import RequestOutput, SamplingParams, ServeRequest
 from repro_torch.serving.scheduler import Request, Scheduler, SchedulerConfigError
@@ -64,23 +80,9 @@ class GenerationConfig:
     seed: int = 0
 
 
-def _unported_knobs(serving: ServingCfg, rt: AttentionRuntime,
-                    cfg: ModelConfig) -> list[str]:
-    """The settings this engine refuses, each with its ROADMAP item."""
-    out = []
-    if serving.share_prefix:
-        out.append("share_prefix (prefix sharing, ROADMAP A11)")
-    if serving.spec_len > 0:
-        out.append(f"spec_len={serving.spec_len} (speculative decoding, ROADMAP A12)")
-    if serving.defrag_every:
-        out.append(f"defrag_every={serving.defrag_every} (defrag, ROADMAP A11)")
-    if serving.policy != "fifo":
-        out.append(f"policy={serving.policy!r} (ROADMAP A10)")
-    return out + _unported_model(rt, cfg)
-
-
 def _unported_model(rt: AttentionRuntime, cfg: ModelConfig) -> list[str]:
-    """The runtime and model settings neither engine serves yet."""
+    """The runtime and model settings neither engine serves yet, each with
+    its ROADMAP item."""
     out = []
     if rt.mesh is not None:
         out.append("mesh (multi-device serving, ROADMAP A21)")
@@ -91,18 +93,73 @@ def _unported_model(rt: AttentionRuntime, cfg: ModelConfig) -> list[str]:
     return out
 
 
-def _refuse_sampling(temperature: float, who: str) -> None:
-    if temperature > 0.0:
-        raise SchedulerConfigError(
-            f"{who}: temperature={temperature} — seeded sampling is not ported yet "
-            "(ROADMAP A6); the port serves greedy requests")
+NEG = -1e30  # the masked logit of the top-k / top-p filters
 
 
-def sample_tokens(logits: torch.Tensor, gen: GenerationConfig) -> torch.Tensor:
-    """(B, V) logits -> (B,) int32 greedy tokens (the reference's
-    ``sample_tokens`` at temperature 0; sampling is refused)."""
-    _refuse_sampling(gen.temperature, "sample_tokens")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def _nucleus_threshold(desc: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """The top-p cut over descending logits: the value at index ``j`` =
+    #(cumulative probability < top_p), clamped to the last index (JAX's
+    ``take_along_axis`` clamps there; ``torch.gather`` would raise). The
+    probabilities are built as ``jax.nn.softmax`` builds them.
+    desc (B, V); top_p broadcasts against (B, 1). Returns (B, 1)."""
+    e = torch.exp(desc - desc.amax(dim=-1, keepdim=True))
+    cum = torch.cumsum(e / e.sum(dim=-1, keepdim=True), dim=-1)
+    j = (cum < top_p).sum(dim=-1, keepdim=True)
+    return torch.gather(desc, 1, j.clamp(max=desc.shape[-1] - 1))
+
+
+def sample_tokens(logits: torch.Tensor, key: Optional[torch.Tensor],
+                  gen: GenerationConfig) -> torch.Tensor:
+    """(B, V) logits -> (B,) int32 samples of the static engine (greedy /
+    temperature / top-p, one key for the whole batch; ``key`` is unused
+    when greedy)."""
+    if gen.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    # divide by a device tensor: CUDA multiplies by the reciprocal of a
+    # host scalar, the reference divides
+    t = torch.full((1,), gen.temperature, dtype=torch.float32, device=logits.device)
+    l = logits.float() / t
+    if gen.top_p < 1.0:
+        desc = torch.sort(l, dim=-1, descending=True).values
+        p = torch.full((1,), gen.top_p, dtype=torch.float32, device=logits.device)
+        l = torch.where(l < _nucleus_threshold(desc, p), NEG, l)
+    return prng.categorical(key, l).to(torch.int32)
+
+
+def perturbed_logits(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
+                     top_ps: torch.Tensor, seeds: torch.Tensor,
+                     indices: torch.Tensor) -> torch.Tensor:
+    """What a sampled row of ``sample_token_rows`` takes the argmax of: its
+    logits over its temperature, top-k and top-p filtered (``top_k == 0``
+    and ``top_p == 1`` disable a filter; filtered logits are -1e30), plus
+    the Gumbel noise of ``fold_in(PRNGKey(seed), index)``. (B, V) float32
+    (greedy rows are divided by 1)."""
+    V = logits.shape[-1]
+    l = logits.float() / torch.where(temps > 0, temps, 1.0)[:, None]
+    # per-row top-k: mask everything below the k-th largest (k = V when off)
+    desc = torch.sort(l, dim=-1, descending=True).values
+    k = torch.clamp(torch.where(top_ks > 0, top_ks, V), 1, V).long()
+    l = torch.where(l < torch.gather(desc, 1, (k - 1)[:, None]), NEG, l)
+    # per-row top-p over the top-k-filtered distribution
+    desc = torch.sort(l, dim=-1, descending=True).values
+    l = torch.where(l < _nucleus_threshold(desc, top_ps[:, None]), NEG, l)
+    keys = prng.fold_in(prng.PRNGKey(seeds), indices)
+    return prng.gumbel(keys, (V,)) + l
+
+
+def sample_token_rows(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
+                      top_ps: torch.Tensor, seeds: torch.Tensor,
+                      indices: torch.Tensor) -> torch.Tensor:
+    """Per-request sampler: (B, V) logits and per-row (B,) temperature /
+    top-k / top-p / seed / stream index -> (B,) int32 tokens, on the
+    logits' device. Greedy rows (``temps <= 0``) take the argmax of the
+    raw logits; sampled rows the argmax of ``perturbed_logits`` (the
+    Gumbel-max draw of ``jax.random.categorical``), so a draw depends on the
+    request alone, not on its slot, the batch or its preemptions."""
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    sampled = torch.argmax(perturbed_logits(logits, temps, top_ks, top_ps, seeds, indices),
+                           dim=-1).to(torch.int32)
+    return torch.where(temps <= 0.0, greedy, sampled)
 
 
 # --------------------------------------------------------------- static engine
@@ -110,8 +167,8 @@ def sample_tokens(logits: torch.Tensor, gen: GenerationConfig) -> torch.Tensor:
 
 class ServeEngine:
     """Static-batch engine: one batch of equal-length prompts, prefilled
-    into contiguous arenas and decoded to the end at one shared position,
-    greedily. The contiguous-arena baseline."""
+    into contiguous arenas and decoded to the end at one shared position.
+    The contiguous-arena baseline."""
 
     def __init__(self, cfg: ModelConfig, params, rt: Optional[AttentionRuntime] = None,
                  max_len: int = 4096, device=None):
@@ -129,8 +186,9 @@ class ServeEngine:
         """batch: {'tokens': (B, S)}. Returns (generated (B, n) int32, n <=
         max_new_tokens, stats). With ``eos_id`` rows past their EOS emit
         ``eos_id``, the EOS itself counts as generated, and the run stops
-        once every row has emitted one."""
-        _refuse_sampling(gen.temperature, "ServeEngine.generate")
+        once every row has emitted one. Sampling (``temperature > 0``)
+        draws the first token with ``PRNGKey(seed)`` and each later one
+        with the next ``split`` of the key chain, as the reference does."""
         cfg = self.cfg
         prompt = torch.as_tensor(np.asarray(batch["tokens"]), device=self.device)
         B, S = prompt.shape
@@ -143,7 +201,9 @@ class ServeEngine:
         toks = []
         done = np.zeros((B,), bool)
         live_tokens = decode_calls = 0
-        tok = sample_tokens(logits, gen).cpu().numpy()
+        sampled = gen.temperature > 0.0
+        key = sub = prng.PRNGKey(gen.seed, device=self.device) if sampled else None
+        tok = sample_tokens(logits, key, gen).cpu().numpy()
         for t in range(gen.max_new_tokens):
             if gen.eos_id >= 0:  # rows past their EOS emit eos_id
                 tok = np.where(done, gen.eos_id, tok).astype(np.int32)
@@ -155,11 +215,13 @@ class ServeEngine:
                     break
             if t == gen.max_new_tokens - 1:
                 break  # the last token needs no decode
+            if sampled:
+                key, sub = prng.split(key)
             logits, caches = M.decode_step(cfg, self.rt, self.params,
                                            torch.as_tensor(tok[:, None], device=self.device),
                                            S + t, caches)
             decode_calls += 1
-            tok = sample_tokens(logits, gen).cpu().numpy()
+            tok = sample_tokens(logits, sub, gen).cpu().numpy()
         stats = {"prompt_tokens": int(B * S), "generated_tokens": live_tokens,
                  "decode_steps": decode_calls, "cache_mode": self.rt.mode}
         return np.stack(toks, axis=1), stats
@@ -167,18 +229,25 @@ class ServeEngine:
 
 class _ServeState:
     """Mutable per-session state behind ``add_request()``/``step()``: the
-    scheduler, the paged arenas, the tick clock, counters and the pending
-    outputs. ``reset`` starts a new one."""
+    scheduler, the paged arenas, the per-slot sampling arrays, the tick
+    clock, counters and the pending outputs. ``reset`` starts a new one."""
 
     def __init__(self, eng: "ContinuousServeEngine", gen: GenerationConfig):
+        B = eng.serving.num_slots
         self.gen = gen
-        self.sched = Scheduler(eng.serving, eng.tiered,
-                               policy=make_policy(eng.serving.policy), share_prefix=False)
+        self.sched = Scheduler(eng.serving, eng.tiered, policy=eng.make_policy(),
+                               share_prefix=eng.share_prefix)
         self.caches = M.init_paged_caches(eng.cfg, eng.rt, eng.serving, eng.device,
                                           eng.tiered)
         self.bpt0, self.bpt1 = eng._tier_bpt(self.caches)
         self.quantum = eng.serving.prefill_chunk or eng.serving.prefill_bucket
-        self.last_tok = np.zeros((eng.serving.num_slots,), np.int32)
+        self.last_tok = np.zeros((B,), np.int32)
+        # per-slot sampling parameters (rows set on admission, reset to
+        # greedy when the slot is vacated)
+        self.temp = np.zeros((B,), np.float32)
+        self.top_k = np.zeros((B,), np.int32)
+        self.top_p = np.ones((B,), np.float32)
+        self.seed = np.zeros((B,), np.int32)
         self.results: dict[int, dict] = {}
         self.outputs: list[RequestOutput] = []       # pending (undrained)
         self.step_outputs: list[RequestOutput] = []  # this tick's events
@@ -190,6 +259,7 @@ class _ServeState:
         self.util_peak = self.util_sum = 0.0
         self.util_n = 0
         self.has_deadlines = False
+        self.defrag_mark = 0          # retirements at the last compaction
         self.trace_active: list[int] = []
         self.trace_util: list[float] = []
         self.t0 = time.time()
@@ -202,10 +272,11 @@ class ContinuousServeEngine:
     engine tick per call, returning the tick's ``RequestOutput`` events);
     ``serve(requests, gen)`` resets the session, submits everything and
     drains. The decode clock is the time base: a request with
-    ``arrival=t`` becomes admissible after t ticks."""
+    ``arrival=t`` becomes admissible after t ticks. ``policy`` (a policy
+    object or name) overrides ``ServingCfg.policy``."""
 
     def __init__(self, cfg: ModelConfig, params, rt: Optional[AttentionRuntime] = None,
-                 serving: ServingCfg = ServingCfg(), device=None):
+                 serving: ServingCfg = ServingCfg(), policy=None, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.serving = serving
@@ -217,7 +288,7 @@ class ContinuousServeEngine:
         if (serving.use_paged_kernels is not None
                 and rt.paged_kernels != serving.use_paged_kernels):
             rt = dataclasses.replace(rt, paged_kernels=serving.use_paged_kernels)
-        unported = _unported_knobs(serving, rt, cfg)
+        unported = _unported_model(rt, cfg)
         if unported:
             raise SchedulerConfigError(
                 "not ported yet: " + "; ".join(unported))
@@ -228,8 +299,27 @@ class ContinuousServeEngine:
         self.rt = rt
         self.params = to_device(params, self.device)
         self.chunked = bool(serving.prefill_chunk)  # else one-shot admission
+        # prefix sharing and speculation need chunked admission (a tail or
+        # a verify chunk streams from a mid-context offset) and a base arena
+        # whose payload is purely positional: dense, T1, or a tiered
+        # arena's dense arm; CPQ and T3 pages read through per-slot state
+        self.share_prefix = (serving.share_prefix and self.chunked
+                             and rt.mode in ("dense", "decomposed"))
+        self.spec_on = (serving.spec_len > 0 and self.chunked
+                        and rt.mode in ("dense", "decomposed"))
+        self.policy = policy
         self._n_cache_layers = sum(1 for m, _ in cfg.layer_kinds if m in ("attn", "mla"))
         self._st: Optional[_ServeState] = None
+
+    def make_policy(self):
+        """The session's scheduling policy: an explicit object wins, a name
+        (constructor argument or ``ServingCfg.policy``) goes through the
+        factory. Called once per session (``reset``)."""
+        if self.policy is None:
+            return make_policy(self.serving.policy)
+        if isinstance(self.policy, str):
+            return make_policy(self.policy)
+        return self.policy
 
     # ------------------------------------------------------------- helpers
 
@@ -287,7 +377,7 @@ class ContinuousServeEngine:
         M.pack_prefill_caches(self.cfg, rt_t, st.caches, ctg, self._tensor(tables[req.slot]),
                               req.slot)
         sched.finish_prefill(req)
-        return int(torch.argmax(logits, dim=-1)[0]), len(padded)
+        return self._sample_one(req, logits), len(padded)
 
     def _prefill_chunk(self, req: Request, st: _ServeState):
         """Stream the next ``prefill_chunk`` prompt tokens straight into the
@@ -310,7 +400,64 @@ class ContinuousServeEngine:
         if req.length < req.prefill_target:
             return None, valid
         sched.finish_prefill(req)
-        return int(torch.argmax(logits, dim=-1)[0]), valid
+        return self._sample_one(req, logits), valid
+
+    # ---------------------------------------------------- per-row sampling
+
+    def _resolve_sampling(self, req: Request, st: _ServeState) -> None:
+        """Pin the request's SamplingParams (a scheduler Request without
+        them derives them from the session GenerationConfig once) and load
+        them into the slot's row of the sampling arrays."""
+        if req.sampling is None:
+            g = st.gen
+            req.sampling = SamplingParams(temperature=g.temperature, top_p=g.top_p,
+                                          max_tokens=req.max_new_tokens,
+                                          seed=(g.seed + req.rid) & 0x7fffffff)
+        s = req.slot
+        st.temp[s] = req.sampling.temperature
+        st.top_k[s] = req.sampling.top_k
+        st.top_p[s] = req.sampling.top_p
+        st.seed[s] = req.sampling.seed & 0x7fffffff
+
+    def _sample_rows(self, logits: torch.Tensor, temp, top_k, top_p, seed,
+                     index) -> np.ndarray:
+        """``sample_token_rows`` over host per-row arrays; the draws come
+        back to the host."""
+        f32 = lambda a: self._tensor(np.asarray(a, np.float32))  # noqa: E731
+        i32 = lambda a: self._tensor(np.asarray(a, np.int32))    # noqa: E731
+        return sample_token_rows(logits, f32(temp), i32(top_k), f32(top_p),
+                                 i32(seed), i32(index)).cpu().numpy()
+
+    def _sample_one(self, req: Request, logits: torch.Tensor) -> int:
+        """First token at the end of a prefill, at stream index
+        ``num_generated`` (0 on admission, the replay index after a
+        preemption). Greedy requests take the argmax."""
+        sp = req.sampling
+        if sp.temperature <= 0.0:
+            return int(torch.argmax(logits, dim=-1)[0])
+        return int(self._sample_rows(logits, [sp.temperature], [sp.top_k], [sp.top_p],
+                                     [sp.seed & 0x7fffffff], [req.num_generated])[0])
+
+    def _sample_active(self, st: _ServeState, logits: torch.Tensor) -> np.ndarray:
+        """One sampling call over the decode batch, row r at its request's
+        stream index; inactive rows draw garbage the caller never reads. A
+        batch whose rows are all greedy takes the single argmax and never
+        enters the sampler."""
+        if (st.temp <= 0.0).all():
+            return torch.argmax(logits, dim=-1).cpu().numpy()
+        idx = [r.num_generated if (r := st.sched.slots[s]) is not None else 0
+               for s in range(self.serving.num_slots)]
+        return self._sample_rows(logits, st.temp, st.top_k, st.top_p, st.seed, idx)
+
+    def _clear_row_sampling(self, st: _ServeState, slot: int) -> None:
+        """Reset a vacated slot's sampling row to greedy, so that a retired
+        sampled request does not keep the batch off the argmax short cut."""
+        if slot < 0:
+            return
+        st.temp[slot] = 0.0
+        st.top_k[slot] = 0
+        st.top_p[slot] = 1.0
+        st.seed[slot] = 0
 
     def _row_state(self, sched: Scheduler, active: np.ndarray) -> pgc.RowState:
         return pgc.RowState(lengths=self._tensor(sched.lengths),
@@ -323,10 +470,10 @@ class ContinuousServeEngine:
     # ------------------------------------------------- request-centric API
 
     def reset(self, gen: GenerationConfig = GenerationConfig()) -> None:
-        """Start a fresh serving session: new scheduler, empty arenas, empty
-        output buffer. ``gen`` supplies the session-wide ``eos_id`` and the
-        temperature of scheduler ``Request`` objects that carry no
-        SamplingParams (it must be 0: greedy)."""
+        """Start a fresh serving session: new scheduler (a fresh policy),
+        empty arenas, empty output buffer. ``gen`` supplies the session-wide
+        ``eos_id`` and the SamplingParams derived for scheduler ``Request``
+        objects that carry none."""
         self._st = _ServeState(self, gen)
 
     def _ensure_state(self) -> _ServeState:
@@ -347,8 +494,6 @@ class ContinuousServeEngine:
                           session_id=req.session_id)
         elif stream is not None:
             req.stream = stream
-        temp = req.sampling.temperature if req.sampling is not None else st.gen.temperature
-        _refuse_sampling(temp, f"request {req.rid}")
         if (req.rid in st.results
                 or any(r.rid == req.rid for r in st.sched.queue)
                 or any(r is not None and r.rid == req.rid for r in st.sched.slots)):
@@ -409,8 +554,15 @@ class ContinuousServeEngine:
         }
 
     def _finish(self, st: _ServeState, req: Request, reason: str) -> None:
+        slot = req.slot
         st.sched.retire(req, st.step, reason)
+        self._clear_row_sampling(st, slot)
         st.results[req.rid] = self._result_of(req)
+
+    def _preempt(self, st: _ServeState, req: Request) -> None:
+        slot = req.slot
+        st.sched.preempt(req)
+        self._clear_row_sampling(st, slot)
 
     def _emit(self, st: _ServeState, req: Request, ev: RequestOutput) -> None:
         st.step_outputs.append(ev)
@@ -473,19 +625,132 @@ class ContinuousServeEngine:
             sched.stats["timeouts"] += 1
             self._emit(st, req, timeout_event(req))
 
+    def _cow_guard(self, st: _ServeState, req: Request) -> bool:
+        """Copy-on-write valve before ``req``'s next cache write (a tail
+        chunk or a decode token): if the target block maps a shared page,
+        the scheduler splits it and the page copy duplicates the payload in
+        every attention layer. Out of pages, the policy's victim is
+        preempted, or ``req`` itself as the last resort. Returns False iff
+        ``req`` was preempted (its write is skipped this tick)."""
+        sched = st.sched
+        while True:
+            try:
+                plan = sched.cow_plan(req)
+            except pgc.PageAllocator.OutOfPages:
+                victim = sched.preemption_victim(exclude=req)
+                self._preempt(st, victim if victim is not None else req)
+                if victim is None:
+                    return False
+                continue
+            if plan is not None:
+                M.copy_page_caches(self.cfg, self.rt, st.caches, *plan)
+            return True
+
+    # ------------------------------------------------- speculative decoding
+
+    def _spec_eligible(self, req: Request) -> bool:
+        """Whether a row can take a speculative step this tick: running on
+        tier 0 (drafts alias dense pages), not opted out, with a budget of
+        at least the verify draw plus one candidate."""
+        sp = req.sampling
+        return (req.state == "running" and req.tier == 0
+                and req.draft is None
+                and (sp is None or sp.speculate)
+                and req.max_new_tokens - req.num_generated >= 2)
+
+    def _verify_draws(self, req: Request, logits: torch.Tensor) -> np.ndarray:
+        """The request's own draws at every chunk position: row i (position
+        ``length + i``) at stream index ``num_generated + i``, through the
+        decode path's sampler (the argmax for greedy rows). logits (C, V);
+        padding rows draw garbage the caller never reads."""
+        sp = req.sampling
+        if sp is None or sp.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).cpu().numpy()
+        C = logits.shape[0]
+        return self._sample_rows(logits, [sp.temperature] * C, [sp.top_k] * C,
+                                 [sp.top_p] * C, [sp.seed & 0x7fffffff] * C,
+                                 req.num_generated + np.arange(C))
+
+    def _speculate_row(self, st: _ServeState, req: Request) -> bool:
+        """One speculative step of a running row: draft up to ``spec_len``
+        tokens from its own context, open the draft (aliased history plus
+        scratch pages), run one verify chunk over [last token, draft ...] at
+        positions ``length .. length+k``, and commit the longest run of
+        candidates equal to the request's own draws; every committed token
+        lands this tick. The verify chunk is one model invocation and costs
+        one tick. Returns True iff the row was handled here (the caller
+        takes it out of the batched decode)."""
+        from repro_torch.serving.speculative import propose_ngram
+
+        sched = st.sched
+        serving = self.serving
+        L = req.length
+        budget = req.max_new_tokens - req.num_generated
+        cap = serving.max_blocks_per_slot * serving.page_size - 1 - L
+        k = min(serving.spec_len, budget - 1, cap)
+        if k < 1:
+            return False
+        # req.context ends with the last token (position L): the draft
+        # continues the stream the verify chunk's first position extends
+        draft = propose_ngram(req.context, serving.spec_ngram, k)
+        k = int(len(draft))
+        if k < 1:
+            return False
+        d = sched.begin_draft(req, k)
+        if d is None:
+            return False  # arena pressure or the block ceiling: decode
+        d.tokens = [int(t) for t in draft]
+        if d.copy_src >= 0:
+            # partial frontier: seed the scratch page that replaces it
+            M.copy_page_caches(self.cfg, self.rt, st.caches, d.copy_src, d.scratch[0])
+        row = sched.draft_block_row(req)
+        C = serving.spec_len + 1
+        toks = np.full((C,), int(st.last_tok[req.slot]), np.int32)
+        toks[1:1 + k] = draft
+        logits, _ = M.verify_chunk_rows(self.cfg, self.rt, req.tier, False, self.params,
+                                        self._tensor(toks[None]), req.slot,
+                                        self._tensor(row), L, k + 1, st.caches)
+        # clock and traffic: one model invocation reading L + k + 1 positions
+        st.decode_steps += 1
+        st.live_steps += 1
+        st.traffic += float(L + k + 1) * st.bpt0 * self._n_cache_layers
+        util = sched.dense_alloc.utilization
+        st.util_peak = max(st.util_peak, util)
+        st.util_sum += util
+        st.util_n += 1
+        st.trace_active.append(1)
+        st.trace_util.append(util)
+        st.step += 1
+
+        draws = self._verify_draws(req, logits[0])
+        n_accept = 1  # position L's draw is this tick's own next token
+        for j in range(k):
+            if int(draws[j]) != int(draft[j]):
+                break
+            n_accept += 1
+        sched.commit_draft(req, n_accept)
+        for j in range(n_accept):
+            if req.state != "running":
+                break  # a draw hit eos / stop / budget: the rest never emits
+            self._emit_token(st, req, int(draws[j]), st.step, grow=True)
+            sched.register_prefix(req)
+        return True
+
     # ----------------------------------------------------------------- run
 
     def step(self) -> list[RequestOutput]:
-        """Run ONE engine tick: admissions, the watermark escalation policy,
-        at most one streamed prompt chunk, page growth (escalation or
-        recompute preemption on exhaustion), and one decode step + greedy
-        sampling over the running rows. Returns this tick's
-        ``RequestOutput`` events.
+        """Run ONE engine tick: deadline shedding, the periodic defrag,
+        admissions, the watermark escalation policy, at most one streamed
+        prompt chunk, page growth (escalation or recompute preemption on
+        exhaustion, copy-on-write splits), speculative verify chunks of
+        eligible rows, and one decode step + per-row sampling over the other
+        running rows. Returns this tick's ``RequestOutput`` events.
 
         Clock model (the reference's): a tick that runs the decode step
         costs 1 and one prompt chunk rides along for free; a prefill-only
-        tick also costs 1; a one-shot admission costs its padded length in
-        ``prefill_bucket`` units before the tick's decode step."""
+        tick also costs 1; each verify chunk costs 1; a one-shot admission
+        costs its padded length in ``prefill_bucket`` units before the
+        tick's decode step."""
         st = self._ensure_state()
         st.step_outputs = []
         sched = st.sched
@@ -498,10 +763,21 @@ class ContinuousServeEngine:
         if not sched.has_work():
             return st.step_outputs
 
+        # 0b) periodic base-arena compaction every ``defrag_every``
+        #     retirements: the scheduler relabels mapped pages onto the
+        #     lowest ids and every base pool is permuted to match
+        if (self.serving.defrag_every
+                and sched.stats["retired"] - st.defrag_mark >= self.serving.defrag_every):
+            st.defrag_mark = sched.stats["retired"]
+            perm = sched.plan_defrag()
+            if perm is not None:
+                M.defrag_caches(self.cfg, self.rt, st.caches, self._tensor(perm))
+
         # 1) admissions into vacated slots: chunked, their prompts stream
         #    below; one-shot, the whole prompt is prefilled now and the
         #    clock is charged its bucket-equivalents (the head-of-line stall)
         while (req := sched.admit_next(now=st.step, step=st.step)) is not None:
+            self._resolve_sampling(req, st)
             if self.chunked:
                 continue
             tok, padded = self._admit(req, st)
@@ -519,24 +795,32 @@ class ContinuousServeEngine:
         # 1c) recovery: a policy may de-escalate one T2 row per tick back to
         #     dense by re-admission (FIFO never volunteers one)
         if (cand := sched.deescalation_candidate()) is not None:
+            slot = cand.slot
             sched.deescalate(cand)
+            self._clear_row_sampling(st, slot)
 
         # 2) chunked-prefill pump: at most ONE prompt chunk per tick
         did_chunk = False
         fresh_slot = -1  # row whose prefill finished THIS tick
         if self.chunked and (pre := sched.prefilling()):
             req = pre[0]
-            tok, valid = self._prefill_chunk(req, st)
-            did_chunk = True
-            st.prefill_chunks += 1
-            st.prefill_tokens += valid
-            st.prefill_write_bytes += (valid * (st.bpt1 if req.tier else st.bpt0)
-                                       * self._n_cache_layers)
-            if tok is not None:
-                # available at the tick's end; the row decodes from next tick
-                self._emit_token(st, req, tok, st.step + 1)
-                if req.state == "running":
-                    fresh_slot = req.slot
+            # a shared-prefix admission's first tail write may land inside
+            # a shared page (divergence mid-page): split it first
+            if self._cow_guard(st, req):
+                tok, valid = self._prefill_chunk(req, st)
+                did_chunk = True
+                st.prefill_chunks += 1
+                st.prefill_tokens += valid
+                st.prefill_write_bytes += (valid * (st.bpt1 if req.tier else st.bpt0)
+                                           * self._n_cache_layers)
+                # every page the chunk filled is immutable from here on:
+                # register it, so that concurrent admissions can mount it
+                sched.register_prefix(req)
+                if tok is not None:
+                    # available at the tick's end; the row decodes from next tick
+                    self._emit_token(st, req, tok, st.step + 1)
+                    if req.state == "running":
+                        fresh_slot = req.slot
 
         # 3) growth: map a page for every running row's next write; out of
         #    pages, a dense grower first escalates itself to the CPQ arena,
@@ -556,13 +840,31 @@ class ContinuousServeEngine:
                 if victim is None:
                     self._finish(st, req, "oom")
                     break
-                sched.preempt(victim)
+                self._preempt(st, victim)
+            if req.state == "running":
+                # a decode write into a still-shared page splits it first
+                self._cow_guard(st, req)
 
         active = sched.active_mask()
         if fresh_slot >= 0:
             active[fresh_slot] = False
 
+        # 3b) speculative decoding: an eligible row takes its own verify
+        #     chunk instead of the batched decode; a row whose draft cannot
+        #     open stays active and decodes below
+        did_spec = False
+        if self.spec_on:
+            for req in sorted(sched.running(), key=lambda r: r.admitted_step):
+                slot = req.slot
+                if slot < 0 or not active[slot] or not self._spec_eligible(req):
+                    continue
+                if self._speculate_row(st, req):
+                    active[slot] = False
+                    did_spec = True
+
         if not active.any():
+            if did_spec:
+                return st.step_outputs  # the verify chunks charged their ticks
             if did_chunk:
                 st.step += 1     # prefill-only tick still costs a tick
                 return st.step_outputs
@@ -585,12 +887,13 @@ class ContinuousServeEngine:
             return st.step_outputs
 
         # 4) one decode step over per-row positions (rows still prefilling,
-        #    and a row whose last chunk landed this tick, write the null page)
+        #    and a row whose last chunk landed this tick, write the null
+        #    page), then one per-row sampling call for the whole batch
         rows = self._row_state(sched, active)
         logits, _ = M.decode_step_rows(self.cfg, self.rt, self.params,
                                        self._tensor(st.last_tok[:, None]), rows,
                                        st.caches)
-        toks = torch.argmax(logits, dim=-1).cpu().numpy()
+        toks = self._sample_active(st, logits)
         st.decode_steps += 1
         st.live_steps += int(active.sum())
         st.traffic += float(sum(
@@ -604,9 +907,13 @@ class ContinuousServeEngine:
         st.trace_util.append(util)
         st.step += 1
         for slot in range(B):
-            if active[slot]:
-                self._emit_token(st, sched.slots[slot], int(toks[slot]), st.step,
-                                 grow=True)
+            if not active[slot]:
+                continue
+            req = sched.slots[slot]
+            self._emit_token(st, req, int(toks[slot]), st.step, grow=True)
+            # a page completed by decode is registered too: multi-turn
+            # follow-ups then mount the request's whole history
+            sched.register_prefix(req)
         return st.step_outputs
 
     def stats(self) -> dict:
@@ -620,8 +927,8 @@ class ContinuousServeEngine:
             "cache_mode": self.rt.mode,
             "tiered": self.tiered,
             "chunked_prefill": self.chunked,
-            "prefix_sharing": False,
-            "spec_on": False,
+            "prefix_sharing": self.share_prefix,
+            "spec_on": self.spec_on,
             "spec_accept_rate": (sched.stats["spec_accepted"]
                                  / max(sched.stats["spec_drafted"], 1)),
             "policy": sched.policy.name,

@@ -233,6 +233,52 @@ def defrag_plan(block_table, num_pages: int, shared=None):
     return np.asarray(perm, dtype=np.int32), new_bt, free
 
 
+def permute_pool(cache, perm: torch.Tensor):
+    """Apply a defrag permutation (``perm[new_id] = old_id``) to every base
+    arena page pool of a paged container, in place: each pool is gathered
+    into a fresh buffer and copied back. Per-slot side state and a tiered
+    arena's CPQ escalation arm (its own allocator and tables) stay."""
+    perm = perm.to(torch.long)
+
+    def take(*pools):
+        for pool in pools:
+            pool.copy_(pool[perm.to(pool.device)])
+
+    if isinstance(cache, TieredPagedCache):
+        permute_pool(cache.dense, perm)
+    elif isinstance(cache, (PagedDenseKVCache, PagedRetrievalCache)):
+        take(cache.k, cache.v)
+        if isinstance(cache, PagedRetrievalCache):
+            take(cache.proxy)
+    elif isinstance(cache, PagedXCache):
+        take(cache.x, cache.k_rope)
+    elif isinstance(cache, PagedCPQKVCache):
+        take(cache.k.codes, cache.k.level, cache.v.codes, cache.v.level)
+    else:
+        raise TypeError(type(cache))
+    return cache
+
+
+def copy_page(cache, src: int, dst: int):
+    """Copy physical page ``src -> dst`` in every base arena pool, in place:
+    the copy-on-write split (and the seed of a draft's scratch frontier).
+    Only the positional per-token pools move; a tiered arena copies its
+    dense arm. The CPQ and retrieval tiers never share pages (their reads
+    go through per-slot side state fitted to one request), so no copy is
+    defined for them."""
+    if isinstance(cache, TieredPagedCache):
+        copy_page(cache.dense, src, dst)
+    elif isinstance(cache, PagedDenseKVCache):
+        cache.k[dst] = cache.k[src]
+        cache.v[dst] = cache.v[src]
+    elif isinstance(cache, PagedXCache):
+        cache.x[dst] = cache.x[src]
+        cache.k_rope[dst] = cache.k_rope[src]
+    else:
+        raise TypeError(f"copy-on-write is undefined for {type(cache).__name__}")
+    return cache
+
+
 # ------------------------------------------------------------- containers
 
 

@@ -1,12 +1,27 @@
 """Scheduler policies of the port (the JAX package's ``serving/policies.py``):
-the ``SchedulerPolicy`` protocol and ``FifoPolicy``.
+the ``SchedulerPolicy`` protocol, ``FifoPolicy``, ``PriorityPolicy`` and
+``SloAwarePolicy``.
 
 ``serving/scheduler.py`` keeps the mechanisms (page allocation, slot
 bookkeeping, state transitions) and delegates every decision to a policy:
 which queued request takes a vacated slot and in which tier, which slot
 holder is recomputed away when a grower runs out of pages, and which rows
-escalate or de-escalate between arena tiers. ``PriorityPolicy`` and
-``SloAwarePolicy`` are not ported yet (ROADMAP A10).
+escalate or de-escalate between arena tiers.
+
+  ``FifoPolicy``      head-of-queue admission (no bypass), watermark tier
+                      assignment, youngest-same-arena preemption,
+                      longest-dense escalation, no de-escalation unless
+                      opted in.
+  ``PriorityPolicy``  strict ``SloClass.priority`` classes with aging: a
+                      queued request gains one effective level per
+                      ``aging_ticks`` waited; preemption and escalation pick
+                      low-priority rows first.
+  ``SloAwarePolicy``  earliest-deadline-first admission by projected TTFT
+                      slack, low-priority victims, and de-escalation on by
+                      default.
+
+The replica placement policies of the reference belong to its router, which
+the port does not have yet (ROADMAP A17).
 """
 from __future__ import annotations
 
@@ -138,25 +153,107 @@ class FifoPolicy:
                 return r
         return None
 
+    def _deesc_order(self, cands: list["Request"]) -> list["Request"]:
+        """Recovery preference among escalated rows: shortest context first
+        (cheapest recompute)."""
+        return sorted(cands, key=lambda r: r.length)
+
     def deescalation_candidate(self, sched):
         if not self.deescalate:
             return None
         if sched.free_frac() <= sched.cfg.high_watermark:
-            return None
+            return None  # hysteresis: recover only with real headroom
         cands = [r for r in sched.running() if r.tier == 1]
-        for r in sorted(cands, key=lambda r: r.length):
+        for r in self._deesc_order(cands):
             need = pages_needed(len(r.context) + 1, sched.cfg.page_size)
             if sched.dense_alloc.can_alloc(need):
                 return r
         return None
 
 
+class PriorityPolicy(FifoPolicy):
+    """Strict priority classes with aging. Admission picks the highest
+    effective priority, ``priority + waited // aging_ticks``, ties by
+    arrival order; preemption and escalation spend low-priority rows
+    first."""
+
+    name = "priority"
+
+    def __init__(self, aging_ticks: int = 64, deescalate: bool = False):
+        super().__init__(deescalate=deescalate)
+        assert aging_ticks >= 1
+        self.aging_ticks = aging_ticks
+
+    def effective_priority(self, req: "Request", now: float) -> float:
+        return slo_of(req).priority + (max(0.0, now - req.arrival)
+                                       // self.aging_ticks)
+
+    def admission_order(self, sched, now):
+        arrived = self._arrived(sched, now)
+        order = {id(r): i for i, r in enumerate(sched.queue)}
+        return sorted(arrived,
+                      key=lambda r: (-self.effective_priority(r, now),
+                                     r.arrival, order[id(r)]))[:1]
+
+    def preemption_victim(self, sched, exclude):
+        cands = [r for r in sched.occupied()
+                 if r is not exclude and r.tier == exclude.tier]
+        return max(cands,
+                   key=lambda r: (-slo_of(r).priority, r.admitted_step),
+                   default=None)
+
+    def escalation_candidate(self, sched):
+        if sched.free_frac() >= sched.cfg.critical_watermark:
+            return None
+        cands = [r for r in sched.running() if r.tier == 0]
+        for r in sorted(cands, key=lambda r: (slo_of(r).priority, -r.length)):
+            if self._cpq_fits(sched, r):
+                return r
+        return None
+
+    def _deesc_order(self, cands):
+        """Restore full-quality (dense) attention to important rows first."""
+        return sorted(cands, key=lambda r: (-slo_of(r).priority, r.length))
+
+
+class SloAwarePolicy(PriorityPolicy):
+    """Earliest-deadline-first admission by projected TTFT slack: slack =
+    ``ttft_target - (waited + the context's prefill chunk ticks)``, least
+    slack first, infinite targets last (by priority, then arrival).
+    Victims as ``PriorityPolicy``; de-escalation on by default."""
+
+    name = "slo"
+
+    def __init__(self, aging_ticks: int = 64, deescalate: bool = True):
+        super().__init__(aging_ticks=aging_ticks, deescalate=deescalate)
+
+    def projected_ttft(self, sched: "Scheduler", req: "Request",
+                       now: float) -> float:
+        quantum = sched.cfg.prefill_chunk or sched.cfg.prefill_bucket
+        chunks = -(-len(req.context) // quantum)
+        return (now - req.arrival) + chunks
+
+    def admission_order(self, sched, now):
+        arrived = self._arrived(sched, now)
+        order = {id(r): i for i, r in enumerate(sched.queue)}
+
+        def key(r):
+            slo = slo_of(r)
+            slack = slo.ttft_target - self.projected_ttft(sched, r, now)
+            return (math.isinf(slack), slack, -slo.priority, r.arrival,
+                    order[id(r)])
+
+        return sorted(arrived, key=key)[:1]
+
+
+_POLICIES = {"fifo": FifoPolicy, "priority": PriorityPolicy,
+             "slo": SloAwarePolicy}
+
+
 def make_policy(name: str, **kw) -> SchedulerPolicy:
-    """Policy factory for config strings. Only ``fifo`` is ported."""
-    if name == "fifo":
-        return FifoPolicy(**kw)
-    if name in ("priority", "slo"):
-        raise NotImplementedError(
-            f"scheduler policy {name!r} is not ported yet (ROADMAP A10)")
-    raise ValueError(f"unknown scheduler policy {name!r}; choose from "
-                     "['fifo', 'priority', 'slo']")
+    """Policy factory for config strings: fifo | priority | slo."""
+    try:
+        return _POLICIES[name](**kw)
+    except KeyError:
+        raise ValueError(f"unknown scheduler policy {name!r}; "
+                         f"choose from {sorted(_POLICIES)}") from None

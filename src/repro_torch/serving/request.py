@@ -1,10 +1,10 @@
 """Request-centric serving API: the public dataclasses (a copy of the JAX
-package's ``serving/request.py``; the port's engine serves greedy rows only,
-so it refuses ``temperature > 0`` until seeded sampling is ported).
+package's ``serving/request.py``).
 
   ``SamplingParams``   per-request decoding knobs (temperature / top-k /
-                       top-p / seed / stop tokens / token budget). Greedy
-                       rows (``temperature <= 0``) take the argmax.
+                       top-p / seed / stop tokens / token budget). The engine
+                       loads them into per-row arrays read by one sampler;
+                       greedy rows (``temperature <= 0``) take the argmax.
   ``SloClass``         the request's service class: a strict priority level
                        plus TTFT / ITL targets in engine ticks. Pure
                        metadata to the engine; ``serving/policies.py`` turns

@@ -1,6 +1,5 @@
 """Host-side continuous-batching scheduler (a copy of the JAX package's
-``serving/scheduler.py``; the speculative-draft lifecycle ``begin_draft`` /
-``commit_draft`` waits for ROADMAP A12, so ``Request.draft`` stays None).
+``serving/scheduler.py``, speculative-draft lifecycle included).
 
 Pure bookkeeping: an admission queue, a slot table, per-arena page
 allocators, and the memory watermark policy. The engine (engine.py) consults
@@ -113,8 +112,8 @@ class Request:
     # applies while no first token has been emitted.
     deadline: float = float("inf")
     ttft_deadline: float = float("inf")
-    # open speculative draft: scratch pages + aliased-page references
-    # between begin_draft and commit/abort (not ported: stays None). Any
+    # open speculative draft (serving/speculative.py): scratch pages +
+    # aliased-page references between begin_draft and commit/abort. Any
     # release path (retire/preempt/escalate/deescalate) aborts it first.
     draft: Optional[object] = None
 
@@ -371,6 +370,85 @@ class Scheduler:
         return True
 
     # ------------------------------------------------- speculative drafts
+
+    def begin_draft(self, req: Request, k: int):
+        """Open a speculative draft of ``k`` candidate tokens on a running
+        tier-0 row: take one reference on every page the row maps (the
+        draft aliases the target's history, zero arena writes) and allocate
+        scratch pages for the blocks positions ``length .. length+k`` land
+        in. A partial frontier page is replaced by a scratch page
+        (``copy_src`` names it; the engine seeds the payload with the page
+        copy); a mapped empty frontier at a page boundary stays
+        target-owned. Returns the DraftState, or None when the draft cannot
+        open (arena pressure or the block ceiling): the caller decodes the
+        row normally."""
+        from repro_torch.serving.speculative import DraftState
+
+        assert req.draft is None, "draft already open"
+        assert req.state == "running" and req.tier == 0 and req.slot >= 0
+        assert k >= 1
+        ps = self.cfg.page_size
+        L = req.length
+        b1 = (L + k) // ps
+        if b1 >= self.cfg.max_blocks_per_slot:
+            return None
+        n_mapped = len(req.pages)
+        if L % ps:
+            first_blk, copy_src = L // ps, int(req.pages[L // ps])
+        else:
+            # frontier at a page boundary: n_mapped is b0 (unmapped) or
+            # b0+1 (pre-mapped empty by the growth phase); scratch starts
+            # right after the mapped blocks either way
+            first_blk, copy_src = n_mapped, -1
+        blocks = list(range(first_blk, b1 + 1))
+        if not self.dense_alloc.can_alloc(len(blocks)):
+            return None
+        scratch = self.dense_alloc.alloc(len(blocks))
+        aliased = [int(p) for p in req.pages]
+        for p in aliased:
+            self.dense_alloc.incref(p)
+        req.draft = DraftState(scratch=scratch, blocks=blocks,
+                               aliased=aliased, copy_src=copy_src)
+        self.stats["peak_dense_pages"] = max(self.stats["peak_dense_pages"],
+                                             self.dense_alloc.num_used)
+        return req.draft
+
+    def draft_block_row(self, req: Request) -> np.ndarray:
+        """The draft's view of the row: the target's block row with the
+        scratch tail installed (history blocks read the target's pages)."""
+        d = req.draft
+        row = self.block_tables[req.slot].copy()
+        for b, p in zip(d.blocks, d.scratch):
+            row[b] = p
+        return row
+
+    def commit_draft(self, req: Request, n_accept: int) -> None:
+        """Close the draft accepting ``n_accept >= 1`` committed tokens.
+        Scratch pages covering the newly valid positions are adopted into
+        the row's page list in block order (a replaced partial frontier
+        decrefs the original, so the adopted copy doubles as its
+        copy-on-write split); surplus scratch and every aliased reference
+        are released. The row's length grows with the engine's emits."""
+        d = req.draft
+        assert d is not None and n_accept >= 1
+        last_blk = (req.length + n_accept - 1) // self.cfg.page_size
+        for b, p in zip(d.blocks, d.scratch):
+            if b > last_blk:
+                self._free_pages(0, [p])        # surplus: never became valid
+            elif b < len(req.pages):
+                old = req.pages[b]              # replaced partial frontier
+                req.pages[b] = p
+                self.block_tables[req.slot, b] = p
+                self._free_pages(0, [old])
+            else:
+                assert b == len(req.pages), "scratch adoption out of order"
+                req.pages.append(p)
+                self.block_tables[req.slot, b] = p
+        self._free_pages(0, d.aliased)
+        req.draft = None
+        self.stats["spec_steps"] += 1
+        self.stats["spec_drafted"] += len(d.tokens)
+        self.stats["spec_accepted"] += n_accept - 1
 
     def abort_draft(self, req: Request) -> None:
         """Close the draft accepting nothing: drop the aliased references

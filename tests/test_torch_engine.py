@@ -3,7 +3,10 @@ token streams, per-token ticks, every ``stats()`` counter and the output
 events are identical on seeded ``make_workload`` traces, with a roomy arena
 and with one small enough to force recompute preemption. Float32, the port's
 paged kernels in their plain CPU versions and the reference's Pallas kernels
-in interpret mode. Every knob the port does not implement is refused."""
+in interpret mode. Every knob the port does not implement is refused
+(sampling, prefix sharing, defrag, the other policies and speculation serve:
+``test_torch_sampling.py``, ``test_torch_prefix.py``,
+``test_torch_policies.py``, ``test_torch_speculative.py``)."""
 import dataclasses
 
 import numpy as np
@@ -107,11 +110,6 @@ def test_generate_matches_jax(model):
 
 
 @pytest.mark.parametrize("serving_kw,rt_kw", [
-    (dict(share_prefix=True), {}),
-    (dict(spec_len=2), {}),
-    (dict(defrag_every=2), {}),
-    (dict(policy="priority"), {}),
-    (dict(policy="slo"), {}),
     ({}, dict(mesh=object())),
     ({}, dict(mode="decomposed_cpq")),
     ({}, dict(mode="retrieval", mesh=object())),  # T3 serves, but not over a mesh
@@ -125,6 +123,8 @@ def test_unported_knobs_raise(model, serving_kw, rt_kw):
 
 
 def test_unported_inputs_and_sampling_raise(model):
+    """Non-token inputs and MLA are refused. Sampling no longer is: it
+    serves, held against the reference in ``test_torch_sampling.py``."""
     _, tcfg, _, tparams = model
     with pytest.raises(T.SchedulerConfigError, match="input_kind"):
         T.ContinuousServeEngine(dataclasses.replace(tcfg, input_kind="audio_frames"),
@@ -132,20 +132,3 @@ def test_unported_inputs_and_sampling_raise(model):
     with pytest.raises(NotImplementedError, match="A13"):
         T.ContinuousServeEngine(T.smoke_config(T.ARCHS["deepseek-v2-lite-16b"]),
                                 tparams, serving=_serving(T, num_pages=33), device="cpu")
-    eng = T.ContinuousServeEngine(tcfg, tparams, serving=_serving(T, num_pages=33),
-                                  device="cpu")
-    with pytest.raises(T.SchedulerConfigError, match="A6"):
-        eng.add_request(T.ServeRequest(np.arange(4), sampling=T.SamplingParams(temperature=0.7)))
-    eng.reset(T.GenerationConfig(temperature=0.5))
-    with pytest.raises(T.SchedulerConfigError, match="A6"):
-        eng.add_request(T.Request(rid=0, prompt=np.arange(4, dtype=np.int32),
-                                  max_new_tokens=3))
-
-
-def test_static_engine_refuses_sampling(model):
-    """The static engine serves greedy batches only, as the continuous one."""
-    _, tcfg, _, tparams = model
-    eng = T.ServeEngine(tcfg, tparams, device="cpu")
-    with pytest.raises(T.SchedulerConfigError, match="A6"):
-        eng.generate({"tokens": np.arange(6, dtype=np.int32).reshape(2, 3)},
-                     T.GenerationConfig(max_new_tokens=2, temperature=0.5))

@@ -115,11 +115,9 @@ def test_prefill_and_first_decode_logits_match_jax(model, mode, fused):
 
 
 def test_static_engine_refusals(model):
+    """Sampling serves (``test_torch_sampling.py``); the T1+T2 mode and
+    non-token inputs are refused."""
     _, tcfg, _, tparams = model
-    eng = T.ServeEngine(tcfg, tparams, device="cpu")
-    with pytest.raises(T.SchedulerConfigError, match="A6"):
-        eng.generate({"tokens": _prompts(256, B=1, S=4)},
-                     T.GenerationConfig(max_new_tokens=2, temperature=0.7))
     with pytest.raises(T.SchedulerConfigError, match="A16"):
         T.ServeEngine(tcfg, tparams, rt=T.AttentionRuntime(mode="decomposed_cpq"),
                       device="cpu")

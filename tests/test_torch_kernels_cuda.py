@@ -50,7 +50,13 @@ tile boundaries and at the full capacity, at the served shape and at GQA,
 with the planned cluster and with the most ranks). The served B7 call forms
 the query factors in its kernel from q in bf16 or float32, rows at any
 stride, its scale given or not (``SERVED_PROXY_CASES``), held to its plain
-version on the pre-scaled query at 1e-5 x max |score|.
+version on the pre-scaled query at 1e-5 x max |score|. B2 also runs the
+speculative verify chunk (``VERIFY_CASES``: C = 2, 5, 9 query rows at offsets
+0, 1, 15, 17 and the block ceiling less C, over a draft's block row) on the
+same routes and tolerances. The sampler (``serving/prng.py``,
+``sample_token_rows``) on the card draws the CPU's Threefry bits exactly,
+and the CPU's tokens but where the top-2 perturbed logits lie within 1e-6
+(relative).
 """
 import numpy as np
 import pytest
@@ -62,7 +68,8 @@ from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.paged_attn import ops
 from repro_torch.kernels.topk_retrieval import ops as t3_ops
-from torch_paged_cases import (CARD_CPQ_DECODE_CASES, CARD_DECODE_CASES, CONTIG_CPQ_CASES,
+from repro_torch.serving import engine as teng, prng
+from torch_paged_cases import (VERIFY_CASES, verify_inputs, CARD_CPQ_DECODE_CASES, CARD_DECODE_CASES, CONTIG_CPQ_CASES,
                                CONTIG_PROXY_CASES, CONTIG_T1_CASES, CPQ_DECODE_CASES,
                                CPQ_PREFILL_CASES, DECODE_CASES, FLASH_CASES, PREFILL_CASES,
                                PROXY_CASES, SERVED_CPQ_DECODE_CASES, SERVED_DECODE_CASES,
@@ -201,6 +208,48 @@ def test_prefill_kernel_matches_plain(cuda, case, dtype):
     ref = ops.paged_prefill_plain(*args, offset, valid, scale)
     torch.testing.assert_close(out[0, :valid].float(), ref[0, :valid].float(),
                                atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", VERIFY_CASES)
+def test_prefill_kernel_at_verify_shapes(cuda, case, dtype):
+    """B2 on the speculative verify chunk: padded rows of a 16-row tile, an
+    offset inside a page and the block ceiling."""
+    q, kp, vp, row, offset, valid, scale = verify_inputs(*case)
+    args = tensors(q, kp, vp, row, device="cuda", dtype=dtype)
+    routes = dict(ops.ROUTE_LAUNCHES)
+    out = ops.paged_prefill(*args, offset, valid, scale)
+    torch.cuda.synchronize()
+    assert _route_moved(ops.ROUTE_LAUNCHES, routes) == {
+        r: int(r == _chunk_route(dtype)) for r in routes}
+    ref = ops.paged_prefill_plain(*args, offset, valid, scale)
+    torch.testing.assert_close(out[0, :valid].float(), ref[0, :valid].float(),
+                               atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_sampler_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(0)
+    B, V = 32, 151936
+    host = [torch.tensor(a) for a in (
+        (rng.normal(size=(B, V)) * 3).astype(np.float32),
+        rng.choice([0.0, 0.7, 1.0, 1.3], size=B).astype(np.float32),
+        rng.choice([0, 50, 1000], size=B).astype(np.int32),
+        rng.choice([1.0, 0.9, 0.6], size=B).astype(np.float32),
+        rng.integers(0, 2**31 - 1, size=B).astype(np.int32),
+        rng.integers(0, 4096, size=B).astype(np.int32))]
+    card = [t.cuda() for t in host]
+    keys = [prng.fold_in(prng.PRNGKey(a[4]), a[5]) for a in (host, card)]
+    assert torch.equal(prng.random_bits(keys[1], (V,)).cpu(), prng.random_bits(keys[0], (V,)))
+    assert torch.equal(prng.uniform(keys[1], (V,)).cpu(), prng.uniform(keys[0], (V,)))
+    got = [teng.sample_token_rows(*a).cpu() for a in (host, card)]
+    pert = teng.perturbed_logits(*host)
+    for b in torch.nonzero(got[1] != got[0])[:, 0].tolist():
+        top2 = pert[b].topk(2)
+        a0, a1 = top2.values.tolist()
+        assert abs(a0 - a1) <= 1e-6 * max(abs(a0), abs(a1), 1.0)
+        assert {int(got[0][b]), int(got[1][b])} == set(top2.indices.tolist())
 
 
 @pytest.mark.cuda

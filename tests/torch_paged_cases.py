@@ -1,6 +1,11 @@
 """Paged-attention test layouts shared by the port's kernel tests, free of
 JAX so that the CUDA cases also run where JAX is not installed.
-``pool_layout`` is ``test_kernels_paged._pool_layout`` verbatim."""
+``pool_layout`` is ``test_kernels_paged._pool_layout`` verbatim. The engine
+parity helpers at the end (``smoke_pair``, ``serve_pair``) import JAX when
+called, never at import."""
+import dataclasses
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -32,6 +37,37 @@ SERVED_PREFILL_CASES = [  # seed, offset, valid, KV, g, Dh, page, nb, C
     (14, 37, 8, 4, 1, 64, 16, 8, 8),
     (15, 901, 10, 4, 1, 64, 16, 64, 16),
 ]
+
+
+# B2 at the speculative verify chunk's shapes: C = spec_len + 1 query rows
+# (2, 5, 9), valid = C or fewer, at offsets 0, 1, 15, 17 and the block
+# ceiling less C, over a draft's block row (verify_inputs), at qwen1.5-0.5b's
+# widths (KV 16, G 1) and at G 2
+VERIFY_CASES = [  # seed, offset, valid, KV, g, C
+    (20 + i, off if off >= 0 else 1024 + off, valid, 16 // g, g, C)
+    for i, (off, valid, g, C) in enumerate(
+        (off, valid, g, C) for C, valid in ((2, 2), (5, 5), (9, 9), (9, 3))
+        for g in (1, 2) for off in (0, 1, 15, 17, -C))]
+
+
+def verify_inputs(seed, offset, valid, KV, g, C, Dh=64, page=16, nb=64):
+    """q, k/v pools (null page poisoned) and a draft's block row: another
+    slot's pages for the history and scratch pages from the frontier block
+    on, the first holding the frontier page's payload; offset, valid, scale."""
+    rng = np.random.default_rng(seed)
+    P = 2 * nb + 8
+    kp = rng.normal(size=(P, page, KV, Dh)).astype(np.float32)
+    vp = rng.normal(size=(P, page, KV, Dh)).astype(np.float32)
+    kp[0] = vp[0] = 1e3
+    perm = rng.permutation(np.arange(1, P)).astype(np.int32)
+    first, last = offset // page, (offset + valid - 1) // page
+    row = perm[:nb].copy()
+    scratch = perm[nb:nb + last - first + 1]
+    if offset % page:
+        kp[scratch[0]], vp[scratch[0]] = kp[row[first]], vp[row[first]]
+    row[first:last + 1] = scratch
+    q = rng.normal(size=(1, C, KV * g, Dh)).astype(np.float32)
+    return q, kp, vp, row, offset, valid, Dh ** -0.5
 
 
 def served_prefill_inputs(seed, offset, valid, KV, g, Dh, page, nb, C):
@@ -490,3 +526,100 @@ def contig_cpq_inputs(seed, B, N, KV, g, Dh, bits, length):
               for _ in range(2)]
     q = rng.normal(size=(B, KV, g, Dh)).astype(np.float32)
     return q, arenas[0], arenas[1], length, 0.17
+
+
+# ------------------------------------------- engine parity: JAX and the port
+
+TIMERS = ("wall_time_s", "tokens_per_s")
+
+
+def smoke_pair(arch="qwen1.5-0.5b", num_blocks=2):
+    """(cfg, tcfg, params, tparams): ``arch``'s f32 smoke config in the JAX
+    package and in the port, cut to ``num_blocks`` blocks, with the same
+    seeded weights on both sides."""
+    import jax
+
+    from repro.configs import ARCHS, smoke_config
+    from repro.models import model as JM
+    import repro_torch as T
+    from repro_torch.params import from_jax
+
+    cfg = dataclasses.replace(smoke_config(ARCHS[arch]), dtype="float32",
+                              num_blocks=num_blocks)
+    tcfg = dataclasses.replace(T.smoke_config(T.ARCHS[arch]), dtype="float32",
+                               num_blocks=num_blocks)
+    params = JM.init_params(cfg, jax.random.PRNGKey(0))
+    return cfg, tcfg, params, from_jax(jax.tree.map(np.asarray, params), device="cpu")
+
+
+def packages():
+    """(J, T): the names a parity test builds engines and requests from, in
+    the JAX package and in the port."""
+    from repro import configs as jconfigs
+    from repro.serving import engine as jeng, policies as jpol, request as jreq
+    from repro.serving import trace as jtrace
+    from repro.serving.scheduler import Request as JRequest
+    import repro_torch as T
+    from repro_torch.serving import policies as tpol, request as treq
+    from repro_torch.serving import trace as ttrace
+
+    J = SimpleNamespace(ServingCfg=jconfigs.ServingCfg,
+                        AttentionRuntime=jconfigs.AttentionRuntime,
+                        Engine=jeng.ContinuousServeEngine,
+                        GenerationConfig=jeng.GenerationConfig, Request=JRequest,
+                        ServeRequest=jreq.ServeRequest,
+                        SamplingParams=jreq.SamplingParams, SloClass=jreq.SloClass,
+                        policies=jpol, trace=jtrace, device={})
+    P = SimpleNamespace(ServingCfg=T.ServingCfg, AttentionRuntime=T.AttentionRuntime,
+                        Engine=T.ContinuousServeEngine,
+                        GenerationConfig=T.GenerationConfig, Request=T.Request,
+                        ServeRequest=T.ServeRequest, SamplingParams=T.SamplingParams,
+                        SloClass=treq.SloClass, policies=tpol, trace=ttrace,
+                        device={"device": "cpu"})
+    return J, P
+
+
+def assert_same(a, b, what=""):
+    """Two results dicts, stats dicts or metrics dicts are equal, key by key,
+    apart from the wall-clock timers."""
+    assert set(a) == set(b), (what, set(a) ^ set(b))
+    for key in a:
+        if key in TIMERS:
+            continue
+        if isinstance(a[key], dict):
+            assert_same(a[key], b[key], f"{what}[{key}]")
+        else:
+            np.testing.assert_array_equal(np.asarray(b[key]), np.asarray(a[key]),
+                                          err_msg=f"{what}[{key}]")
+
+
+def serve_pair(model, requests, serving, *, gen=None, rt=None, policy=None,
+               drive=None):
+    """Serve the same traffic on the JAX engine and on the port's, and
+    assert identical results, stats and output events (tokens and their
+    ticks). ``requests(ns)`` builds the request list from a package
+    namespace of ``packages()``; ``serving``, ``gen`` and ``rt`` are keyword
+    dicts of ServingCfg, GenerationConfig and AttentionRuntime; ``policy`` a
+    name or a callable ``(ns) -> policy object``. ``drive(eng, ns)``
+    replaces ``eng.serve(requests(ns), gen)`` (for step-driven traffic) and
+    returns the engine's results. Returns ((jres, jstats), (tres, tstats))."""
+    cfg, tcfg, params, tparams = model
+    out = []
+    for ns, c, p in zip(packages(), (cfg, tcfg), (params, tparams)):
+        pol = policy(ns) if callable(policy) else policy
+        eng = ns.Engine(c, p, rt=ns.AttentionRuntime(**(rt or {})),
+                        serving=ns.ServingCfg(**serving), policy=pol, **ns.device)
+        g = ns.GenerationConfig(**(gen or {}))
+        if drive is None:
+            res, stats = eng.serve(requests(ns), g)
+        else:
+            eng.reset(g)
+            res, stats = drive(eng, ns), eng.stats()
+        events = [dataclasses.astuple(e) for e in eng.pending_outputs()]
+        out.append((res, stats, events))
+    (jres, jst, jev), (tres, tst, tev) = out
+    assert_same(jres, tres, "results")
+    assert_same(jst, tst, "stats")
+    assert jev == tev
+    assert tst["dense_pages_leaked"] == 0
+    return (jres, jst), (tres, tst)
