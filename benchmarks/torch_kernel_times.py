@@ -1,4 +1,4 @@
-"""Device time per launch of seven of the port's kernels at fixed shapes, on
+"""Device time per launch of the port's kernels at fixed shapes, on
 one NVIDIA GPU, for comparing two checkouts (or two settings of a kernel
 module's constants) in one machine:
 
@@ -24,6 +24,15 @@ module's constants) in one machine:
           over 64 pages of 16, H = 16, Dm = 1024, 16 roped groups of 32, bf16
   b9      decomposed_decode (B9) on the static T1 decode: 8 rows, N = 576,
           lengths 128, 320 and 575, the widths of b3
+  b3_mla, b4_mla, b9_mla  B3, B4 and B9 at deepseek-v2-lite's MLA shape (H = 16,
+          the latent Dm = 512, one roped key of 64 shared by every head),
+          the rows of b3, the chunks of b4 and the lengths of b9, over 27
+          layer arenas
+  b8_mla  flash_attention's prompt route (B8) at MLA's Dh 192 / Dv 128,
+          16 heads, causal: one-shot admissions of 512 and 128 tokens and
+          the static batch of 8 x 512
+  (the _mla cases also report their bound, their plain version's and one
+  PyTorch call's device time)
 
 Each case is timed as the model runs it: one launch per layer over 24
 layer arenas (the next layer's pages cold in L2), captured in a CUDA graph
@@ -254,6 +263,163 @@ def b8_f32():
                "us": graph_us(run) / LAYERS}
 
 
+# ------------------------------------------- deepseek-v2-lite's MLA shapes
+#
+# The latent of 512 and one roped key of 64 shared by 16 heads (T1's kernels
+# at KV = H = 16, kv_r = 1), over 27 layer arenas; B8 at the MLA prompt's
+# Dh 192 / Dv 128. Each case also reports its bound (the bytes of every
+# input and output once over 3.35 TB/s, or the operations over the bf16
+# tensor-core peak, the larger), its plain version's and one PyTorch call's
+# device time (scaled_dot_product_attention: for T1 on q = [R | q_rope],
+# k = [X | roped key], v = X gathered beforehand; a yardstick only).
+
+MLA_LAYERS = 27
+MLA = dict(H=16, Dm=512, kv_r=1, Rr=64)
+HBM, BF16 = 3.35e12, 989e12
+
+
+def _bound(nbytes: float, flops: float) -> dict:
+    t_bytes, t_ops = nbytes / HBM * 1e6, flops / BF16 * 1e6
+    return {"bound_us": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations"}
+
+
+def _t1_sdpa(r, qr, xg, krg, mask):
+    """scaled_dot_product_attention on T1's operands (r (N, T, H, Dm), xg
+    (N, n, Dm), krg (N, n, kv_r, Rr)): the same scores and P."""
+    N, T_, H, _ = r.shape
+    n = xg.shape[1]
+    kr = krg.repeat_interleave(H // krg.shape[2], dim=2).transpose(1, 2)
+    x = xg[:, None].expand(N, H, n, xg.shape[2])
+    q = torch.cat([r, qr], -1).transpose(1, 2)
+    k, v = torch.cat([x, kr], -1).contiguous(), x.contiguous()
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=(r.shape[-1] + qr.shape[-1]) ** -0.5)
+
+
+def b3_mla():
+    from repro_torch.kernels.decomposed_attn import ops as t1_ops
+    from repro_torch.serving.paged_cache import gather_pages
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, page, nb = 8, 16, 64
+    H, Dm, kv_r, Rr = MLA["H"], MLA["Dm"], MLA["kv_r"], MLA["Rr"]
+    bt, lengths = _served_rows(gen, B, nb, page)
+    x = [torch.randn((1 + B * nb, page, Dm), generator=gen, device="cuda").bfloat16()
+         for _ in range(MLA_LAYERS)]
+    kr = [torch.randn((1 + B * nb, page, kv_r, Rr), generator=gen, device="cuda").bfloat16()
+          for _ in range(MLA_LAYERS)]
+    r = torch.randn((B, H, Dm), generator=gen, device="cuda").bfloat16()
+    qr = torch.randn((B, H, Rr), generator=gen, device="cuda").bfloat16()
+    scale = (Dm + Rr) ** -0.5
+
+    def run():
+        for layer in range(MLA_LAYERS):
+            t1_ops.paged_decomposed_decode_fwd(r, qr, x[layer], kr[layer], bt, lengths, scale)
+    live = int(lengths.sum())
+    nbytes = (live * (Dm + kv_r * Rr) * 2 + (B * H * (Dm + Rr) + r.numel()) * 2
+              + bt.numel() * 4 + lengths.numel() * 4)
+    mask = (torch.arange(nb * page, device="cuda")[None, :] < lengths[:, None])[:, None, None]
+    lib = _t1_sdpa(r[:, None], qr[:, None], gather_pages(x[0], bt), gather_pages(kr[0], bt),
+                   mask)
+    yield {"case": "b3_mla", "B": B, **MLA, "lengths": list(B5_LENGTHS),
+           "route": t1_ops.t1_decode_route(torch.bfloat16, H, Dm, kv_r, Rr),
+           "us": graph_us(run) / MLA_LAYERS,
+           "plain_us": graph_us(lambda: t1_ops.paged_decomposed_decode_plain(
+               r, qr, x[0], kr[0], bt, lengths, scale)),
+           "library_us": graph_us(lib), **_bound(nbytes, 2.0 * live * H * (2 * Dm + Rr))}
+
+
+def b4_mla():
+    from repro_torch.kernels.decomposed_attn import ops as t1_ops
+    from repro_torch.serving.paged_cache import gather_pages
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H, Dm, kv_r, Rr = MLA["H"], MLA["Dm"], MLA["kv_r"], MLA["Rr"]
+    page, C, nb = 16, 16, 32
+    x = [torch.randn((nb + 1, page, Dm), generator=gen, device="cuda").bfloat16()
+         for _ in range(MLA_LAYERS)]
+    kr = [torch.randn((nb + 1, page, kv_r, Rr), generator=gen, device="cuda").bfloat16()
+          for _ in range(MLA_LAYERS)]
+    row = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")
+    r = torch.randn((C, H, Dm), generator=gen, device="cuda").bfloat16()
+    qr = torch.randn((C, H, Rr), generator=gen, device="cuda").bfloat16()
+    scale = (Dm + Rr) ** -0.5
+    for end in (16, 128, 256, 512):
+        off = end - C
+
+        def run():
+            for layer in range(MLA_LAYERS):
+                t1_ops.paged_decomposed_prefill_fwd(r, qr, x[layer], kr[layer], row, off, C,
+                                                    scale)
+        pairs = sum(off + i + 1 for i in range(C))
+        nbytes = end * (Dm + kv_r * Rr) * 2 + C * H * (2 * Dm + Rr) * 2 + -(-end // page) * 4
+        pos = torch.arange(end, device="cuda")
+        mask = (pos[None, :] <= off + torch.arange(C, device="cuda")[:, None])[None, None]
+        lib = _t1_sdpa(r[None], qr[None], gather_pages(x[0], row[None])[:, :end],
+                       gather_pages(kr[0], row[None])[:, :end], mask)
+        yield {"case": "b4_mla", "C": C, **MLA, "end": end,
+               "route": t1_ops.t1_prefill_route(torch.bfloat16, Dm, Rr),
+               "us": graph_us(run) / MLA_LAYERS,
+               "plain_us": graph_us(lambda: t1_ops.paged_decomposed_prefill_plain(
+                   r, qr, x[0], kr[0], row, off, C, scale)),
+               "library_us": graph_us(lib), **_bound(nbytes, 2.0 * pairs * H * (2 * Dm + Rr))}
+
+
+def b8_mla():
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H, Dh, Dv = 16, 192, 128
+    for B, T_ in ((1, 512), (1, 128), (8, 512)):   # one-shot admissions; the static batch
+        q = torch.randn((B, T_, H, Dh), generator=gen, device="cuda").bfloat16()
+        kv = [(torch.randn((B, T_, H, Dh), generator=gen, device="cuda").bfloat16(),
+               torch.randn((B, T_, H, Dv), generator=gen, device="cuda").bfloat16())
+              for _ in range(MLA_LAYERS)]
+
+        def run():
+            for k, v in kv:
+                fa_ops.flash_attention(q, k, v, Dh ** -0.5, causal=True)
+        k0, v0 = kv[0]
+        qq, kk, vv = q.transpose(1, 2), k0.transpose(1, 2), v0.transpose(1, 2)
+        pairs = B * H * T_ * (T_ + 1) / 2
+        nbytes = (q.numel() + k0.numel() + v0.numel() + B * T_ * H * Dv) * 2
+        yield {"case": "b8_mla", "B": B, "T": T_, "H": H, "Dh": Dh, "Dv": Dv, "causal": True,
+               "us": graph_us(run) / MLA_LAYERS,
+               "plain_us": graph_us(lambda: fa_ops.flash_attention_plain(q, k0, v0, Dh ** -0.5)),
+               "library_us": graph_us(lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qq, kk, vv, is_causal=True, scale=Dh ** -0.5)),
+               **_bound(nbytes, 2.0 * pairs * (Dh + Dv))}
+
+
+def b9_mla():
+    from repro_torch.kernels.decomposed_attn import ops as t1_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H, Dm, kv_r, Rr = MLA["H"], MLA["Dm"], MLA["kv_r"], MLA["Rr"]
+    B, N = 8, 576
+    x = [torch.randn((B, N, Dm), generator=gen, device="cuda").bfloat16()
+         for _ in range(MLA_LAYERS)]
+    kr = [torch.randn((B, N, kv_r, Rr), generator=gen, device="cuda").bfloat16()
+          for _ in range(MLA_LAYERS)]
+    r = torch.randn((B, H, Dm), generator=gen, device="cuda").bfloat16()
+    qr = torch.randn((B, H, Rr), generator=gen, device="cuda").bfloat16()
+    scale = (Dm + Rr) ** -0.5
+    for length in (128, 320, 575):
+        def run():
+            for layer in range(MLA_LAYERS):
+                t1_ops.decomposed_decode_fwd(r, qr, x[layer], kr[layer], length, scale)
+        nbytes = B * length * (Dm + kv_r * Rr) * 2 + (B * H * (Dm + Rr) + r.numel()) * 2
+        lib = _t1_sdpa(r[:, None], qr[:, None], x[0][:, :length], kr[0][:, :length], None)
+        yield {"case": "b9_mla", "B": B, **MLA, "N": N, "length": length,
+               "route": t1_ops.t1_decode_route(torch.bfloat16, H, Dm, kv_r, Rr),
+               "us": graph_us(run) / MLA_LAYERS,
+               "plain_us": graph_us(lambda: t1_ops.decomposed_decode_plain(
+                   r, qr, x[0], kr[0], length, scale)),
+               "library_us": graph_us(lib),
+               **_bound(nbytes, 2.0 * B * length * H * (2 * Dm + Rr))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cases", default="b1,b3,b4,b5,b7,b8_f32,b9",
@@ -275,7 +441,8 @@ def main() -> int:
             raise SystemExit(f"torch_kernel_times: {family}.ops has no {const}")
         setattr(mod, const, int(value))
         settings[name] = int(value)
-    cases = {"b1": b1, "b3": b3, "b4": b4, "b5": b5, "b7": b7, "b8_f32": b8_f32, "b9": b9}
+    cases = {"b1": b1, "b3": b3, "b4": b4, "b5": b5, "b7": b7, "b8_f32": b8_f32, "b9": b9,
+             "b3_mla": b3_mla, "b4_mla": b4_mla, "b8_mla": b8_mla, "b9_mla": b9_mla}
     for name in args.cases.split(","):
         for rec in cases[name]():
             print(json.dumps({**rec, "set": settings, "card": card}), flush=True)

@@ -1,5 +1,5 @@
 """Device time per tick of the port's continuous engine on one NVIDIA GPU:
-full-width qwen1.5-0.5b in bf16 (random weights from seed 0) serving
+full-width qwen1.5-0.5b (or ``--arch``) in bf16 (random weights from seed 0) serving
 chip_smoke.py's traffic (8 greedy requests arriving at once, prompts of
 64-512 tokens, 64 new tokens each; 8 slots, pages of 16, chunks of 16),
 profiled with torch.profiler over a window of ticks. With ``--static``,
@@ -8,6 +8,11 @@ traffic (8 prompts of 512 seeded tokens, 64 new tokens) instead.
 
     PYTHONPATH=src python benchmarks/torch_tick_profile.py --mode decomposed --ticks 40 45
     PYTHONPATH=src python benchmarks/torch_tick_profile.py --static --mode decomposed --ticks 30 40
+    PYTHONPATH=src python benchmarks/torch_tick_profile.py --arch deepseek-v2-lite-16b --oneshot --ticks 30 40
+
+``--arch`` serves another configuration at its published widths (the
+DeepSeek stacks take ~32 GB of bf16 weights); ``--oneshot`` admits one-shot
+(``prefill_chunk=0``, buckets of 16), as MoE stacks always do.
 
 With PYTHONPATH at another checkout's ``src`` it profiles that checkout
 (it uses only the engine's public surface). Prints one JSON object: the
@@ -19,6 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -69,6 +75,8 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, nargs=2, default=(40, 45), metavar=("LO", "HI"))
     ap.add_argument("--static", action="store_true",
                     help="profile decode steps of the static engine instead")
+    ap.add_argument("--arch", default="qwen1.5-0.5b", help="a configuration of ARCHS")
+    ap.add_argument("--oneshot", action="store_true", help="one-shot admission")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_tick_profile: needs an NVIDIA GPU")
@@ -77,7 +85,7 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = T.ARCHS["qwen1.5-0.5b"]
+    cfg = T.ARCHS[args.arch]
     params, rt = init_params(cfg, 0, "cuda"), T.AttentionRuntime(mode=args.mode)
     lo, hi = args.ticks
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -85,18 +93,21 @@ def main() -> int:
         static_window(T, cfg, params, rt, prof, lo, hi)
     else:
         eng = T.ContinuousServeEngine(
-            cfg, params, rt=rt, serving=T.ServingCfg(num_slots=8, page_size=16, num_pages=513,
-                                                     max_blocks_per_slot=64), device="cuda")
+            cfg, params, rt=rt, serving=T.ServingCfg(
+                num_slots=8, page_size=16, num_pages=513, max_blocks_per_slot=64,
+                prefill_chunk=0 if args.oneshot else 16, prefill_bucket=16), device="cuda")
         eng.reset(T.GenerationConfig())
         for r in requests(T, cfg.vocab_size):
             eng.add_request(r)
         for _ in range(lo):
             eng.step()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         with prof:
             for _ in range(hi - lo):
                 eng.step()
             torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
     kernels = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
                      key=lambda k: -k[1])
@@ -104,10 +115,12 @@ def main() -> int:
     attn = sum(ms for k, ms, _ in kernels if any(a in k for a in ATTENTION))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"mode": args.mode, "static": args.static, "ticks": [lo, hi],
+    print(json.dumps({"arch": args.arch, "mode": args.mode, "static": args.static,
+                      "oneshot": args.oneshot, "ticks": [lo, hi],
                       "card": card.splitlines()[0],
                       "device_ms_per_tick": busy / (hi - lo),
                       "attention_ms_per_tick": attn / (hi - lo),
+                      **({} if args.static else {"profiled_wall_ms_per_tick": wall / (hi - lo)}),
                       "top_kernels": [{"name": k[:90], "ms": ms, "count": n}
                                       for k, ms, n in kernels[:6]]}))
     return 0

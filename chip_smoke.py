@@ -69,7 +69,14 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               shapes (C = 2, 5, 9 rows, valid = C or 3, at offsets 0, 1,
               15, 17 and 1024 - C, G 1 and 2, over a draft's block row:
               another slot's pages, then scratch pages seeded with the
-              frontier page's payload), each call on its route
+              frontier page's payload), each call on its route; and at
+              deepseek-v2-lite's MLA shapes (16 heads over the latent of
+              512 and one roped key of 64 shared by every head): B3 and B4
+              on the layouts above (chunks of 16), B3 at the served rows
+              with the planned and the most splits, B9 at the static MLA
+              decode (8 x 576, lengths 575, 193 and 0), and B8's prompt at
+              Dh 192 / Dv 128 (16 heads, T up to 512, causal and not), each
+              call on its route (bf16: the tensor cores)
   4. serve    full-width qwen1.5-0.5b (24 layers, vocab 151936, random
               weights from a seed) in bf16 through ContinuousServeEngine:
               8 greedy requests, prompts of 64-512 tokens, 64 new tokens
@@ -140,8 +147,8 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               path's 4-bit CPQ or 8-bit proxy codes would otherwise turn
               last-ulp K/V differences into whole steps. These continuous
               serves run the first 8 of the 24 layers here, to keep the
-              script well inside its time limit. Then, at full depth, the
-              same checks for (g) (dense, each path on its own history)
+              script well inside its time limit. Then, at the same depth,
+              the same checks for (g) (dense, each path on its own history)
               and for (f) in the four modes (CPQ and T3 in lockstep, T3
               pinned): the prefill and first-decode logits of the batch,
               and the greedy streams. Then (h), its copy-on-write probe and
@@ -153,6 +160,29 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               identical Threefry bits and uniforms, and identical draws but
               where the CPU's top-2 perturbed logits lie within 1e-6
               (relative), counted. Each added phase prints its seconds
+  6. deepseek (k) deepseek-v2-lite at its published widths (27 layers: MLA
+              with a latent of 512, one MLA + dense layer and 26 MLA + MoE,
+              64 routed and 2 shared experts, top-6; random bf16 weights
+              from a seed, ~32 GB) on ContinuousServeEngine over (a)'s
+              arena, one-shot (a MoE stack), on (a)'s traffic: mode
+              decomposed (the latent: B8's prompt route 27 times an
+              admission, B3 on its tensor cores 27 times a decode tick) and
+              mode cpq (the latent in CPQ codes: B8 alone), then the static
+              ServeEngine on 8 prompts of 512, 64 new (B8 27 times, B9 on
+              its tensor cores 27 times a step); its f32 parity, kernels
+              on and off, over its first PARITY_DEPTH layers (the model
+              freed first): logits within 1e-3, then streams and counters
+              identical, or, where they differ, the first router call whose
+              top-k sets differ no later than the first tick whose tokens
+              differ and a near tie (relative top-k boundary gap below
+              1e-5), counted; (l) qwen1.5-0.5b in mode decomposed_cpq
+              (T1+T2: X in CPQ codes), chunked on (a)'s arena and static (no
+              kernel: the reference has none for this tier; B8 prefills
+              the static batch); (m) deepseek-moe-16b at its published
+              widths cut to 8 layers (1 dense, 7 MoE), mode dense, asked for
+              chunks but admitted one-shot (B8's prompt route, B1's ring),
+              and its f32 parity as (k)'s. Each serve's launch counts are
+              set to 0 just before it and read just after
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -181,7 +211,7 @@ LOGIT_TOL = 1e-3            # f32 logits, kernels vs gather path (atol = rtol)
 ARGMAX_GAP = 1e-4           # top-2 gap below which a greedy tie is excused
 TOPK_GAP = 1e-4             # T3: relative proxy-score gap below which a top-k swap is a tie
 CPQ_LEVELS = 4              # HQE levels of the default CPQCfg
-PARITY_DEPTH = 8            # layers of the continuous serves' f32 parity (of 24)
+PARITY_DEPTH = 8            # layers of every serve's f32 parity (of 24; deepseek-v2-lite's 27)
 SEED = 0
 DEVICE = "cuda"
 # the namespaces of the attention kernels' device functions, as a profile
@@ -638,6 +668,9 @@ T1C_SWEEP = (  # B, N, H, Dm, kv_r, Rr, length
     (2, 300, 16, 1024, 16, 32, 290),         # qwen's widths past one key split
     (2, 300, 32, 512, 8, 16, 257),           # 32 heads: two head tiles
     (2, 40, 16, 1024, 16, 32, 0),            # length 0: zeros
+    (8, 576, 16, 512, 1, 64, 575),           # deepseek-v2-lite's static MLA decode
+    (8, 576, 16, 512, 1, 64, 193),           # ... past one key split, length < N
+    (2, 40, 16, 512, 1, 64, 0),              # ... length 0
 )
 CPQC_SWEEP = (  # B, N, KV, G, Dh, bits, length
     (8, 576, 16, 1, 64, 4, 575),             # qwen1.5-0.5b's static T2 decode
@@ -647,19 +680,37 @@ CPQC_SWEEP = (  # B, N, KV, G, Dh, bits, length
 )
 
 
-def sweep_flash(fa_ops, dtype) -> dict:
-    """Max abs error of B8 against its plain version per FLASH_SWEEP case."""
+# B8 at MLA's prompt shapes (deepseek-v2-lite: 16 heads of Dh 192 = nope 128 +
+# rope 64 and Dv 128, every head its own K/V): one-shot admissions of 64-512
+# tokens, the static batch of 8 x 512, T no multiple of a tile, k and v a prefix
+MLA_FLASH_SWEEP = (  # B, T, S, H, KV, Dh, Dv, causal, arena
+    (1, 512, 512, 16, 16, 192, 128, True, 512), (1, 64, 64, 16, 16, 192, 128, True, 64),
+    (8, 512, 512, 16, 16, 192, 128, True, 512), (3, 77, 77, 16, 16, 192, 128, True, 77),
+    (2, 200, 200, 16, 16, 192, 128, True, 208), (2, 200, 200, 16, 16, 192, 128, False, 200))
+
+
+def sweep_flash(fa_ops, dtype, cases=None) -> dict:
+    """Max abs error of B8 against its plain version per FLASH_SWEEP case (or
+    per ``cases`` of MLA_FLASH_SWEEP's form, Dh and Dv apart); every prompt
+    call in bf16 must take the tensor-core route."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     out = {}
-    for B, T, S, H, KV, D, causal, arena in FLASH_SWEEP:
+    cases = cases or [(B, T, S, H, KV, D, D, c, a) for B, T, S, H, KV, D, c, a in FLASH_SWEEP]
+    for B, T, S, H, KV, Dh, Dv, causal, arena in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-                   for shape in ((B, T, H, D), (B, arena, KV, D), (B, arena, KV, D)))
+                   for shape in ((B, T, H, Dh), (B, arena, KV, Dh), (B, arena, KV, Dv)))
         k, v = k[:, :S], v[:, :S]
-        got = fa_ops.flash_attention(q, k, v, D ** -0.5, causal)
+        before = dict(fa_ops.ROUTE_LAUNCHES)
+        got = fa_ops.flash_attention(q, k, v, Dh ** -0.5, causal)
         torch.cuda.synchronize()
-        ref = fa_ops.flash_attention_plain(q, k, v, D ** -0.5, causal)
-        out[f"B={B} T={T} S={S} H={H} KV={KV} D={D} causal={causal}"] = (
-            (got.float() - ref.float()).abs().max().item())
+        route = "decode" if T == 1 else "prompt" if dtype == torch.bfloat16 else "prompt_f32"
+        moved = routes_moved(fa_ops.ROUTE_LAUNCHES, before)
+        width = f"D={Dh}" if Dh == Dv else f"Dh={Dh} Dv={Dv}"
+        tag = f"B={B} T={T} S={S} H={H} KV={KV} {width} causal={causal}"
+        check(moved == {r: int(r == route) for r in moved},
+              f"flash_attention {dtype} {tag}: routes {moved}, want {route}")
+        ref = fa_ops.flash_attention_plain(q, k, v, Dh ** -0.5, causal)
+        out[tag] = (got.float() - ref.float()).abs().max().item()
     return out
 
 
@@ -1974,6 +2025,335 @@ def pin_report(mode: str, what: str, pin: SelectionPin) -> dict:
             f"{key}_topk_max_rel_gap": pin.max_gap}
 
 
+# ------------------------- phase 6: the DeepSeek stacks and T1+T2 (T1 + CPQ)
+
+DEEPSEEK_SERVING = dict(num_slots=8, page_size=16, num_pages=513, max_blocks_per_slot=64,
+                        prefill_chunk=0, prefill_bucket=16)  # (a)'s arena, one-shot
+MOE_DEPTH = 8               # layers of serve (m): deepseek-moe-16b's dense layer and 7 MoE
+ROUTER_GAP = 1e-5           # relative top-k boundary gap of the router below which a flip is a tie
+
+
+def deepseek_config(T, name: str, num_blocks: int | None = None):
+    """A DeepSeek config at its published widths (``num_blocks`` cuts its
+    depth where given)."""
+    cfg = T.ARCHS[name]
+    check(cfg.d_model == 2048 and cfg.vocab_size == 102400 and cfg.moe.num_experts == 64
+          and cfg.moe.top_k == 6 and cfg.moe.num_shared == 2 and cfg.moe.d_ff_expert == 1408,
+          f"{name}: not the published widths")
+    return cfg if num_blocks is None else dataclasses.replace(cfg, num_blocks=num_blocks)
+
+
+def head_layers(tree, cfg, depth: int):
+    """A parameter tree cut to its first ``depth`` layers, as float32 (the
+    prefix layers, then the first blocks)."""
+    n = depth - len(cfg.prefix_pattern)
+    return _tree_float({**tree, "blocks": [b[:n] for b in tree["blocks"]]})
+
+
+def serve_counted(eng, T, reqs, counted: list, fa_routes: dict, routed: dict):
+    """``serve_timed`` with every launch and route count set to 0 just before
+    and read just after."""
+    zero_launches(counted, fa_routes)
+    zero_routes(routed)
+    results, stats, ticks, wall = serve_timed(eng, T, reqs)
+    return results, stats, ticks, wall, counted_launches(counted, fa_routes)
+
+
+def check_counts(what: str, counts: dict, want: dict) -> None:
+    full = {name: want.get(name, 0) for name in counts}
+    check(counts == full, f"{what}: launch counts {counts}, want {full}")
+
+
+class RouterLog:
+    """Wraps ``models.moe.route`` while it is entered: keeps, for every router
+    call, the engine tick it ran in (``tick``, set by the caller), each
+    token's top-k experts as a set and the relative gap between the k-th and
+    the (k+1)-th largest probability (the top-k boundary)."""
+
+    def __init__(self, moe):
+        self.moe, self.calls, self.tick = moe, [], 0
+
+    def __enter__(self):
+        self.route = self.moe.route
+
+        def logged(cfg, router, xg):
+            out = self.route(cfg, router, xg)
+            probs, _, top_e, _ = out
+            K = cfg.moe.top_k
+            p = probs.sort(dim=-1, descending=True).values[..., :K + 1]
+            gap = (p[..., K - 1] - p[..., K]) / p[..., K - 1]
+            self.calls.append((self.tick, top_e.sort(dim=-1).values.cpu(), gap.cpu()))
+            return out
+        self.moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def first_route_diff(a: RouterLog, b: RouterLog):
+    """(tick, call index, relative gap) of the first router call whose top-k
+    sets differ between two logs of the same schedule, the gap the largest
+    over the tokens that differ of the smaller of the two paths' gaps; and
+    the number of calls that differ. (None, count) when none does."""
+    first, differ = None, 0
+    for i, ((tick, ea, ga), (_, eb, gb)) in enumerate(zip(a.calls, b.calls)):
+        d = (ea != eb).any(-1) if ea.shape == eb.shape else None
+        if d is None or d.any():
+            differ += 1
+            if first is None:
+                gap = (float("inf") if d is None
+                       else torch.minimum(ga, gb)[d].max().item())
+                first = (tick, i, gap)
+    return first, differ + abs(len(a.calls) - len(b.calls))
+
+
+def moe_parity(T, M, moe, cfg, params, reqs, what: str, mode: str) -> dict:
+    """Kernels on vs the gather path in float32 for a MoE stack, one-shot:
+    prefill and first-decode logits of two slots within LOGIT_TOL, then the
+    greedy streams and the counters of the served requests, each path on its
+    own history. Capacity-factor routing turns a router near tie into a
+    different expert, and one flip moves everything after it; so every
+    router call of both paths is logged, and where the paths differ the
+    first router call whose top-k sets differ must come no later than the
+    first tick whose tokens differ and be a near tie (relative top-k
+    boundary gap below ROUTER_GAP), or the first tokens that differ must be
+    a logit near tie (top-2 gap below ARGMAX_GAP). Such ticks are counted
+    and reported."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paths = (True, False)
+    rts = {f: T.AttentionRuntime(mode=mode, paged_kernels=f) for f in paths}
+    small = T.ServingCfg(num_slots=2, page_size=16, num_pages=80, max_blocks_per_slot=64,
+                         prefill_chunk=0, prefill_bucket=16)
+    bt = np.zeros((2, 64), np.int32)
+    lens = [len(reqs[0].prompt), len(reqs[1].prompt)]
+    perm = np.random.default_rng(SEED).permutation(np.arange(1, 80))
+    bt[0, :lens[0] // 16 + 1] = perm[:lens[0] // 16 + 1]
+    bt[1, :lens[1] // 16 + 1] = perm[40:40 + lens[1] // 16 + 1]
+    out = {}
+    logs = {f: RouterLog(moe) for f in paths}
+    got = []
+    for f in paths:
+        with logs[f]:
+            got.append(first_logits(M, cfg, rts[f], params, reqs, small, bt))
+    first, differ = first_route_diff(logs[True], logs[False])
+    errs = max_diff(got)
+    out.update(errs)
+    out["first_logits_router_calls"], out["first_logits_router_calls_differ"] = (
+        len(logs[True].calls), differ)
+    for name, err in errs.items():
+        log(f"parity {what}: {name} {err:.3e} (atol=rtol={LOGIT_TOL}); {differ} of "
+            f"{len(logs[True].calls)} router calls differ")
+    close = all(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+                for a, b in zip(got[0], got[1]))
+    check(close or (first is not None and first[2] < ROUTER_GAP),
+          f"parity {what}: logits differ past {LOGIT_TOL}, router {first}")
+
+    serving = T.ServingCfg(**DEEPSEEK_SERVING)
+    engs = {f: T.ContinuousServeEngine(cfg, params, rt=rts[f], serving=serving, device=DEVICE)
+            for f in paths}
+    gaps, emitted = {}, {f: [] for f in paths}
+    steps = {True: engs[True].step, False: gather_gaps(M, engs[False], gaps)}
+    logs = {f: RouterLog(moe) for f in paths}
+    for f in paths:
+        engs[f].reset(T.GenerationConfig())
+        for r in make_requests(T, cfg.vocab_size):
+            engs[f].add_request(r)
+        with logs[f]:
+            while engs[f].has_unfinished():
+                emitted[f].append(sorted((e.rid, e.index, e.token) for e in steps[f]()))
+                logs[f].tick += 1
+    first, differ = first_route_diff(logs[True], logs[False])
+    tok_tick = next((i for i, (a, b) in enumerate(zip(emitted[True], emitted[False]))
+                     if a != b), None)
+    out.update(router_calls=len(logs[True].calls), router_calls_differ=differ,
+               first_router_diff=first, first_token_diff_tick=tok_tick)
+    log(f"parity {what}: {len(logs[True].calls)} router calls, {differ} differ; first router "
+        f"difference (tick, call, relative top-k gap) {first}; first tick whose tokens "
+        f"differ {tok_tick}")
+    excused = 0
+    if tok_tick is not None:
+        if first is not None and first[0] <= tok_tick:
+            check(first[2] < ROUTER_GAP, f"parity {what}: router call {first[1]} differs at "
+                  f"a resolvable relative gap {first[2]:.3e}")
+            why = f"after a router near tie (relative gap {first[2]:.3e})"
+        else:
+            diff = [(a, b) for a, b in zip(emitted[True][tok_tick], emitted[False][tok_tick])
+                    if a != b]
+            (rid, index, _), _ = diff[0]
+            gap = gaps[(rid, index)]
+            check(gap < ARGMAX_GAP, f"parity {what}: request {rid} token {index} differs at "
+                  f"a resolvable logit gap {gap:.3e}")
+            why = f"after a logit near tie (top-2 gap {gap:.3e})"
+        streams = {f: {rid: res["tokens"] for rid, res in engs[f].results().items()}
+                   for f in paths}
+        excused = sum(not np.array_equal(streams[True][r], streams[False][r]) for r in streams[True])
+        log(f"parity {what}: {excused} streams differ {why}")
+    else:
+        check(first is None, f"parity {what}: router calls differ ({first}) but no token does")
+    stats = {f: engs[f].stats() for f in paths}
+    for key, val in stats[True].items():
+        if key not in ("wall_time_s", "tokens_per_s") and tok_tick is None:
+            check(np.array_equal(np.asarray(val), np.asarray(stats[False][key])),
+                  f"parity {what}: stats[{key}] {val} vs {stats[False][key]}")
+    out["streams_identical"] = len(reqs) - excused
+    out["streams_excused"] = excused
+    log(f"parity {what}: greedy streams identical for {len(reqs) - excused}/{len(reqs)} "
+        f"requests; counters {'identical' if tok_tick is None else 'not compared'}")
+    del engs
+    return out
+
+
+def serve_deepseek(T, M, counted: list, routed: dict, static_routed: dict, fa_routes: dict,
+                   serves: dict, report: dict, new_s: dict) -> None:
+    """Phase 6: (k) deepseek-v2-lite at its published widths, 27 layers, in
+    bf16 on ContinuousServeEngine (one-shot: a MoE stack), mode decomposed
+    (MLA's latent: B8's prompt route per admission and layer, B3 on its
+    tensor cores per decode tick and layer) and mode cpq (the latent in CPQ
+    codes: B8 alone), and on the static ServeEngine (B8 once per layer, B9
+    on its tensor cores per decode step and layer); its f32 parity at
+    PARITY_DEPTH layers; (l) qwen1.5-0.5b in mode decomposed_cpq, chunked
+    on (a)'s arena and static (no kernel but the static prefill's B8); (m)
+    deepseek-moe-16b at MOE_DEPTH layers, dense, one-shot (B8's prompt
+    route, B1's ring) and its f32 parity. Each serve's launch counts are
+    set to 0 just before it and read just after."""
+    from repro_torch.models import moe
+    from repro_torch.params import init_params
+
+    t_all = time.perf_counter()
+    cfg = deepseek_config(T, "deepseek-v2-lite-16b")
+    check(cfg.num_layers == 27 and cfg.mla.kv_lora_rank == 512 and cfg.d_ff == 10944,
+          "deepseek-v2-lite: not the published config")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, DEVICE)
+    torch.cuda.synchronize()
+    new_s["deepseek-v2-lite init"] = time.perf_counter() - t0
+    log(f"deepseek-v2-lite: {device_bytes(params) / 1e9:.2f} GB of bf16 weights on the card "
+        f"in {new_s['deepseek-v2-lite init']:.1f} s")
+    serving = T.ServingCfg(**DEEPSEEK_SERVING)
+    b3 = {"paged_decomposed_decode": routed["paged_decomposed_decode"]}
+    for mode in ("decomposed", "cpq"):
+        what = f"deepseek-v2-lite {mode}"
+        t0 = time.perf_counter()
+        eng = T.ContinuousServeEngine(cfg, params, rt=T.AttentionRuntime(mode=mode),
+                                      serving=serving, device=DEVICE)
+        run = make_requests(T, cfg.vocab_size)
+        results, stats, ticks, wall, counts = serve_counted(eng, T, run, counted, fa_routes,
+                                                            routed)
+        check_finished(results, run, what)
+        check(not stats["chunked_prefill"] and stats["admitted"] == len(run),
+              f"{what}: chunked {stats['chunked_prefill']}, {stats['admitted']} admissions")
+        want = {"flash_attention": L * stats["admitted"],
+                "flash_attention/prompt": L * stats["admitted"]}
+        if mode == "decomposed":
+            want["paged_decomposed_decode"] = L * stats["decode_steps"]
+        check_counts(what, counts, want)
+        serves[what] = serve_metrics(stats, ticks, wall, what)
+        serves[what].update(launches={k: n for k, n in counts.items() if n},
+                            routes=check_routes(what, b3, counts))
+        log(f"serve {what}: launches {serves[what]['launches']}, routes "
+            f"{serves[what]['routes']}")
+        del eng
+        torch.cuda.empty_cache()
+        new_s[what] = time.perf_counter() - t0
+    what = "static deepseek-v2-lite"
+    t0 = time.perf_counter()
+    eng = T.ServeEngine(cfg, params, rt=T.AttentionRuntime(mode="decomposed"), device=DEVICE)
+    prompts, n_new = static_prompts(cfg.vocab_size), 64
+    zero_routes(static_routed)
+    out, stats, timer, wall, counts = serve_static(eng, T, M, prompts, n_new, {}, counted,
+                                                   fa_routes)
+    steps = stats["decode_steps"]
+    check(out.shape == (len(prompts), n_new) and steps == n_new - 1, f"{what}: {out.shape}")
+    check_counts(what, counts, {"flash_attention": L, "flash_attention/prompt": L,
+                                "decomposed_decode": L * steps})
+    serves[what] = static_metrics(out, stats, timer, wall, "deepseek-v2-lite")
+    serves[what].update(launches={k: n for k, n in counts.items() if n},
+                        routes=check_routes(what, static_routed, counts))
+    log(f"serve {what}: launches {serves[what]['launches']}")
+    del eng, timer
+    new_s[what] = time.perf_counter() - t0
+    # free the 31 GB model, keeping its first layers in float32 for the parity
+    params_p = head_layers(params, cfg, PARITY_DEPTH)
+    del params
+    torch.cuda.empty_cache()
+    cfg_p = dataclasses.replace(cfg, dtype="float32",
+                                num_blocks=PARITY_DEPTH - len(cfg.prefix_pattern))
+    t0 = time.perf_counter()
+    report["parity"]["deepseek-v2-lite"] = moe_parity(
+        T, M, moe, cfg_p, params_p, make_requests(T, cfg.vocab_size),
+        "deepseek-v2-lite decomposed", "decomposed")
+    del params_p
+    torch.cuda.empty_cache()
+    new_s["parity deepseek-v2-lite"] = time.perf_counter() - t0
+    log(f"[{time.perf_counter() - T0:.0f} s] deepseek-v2-lite served and checked")
+
+    # (l) T1+T2 on qwen1.5-0.5b: chunked on (a)'s arena, then static
+    cfg_q = served_config(T)
+    params_q = init_params(cfg_q, SEED, DEVICE)
+    what = "decomposed_cpq"
+    t0 = time.perf_counter()
+    eng = T.ContinuousServeEngine(cfg_q, params_q, rt=T.AttentionRuntime(mode=what),
+                                  serving=T.ServingCfg(num_slots=8, page_size=16, num_pages=513,
+                                                       max_blocks_per_slot=64), device=DEVICE)
+    run = make_requests(T, cfg_q.vocab_size)
+    results, stats, ticks, wall, counts = serve_counted(eng, T, run, counted, fa_routes, routed)
+    check_finished(results, run, what)
+    check(stats["chunked_prefill"] and stats["cache_mode"] == what, f"{what}: {stats}")
+    check_counts(what, counts, {})   # T1+T2 has no kernel in the reference
+    serves[what] = serve_metrics(stats, ticks, wall, what)
+    serves[what]["launches"] = {}
+    del eng
+    eng = T.ServeEngine(cfg_q, params_q, rt=T.AttentionRuntime(mode=what), device=DEVICE)
+    out, stats, timer, wall, counts = serve_static(eng, T, M, static_prompts(cfg_q.vocab_size),
+                                                   n_new, {}, counted, fa_routes)
+    check(out.shape == (8, n_new), f"static {what}: {out.shape}")
+    check_counts(f"static {what}", counts, {"flash_attention": cfg_q.num_layers,
+                                            "flash_attention/prompt": cfg_q.num_layers})
+    serves[f"static {what}"] = static_metrics(out, stats, timer, wall, what)
+    serves[f"static {what}"]["launches"] = {k: n for k, n in counts.items() if n}
+    del eng, timer, params_q
+    torch.cuda.empty_cache()
+    new_s[what] = time.perf_counter() - t0
+
+    # (m) deepseek-moe-16b: attention with MoE MLPs, at MOE_DEPTH layers
+    cfg_m = deepseek_config(T, "deepseek-moe-16b", MOE_DEPTH - 1)
+    what = f"deepseek-moe-16b {MOE_DEPTH} layers"
+    t0 = time.perf_counter()
+    params_m = init_params(cfg_m, SEED, DEVICE)
+    eng = T.ContinuousServeEngine(cfg_m, params_m, serving=T.ServingCfg(
+        num_slots=8, page_size=16, num_pages=513, max_blocks_per_slot=64), device=DEVICE)
+    run = make_requests(T, cfg_m.vocab_size)
+    results, stats, ticks, wall, counts = serve_counted(eng, T, run, counted, fa_routes, routed)
+    check_finished(results, run, what)
+    check(not stats["chunked_prefill"], f"{what}: a MoE stack admitted in chunks")
+    check_counts(what, counts, {"flash_attention": MOE_DEPTH * stats["admitted"],
+                                "flash_attention/prompt": MOE_DEPTH * stats["admitted"],
+                                "paged_decode": MOE_DEPTH * stats["decode_steps"]})
+    serves[what] = serve_metrics(stats, ticks, wall, what)
+    serves[what].update(launches={k: n for k, n in counts.items() if n},
+                        routes=check_routes(what, {"paged_decode": routed["paged_decode"]},
+                                            counts))
+    log(f"serve {what}: launches {serves[what]['launches']}")
+    del eng
+    new_s[what] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params_p = head_layers(params_m, cfg_m, MOE_DEPTH)
+    del params_m
+    torch.cuda.empty_cache()
+    report["parity"]["deepseek-moe-16b"] = moe_parity(
+        T, M, moe, dataclasses.replace(cfg_m, dtype="float32"), params_p,
+        make_requests(T, cfg_m.vocab_size), "deepseek-moe-16b dense", "dense")
+    del params_p
+    torch.cuda.empty_cache()
+    new_s["parity deepseek-moe-16b"] = time.perf_counter() - t0
+    report["deepseek_phase_s"] = new_s
+    log(f"[{time.perf_counter() - T0:.0f} s] phase 6 in {time.perf_counter() - t_all:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in new_s.items()))
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2493,12 +2873,22 @@ def main() -> int:
             log(f"sweep {dname} served rows {shape}: paged_decode {err:.3e} over "
                 f"{len(SERVED_DECODE)} layouts, planned and most ranks "
                 f"({ops.decode_route(dtype, 64, 64, 64)} route; tol {TOL[dtype]})")
-        tag = f"{dname} served rows H=16 Dm=1024 kv_r=16 Rr=32"
-        errs["paged_decomposed_decode"][tag] = sweep_t1_served(t1_ops, dtype)
-        log(f"sweep {tag}: paged_decomposed_decode "
-            f"{errs['paged_decomposed_decode'][tag]:.3e} over {len(T1_SERVED_DECODE)} layouts, "
-            f"planned and most splits "
-            f"({t1_ops.t1_decode_route(dtype, 16, 1024, 16, 32)} route; tol {TOL[dtype]})")
+        # B3 at the served rows: qwen1.5-0.5b's T1 shape and deepseek-v2-lite's
+        # MLA (the latent of 512, one roped key of 64 shared by 16 heads)
+        for H, Dm, kv_r, Rr in ((16, 1024, 16, 32), (16, 512, 1, 64)):
+            tag = f"{dname} served rows H={H} Dm={Dm} kv_r={kv_r} Rr={Rr}"
+            errs["paged_decomposed_decode"][tag] = sweep_t1_served(t1_ops, dtype, H, Dm, kv_r,
+                                                                   Rr)
+            log(f"sweep {tag}: paged_decomposed_decode "
+                f"{errs['paged_decomposed_decode'][tag]:.3e} over {len(T1_SERVED_DECODE)} "
+                f"layouts, planned and most splits "
+                f"({t1_ops.t1_decode_route(dtype, H, Dm, kv_r, Rr)} route; tol {TOL[dtype]})")
+        for case, err in sweep_flash(fa_ops, dtype, MLA_FLASH_SWEEP).items():
+            errs["flash_attention"][f"{dname} {case}"] = err
+        log(f"sweep {dname} MLA prompts: flash_attention "
+            + ", ".join(f"{e:.3e}" for k, e in errs["flash_attention"].items()
+                        if "Dh=192" in k and k.startswith(dname))
+            + f" over {len(MLA_FLASH_SWEEP)} cases (Dh 192, Dv 128; tol {TOL[dtype]})")
         for name, sweep_fn, mod in (("flash_attention", sweep_flash, fa_ops),
                                     ("decomposed_decode", sweep_t1c, t1_ops)):
             for case, err in sweep_fn(mod, dtype).items():
@@ -2792,13 +3182,12 @@ def main() -> int:
     # 5) f32 parity, kernels on and off, dense, CPQ, T1 and T3
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = to_device(_tree_float(params), DEVICE)
-    # the continuous serves' parity runs the first PARITY_DEPTH layers, to
-    # keep the script well inside its time limit; the contiguous path's
-    # (static, one-shot) runs the full depth
+    # every serve's parity runs the first PARITY_DEPTH layers, to keep the
+    # script (with phase 6's DeepSeek serves) inside its time limit
     depth = min(PARITY_DEPTH, cfg32.num_blocks)
     cfg_p = dataclasses.replace(cfg32, num_blocks=depth)
     params_p = {**params32, "blocks": [b[:depth] for b in params32["blocks"]]}
-    del params
+    del params, params32
     report["parity"] = {mode: parity(T, M, cfg_p, params_p, reqs, mode)
                         for mode in ("dense", "cpq", "decomposed")}
     with TopkWitness(t3_ops, t3_cfg, cfg_p.num_layers) as witness:
@@ -2814,13 +3203,19 @@ def main() -> int:
     # the rest of the tick: (h), its copy-on-write probe and (i), kernels on
     # and off, the feature on and off; then the sampler, card against CPU
     parity_rest(T, cfg_p, params_p, rest, cfg.vocab_size, report, new_s)
-    report["parity"]["oneshot"] = parity(T, M, cfg32, params32, reqs, "dense",
+    report["parity"]["oneshot"] = parity(T, M, cfg_p, params_p, reqs, "dense",
                                          serving_kw=dict(prefill_chunk=0))
     for mode in ("dense", "decomposed", "cpq", "retrieval"):
         report["parity"][f"static {mode}"] = static_parity(
-            T, M, cfg32, params32, prompts, mode, n_new,
+            T, M, cfg_p, params_p, prompts, mode, n_new,
             dict(retrieval=t3_cfg) if mode == "retrieval" else None)
     log(f"[{time.perf_counter() - T0:.0f} s] parity checked (contiguous)")
+    del params_p
+    torch.cuda.empty_cache()
+
+    # 6) the DeepSeek stacks (MLA and MoE) and T1+T2
+    serve_deepseek(T, M, counted, routed, static_routed, fa_ops.ROUTE_LAUNCHES, serves,
+                   report, {})
 
     kernel_mod = {**kmods, "flash_attention_prompt": fa_ops}
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",

@@ -9,13 +9,15 @@ the static ``ServeEngine`` and of one-shot admission:
   * ``decode_attend``       append one token and attend over the arena
 
 Prefill compute is always dense; the mode decides what is cached and how
-decode reads it. Modes ``dense``, ``decomposed`` (T1), ``cpq`` (T2) and
-``retrieval`` (T3) are ported; ``decomposed_cpq`` raises, naming its ROADMAP
-item. With ``rt.paged_kernels`` (the default) decode runs the hand-written
-contiguous kernels: the flash kernel B8 over the written prefix (dense),
-B9 (T1), B10 with bf16-rounded tiles (T2, the function of
+decode reads it: ``dense``, ``decomposed`` (T1), ``cpq`` (T2),
+``retrieval`` (T3) and ``decomposed_cpq`` (T1+T2: the X arena in CPQ
+codes). With ``rt.paged_kernels`` (the default) decode runs the
+hand-written contiguous kernels: the flash kernel B8 over the written
+prefix (dense), B9 (T1), B10 with bf16-rounded tiles (T2, the function of
 ``cpq_chunked_decode_attention``) and B7's proxy scores (T3); without it,
-the plain functions below, as the JAX package computes them.
+the plain functions below, as the JAX package computes them. T1+T2 has no
+TPU kernel in the reference: its decode is ``decomposed_cpq_chunked_decode``
+either way.
 """
 from __future__ import annotations
 
@@ -108,13 +110,62 @@ def cpq_chunked_decode_attention(q: torch.Tensor, kt, vt, length, scale: float,
     return out.reshape(B, 1, H, Dv).to(q.dtype)
 
 
+def decomposed_cpq_chunked_decode(q_nope: torch.Tensor, q_rope: Optional[torch.Tensor],
+                                  xt: cpq_lib.CPQTensor, k_rope: torch.Tensor,
+                                  w_k_nope: torch.Tensor, w_v: torch.Tensor, length,
+                                  scale: float, chunk: int = 2048) -> torch.Tensor:
+    """T1+T2 decode over a CPQ-compressed X arena (codes (B, N, 1, Dm)).
+    Chunk by chunk: dequantize the X codes (a level outside [0, L) reads
+    scale = zero = 0, a stored -128 is exactly 0) and round the tile to
+    bf16, then run both cascaded products of the decomposition on that tile
+    (scores ``R X^T`` with R rounded to bf16 too, the product of the bf16
+    operands kept in float32 as the jitted reference computes it; the roped
+    term and ``P += S X`` in float32) inside an online softmax. ``length`` is () or (B,). q_nope
+    (B, 1, H, Dn); q_rope (B, 1, H, R) or None; k_rope (B, N, kv_r, R);
+    w_k_nope (Dm, KV, Dn); w_v (Dm, KV, Dv). Returns (B, 1, H, Dv) in
+    w_v's dtype."""
+    from repro_torch.core.decomposed_attention import decomposed_query_transform
+
+    B, _, H, _ = q_nope.shape
+    N, Dm = xt.codes.shape[1], xt.codes.shape[3]
+    KV, Dv = w_v.shape[1], w_v.shape[2]
+    rr = 0 if q_rope is None else q_rope.shape[-1]
+    dev = q_nope.device
+    r = decomposed_query_transform(q_nope, w_k_nope)[:, 0].to(torch.bfloat16).float()
+    qr = None if rr == 0 else q_rope[:, 0].float()                  # (B, H, rr)
+    length = torch.as_tensor(length, device=dev).reshape(-1, 1)
+    c = min(chunk, N)
+
+    m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    p = torch.zeros((B, H, Dm), dtype=torch.float32, device=dev)
+    for lo in range(0, N, c):
+        hi = min(lo + c, N)
+        lvl = xt.level[:, lo:hi]
+        x_hat = cpq_lib.decode_codes(xt.codes[:, lo:hi], cpq_lib.take_levels(xt.scale, lvl),
+                                     cpq_lib.take_levels(xt.zero, lvl),
+                                     torch.bfloat16)[:, :, 0].float()   # (B, c, Dm)
+        s = torch.einsum("bhm,bcm->bhc", r, x_hat)
+        if qr is not None:
+            kr = k_rope[:, lo:hi].float()
+            kv_r = kr.shape[2]
+            s = s + torch.einsum("bkgr,bckr->bkgc", qr.reshape(B, kv_r, H // kv_r, rr),
+                                 kr).reshape(B, H, hi - lo)
+        s = s * scale
+        live = torch.arange(lo, hi, device=dev)[None, :] < length      # (B|1, c)
+        s = torch.where(live[:, None, :], s, NEG_INF)
+        m2 = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m2)
+        w = torch.exp(s - m2[..., None])
+        l = l * corr + w.sum(-1)
+        p = p * corr[..., None] + torch.einsum("bhc,bcm->bhm", w, x_hat)
+        m = m2
+    p = p / l.clamp_min(1e-30)[..., None]
+    out = torch.einsum("bkgm,mkd->bkgd", p.reshape(B, KV, H // KV, Dm).to(w_v.dtype), w_v)
+    return out.reshape(B, 1, H, Dv)
+
+
 # ----------------------------------------------------------------- caches
-
-
-def _unported(mode: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"attention mode {mode!r} is not ported yet (ROADMAP A16); the port serves "
-        "'dense', 'decomposed', 'cpq' and 'retrieval'")
 
 
 def init_cache(rt: AttentionRuntime, *, batch: int, n_max: int, kv: int, dh: int,
@@ -126,9 +177,11 @@ def init_cache(rt: AttentionRuntime, *, batch: int, n_max: int, kv: int, dh: int
         return kvc.init_x(batch, n_max, d_model, kv, rope_dims, dtype, device)
     if rt.mode == "cpq":
         return kvc.init_cpq(batch, n_max, kv, dh, rt.cpq, device)
+    if rt.mode == "decomposed_cpq":
+        return kvc.init_cpq_x(batch, n_max, d_model, kv, rope_dims, rt.cpq, dtype, device)
     if rt.mode == "retrieval":
         return kvc.init_retrieval(batch, n_max, kv, dh, rt.retrieval, dtype, device)
-    raise _unported(rt.mode)
+    raise ValueError(rt.mode)
 
 
 def prefill_into_cache(rt: AttentionRuntime, cache: kvc.Cache, *,
@@ -140,7 +193,8 @@ def prefill_into_cache(rt: AttentionRuntime, cache: kvc.Cache, *,
     """Write the prompt's cache payload at positions 0 .. S-1: K/V in place
     (dense, T3, plus T3's proxy codes fitted on the whole prompt), X and
     the roped key slices (T1), or level-0 CPQ codes fitted on the whole
-    prompt (T2). Returns the container with length ``length``."""
+    prompt (T2; T1+T2 compresses X so). Returns the container with length
+    ``length``."""
     from repro_torch.core import retrieval_attention as ret_lib  # it imports this module
 
     n = kvc.host_length(length)
@@ -155,6 +209,12 @@ def prefill_into_cache(rt: AttentionRuntime, cache: kvc.Cache, *,
         return kvc.CPQKVCache(
             cpq_lib.cpq_compress_prefill(k, rt.cpq, cache.k.codes.shape[1]),
             cpq_lib.cpq_compress_prefill(v, rt.cpq, cache.v.codes.shape[1]), n)
+    if isinstance(cache, kvc.CPQXCache):
+        if k_rope is not None:
+            kvc.append_tokens(cache.k_rope, k_rope, 0)
+        return kvc.CPQXCache(
+            cpq_lib.cpq_compress_prefill(x[:, :, None, :], rt.cpq, cache.x.codes.shape[1]),
+            cache.k_rope, n)
     if isinstance(cache, kvc.RetrievalCache):
         dp = rt.retrieval.proxy_dim or k.shape[-1]
         codes, pscale, pzero = ret_lib.fit_proxy(k[..., :dp], rt.retrieval.proxy_bits)
@@ -224,6 +284,16 @@ def decode_attend(rt: AttentionRuntime, cache: kvc.Cache, *,
         else:
             out = cpq_chunked_decode_attention(q, kt, vt, new_len, scale)
         return out, kvc.CPQKVCache(kt, vt, n)
+
+    if isinstance(cache, kvc.CPQXCache):
+        # HQE-append the new X row, then the chunked two-stage sweep over
+        # dequantized X tiles (no kernel in the reference for this tier)
+        xt = cpq_lib.cpq_append_decode(cache.x, x_t[:, :, None, :], pos, rt.cpq)
+        if k_rope_t is not None:
+            kvc.append_tokens(cache.k_rope, k_rope_t, pos)
+        out = decomposed_cpq_chunked_decode(q_nope, q_rope, xt, cache.k_rope, w_k_nope, w_v,
+                                            new_len, scale)
+        return out, kvc.CPQXCache(xt, cache.k_rope, n)
 
     if isinstance(cache, kvc.RetrievalCache):
         cfg = rt.retrieval

@@ -17,7 +17,7 @@ Mode -> container:
   decomposed XCache         X (+ small roped keys)    Dm + KV*R   per token (T1)
   cpq        CPQKVCache     CPQ(K), CPQ(V)            ~2*KV*Dh*b/8 per token (T2)
   retrieval  RetrievalCache K, V + int8 proxy codes   2*KV*Dh + Dp per token (T3)
-The T1+T2 container (``CPQXCache``) is not ported (ROADMAP A16).
+  cpq+decomp CPQXCache      CPQ(X) (+ roped keys)     ~Dm*b/8     per token (T1+T2)
 """
 from __future__ import annotations
 
@@ -59,7 +59,16 @@ class RetrievalCache(NamedTuple):
     length: torch.Tensor       # () int32 valid tokens of every row
 
 
-Cache = Union[DenseKVCache, XCache, CPQKVCache, RetrievalCache]
+class CPQXCache(NamedTuple):
+    """T1+T2: the X arena CPQ-compressed, its channels split as one head of
+    d_model (H = 1, D = Dm), beside the verbatim roped key slices."""
+
+    x: cpq_lib.CPQTensor  # codes (B, N, 1, Dm)
+    k_rope: torch.Tensor  # (B, N, KV, R)
+    length: torch.Tensor
+
+
+Cache = Union[DenseKVCache, XCache, CPQKVCache, RetrievalCache, CPQXCache]
 
 
 # ------------------------------------------------------------------- helpers
@@ -128,6 +137,13 @@ def init_cpq(batch: int, n_max: int, kv: int, dh: int, cfg: CPQCfg,
                       length=host_length(0))
 
 
+def init_cpq_x(batch: int, n_max: int, dm: int, kv: int, rope_dims: int, cfg: CPQCfg,
+               dtype=torch.bfloat16, device="cpu") -> CPQXCache:
+    return CPQXCache(x=_empty_cpq(batch, n_max, 1, dm, cfg, device),
+                     k_rope=_zeros((batch, n_max, kv, rope_dims), dtype, device),
+                     length=host_length(0))
+
+
 def init_retrieval(batch: int, n_max: int, kv: int, dh: int, cfg,
                    dtype=torch.bfloat16, device="cpu") -> RetrievalCache:
     """An empty cache: proxy scale ones, proxy zero zeros, length 0."""
@@ -143,7 +159,7 @@ def init_retrieval(batch: int, n_max: int, kv: int, dh: int, cfg,
 
 def bytes_per_token(cache: Cache, cpq_cfg: Optional[CPQCfg] = None) -> float:
     """Off-chip traffic per cached token of a contiguous container; the CPQ
-    container goes through ``cpq_bytes_per_token`` with the runtime's
+    containers go through ``cpq_bytes_per_token`` with the runtime's
     ``CPQCfg`` (the default one if none is given)."""
     if isinstance(cache, DenseKVCache):
         return 2.0 * cache.k.shape[2] * cache.k.shape[3] * cache.k.element_size()
@@ -157,4 +173,8 @@ def bytes_per_token(cache: Cache, cpq_cfg: Optional[CPQCfg] = None) -> float:
     if isinstance(cache, CPQKVCache):
         h, d = cache.k.codes.shape[2], cache.k.codes.shape[3]
         return 2.0 * cpq_lib.cpq_bytes_per_token(cpq_cfg or CPQCfg(), h, d)
+    if isinstance(cache, CPQXCache):
+        return (cpq_lib.cpq_bytes_per_token(cpq_cfg or CPQCfg(), 1, cache.x.codes.shape[3])
+                + cache.k_rope.shape[2] * cache.k_rope.shape[3]
+                * cache.k_rope.element_size())
     raise TypeError(type(cache))

@@ -2,15 +2,15 @@
 package's ``models/attention_layer.py``): over paged arenas (chunked prefill
 and per-row decode) and over contiguous arenas (``attn_prefill`` of a whole
 prompt and ``attn_decode`` at one shared position: the static engine and
-one-shot admission). Ported: the dense, decomposed (T1), CPQ (T2) and
-retrieval (T3) modes and the tiered dense + CPQ arena; decomposed_cpq
-(T1+T2) raises ``NotImplementedError`` naming its ROADMAP item.
+one-shot admission): the dense, decomposed (T1), CPQ (T2), retrieval (T3)
+and decomposed_cpq (T1+T2: T1's operands with X in CPQ codes) modes and
+the tiered dense + CPQ arena.
 
 Prefill attention over a whole prompt is dense and causal in every mode:
 the contiguous flash kernel B8 with ``rt.paged_kernels`` (the default),
 else its plain version, ``attention_auto``, as the reference computes it.
 
-Decomposed (T1) rope handling: rotations do not commute with W_K, so on
+Decomposed (T1 and T1+T2) rope handling: rotations do not commute with W_K, so on
 RoPE architectures only the first ``decoupled_rope_dims`` dims of each q
 and k head are roped (with tables built for that width) and the roped key
 slice is cached verbatim beside X; the remaining content dims go through
@@ -26,6 +26,9 @@ from repro_torch.core.flash_ref import attention_auto
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.models.layers import apply_rope, apply_rope_rows, rms_norm_vec, rope_tables
 from repro_torch.serving import paged_cache as pgc
+
+
+T1_MODES = ("decomposed", "decomposed_cpq")  # the modes that cache X (T1 operands)
 
 
 def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
@@ -129,7 +132,7 @@ def attn_prefill(cfg: ModelConfig, rt: AttentionRuntime, p, x: torch.Tensor,
     reference does."""
     q, k, v = _project_qkv(cfg, p, x)
     r = decoupled_rope_dims(cfg)
-    if rt.mode == "decomposed":
+    if rt.mode in T1_MODES:
         q, k = _rope_qk(cfg, q, k, positions, positions, dims=r)
         k_rope = k[..., :r]
     else:
@@ -146,7 +149,7 @@ def attn_decode(cfg: ModelConfig, rt: AttentionRuntime, p, x_t: torch.Tensor, po
     ``pos`` (a host int). x_t (B, 1, D) normed block input."""
     q, k, v = _project_qkv(cfg, p, x_t)
     positions = torch.tensor([pos], device=x_t.device)
-    if rt.mode == "decomposed":
+    if rt.mode in T1_MODES:
         wk_nope, wv, r = _wk_wv_heads(cfg, p)
         q, k = _rope_qk(cfg, q, k, positions, positions, dims=r)
         out, cache = core_attn.decode_attend(
@@ -183,6 +186,11 @@ def init_paged_attn_cache(cfg: ModelConfig, rt: AttentionRuntime, serving,
     if rt.mode == "cpq":
         return pgc.init_paged_cpq(serving.num_pages, serving.page_size,
                                   serving.num_slots, kv, dh, rt.cpq, device=device)
+    if rt.mode == "decomposed_cpq":
+        return pgc.init_paged_cpq_x(serving.num_pages, serving.page_size,
+                                    serving.num_slots, cfg.d_model, kv,
+                                    decoupled_rope_dims(cfg), rt.cpq,
+                                    dtype=cfg.param_dtype, device=device)
     if rt.mode == "retrieval":
         return pgc.init_paged_retrieval(serving.num_pages, serving.page_size,
                                         serving.num_slots, kv, dh, rt.retrieval,
@@ -202,7 +210,7 @@ def attn_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first:
     q, k, v = _project_qkv(cfg, p, x)
     kw = dict(tier=tier, first=first, slot=slot, block_row=block_row, offset=offset,
               valid=valid, scale=_scale(cfg))
-    if rt.mode == "decomposed":
+    if rt.mode in T1_MODES:
         wk_nope, wv, r = _wk_wv_heads(cfg, p)
         q, k = _rope_qk(cfg, q, k, positions, positions, dims=r)
         out, cache = pgc.chunk_attend_paged(
@@ -219,7 +227,7 @@ def attn_decode_rows(cfg: ModelConfig, rt: AttentionRuntime, p, x_t: torch.Tenso
     """One-token decode against a paged arena. x_t (B, 1, D) normed block
     input (the operand T1 caches); per-row positions are ``rows.lengths``."""
     q, k, v = _project_qkv(cfg, p, x_t)
-    if rt.mode == "decomposed":
+    if rt.mode in T1_MODES:
         wk_nope, wv, r = _wk_wv_heads(cfg, p)
         q, k = _rope_qk_rows(cfg, q, k, rows.lengths, dims=r)
         out, cache = pgc.decode_attend_paged(

@@ -49,8 +49,8 @@ def _tree(cfg: ModelConfig, layers: list):
 
 
 def init_caches(cfg: ModelConfig, rt: AttentionRuntime, batch: int, n_max: int, device):
-    """One contiguous (batch, n_max) arena per attention layer, shaped like
-    the parameter tree."""
+    """One contiguous (batch, n_max) arena per attention or MLA layer (MLA:
+    its latent), shaped like the parameter tree."""
     return _tree(cfg, [tfm.layer_cache_init(cfg, rt, kind, batch, n_max, device)
                        for kind in cfg.layer_kinds])
 
@@ -91,16 +91,14 @@ def pack_prefill_caches(cfg: ModelConfig, rt: AttentionRuntime, paged, src,
     """Scatter a freshly prefilled B=1 contiguous cache tree ``src`` (from
     ``prefill``) into slot ``slot`` of the paged arenas, in place: one-shot
     admission."""
-    for (mixer, _), pc, sc in zip(cfg.layer_kinds, per_layer(cfg, paged),
-                                  per_layer(cfg, src)):
-        if mixer == "attn":
-            pgc.pack_into(rt.mode, pc, sc, block_row, slot)
+    for pc, sc in zip(_attn_arenas(cfg, paged), _attn_arenas(cfg, src)):
+        pgc.pack_into(rt.mode, pc, sc, block_row, slot)
     return paged
 
 
 def init_paged_caches(cfg: ModelConfig, rt: AttentionRuntime, serving, device,
                       tiered: bool = False):
-    """One paged arena per attention layer, shaped like the parameter tree:
+    """One paged arena per attention or MLA layer, shaped like the parameter tree:
     {"prefix": [arena, ...], "blocks": [[arena per block] per position]}.
     ``tiered`` gives every layer a dense base arena and a CPQ escalation
     arena."""
@@ -168,22 +166,23 @@ def verify_chunk_rows(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first: 
 
 
 def _attn_arenas(cfg: ModelConfig, caches):
+    """The arenas of the attention and MLA layers, in layer order."""
     return (c for (mixer, _), c in zip(cfg.layer_kinds, per_layer(cfg, caches))
             if mixer in ("attn", "mla"))
 
 
 def defrag_caches(cfg: ModelConfig, rt: AttentionRuntime, caches, perm: torch.Tensor):
     """Apply a scheduler defrag permutation (``Scheduler.plan_defrag``) to
-    every attention layer's base arena pools, in place: mapped pages move
-    onto the lowest physical ids."""
+    every attention and MLA layer's base arena pools, in place: mapped
+    pages move onto the lowest physical ids."""
     for c in _attn_arenas(cfg, caches):
         pgc.permute_pool(c, perm)
     return caches
 
 
 def copy_page_caches(cfg: ModelConfig, rt: AttentionRuntime, caches, src: int, dst: int):
-    """Copy physical page ``src -> dst`` in every attention layer's base
-    arena pools, in place: the copy-on-write split behind prefix sharing
+    """Copy physical page ``src -> dst`` in every attention and MLA layer's
+    base arena pools, in place: the copy-on-write split behind prefix sharing
     (a tiered arena copies its dense arm)."""
     for c in _attn_arenas(cfg, caches):
         pgc.copy_page(c, src, dst)

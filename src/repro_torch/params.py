@@ -1,4 +1,5 @@
-"""Parameter trees of the PyTorch port: the dense-family ``model_defs``,
+"""Parameter trees of the PyTorch port: ``model_defs`` of the attention and
+MLA stacks with dense or MoE MLPs,
 seeded initialisation on an explicit ``torch.Generator``, and ``from_jax``,
 which carries a JAX parameter tree (as numpy leaves) across.
 
@@ -51,11 +52,10 @@ class ParamSpec:
 
 
 def _unported(kind) -> NotImplementedError:
-    mixer, mlp = kind
-    item = "A13" if mixer == "mla" else "A19"
     return NotImplementedError(
-        f"layer kind {kind} is not ported yet (ROADMAP {item}); the port "
-        "runs ('attn', 'dense') stacks")
+        f"layer kind {kind} is not ported yet (ROADMAP A19: mamba, xlstm and the "
+        "xattn mixer); the port runs 'attn' and 'mla' mixers with 'dense', 'moe' "
+        "or no MLP")
 
 
 def norm_defs(cfg: ModelConfig, dim: int | None = None):
@@ -93,13 +93,16 @@ def mlp_defs(cfg: ModelConfig):
 
 
 def layer_defs(cfg: ModelConfig, kind: tuple[str, str]):
+    from repro_torch.models import mla, moe  # they import ParamSpec from here
+
     mixer, mlp = kind
-    if mixer != "attn" or mlp not in ("dense", "none"):
+    if mixer not in ("attn", "mla") or mlp not in ("dense", "moe", "none"):
         raise _unported(kind)
-    d = {"norm1": norm_defs(cfg), "mixer": attn_defs(cfg)}
-    if mlp == "dense":
+    d = {"norm1": norm_defs(cfg),
+         "mixer": mla.mla_defs(cfg) if mixer == "mla" else attn_defs(cfg)}
+    if mlp != "none":
         d["norm2"] = norm_defs(cfg)
-        d["mlp"] = mlp_defs(cfg)
+        d["mlp"] = moe.moe_defs(cfg) if mlp == "moe" else mlp_defs(cfg)
     return d
 
 
@@ -147,6 +150,7 @@ def init_params(cfg: ModelConfig, seed: int, device=None):
             return torch.zeros(s.shape, dtype=s.dtype, device=device)
         if s.init == "ones":
             return torch.ones(s.shape, dtype=s.dtype, device=device)
+        # fan-in is dim 0, as ParamDef's: an expert tensor (E, d, F) takes E
         std = s.scale if s.init == "normal" else s.scale / math.sqrt(max(s.shape[0], 1))
         w = torch.randn(s.shape, generator=gen, dtype=torch.float32, device=device)
         return (w * std).to(s.dtype)
@@ -164,7 +168,9 @@ def _leaf_to_torch(a) -> torch.Tensor:
 def from_jax(tree, device=None):
     """The JAX parameter tree (``jax.tree.map(np.asarray, params)``) as the
     port's tree: same leaves, same dtypes, and each stacked ``blocks`` leaf
-    split along its leading ``num_blocks`` axis into per-layer tensors."""
+    split along its leading ``num_blocks`` axis into per-layer tensors (an
+    expert leaf (num_blocks, E, d, F) into (E, d, F) each; nested trees such
+    as MoE's ``shared`` experts keep their shape)."""
     device = resolve_device(device)
     conv = lambda t: _tree_map(lambda a: _leaf_to_torch(a).to(device), t)  # noqa: E731
 

@@ -20,9 +20,13 @@ to the JAX engine's.
 
 Attention modes: ``dense``, ``decomposed`` (T1: the arena holds the normed
 block input X and a roped key slice per kv head instead of K and V),
-``cpq`` (T2: the whole arena holds int8 CPQ codes) and ``retrieval`` (T3:
+``cpq`` (T2: the whole arena holds int8 CPQ codes), ``retrieval`` (T3:
 K and V pages beside int8 proxy-code pages; decode attends the top-k keys
-by proxy score plus a recent window, prefill attends densely). With
+by proxy score plus a recent window, prefill attends densely) and
+``decomposed_cpq`` (T1+T2: X in CPQ codes). MLA layers cache their latent
+(in CPQ codes in mode ``cpq``) whatever the mode; MoE stacks always take
+one-shot admission, since their capacity routing depends on the token
+group, and tier escalation refuses MLA stacks, as in the reference. With
 ``ServingCfg(enable_escalation=True)`` a dense engine is tiered: every
 layer pairs its dense arena with a CPQ escalation arena, new admissions go
 to the CPQ tier while the dense arena's free fraction is below
@@ -49,8 +53,9 @@ dense arm of a tiered arena).
 
 Both engines run on the GPU unless ``device`` names another device. They
 refuse, with ``SchedulerConfigError``, every knob the port does not
-implement yet instead of ignoring it: the T1+T2 attention mode, non-token
-inputs and a device mesh.
+implement yet instead of ignoring it: non-token inputs and a device mesh
+(and, with ``NotImplementedError``, the mamba, xLSTM and cross-attention
+layer kinds).
 """
 from __future__ import annotations
 
@@ -296,9 +301,17 @@ class ContinuousServeEngine:
         self.tiered = bool(serving.enable_escalation and rt.mode == "dense")
         if self.tiered and rt.cpq is None:
             rt = dataclasses.replace(rt, cpq=CPQCfg())
+        if self.tiered and any(m == "mla" for m, _ in cfg.layer_kinds):
+            raise SchedulerConfigError(
+                "tier escalation supports plain-attention stacks only "
+                "(MLA already caches the compressed latent)")
         self.rt = rt
         self.params = to_device(params, self.device)
-        self.chunked = bool(serving.prefill_chunk)  # else one-shot admission
+        # capacity-factor MoE routing is a function of the token group, so
+        # chunking a prompt would change its drops: MoE stacks keep one-shot
+        # admission, as the reference does
+        self.chunked = (bool(serving.prefill_chunk)
+                        and not any(mlp == "moe" for _, mlp in cfg.layer_kinds))
         # prefix sharing and speculation need chunked admission (a tail or
         # a verify chunk streams from a mid-context offset) and a base arena
         # whose payload is purely positional: dense, T1, or a tiered

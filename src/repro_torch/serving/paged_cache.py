@@ -24,9 +24,10 @@ Mode -> paged container:
   cpq         PagedCPQKVCache     CPQ code/level pages, slot tables (T2)
   retrieval   PagedRetrievalCache K, V and int8 proxy-code pages, slot
                                   proxy calibration (T3)
+  cpq+decomp  PagedCPQXCache      CPQ code/level pages of X (one head of
+                                  d_model), slot tables, roped key pages
+                                  (T1+T2, and MLA's latent in mode cpq)
   tiered      TieredPagedCache    dense base arena + CPQ escalation arena
-The T1+T2 container is not ported yet; its mode raises
-``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -49,14 +50,14 @@ from repro_torch.kernels.topk_retrieval import ops as t3_ops
 
 NULL_PAGE = 0
 
-UNPORTED_MODES = {"decomposed_cpq": "A16"}
+UNPORTED_MODES: dict[str, str] = {}  # attention modes not ported yet -> ROADMAP item
 
 
 def unported_mode(mode: str) -> NotImplementedError:
     return NotImplementedError(
         f"attention mode {mode!r} is not ported yet "
         f"(ROADMAP {UNPORTED_MODES.get(mode, 'A')}); the port serves 'dense', "
-        "'decomposed', 'cpq' and 'retrieval'")
+        "'decomposed', 'cpq', 'retrieval' and 'decomposed_cpq'")
 
 
 class RowState(NamedTuple):
@@ -254,6 +255,8 @@ def permute_pool(cache, perm: torch.Tensor):
         take(cache.x, cache.k_rope)
     elif isinstance(cache, PagedCPQKVCache):
         take(cache.k.codes, cache.k.level, cache.v.codes, cache.v.level)
+    elif isinstance(cache, PagedCPQXCache):
+        take(cache.x.codes, cache.x.level, cache.k_rope)
     else:
         raise TypeError(type(cache))
     return cache
@@ -322,6 +325,14 @@ class PagedRetrievalCache(NamedTuple):
     proxy_zero: torch.Tensor   # (num_slots, KV, Dp) f32
 
 
+class PagedCPQXCache(NamedTuple):
+    """T1+T2 arena: X in CPQ code pages (H = 1, D = Dm) with per-slot HQE
+    side state, beside the roped key pages."""
+
+    x: PagedCPQTensor      # codes (P, page, 1, Dm)
+    k_rope: torch.Tensor   # (P, page, KV, R)
+
+
 class TieredPagedCache(NamedTuple):
     """Dense base arena + CPQ escalation arena; ``RowState.tier`` selects the
     live one per row (the watermark policy's dense -> T2 target)."""
@@ -379,6 +390,15 @@ def init_paged_cpq(num_pages: int, page_size: int, num_slots: int, kv: int, dh: 
         v=_init_paged_cpq_tensor(num_pages, page_size, num_slots, kv, dh, cfg, device))
 
 
+def init_paged_cpq_x(num_pages: int, page_size: int, num_slots: int, dm: int, kv: int,
+                     rope_dims: int, cfg: CPQCfg, dtype=torch.bfloat16,
+                     device="cpu") -> PagedCPQXCache:
+    return PagedCPQXCache(
+        x=_init_paged_cpq_tensor(num_pages, page_size, num_slots, 1, dm, cfg, device),
+        k_rope=torch.zeros((num_pages, page_size, kv, rope_dims), dtype=dtype,
+                           device=device))
+
+
 def logical_cpq(t: PagedCPQTensor, block_table: torch.Tensor) -> cpq_lib.CPQTensor:
     """Contiguous CPQTensor view of a paged CPQ arena: codes and levels
     gathered through the block table, the per-slot state as it is."""
@@ -422,6 +442,16 @@ def append_cpq_tensor(t: PagedCPQTensor, rows: RowState, x_t: torch.Tensor,
     write_token_pages(t.codes, rows.block_table, rows.lengths, act, code_t[:, 0])
     write_token_pages(t.level, rows.block_table, rows.lengths, act, level_t)
     return t
+
+
+def append_cpq_x(cache: PagedCPQXCache, rows: RowState, x_t: torch.Tensor,
+                 k_rope_t: torch.Tensor, cfg: CPQCfg) -> PagedCPQXCache:
+    """x_t (B, 1, Dm) HQE-encoded as one head of d_model and k_rope_t
+    (B, 1, kv_r, R) written through the block table, in place."""
+    append_cpq_tensor(cache.x, rows, x_t[:, :, None, :], cfg)
+    write_token_pages(cache.k_rope, rows.block_table, rows.lengths, rows.active,
+                      k_rope_t[:, 0])
+    return cache
 
 
 # ------------------------------------------------------------ prompt pack
@@ -474,6 +504,13 @@ def pack_retrieval(cache: PagedRetrievalCache, src: kvc.RetrievalCache,
     return cache
 
 
+def pack_cpq_x(cache: PagedCPQXCache, src: kvc.CPQXCache, block_row: torch.Tensor,
+               slot: int) -> PagedCPQXCache:
+    pack_cpq_tensor(cache.x, src.x, block_row, slot)
+    write_prompt_pages(cache.k_rope, block_row, src.k_rope[0])
+    return cache
+
+
 def pack_into(rt_mode: str, cache, src, block_row: torch.Tensor, slot: int):
     """Mode dispatch of the admission pack (contiguous B=1 prefill -> a
     slot's pages); a tiered arena takes a dense source into its dense arm
@@ -492,6 +529,8 @@ def pack_into(rt_mode: str, cache, src, block_row: torch.Tensor, slot: int):
         return pack_cpq(cache, src, block_row, slot)
     if isinstance(cache, PagedRetrievalCache):
         return pack_retrieval(cache, src, block_row, slot)
+    if isinstance(cache, PagedCPQXCache):
+        return pack_cpq_x(cache, src, block_row, slot)
     raise unported_mode(rt_mode)
 
 
@@ -501,7 +540,8 @@ def pack_into(rt_mode: str, cache, src, block_row: torch.Tensor, slot: int):
 def bytes_per_token(cache, page_size: int, cpq_cfg: Optional[CPQCfg] = None) -> float:
     """Per-token decode traffic of a paged arena: the payload (dense K and V,
     T1's X row and roped key slices, the CPQ accounting of
-    ``cpq_bytes_per_token``, or T3's K and V plus one byte per proxy
+    ``cpq_bytes_per_token`` for K and V or for X as one head of d_model
+    plus the roped key slices, or T3's K and V plus one byte per proxy
     channel) plus the amortized block-table entry. A tiered
     arena counts its base tier."""
     overhead = 4.0 / page_size
@@ -519,6 +559,10 @@ def bytes_per_token(cache, page_size: int, cpq_cfg: Optional[CPQCfg] = None) -> 
     elif isinstance(cache, PagedRetrievalCache):
         payload = (2.0 * cache.k.shape[2] * cache.k.shape[3] * cache.k.element_size()
                    + cache.proxy.shape[2] * cache.proxy.shape[3])
+    elif isinstance(cache, PagedCPQXCache):
+        payload = (cpq_lib.cpq_bytes_per_token(cpq_cfg or CPQCfg(), 1, cache.x.codes.shape[3])
+                   + cache.k_rope.shape[2] * cache.k_rope.shape[3]
+                   * cache.k_rope.element_size())
     else:
         raise TypeError(type(cache))
     return payload + overhead
@@ -598,6 +642,36 @@ def cpq_chunk_prefill_attention(q, kt: PagedCPQTensor, vt: PagedCPQTensor,
                                      logit_bias=bias[None, :, None, :])
 
 
+def decomposed_cpq_chunk_prefill(q_nope, q_rope, xt: PagedCPQTensor, kr_pages, block_row,
+                                 slot: int, x_raw, k_rope_raw, offset: int, valid: int,
+                                 w_k_nope, w_v, scale: float) -> torch.Tensor:
+    """T1+T2 (and MLA's CPQ latent) chunk prefill, a gather path: the
+    reference has no kernel for this tier. Earlier X codes are dequantized
+    (what decode reads), the chunk contributes its raw X rows, and both
+    cascaded products of the decomposition run over [earlier view | raw
+    chunk] under the chunk mask. q_nope (1, C, H, Dn); q_rope (1, C, H, R)
+    or None; x_raw (1, C, Dm); k_rope_raw (1, C, kv_r, R). Returns
+    (1, C, H, Dv)."""
+    from repro_torch.core.decomposed_attention import (decomposed_query_transform,
+                                                       decomposed_values)
+
+    B, C, H, _ = q_nope.shape
+    x_hat = cpq_lib.cpq_dequant(_slot_cpq(xt, block_row, slot))[:, :, 0, :]  # (1, Nprev, Dm)
+    x_all = torch.cat([x_hat.to(x_raw.dtype), x_raw], dim=1)
+    r = decomposed_query_transform(q_nope, w_k_nope)                        # (1, C, H, Dm)
+    s = torch.einsum("bchm,bnm->bchn", r, x_all)
+    if q_rope is not None and q_rope.shape[-1] > 0:
+        kr_prev = gather_pages(kr_pages, block_row[None])                  # (1, Nprev, kv_r, R)
+        kr_all = torch.cat([kr_prev.to(k_rope_raw.dtype), k_rope_raw], dim=1)
+        kv_r = kr_all.shape[2]
+        qg = q_rope.reshape(B, C, kv_r, H // kv_r, q_rope.shape[-1])
+        s = s + torch.einsum("bckgr,bnkr->bckgn", qg, kr_all).reshape(B, C, H, s.shape[-1])
+    s = s.float() * scale
+    s = s + _chunk_mask_bias(x_hat.shape[1], C, offset, valid, s.device)[None, :, None, :]
+    w = torch.softmax(s, dim=-1).to(x_all.dtype)
+    return decomposed_values(w, x_all, w_v)
+
+
 def _dense_chunk_attend(rt, k_pages, v_pages, block_row, offset: int, valid: int, q,
                         scale: float) -> torch.Tensor:
     """A chunk's C queries over the slot's K/V pages [0, offset + valid):
@@ -632,6 +706,17 @@ def chunk_proxy(cache: PagedRetrievalCache, cfg, slot: int, block_row: torch.Ten
     write_chunk_pages(cache.proxy, block_row, offset, valid, codes[0])
 
 
+def chunk_cpq_x(cache: PagedCPQXCache, cfg: CPQCfg, slot: int, block_row, offset: int,
+                valid: int, x_c: torch.Tensor, k_rope_c: torch.Tensor,
+                first: bool) -> PagedCPQXCache:
+    """Compress one prompt chunk's X rows x_c (1, C, Dm) into the slot's
+    code pages (``chunk_cpq_tensor``) and write its roped key slices
+    k_rope_c (1, C, kv_r, R), in place."""
+    chunk_cpq_tensor(cache.x, slot, block_row, offset, valid, x_c[:, :, None, :], cfg, first)
+    write_chunk_pages(cache.k_rope, block_row, offset, valid, k_rope_c[0])
+    return cache
+
+
 def _cpq_runtime(rt) -> AttentionRuntime:
     """The runtime of a tiered arena's CPQ arm."""
     return AttentionRuntime(mode="cpq", cpq=rt.cpq, paged_kernels=rt.paged_kernels)
@@ -655,11 +740,12 @@ def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
     the chunk's proxy codes the same way (``chunk_proxy``) and attends
     densely. A tiered arena runs the arm of the
     host-static admission ``tier``. q (1, C, H, Dh) roped; k_c/v_c
-    (1, C, KV, Dh); slot/offset/valid host ints. The T1 arena takes instead
-    x_c (1, C, Dm) normed block input, k_rope_c (1, C, KV, R), q_nope
-    (1, C, H, Dn), q_rope (1, C, H, R), w_k_nope (Dm, KV, Dn) and w_v
-    (Dm, KV, Dv). Returns (out (1, C, H, Dv), cache); rows past ``valid``
-    are padding."""
+    (1, C, KV, Dh); slot/offset/valid host ints. The T1 and T1+T2 arenas
+    take instead x_c (1, C, Dm) normed block input, k_rope_c (1, C, KV, R),
+    q_nope (1, C, H, Dn), q_rope (1, C, H, R), w_k_nope (Dm, KV, Dn) and
+    w_v (Dm, KV, Dv); T1+T2 compresses the chunk's X as the CPQ arena
+    compresses K/V and attends through ``decomposed_cpq_chunk_prefill``.
+    Returns (out (1, C, H, Dv), cache); rows past ``valid`` are padding."""
     if isinstance(cache, TieredPagedCache):
         arm_rt, arm = (rt, cache.dense) if tier == 0 else (_cpq_runtime(rt), cache.cpq)
         out, _ = chunk_attend_paged(arm_rt, arm, tier=0, first=first, slot=slot,
@@ -703,6 +789,12 @@ def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
             out = cpq_chunk_prefill_attention(q, cache.k, cache.v, block_row, slot,
                                               k_c, v_c, offset, valid, scale)
         return out, cache
+    if isinstance(cache, PagedCPQXCache) and rt.mode == "decomposed_cpq":
+        chunk_cpq_x(cache, rt.cpq, slot, block_row, offset, valid, x_c, k_rope_c, first)
+        out = decomposed_cpq_chunk_prefill(q_nope, q_rope, cache.x, cache.k_rope, block_row,
+                                           slot, x_c, k_rope_c, offset, valid, w_k_nope,
+                                           w_v, scale)
+        return out, cache
     raise _unported_cache(rt, cache)
 
 
@@ -727,7 +819,9 @@ def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
     q (B, 1, H, Dh) roped; k_t/v_t (B, 1, KV, Dh). The T1 arena takes instead
     x_t (B, 1, Dm) normed block input, k_rope_t (B, 1, KV, R), q_nope
     (B, 1, H, Dn), q_rope (B, 1, H, R), w_k_nope (Dm, KV, Dn) and w_v
-    (Dm, KV, Dv). Returns (out (B, 1, H, Dv), cache)."""
+    (Dm, KV, Dv); the T1+T2 arena HQE-appends X and decodes through
+    ``decomposed_cpq_chunked_decode`` over its logical view (no kernel in
+    the reference). Returns (out (B, 1, H, Dv), cache)."""
     if isinstance(cache, TieredPagedCache):
         rows_d = rows._replace(active=rows.active & (rows.tier == 0))
         rows_c = rows._replace(active=rows.active & (rows.tier == 1),
@@ -784,6 +878,12 @@ def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
         out = core_attn.cpq_chunked_decode_attention(
             q, logical_cpq(cache.k, rows.block_table),
             logical_cpq(cache.v, rows.block_table), new_len, scale)
+        return out, cache
+    if isinstance(cache, PagedCPQXCache) and rt.mode == "decomposed_cpq":
+        append_cpq_x(cache, rows, x_t, k_rope_t, rt.cpq)
+        out = core_attn.decomposed_cpq_chunked_decode(
+            q_nope, q_rope, logical_cpq(cache.x, rows.block_table),
+            gather_pages(cache.k_rope, rows.block_table), w_k_nope, w_v, new_len, scale)
         return out, cache
     raise _unported_cache(rt, cache)
 

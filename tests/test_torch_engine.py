@@ -4,9 +4,11 @@ events are identical on seeded ``make_workload`` traces, with a roomy arena
 and with one small enough to force recompute preemption. Float32, the port's
 paged kernels in their plain CPU versions and the reference's Pallas kernels
 in interpret mode. Every knob the port does not implement is refused
-(sampling, prefix sharing, defrag, the other policies and speculation serve:
+(sampling, prefix sharing, defrag, the other policies, speculation, T1+T2,
+MLA and MoE serve:
 ``test_torch_sampling.py``, ``test_torch_prefix.py``,
-``test_torch_policies.py``, ``test_torch_speculative.py``)."""
+``test_torch_policies.py``, ``test_torch_speculative.py``,
+``test_torch_decomposed_cpq.py``, ``test_torch_mla.py``, ``test_torch_moe.py``)."""
 import dataclasses
 
 import numpy as np
@@ -111,7 +113,7 @@ def test_generate_matches_jax(model):
 
 @pytest.mark.parametrize("serving_kw,rt_kw", [
     ({}, dict(mesh=object())),
-    ({}, dict(mode="decomposed_cpq")),
+    ({}, dict(mode="decomposed_cpq", mesh=object())),  # T1+T2 serves, not over a mesh
     ({}, dict(mode="retrieval", mesh=object())),  # T3 serves, but not over a mesh
 ])
 def test_unported_knobs_raise(model, serving_kw, rt_kw):
@@ -123,12 +125,23 @@ def test_unported_knobs_raise(model, serving_kw, rt_kw):
 
 
 def test_unported_inputs_and_sampling_raise(model):
-    """Non-token inputs and MLA are refused. Sampling no longer is: it
-    serves, held against the reference in ``test_torch_sampling.py``."""
+    """Non-token inputs, the recurrent and cross-attention layer kinds, and
+    tier escalation over MLA are refused. Sampling no longer is, nor are MLA
+    and MoE: they serve, held against the reference in
+    ``test_torch_sampling.py``, ``test_torch_mla.py`` and ``test_torch_moe.py``."""
     _, tcfg, _, tparams = model
     with pytest.raises(T.SchedulerConfigError, match="input_kind"):
         T.ContinuousServeEngine(dataclasses.replace(tcfg, input_kind="audio_frames"),
                                 tparams, serving=_serving(T, num_pages=33), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        T.ContinuousServeEngine(T.smoke_config(T.ARCHS["deepseek-v2-lite-16b"]),
+    with pytest.raises(NotImplementedError, match="A19"):   # mLSTM and sLSTM layers
+        T.ContinuousServeEngine(T.smoke_config(T.ARCHS["xlstm-125m"]),
                                 tparams, serving=_serving(T, num_pages=33), device="cpu")
+    vision = T.smoke_config(T.ARCHS["llama-3.2-vision-11b"])
+    with pytest.raises(NotImplementedError, match="A19"):   # the xattn mixer
+        T.ContinuousServeEngine(dataclasses.replace(vision, input_kind="tokens"),
+                                tparams, serving=_serving(T, num_pages=33), device="cpu")
+    with pytest.raises(T.SchedulerConfigError, match="MLA"):  # as the reference refuses
+        T.ContinuousServeEngine(T.smoke_config(T.ARCHS["deepseek-v2-lite-16b"]),
+                                tparams, serving=_serving(T, num_pages=33, escalated_pages=17,
+                                                          enable_escalation=True),
+                                device="cpu")

@@ -115,12 +115,12 @@ def test_prefill_and_first_decode_logits_match_jax(model, mode, fused):
 
 
 def test_static_engine_refusals(model):
-    """Sampling serves (``test_torch_sampling.py``); the T1+T2 mode and
+    """Sampling serves (``test_torch_sampling.py``), and so does the T1+T2
+    mode (``test_torch_decomposed_cpq.py``); the recurrent layer kinds and
     non-token inputs are refused."""
     _, tcfg, _, tparams = model
-    with pytest.raises(T.SchedulerConfigError, match="A16"):
-        T.ServeEngine(tcfg, tparams, rt=T.AttentionRuntime(mode="decomposed_cpq"),
-                      device="cpu")
+    with pytest.raises(NotImplementedError, match="A19"):
+        T.ServeEngine(T.smoke_config(T.ARCHS["xlstm-125m"]), tparams, device="cpu")
     with pytest.raises(T.SchedulerConfigError, match="A19"):
         T.ServeEngine(dataclasses.replace(tcfg, input_kind="audio_frames"), tparams,
                       device="cpu")

@@ -23,7 +23,8 @@ import repro_torch
 names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
 for name in names:
     importlib.import_module(name)
-for name in ("serving.trace", "serving.prng", "serving.speculative"):
+for name in ("serving.trace", "serving.prng", "serving.speculative", "models.moe",
+             "models.mla"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke

@@ -320,6 +320,7 @@ SERVED_T1_PREFILL_CASES = [  # seed, offset, valid, H, Dm, kv_r, Rr, page, nb, C
     (22, 300, 11, 16, 1024, 16, 32, 16, 20, 16),
     (23, 37, 8, 16, 1024, 16, 32, 16, 4, 8),
     (24, 520, 16, 16, 1024, 16, 32, 16, 34, 16),
+    (25, 213, 16, 16, 512, 1, 64, 16, 16, 16),   # deepseek-v2-lite's latent (MLA)
 ]
 
 
@@ -332,6 +333,7 @@ SERVED_T1_DECODE_CASES = [  # seed, page, nb, B, H, Dm, kv_r, Rr, lengths
     (40, 16, 8, 3, 16, 1024, 16, 32, (0, 128, 77)),
     (41, 16, 8, 3, 16, 1024, 16, 32, (100, 64, 17)),
     (42, 16, 8, 2, 16, 1024, 16, 32, (1, 65)),
+    (47, 16, 8, 3, 16, 512, 1, 64, (0, 128, 77)),  # deepseek-v2-lite's latent (MLA)
 ]
 
 
