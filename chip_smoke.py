@@ -21,7 +21,8 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               of 16 the ring kernel, either dtype; Dh 24 and 12 the sweep),
               and B1 at the served decode's capacity (8 rows over 64 pages
               of 16, lengths 0, 1, on 16-key tiles and full) at both shapes
-              with the planned and with the most cluster ranks; B5
+              and at jamba's (KV 8, G 8, Dh 128) with the planned and with
+              the most cluster ranks; B5
               paged_cpq_decode and B6 paged_cpq_prefill over CPQ code pages
               of 4 and 8 bits, L = 4 levels, with the null page's
               levels out of range, a live row over an all-null block row
@@ -56,7 +57,9 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               single-query route) on the five cases of tests/test_kernels.py,
               qwen1.5-0.5b's static prefill (8 x 512 tokens, causal), a
               one-shot prompt (1 x 512), a decode token over 575 keys (a
-              prefix of a 576-key arena), T = S = 77, and at Dh 32, 64, 128
+              prefix of a 576-key arena), each also at jamba's 64 heads over 8
+              of Dh 128 as serve (o) runs them (with its static prefill of 8 x
+              512), T = S = 77, and at Dh 32, 64, 128
               and 256 with G of 1, 4 and 8 a prompt of 200 (causal and not)
               and a decode token; B9 decomposed_decode at qwen's T1 shape
               (kv_r 16, Rr 32, length < N, past one key split, length 0),
@@ -146,7 +149,7 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               gather path writes the K/V the kernel path wrote), since each
               path's 4-bit CPQ or 8-bit proxy codes would otherwise turn
               last-ulp K/V differences into whole steps. These continuous
-              serves run the first 8 of the 24 layers here, to keep the
+              serves run the first 4 of the 24 layers here, to keep the
               script well inside its time limit. Then, at the same depth,
               the same checks for (g) (dense, each path on its own history)
               and for (f) in the four modes (CPQ and T3 in lockstep, T3
@@ -175,7 +178,8 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               identical, or, where they differ, the first router call whose
               top-k sets differ no later than the first tick whose tokens
               differ and a near tie (relative top-k boundary gap below
-              1e-5), counted; (l) qwen1.5-0.5b in mode decomposed_cpq
+              1e-5), counted; (l) qwen1.5-0.5b cut to DCPQ_DEPTH = 12 of its
+              24 layers in mode decomposed_cpq
               (T1+T2: X in CPQ codes), chunked on (a)'s arena and static (no
               kernel: the reference has none for this tier; B8 prefills
               the static batch); (m) deepseek-moe-16b at its published
@@ -183,6 +187,41 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               chunks but admitted one-shot (B8's prompt route, B1's ring),
               and its f32 parity as (k)'s. Each serve's launch counts are
               set to 0 just before it and read just after
+  7. recurrent (n) xlstm-125m at its published widths, nothing cut (12
+              layers: 2 x [5 mLSTM, 1 sLSTM], d_model 768, 4 heads,
+              proj_factor 2, chunk 256, vocab 50304; random bf16 weights
+              from a seed, ~0.39 GB) on ContinuousServeEngine over (a)'s
+              arena and traffic, asked for chunks of 16 but admitted
+              one-shot at each prompt's exact length (no chunk, no kernel:
+              the stack has no attention), its slot states (~23.8 MB a
+              slot) the whole arena; and on the static ServeEngine (8 x
+              512, 64 new); its f32 parity, the card against the CPU
+              running the same port code, on 2 of the 8 requests. The
+              sLSTM's recurrence is chaotic at these random weights (a
+              1e-7 nudge of the embeddings moves the CPU's own logits by
+              O(1) over a 64-token prompt, printed), so the whole stack is held
+              one decode step at a time from the CPU's state, the CPU's
+              static decode_step against the card's continuous
+              decode_step_rows over a 2-slot state tree (64 steps a request:
+              logits and the states written in place within 1e-3, the
+              argmax the CPU's but below a 1e-4 top-2 gap), and the stack of its 10 mLSTM layers alone
+              free-running through ContinuousServeEngine on the card and on
+              the CPU (prefill and first-decode logits within 1e-3, greedy
+              streams identical but below a 1e-4 top-2 gap). (o)
+              jamba-1.5-large-398b at its
+              published widths (d_model 8192, 64 heads over 8 of 128, d_ff
+              24576, Mamba d_state 16 / d_conv 4 / expand 2, 16 experts
+              top-2 of 24576, vocab 65536), its depth cut to the first 5
+              layers of its block of 8 (mamba+dense, mamba+moe, mamba+dense,
+              mamba+moe, attn+dense; 48.1 GB bf16: one block is 90.5 GB, more
+              than the card), mode dense, one-shot on (a)'s arena and
+              traffic (B8's prompt route once an admission, B1's ring once a
+              decode tick, B1 timed at that shape) and static (B8's prompt
+              route once, its single-query route once a step, both timed);
+              its f32 parity, kernels on and off, with the routed experts
+              cut to 8 of 16 (top-2 kept; 57.5 GB, the bf16 model converted
+              leaf by leaf), under (k)'s gates and router-tie excuse. The
+              phase prints its seconds
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -211,7 +250,7 @@ LOGIT_TOL = 1e-3            # f32 logits, kernels vs gather path (atol = rtol)
 ARGMAX_GAP = 1e-4           # top-2 gap below which a greedy tie is excused
 TOPK_GAP = 1e-4             # T3: relative proxy-score gap below which a top-k swap is a tie
 CPQ_LEVELS = 4              # HQE levels of the default CPQCfg
-PARITY_DEPTH = 8            # layers of every serve's f32 parity (of 24; deepseek-v2-lite's 27)
+PARITY_DEPTH = 4            # layers of every serve's f32 parity (of 24; deepseek-v2-lite's 27)
 SEED = 0
 DEVICE = "cuda"
 # the namespaces of the attention kernels' device functions, as a profile
@@ -297,9 +336,10 @@ def decode_err(ops, dtype, q, kp, vp, bt, lengths, scale) -> float:
 
 # B1 at the served decode's capacity (8 rows over 64 pages of 16): lengths
 # 0, 1, on the ring route's 16-key tiles and at the full capacity, at
-# qwen1.5-0.5b's shape (KV 16, G 1, Dh 64: one block a unit) and at GQA (KV
-# 8, G 4, Dh 128: two ranks a unit), each also with every unit over the most
-# ranks of a cluster (8)
+# qwen1.5-0.5b's shape (KV 16, G 1, Dh 64: one block a unit), at GQA (KV
+# 8, G 4, Dh 128: two ranks a unit) and at jamba's (KV 8, G 8, Dh 128: two
+# head groups a kv head), each also with every unit over the most ranks of
+# a cluster (8)
 SERVED_DECODE = ((0, 1, 256, 1024, 77, 576, 767, 16), (640, 128, 0, 511, 257, 1000, 17, 33))
 
 
@@ -308,7 +348,7 @@ def sweep_decode_served(ops, dtype, page=16, nb=64) -> dict:
     the planned ranks and with the most, each call on its route."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     errs = {}
-    for KV, G, Dh in ((16, 1, 64), (8, 4, 128)):
+    for KV, G, Dh in ((16, 1, 64), (8, 4, 128), (8, 8, 128)):
         err = 0.0
         for lengths in SERVED_DECODE:
             B = len(lengths)
@@ -650,6 +690,9 @@ FLASH_SWEEP = (  # B, T, S, H, KV, D, causal, arena (k and v: the first S keys)
     (8, 1, 575, 16, 16, 64, False, 576),     # its last static dense decode
     (3, 77, 77, 4, 2, 64, True, 77),         # T and S no block multiple
     (1, 512, 512, 16, 16, 64, True, 512),    # a one-shot admission's prompt
+    (1, 512, 512, 64, 8, 128, True, 512),    # serve (o), jamba: 64 heads over 8, Dh 128: a
+    (8, 512, 512, 64, 8, 128, True, 512),    # one-shot admission's prompt, the static
+    (8, 1, 575, 64, 8, 128, False, 576),     # prefill and the last static decode
 ) + tuple(  # every head width and group size of the routes, a prompt (causal and not,
     # T no multiple of the 64-row tile, k and v a prefix) and a decode token
     case for D in (32, 64, 128, 256) for G in (1, 4, 8)
@@ -1891,11 +1934,12 @@ def parity(T, M, cfg, params, reqs, mode: str, rt_kw=None, serving_kw=None) -> d
     return out
 
 
-def compare_streams(mode: str, streams: dict, gaps: dict, lengths: dict) -> int:
+def compare_streams(mode: str, streams: dict, gaps: dict, lengths: dict,
+                    names=("kernels", "gather")) -> int:
     """Greedy streams of the kernel path (``streams[True]``) and the gather
-    path, by request id: identical, but for a first divergence where the
-    gather path's top-2 logit gap is below ARGMAX_GAP. Returns the number
-    of identical streams."""
+    path (or the two ``names``), by request id: identical, but for a first
+    divergence where the gather path's top-2 logit gap is below ARGMAX_GAP.
+    Returns the number of identical streams."""
     excused = 0
     for rid, n in lengths.items():
         a, b = streams[True][rid], streams[False][rid]
@@ -1905,8 +1949,8 @@ def compare_streams(mode: str, streams: dict, gaps: dict, lengths: dict) -> int:
             continue
         t = int(diff[0])   # after a divergence the contexts differ: stop there
         gap = gaps[(rid, t)]
-        log(f"parity {mode}: request {rid} diverges at token {t}: kernels {a[t]} vs "
-            f"gather {b[t]}, gather top-2 gap {gap:.3e}")
+        log(f"parity {mode}: request {rid} diverges at token {t}: {names[0]} {a[t]} vs "
+            f"{names[1]} {b[t]}, {names[1]} top-2 gap {gap:.3e}")
         check(gap < ARGMAX_GAP, f"parity {mode}: request {rid} token {t} differs at a "
               f"resolvable gap {gap:.3e}")
         excused += 1
@@ -2030,6 +2074,7 @@ def pin_report(mode: str, what: str, pin: SelectionPin) -> dict:
 DEEPSEEK_SERVING = dict(num_slots=8, page_size=16, num_pages=513, max_blocks_per_slot=64,
                         prefill_chunk=0, prefill_bucket=16)  # (a)'s arena, one-shot
 MOE_DEPTH = 8               # layers of serve (m): deepseek-moe-16b's dense layer and 7 MoE
+DCPQ_DEPTH = 12             # layers of serve (l) (of 24; cut to make room for phase 7)
 ROUTER_GAP = 1e-5           # relative top-k boundary gap of the router below which a flip is a tie
 
 
@@ -2213,8 +2258,9 @@ def serve_deepseek(T, M, counted: list, routed: dict, static_routed: dict, fa_ro
     tensor cores per decode tick and layer) and mode cpq (the latent in CPQ
     codes: B8 alone), and on the static ServeEngine (B8 once per layer, B9
     on its tensor cores per decode step and layer); its f32 parity at
-    PARITY_DEPTH layers; (l) qwen1.5-0.5b in mode decomposed_cpq, chunked
-    on (a)'s arena and static (no kernel but the static prefill's B8); (m)
+    PARITY_DEPTH layers; (l) qwen1.5-0.5b at DCPQ_DEPTH layers in mode
+    decomposed_cpq, chunked on (a)'s arena and static (no kernel but the
+    static prefill's B8); (m)
     deepseek-moe-16b at MOE_DEPTH layers, dense, one-shot (B8's prompt
     route, B1's ring) and its f32 parity. Each serve's launch counts are
     set to 0 just before it and read just after."""
@@ -2291,7 +2337,7 @@ def serve_deepseek(T, M, counted: list, routed: dict, static_routed: dict, fa_ro
     log(f"[{time.perf_counter() - T0:.0f} s] deepseek-v2-lite served and checked")
 
     # (l) T1+T2 on qwen1.5-0.5b: chunked on (a)'s arena, then static
-    cfg_q = served_config(T)
+    cfg_q = dataclasses.replace(served_config(T), num_blocks=DCPQ_DEPTH)
     params_q = init_params(cfg_q, SEED, DEVICE)
     what = "decomposed_cpq"
     t0 = time.perf_counter()
@@ -2351,6 +2397,381 @@ def serve_deepseek(T, M, counted: list, routed: dict, static_routed: dict, fa_ro
     new_s["parity deepseek-moe-16b"] = time.perf_counter() - t0
     report["deepseek_phase_s"] = new_s
     log(f"[{time.perf_counter() - T0:.0f} s] phase 6 in {time.perf_counter() - t_all:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in new_s.items()))
+
+
+# ------------------------------------------ phase 7: the recurrent stacks
+
+RECURRENT_SERVING = dict(num_slots=8, page_size=16, num_pages=513, max_blocks_per_slot=64,
+                         prefill_chunk=16)  # (a)'s arena and chunks: admitted one-shot all the same
+JAMBA_DEPTH = 5             # layers of serve (o): the first five of Jamba's block of eight
+JAMBA_PARITY_EXPERTS = 8    # routed experts (of 16) of (o)'s float32 parity, top-2 kept
+JAMBA_SWEPT = {             # phase 3's cases at jamba's attention (64 heads over 8, Dh 128)
+    "paged_decode": "bfloat16 served rows KV=8 G=8 Dh=128",
+    "flash_attention_prompt": "bfloat16 B=8 T=512 S=512 H=64 KV=8 D=128 causal=True",
+    "flash_attention": "bfloat16 B=8 T=1 S=575 H=64 KV=8 D=128 causal=False"}
+
+
+def xlstm_config(T):
+    """xlstm-125m at its published widths, nothing cut: 12 layers (2 x [5
+    mLSTM, 1 sLSTM]), d_model 768, 4 heads, proj_factor 2, vocab 50304."""
+    cfg = T.ARCHS["xlstm-125m"]
+    x = cfg.xlstm
+    check(cfg.num_layers == 12 and cfg.d_model == 768 and cfg.num_heads == 4
+          and cfg.vocab_size == 50304 and x.proj_factor == 2.0 and x.chunk == 256
+          and x.conv_kernel == 4 and cfg.norm == "layernorm" and not cfg.tie_embeddings,
+          "xlstm-125m: not the published widths")
+    return cfg
+
+
+def jamba_config(T):
+    """jamba-1.5-large-398b at its published widths, its depth cut to the
+    first JAMBA_DEPTH layers of its block of eight (mamba + dense, mamba +
+    moe, mamba + dense, mamba + moe, attn + dense) as a prefix with no
+    blocks: one block is 90.5 GB in bf16, more than the card holds."""
+    cfg = T.ARCHS["jamba-1.5-large-398b"]
+    m, e = cfg.mamba, cfg.moe
+    check(cfg.d_model == 8192 and cfg.num_heads == 64 and cfg.num_kv_heads == 8
+          and cfg.head_dim == 128 and cfg.d_ff == 24576 and cfg.vocab_size == 65536
+          and (m.d_state, m.d_conv, m.expand) == (16, 4, 2) and e.num_experts == 16
+          and e.top_k == 2 and e.d_ff_expert == 24576, "jamba: not the published widths")
+    return dataclasses.replace(cfg, prefix_pattern=cfg.block_pattern[:JAMBA_DEPTH],
+                               num_blocks=0)
+
+
+def slot_state_bytes(cfg) -> int:
+    """One slot's recurrent state over the stack, by the arithmetic of its
+    shapes: Mamba the conv tail (d_conv - 1 inputs of d_in, model dtype) and
+    the float32 SSM state (d_in x d_state); mLSTM C (H x dh x dh), n and m
+    in float32 and the conv tail; sLSTM four float32 vectors of d_model."""
+    elt = torch.empty((), dtype=cfg.param_dtype).element_size()
+    total = 0
+    for mixer, _ in cfg.layer_kinds:
+        if mixer == "mamba":
+            d_in = cfg.mamba.expand * cfg.d_model
+            total += (cfg.mamba.d_conv - 1) * d_in * elt + d_in * cfg.mamba.d_state * 4
+        elif mixer == "mlstm":
+            d_in = int(cfg.xlstm.proj_factor * cfg.d_model)
+            H, dh = cfg.num_heads, d_in // cfg.num_heads
+            total += (H * dh * dh + H * dh + H) * 4 + (cfg.xlstm.conv_kernel - 1) * d_in * elt
+        elif mixer == "slstm":
+            total += 4 * cfg.d_model * 4
+    return total
+
+
+def check_oneshot(what: str, stats: dict, n: int) -> None:
+    """A recurrent stack asked for chunks is admitted one-shot, every request
+    once, sharing and speculation off."""
+    check(not stats["chunked_prefill"] and stats["prefill_chunks"] == 0
+          and stats["admitted"] == n and not stats["prefix_sharing"] and not stats["spec_on"],
+          f"{what}: chunked {stats['chunked_prefill']}, {stats['prefill_chunks']} chunks, "
+          f"{stats['admitted']} admissions of {n}")
+
+
+def device_parity(T, M, cfg, params, what: str) -> dict:
+    """The same port code in float32 (TF32 off) on the card and on the CPU,
+    on 2 of the 8 requests (the shortest and the longest prompt) through
+    ContinuousServeEngine: each admission's prefill logits and the first
+    decode step's within LOGIT_TOL, then the greedy streams identical but
+    for a first divergence where the CPU's top-2 logit gap is below
+    ARGMAX_GAP."""
+    from repro_torch.params import to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    serving = T.ServingCfg(num_slots=2, page_size=16, num_pages=80, max_blocks_per_slot=64)
+    pre, dec = M.prefill, M.decode_step_rows
+    got, streams, gaps = {}, {}, {}
+    for dev in (DEVICE, "cpu"):
+        eng = T.ContinuousServeEngine(cfg, to_device(params, dev), serving=serving, device=dev)
+        eng.reset(T.GenerationConfig())
+        for r in make_requests(T, cfg.vocab_size)[:2]:
+            eng.add_request(r)
+        seen = {"prefill": [], "decode": []}
+
+        def keep_pre(*a, seen=seen, **kw):
+            out = pre(*a, **kw)
+            seen["prefill"].append(out[0].cpu())
+            return out
+
+        def keep_dec(*a, seen=seen):
+            out = dec(*a)
+            seen["decode"].append(out[0].cpu())
+            return out
+
+        M.prefill, M.decode_step_rows = keep_pre, keep_dec
+        try:
+            step = gather_gaps(M, eng, gaps) if dev == "cpu" else eng.step
+            while eng.has_unfinished():
+                step()
+        finally:
+            M.prefill, M.decode_step_rows = pre, dec
+        got[dev] = (torch.cat(seen["prefill"][:2]), seen["decode"][0])
+        streams[dev] = {rid: res["tokens"] for rid, res in eng.results().items()}
+        del eng
+    out = {}
+    check_logits(f"{what} card vs CPU", (got[DEVICE], got["cpu"]), out)
+    out["streams_identical"] = compare_streams(
+        f"{what} card vs CPU", {True: streams[DEVICE], False: streams["cpu"]}, gaps,
+        {r.rid: r.max_new_tokens for r in make_requests(T, cfg.vocab_size)[:2]},
+        names=("card", "CPU"))
+    return out
+
+
+def teacher_forced(T, M, cfg, params, what: str, n_new: int = 64) -> dict:
+    """The whole stack in float32 (TF32 off), the card's continuous decode
+    against the CPU's static one, one step at a time from the CPU's own
+    state: request i of 2 (the shortest and the longest prompt) is prefilled
+    on the CPU and decoded greedily there (``decode_step``); before every
+    step the CPU's state is written into row i of a 2-slot state tree on the
+    card (``init_paged_caches``, ``pack_prefill_caches``), which takes the
+    same step through ``decode_step_rows`` as ContinuousServeEngine does.
+    Its logits must be within LOGIT_TOL of the CPU's, its argmax the CPU's
+    but where the CPU's top-2 gap is below ARGMAX_GAP (counted), and the
+    state it wrote in place into row i the CPU's new state within LOGIT_TOL
+    (atol = rtol), every leaf of every layer. Also reported, no gate: the
+    prefill logits of the card's own prefill against the CPU's, and the
+    CPU's against its own prefill of embeddings scaled by 1 + 1e-7 (how far
+    a last-ulp difference carries)."""
+    from repro_torch.params import to_device
+    from repro_torch.serving.paged_cache import RowState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rt = cfg.attention
+    cpu = to_device(params, "cpu")
+    nudged = {**cpu, "embed": {**cpu["embed"], "tok": cpu["embed"]["tok"] * (1 + 1e-7)}}
+    serving = T.ServingCfg(num_slots=2, page_size=16, num_pages=80, max_blocks_per_slot=64)
+    card = M.init_paged_caches(cfg, rt, serving, DEVICE)
+    out = {"decode_steps": 0, "argmax_excused": 0, "logits_max_abs_diff": 0.0,
+           "state_max_abs_diff": 0.0,
+           "free_prefill_logits_max_abs_diff": [], "cpu_nudged_prefill_logits_max_abs_diff": []}
+    for slot, r in enumerate(make_requests(T, cfg.vocab_size)[:2]):
+        S = len(r.prompt)
+        tok = torch.tensor(r.prompt[None])
+
+        def prefill(p, dev):
+            caches = M.init_caches(cfg, rt, 1, S + n_new, dev)
+            return M.prefill(cfg, rt, p, tok.to(dev), caches)
+
+        logits, caches = prefill(cpu, "cpu")
+        free = prefill(params, DEVICE)[0].cpu()
+        out["free_prefill_logits_max_abs_diff"].append((free - logits).abs().max().item())
+        out["cpu_nudged_prefill_logits_max_abs_diff"].append(
+            (prefill(nudged, "cpu")[0] - logits).abs().max().item())
+        for t in range(n_new):
+            nxt = logits.argmax(-1).to(torch.int32)[:, None]
+            M.pack_prefill_caches(cfg, rt, card, caches, None, slot)
+            tokens = torch.zeros((2, 1), dtype=torch.int32)
+            tokens[slot] = nxt[0]
+            rows = RowState(lengths=torch.full((2,), S + t, dtype=torch.int32, device=DEVICE),
+                            block_table=torch.zeros((2, 64), dtype=torch.int32, device=DEVICE),
+                            active=torch.arange(2, device=DEVICE) == slot,
+                            tier=torch.zeros(2, dtype=torch.int32, device=DEVICE))
+            got, _ = M.decode_step_rows(cfg, rt, params, tokens.to(DEVICE), rows, card)
+            logits, caches = M.decode_step(cfg, rt, cpu, nxt, S + t, caches)
+            got = got[slot:slot + 1].cpu()
+            err = (got - logits).abs().max().item()
+            out["logits_max_abs_diff"] = max(out["logits_max_abs_diff"], err)
+            check(torch.allclose(got, logits, atol=LOGIT_TOL, rtol=LOGIT_TOL),
+                  f"parity {what}: request {r.rid} step {t}: logits differ by {err:.3e}")
+            if not torch.equal(got.argmax(-1), logits.argmax(-1)):
+                gap = top2_gap(logits).item()
+                check(gap < ARGMAX_GAP, f"parity {what}: request {r.rid} step {t}: argmax "
+                      f"differs at a resolvable gap {gap:.3e}")
+                out["argmax_excused"] += 1
+            for i, (dst, src) in enumerate(zip(M.per_layer(cfg, card), M.per_layer(cfg, caches))):
+                for name, d, c in zip(src._fields, dst, src):
+                    d = d[slot].cpu()
+                    err = (d - c[0]).abs().max().item()
+                    out["state_max_abs_diff"] = max(out["state_max_abs_diff"], err)
+                    check(torch.allclose(d, c[0], atol=LOGIT_TOL, rtol=LOGIT_TOL),
+                          f"parity {what}: request {r.rid} step {t}: layer {i} state "
+                          f"{name} differs by {err:.3e}")
+            out["decode_steps"] += 1
+    log(f"parity {what}: {out['decode_steps']} continuous decode steps (decode_step_rows, "
+        f"request i in row i of 2) from the CPU's state, logits within "
+        f"{out['logits_max_abs_diff']:.3e} and the states written in place within "
+        f"{out['state_max_abs_diff']:.3e} (atol=rtol={LOGIT_TOL}), "
+        f"{out['argmax_excused']} argmax near ties excused; free-running prefill logits "
+        f"card vs CPU {out['free_prefill_logits_max_abs_diff']}, CPU vs its embeddings "
+        f"scaled by 1 + 1e-7 {out['cpu_nudged_prefill_logits_max_abs_diff']} (no gate)")
+    return out
+
+
+def cut_float(tree, experts: int):
+    """A parameter tree in float32, in place, each MoE layer's routed experts
+    cut to the first ``experts`` (its router's columns too): every leaf is
+    replaced by its copy as the copy is made, so the bf16 model and the
+    float32 one are never both whole on the card."""
+    if isinstance(tree, list):
+        for t in tree:
+            cut_float(t, experts)
+        return tree
+    moe = "router" in tree
+    for k, v in tree.items():
+        if isinstance(v, (dict, list)):
+            cut_float(v, experts)
+        elif moe and k == "router":
+            tree[k] = v[:, :experts].float()
+        elif moe and k in ("w_gate", "w_up", "w_down"):
+            tree[k] = v[:experts].float()
+        else:
+            tree[k] = v.float()
+    return tree
+
+
+def serve_recurrent(T, M, ops, fa_ops, counted: list, routed: dict, fa_routes: dict,
+                    serves: dict, report: dict, timing: dict, new_s: dict) -> None:
+    """Phase 7: (n) xlstm-125m at its published widths, bf16, on
+    ContinuousServeEngine over (a)'s arena and traffic, asked for chunks of
+    16 but admitted one-shot at the exact prompt length (no attention
+    kernel), and on the static ServeEngine (8 x 512, 64 new); its float32
+    parity, card against CPU, on 2 of the 8 requests: the whole stack step
+    by step from the CPU's state, the card's continuous decode against the
+    CPU's static one (``teacher_forced``), its mLSTM layers
+    alone free-running (``device_parity``). (o) jamba at its
+    published widths cut to its first JAMBA_DEPTH layers, dense, one-shot
+    (B8's prompt route once an admission, B1's ring once a decode tick, B1
+    timed at the served shape) and static (B8's prompt route once, its
+    single-query route once a step, both timed); its float32 parity,
+    kernels on and off, with the routed experts cut to JAMBA_PARITY_EXPERTS
+    (the bf16 model freed first). Each serve's launch counts are set to 0
+    just before it and read just after."""
+    from repro_torch.models import moe
+    from repro_torch.params import init_params
+
+    t_all = time.perf_counter()
+    # (n) xlstm-125m
+    cfg = xlstm_config(T)
+    what = "xlstm-125m"
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, DEVICE)
+    log(f"{what}: {device_bytes(params) / 1e9:.3f} GB of bf16 weights on the card")
+    n_slots = RECURRENT_SERVING["num_slots"]
+    per_slot = slot_state_bytes(cfg)
+    eng = T.ContinuousServeEngine(cfg, params, serving=T.ServingCfg(**RECURRENT_SERVING),
+                                  device=DEVICE)
+    run = make_requests(T, cfg.vocab_size)
+    results, stats, ticks, wall, counts = serve_counted(eng, T, run, counted, fa_routes, routed)
+    check_finished(results, run, what)
+    check_oneshot(what, stats, len(run))
+    check_counts(what, counts, {})   # attention-free: no kernel
+    check(stats["arena_bytes_total"] == n_slots * per_slot and stats["bytes_per_token_layer"] == 0,
+          f"{what}: arena {stats['arena_bytes_total']} bytes, want {n_slots} x {per_slot}")
+    serves[what] = serve_metrics(stats, ticks, wall, what)
+    serves[what].update(launches={}, state_bytes_per_slot=per_slot)
+    log(f"serve {what}: slot state {per_slot} bytes a slot ({n_slots} slots); no kernel "
+        f"launched")
+    del eng
+    new_s[what] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = T.ServeEngine(cfg, params, device=DEVICE)
+    out, stats, timer, wall, counts = serve_static(eng, T, M, static_prompts(cfg.vocab_size), 64,
+                                                   {}, counted, fa_routes)
+    check(out.shape == (8, 64) and stats["decode_steps"] == 63, f"static {what}: {out.shape}")
+    check_counts(f"static {what}", counts, {})
+    serves[f"static {what}"] = static_metrics(out, stats, timer, wall, what)
+    serves[f"static {what}"]["launches"] = {}
+    check(serves[f"static {what}"]["arena_bytes"] == 8 * per_slot, f"static {what}: arena")
+    del eng, timer
+    new_s[f"static {what}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = _tree_float(params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    # the sLSTM's recurrence is chaotic at these random weights (the
+    # reference's fan-in init draws r with std 0.5 on 192-wide heads): a
+    # last-ulp difference grows to O(1) over a prompt. So the whole stack is
+    # held step by step from the CPU's state, and the stack of its 10 mLSTM
+    # layers alone free-running through the engines
+    report["parity"][what] = teacher_forced(T, M, cfg32, params, what)
+    mlstm = [i for i, (m, _) in enumerate(cfg.block_pattern) if m == "mlstm"]
+    report["parity"][f"{what} mLSTM layers"] = device_parity(
+        T, M, dataclasses.replace(cfg32, block_pattern=tuple(cfg.block_pattern[i] for i in mlstm)),
+        {**params, "blocks": [params["blocks"][i] for i in mlstm]}, f"{what} mLSTM layers")
+    del params
+    torch.cuda.empty_cache()
+    new_s[f"parity {what}"] = time.perf_counter() - t0
+    log(f"[{time.perf_counter() - T0:.0f} s] {what} served and checked")
+
+    # (o) jamba, the first JAMBA_DEPTH layers
+    cfg = jamba_config(T)
+    what = f"jamba {JAMBA_DEPTH} layers"
+    n_attn = sum(m == "attn" for m, _ in cfg.layer_kinds)
+    scale = cfg.head_dim ** -0.5
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, DEVICE)
+    torch.cuda.synchronize()
+    log(f"{what}: {device_bytes(params) / 1e9:.2f} GB of bf16 weights on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng = T.ContinuousServeEngine(cfg, params, serving=T.ServingCfg(**RECURRENT_SERVING),
+                                  device=DEVICE)
+    rec = Recorder(ops.paged_decode, n_attn, 10, lambda q, k, v, *r: (k, v),
+                   lambda q, k, v, bt, ln, s: (q.clone(), bt.clone(), ln.clone()))
+    ops.paged_decode = rec
+    run = make_requests(T, cfg.vocab_size)
+    try:
+        results, stats, ticks, wall, counts = serve_counted(eng, T, run, counted, fa_routes,
+                                                            routed)
+    finally:
+        ops.paged_decode = rec.fn
+    check_finished(results, run, what)
+    check_oneshot(what, stats, len(run))
+    check_counts(what, counts, {"flash_attention": n_attn * stats["admitted"],
+                                "flash_attention/prompt": n_attn * stats["admitted"],
+                                "paged_decode": n_attn * stats["decode_steps"]})
+    per_slot = slot_state_bytes(cfg)
+    serves[what] = serve_metrics(stats, ticks, wall, what)
+    serves[what].update(
+        launches={k: n for k, n in counts.items() if n}, state_bytes_per_slot=per_slot,
+        attention_arena_bytes=stats["arena_bytes_total"] - n_slots * per_slot,
+        routes=check_routes(what, {"paged_decode": routed["paged_decode"]}, counts))
+    log(f"serve {what}: launches {serves[what]['launches']}; slot state {per_slot} bytes a "
+        f"slot, attention arena {serves[what]['attention_arena_bytes']} bytes")
+    del eng
+    timing["paged_decode"] = time_kernel(rec, decode_case(ops, scale))
+    log_timing(f"paged_decode at {what}", timing["paged_decode"], counts["paged_decode"],
+               counts["paged_decode"] / stats["decode_steps"])
+    del rec
+    new_s[what] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = T.ServeEngine(cfg, params, device=DEVICE)
+    frec = FlashRecorder(fa_ops.flash_attention, n_attn)
+    out, stats, timer, wall, counts = serve_static(
+        eng, T, M, static_prompts(cfg.vocab_size), 64, {"flash_attention": (fa_ops, frec)},
+        counted, fa_routes)
+    steps = stats["decode_steps"]
+    check(out.shape == (8, 64) and steps == 63, f"static {what}: {out.shape}")
+    check_counts(f"static {what}", counts, {"flash_attention": n_attn * (1 + steps),
+                                            "flash_attention/prompt": n_attn,
+                                            "flash_attention/decode": n_attn * steps})
+    serves[f"static {what}"] = static_metrics(out, stats, timer, wall, what)
+    serves[f"static {what}"]["launches"] = {k: n for k, n in counts.items() if n}
+    del eng, timer
+    for name, r, case, n in (
+            ("flash_attention_prompt", frec.pre, flash_prefill_case(fa_ops, scale), 1),
+            ("flash_attention", frec.dec, flash_decode_case(fa_ops, scale), steps)):
+        timing[name] = time_kernel(r, case)
+        log_timing(f"{name} at static {what}", timing[name], n_attn * n, n_attn,
+                   "prefill" if n == 1 else "step")
+    del frec
+    new_s[f"static {what}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    E = JAMBA_PARITY_EXPERTS
+    params = cut_float(params, E)
+    torch.cuda.empty_cache()
+    cfg_p = dataclasses.replace(cfg, dtype="float32",
+                                moe=dataclasses.replace(cfg.moe, num_experts=E))
+    log(f"{what}: {device_bytes(params) / 1e9:.2f} GB in float32 with {E} routed experts")
+    report["parity"]["jamba"] = moe_parity(T, M, moe, cfg_p, params,
+                                           make_requests(T, cfg.vocab_size),
+                                           f"{what} dense", "dense")
+    del params
+    torch.cuda.empty_cache()
+    new_s[f"parity {what}"] = time.perf_counter() - t0
+    report["recurrent_phase_s"] = new_s
+    report["recurrent_timing"] = timing
+    log(f"[{time.perf_counter() - T0:.0f} s] phase 7 in {time.perf_counter() - t_all:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in new_s.items()))
 
 
@@ -3183,7 +3604,7 @@ def main() -> int:
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = to_device(_tree_float(params), DEVICE)
     # every serve's parity runs the first PARITY_DEPTH layers, to keep the
-    # script (with phase 6's DeepSeek serves) inside its time limit
+    # script (with phases 6 and 7) inside its time limit
     depth = min(PARITY_DEPTH, cfg32.num_blocks)
     cfg_p = dataclasses.replace(cfg32, num_blocks=depth)
     params_p = {**params32, "blocks": [b[:depth] for b in params32["blocks"]]}
@@ -3216,6 +3637,11 @@ def main() -> int:
     # 6) the DeepSeek stacks (MLA and MoE) and T1+T2
     serve_deepseek(T, M, counted, routed, static_routed, fa_ops.ROUTE_LAUNCHES, serves,
                    report, {})
+
+    # 7) the recurrent stacks: xlstm-125m and jamba's hybrid block
+    at_jamba = {}
+    serve_recurrent(T, M, ops, fa_ops, counted, routed, fa_ops.ROUTE_LAUNCHES, serves, report,
+                    at_jamba, {})
 
     kernel_mod = {**kmods, "flash_attention_prompt": fa_ops}
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",
@@ -3281,6 +3707,11 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library": library[name], "timed_samples": t["samples"],
             "launches_by_serve": by_serve})
+        if name in at_jamba:  # B1 and B8 at jamba's attention: 64 heads over 8, Dh 128
+            kernels[-1]["at_jamba"] = {
+                "max_abs_err": errs[name][JAMBA_SWEPT[name]], "swept": JAMBA_SWEPT[name],
+                **{k: at_jamba[name][k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms", "samples")}}
         if name in routed or name in static_routed:
             # B2, B3, B4, B6, B9: the tensor-core kernel; B5: the single-query
             # one; B1: the ring

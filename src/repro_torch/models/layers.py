@@ -83,6 +83,19 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return (h @ p["w_out"] + p["b_out"].to(x.dtype)).to(x.dtype)
 
 
+def causal_conv(xin: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv over time, the recurrent mixers' short conv (the
+    reference's ``conv_general_dilated`` with one group a channel): xin (B,
+    K - 1 + T, C) holds the K - 1 earlier inputs (zeros, or a state's tail)
+    before T new ones; w (K, C), b (C,). Returns (B, T, C) in xin's dtype,
+    ``y[t] = sum_k xin[t + k] w[k]`` summed in float32, then the bias."""
+    K = w.shape[0]
+    T = xin.shape[1] - K + 1
+    wf = w.to(xin.dtype).float()
+    y = sum(xin[:, k:k + T].float() * wf[k] for k in range(K))
+    return y.to(xin.dtype) + b.to(xin.dtype)
+
+
 def embed_inputs(cfg: ModelConfig, p, tokens: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     """tokens: (B, S) int -> (B, S, D). ``positions`` is (S,), or (B, S)

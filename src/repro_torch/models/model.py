@@ -4,7 +4,9 @@ and ``decode_step``: the static engine and one-shot admission, whose B=1
 prefill ``pack_prefill_caches`` scatters into a slot's pages) and over
 paged arenas (continuous batching): the decode step, prompt chunks, the
 speculative verify chunk, tier escalation, defrag and the copy-on-write
-page copy.
+page copy. A recurrent layer (Mamba, mLSTM, sLSTM) keeps a state of one row
+a slot in place of an arena: one-shot admission packs a prefilled state
+into its slot's row, and defrag, the page copy and escalation pass it by.
 
 The JAX package scans over stacked block parameters and caches; here a
 Python loop walks the layers, each with its own parameter dict and its own
@@ -50,7 +52,8 @@ def _tree(cfg: ModelConfig, layers: list):
 
 def init_caches(cfg: ModelConfig, rt: AttentionRuntime, batch: int, n_max: int, device):
     """One contiguous (batch, n_max) arena per attention or MLA layer (MLA:
-    its latent), shaped like the parameter tree."""
+    its latent) and a fresh (batch, ...) state per recurrent layer, shaped
+    like the parameter tree."""
     return _tree(cfg, [tfm.layer_cache_init(cfg, rt, kind, batch, n_max, device)
                        for kind in cfg.layer_kinds])
 
@@ -90,15 +93,20 @@ def pack_prefill_caches(cfg: ModelConfig, rt: AttentionRuntime, paged, src,
                         block_row: torch.Tensor, slot: int):
     """Scatter a freshly prefilled B=1 contiguous cache tree ``src`` (from
     ``prefill``) into slot ``slot`` of the paged arenas, in place: one-shot
-    admission."""
-    for pc, sc in zip(_attn_arenas(cfg, paged), _attn_arenas(cfg, src)):
-        pgc.pack_into(rt.mode, pc, sc, block_row, slot)
+    admission. A recurrent state's every leaf is written to row ``slot``."""
+    for (mixer, _), pc, sc in zip(cfg.layer_kinds, per_layer(cfg, paged), per_layer(cfg, src)):
+        if mixer in tfm.RECURRENT:
+            for dst, s in zip(pc, sc):
+                dst[slot].copy_(s[0])
+        else:
+            pgc.pack_into(rt.mode, pc, sc, block_row, slot)
     return paged
 
 
 def init_paged_caches(cfg: ModelConfig, rt: AttentionRuntime, serving, device,
                       tiered: bool = False):
-    """One paged arena per attention or MLA layer, shaped like the parameter tree:
+    """One paged arena per attention or MLA layer and a state of
+    ``num_slots`` rows per recurrent layer, shaped like the parameter tree:
     {"prefix": [arena, ...], "blocks": [[arena per block] per position]}.
     ``tiered`` gives every layer a dense base arena and a CPQ escalation
     arena."""

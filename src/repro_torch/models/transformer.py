@@ -1,17 +1,31 @@
 """Layer dispatch of the port (the JAX package's ``models/transformer.py``),
-serving phases: a layer is (mixer, mlp), the mixer ``attn`` or ``mla`` and
-the MLP ``dense``, ``moe`` or ``none``, over paged arenas (continuous
-batching) and over contiguous arenas (the static engine and one-shot
-admission). MoE's switch aux loss is computed and discarded, as the
-reference's serving phases do."""
+serving phases: a layer is (mixer, mlp), the mixer ``attn``, ``mla``,
+``mamba``, ``mlstm`` or ``slstm`` and the MLP ``dense``, ``moe`` or
+``none``, over paged arenas (continuous batching) and over contiguous
+arenas (the static engine and one-shot admission). The recurrent mixers
+keep an O(1) state a request instead of an arena: one row a slot, never
+paged, and position-free, so the continuous decode runs their contiguous
+step over every slot row (a retired slot's state is overwritten at its
+next admission) and writes the new state in place. Chunked prefill has no
+recurrent path (the engine admits such stacks one-shot). MoE's switch aux
+loss is computed and discarded, as the reference's serving phases do."""
 from __future__ import annotations
 
 from repro_torch.configs import AttentionRuntime, ModelConfig
 from repro_torch.models import attention_layer as attn
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import apply_mlp, apply_norm
 from repro_torch.params import layer_defs
+
+# mixer -> (state init, whole-sequence forward, one-token decode)
+RECURRENT = {
+    "mamba": (mamba_lib.init_mamba_state, mamba_lib.mamba_forward, mamba_lib.mamba_decode),
+    "mlstm": (xlstm_lib.init_mlstm_state, xlstm_lib.mlstm_forward, xlstm_lib.mlstm_decode),
+    "slstm": (xlstm_lib.init_slstm_state, xlstm_lib.slstm_forward, xlstm_lib.slstm_decode),
+}
 
 
 def _apply_mlp_part(cfg: ModelConfig, mlp: str, p, x):
@@ -26,6 +40,8 @@ def _apply_mlp_part(cfg: ModelConfig, mlp: str, p, x):
 def layer_paged_cache_init(cfg: ModelConfig, rt: AttentionRuntime,
                            kind: tuple[str, str], serving, device, tiered: bool = False):
     layer_defs(cfg, kind)  # raises for the layer kinds not ported yet
+    if kind[0] in RECURRENT:  # one state row a slot
+        return RECURRENT[kind[0]][0](cfg, serving.num_slots, device)
     if kind[0] == "mla":
         return mla_lib.init_paged_mla_cache(cfg, rt, serving, device)
     return attn.init_paged_attn_cache(cfg, rt, serving, device, tiered)
@@ -34,10 +50,16 @@ def layer_paged_cache_init(cfg: ModelConfig, rt: AttentionRuntime,
 def layer_decode_rows(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str],
                       p, x_t, rows, cache):
     """Continuous-batching decode of one layer: per-row positions and
-    lengths via ``rows``."""
+    lengths via ``rows``; a recurrent state is updated in place."""
     mixer, mlp = kind
-    fn = mla_lib.mla_decode_rows if mixer == "mla" else attn.attn_decode_rows
-    y, cache = fn(cfg, rt, p["mixer"], apply_norm(cfg, p["norm1"], x_t), rows, cache)
+    h = apply_norm(cfg, p["norm1"], x_t)
+    if mixer in RECURRENT:
+        y, new = RECURRENT[mixer][2](cfg, p["mixer"], h, cache)
+        for dst, src in zip(cache, new):
+            dst.copy_(src)
+    else:
+        fn = mla_lib.mla_decode_rows if mixer == "mla" else attn.attn_decode_rows
+        y, cache = fn(cfg, rt, p["mixer"], h, rows, cache)
     return _apply_mlp_part(cfg, mlp, p, x_t + y), cache
 
 
@@ -46,6 +68,9 @@ def layer_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first
                         offset: int, valid: int, cache):
     """Chunked paged prefill of one layer for one request slot."""
     mixer, mlp = kind
+    if mixer in RECURRENT:
+        raise ValueError(f"chunked prefill has no {mixer!r} path "
+                         "(the engine admits such stacks one-shot)")
     fn = mla_lib.mla_prefill_chunk if mixer == "mla" else attn.attn_prefill_chunk
     y, cache = fn(cfg, rt, tier, first, p["mixer"], apply_norm(cfg, p["norm1"], x), positions,
                   slot, block_row, offset, valid, cache)
@@ -55,6 +80,8 @@ def layer_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first
 def layer_cache_init(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str],
                      batch: int, n_max: int, device):
     layer_defs(cfg, kind)  # raises for the layer kinds not ported yet
+    if kind[0] in RECURRENT:
+        return RECURRENT[kind[0]][0](cfg, batch, device)
     if kind[0] == "mla":
         return mla_lib.init_mla_cache(cfg, rt, batch, n_max, device)
     return attn.init_attn_cache(cfg, rt, batch, n_max, device)
@@ -62,10 +89,15 @@ def layer_cache_init(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, st
 
 def layer_prefill(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str], p, x,
                   positions, cache):
-    """Whole-prompt prefill of one layer into its contiguous arena."""
+    """Whole-prompt prefill of one layer into its contiguous arena (a
+    recurrent mixer starts from a fresh state, as the reference's does)."""
     mixer, mlp = kind
-    fn = mla_lib.mla_prefill if mixer == "mla" else attn.attn_prefill
-    y, cache = fn(cfg, rt, p["mixer"], apply_norm(cfg, p["norm1"], x), positions, cache)
+    h = apply_norm(cfg, p["norm1"], x)
+    if mixer in RECURRENT:
+        y, cache = RECURRENT[mixer][1](cfg, p["mixer"], h)
+    else:
+        fn = mla_lib.mla_prefill if mixer == "mla" else attn.attn_prefill
+        y, cache = fn(cfg, rt, p["mixer"], h, positions, cache)
     return _apply_mlp_part(cfg, mlp, p, x + y), cache
 
 
@@ -73,6 +105,10 @@ def layer_decode(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str], 
                  pos: int, cache):
     """One-token decode of one layer, every row at position ``pos``."""
     mixer, mlp = kind
-    fn = mla_lib.mla_decode if mixer == "mla" else attn.attn_decode
-    y, cache = fn(cfg, rt, p["mixer"], apply_norm(cfg, p["norm1"], x_t), pos, cache)
+    h = apply_norm(cfg, p["norm1"], x_t)
+    if mixer in RECURRENT:
+        y, cache = RECURRENT[mixer][2](cfg, p["mixer"], h, cache)
+    else:
+        fn = mla_lib.mla_decode if mixer == "mla" else attn.attn_decode
+        y, cache = fn(cfg, rt, p["mixer"], h, pos, cache)
     return _apply_mlp_part(cfg, mlp, p, x_t + y), cache

@@ -1,5 +1,5 @@
-"""Parameter trees of the PyTorch port: ``model_defs`` of the attention and
-MLA stacks with dense or MoE MLPs,
+"""Parameter trees of the PyTorch port: ``model_defs`` of the attention, MLA,
+Mamba and xLSTM stacks with dense, MoE or no MLPs,
 seeded initialisation on an explicit ``torch.Generator``, and ``from_jax``,
 which carries a JAX parameter tree (as numpy leaves) across.
 
@@ -14,7 +14,9 @@ list of per-layer dicts there, since its forward pass is a Python loop::
      "final_norm": {"scale"}}
 
 Norm scales and biases are float32 whatever the model dtype, as in the JAX
-package (``layers.py:22-25``, ``attention_layer.py:50-55``).
+package (``layers.py:22-25``, ``attention_layer.py:50-55``), and so are the
+recurrent mixers' gate weights, biases and SSM parameters (``mamba.py:30``,
+``xlstm.py:38``, ``:233``).
 """
 from __future__ import annotations
 
@@ -47,15 +49,15 @@ def resolve_device(device=None) -> torch.device:
 class ParamSpec:
     shape: tuple[int, ...]
     dtype: torch.dtype
-    init: str = "fan_in"  # fan_in | normal | zeros | ones
+    init: str = "fan_in"  # fan_in | normal | zeros | ones | s4d
     scale: float = 1.0
 
 
 def _unported(kind) -> NotImplementedError:
     return NotImplementedError(
-        f"layer kind {kind} is not ported yet (ROADMAP A19: mamba, xlstm and the "
-        "xattn mixer); the port runs 'attn' and 'mla' mixers with 'dense', 'moe' "
-        "or no MLP")
+        f"layer kind {kind} is not ported yet (ROADMAP A19: the xattn mixer); the "
+        "port runs 'attn', 'mla', 'mamba', 'mlstm' and 'slstm' mixers with 'dense', "
+        "'moe' or no MLP")
 
 
 def norm_defs(cfg: ModelConfig, dim: int | None = None):
@@ -93,13 +95,14 @@ def mlp_defs(cfg: ModelConfig):
 
 
 def layer_defs(cfg: ModelConfig, kind: tuple[str, str]):
-    from repro_torch.models import mla, moe  # they import ParamSpec from here
+    from repro_torch.models import mamba, mla, moe, xlstm  # they import ParamSpec
 
+    mixers = {"attn": attn_defs, "mla": mla.mla_defs, "mamba": mamba.mamba_defs,
+              "mlstm": xlstm.mlstm_defs, "slstm": xlstm.slstm_defs}
     mixer, mlp = kind
-    if mixer not in ("attn", "mla") or mlp not in ("dense", "moe", "none"):
+    if mixer not in mixers or mlp not in ("dense", "moe", "none"):
         raise _unported(kind)
-    d = {"norm1": norm_defs(cfg),
-         "mixer": mla.mla_defs(cfg) if mixer == "mla" else attn_defs(cfg)}
+    d = {"norm1": norm_defs(cfg), "mixer": mixers[mixer](cfg)}
     if mlp != "none":
         d["norm2"] = norm_defs(cfg)
         d["mlp"] = moe.moe_defs(cfg) if mlp == "moe" else mlp_defs(cfg)
@@ -140,7 +143,8 @@ def _tree_map(fn, tree):
 
 def init_params(cfg: ModelConfig, seed: int, device=None):
     """Random weights from ``seed`` (normal, scaled by fan-in; norms at one,
-    biases at zero, as ``ParamDef.materialize`` draws them). The numbers
+    biases at zero, Mamba's ``A_log`` at log(1..d_state) along its last axis,
+    as ``ParamDef.materialize`` draws them). The numbers
     differ from the JAX package's: carry JAX weights with ``from_jax``."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -150,6 +154,9 @@ def init_params(cfg: ModelConfig, seed: int, device=None):
             return torch.zeros(s.shape, dtype=s.dtype, device=device)
         if s.init == "ones":
             return torch.ones(s.shape, dtype=s.dtype, device=device)
+        if s.init == "s4d":  # S4D-real: A = -(1..d_state) per channel, kept as log
+            a = torch.log(torch.arange(1, s.shape[-1] + 1, dtype=torch.float32, device=device))
+            return a.expand(s.shape).to(s.dtype).contiguous()
         # fan-in is dim 0, as ParamDef's: an expert tensor (E, d, F) takes E
         std = s.scale if s.init == "normal" else s.scale / math.sqrt(max(s.shape[0], 1))
         w = torch.randn(s.shape, generator=gen, dtype=torch.float32, device=device)

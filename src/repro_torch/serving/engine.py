@@ -26,7 +26,12 @@ by proxy score plus a recent window, prefill attends densely) and
 ``decomposed_cpq`` (T1+T2: X in CPQ codes). MLA layers cache their latent
 (in CPQ codes in mode ``cpq``) whatever the mode; MoE stacks always take
 one-shot admission, since their capacity routing depends on the token
-group, and tier escalation refuses MLA stacks, as in the reference. With
+group, and tier escalation refuses MLA stacks, as in the reference.
+Recurrent layers (Mamba, mLSTM, sLSTM: xlstm-125m, Jamba's hybrid) keep
+one state row a slot beside the arenas; their stacks admit one-shot at the
+exact prompt length (bucket padding would enter the state), and the clock
+is charged that length in ``prefill_chunk`` (else ``prefill_bucket``)
+units. With
 ``ServingCfg(enable_escalation=True)`` a dense engine is tiered: every
 layer pairs its dense arena with a CPQ escalation arena, new admissions go
 to the CPQ tier while the dense arena's free fraction is below
@@ -54,8 +59,7 @@ dense arm of a tiered arena).
 Both engines run on the GPU unless ``device`` names another device. They
 refuse, with ``SchedulerConfigError``, every knob the port does not
 implement yet instead of ignoring it: non-token inputs and a device mesh
-(and, with ``NotImplementedError``, the mamba, xLSTM and cross-attention
-layer kinds).
+(and, with ``NotImplementedError``, the cross-attention layer kind).
 """
 from __future__ import annotations
 
@@ -68,6 +72,7 @@ import torch
 
 from repro_torch.configs import AttentionRuntime, CPQCfg, ModelConfig, ServingCfg
 from repro_torch.models import model as M
+from repro_torch.models.transformer import RECURRENT
 from repro_torch.params import model_defs, resolve_device, to_device
 from repro_torch.serving import paged_cache as pgc
 from repro_torch.serving import prng
@@ -307,10 +312,15 @@ class ContinuousServeEngine:
                 "(MLA already caches the compressed latent)")
         self.rt = rt
         self.params = to_device(params, self.device)
-        # capacity-factor MoE routing is a function of the token group, so
-        # chunking a prompt would change its drops: MoE stacks keep one-shot
-        # admission, as the reference does
-        self.chunked = (bool(serving.prefill_chunk)
+        # recurrent mixers integrate every prefill token into their state, so
+        # bucket padding would pollute it (attention only masks): such stacks
+        # prefill at their exact length, as the reference does
+        self._exact_prefill = any(m in RECURRENT for m, _ in cfg.layer_kinds)
+        # two layer families keep one-shot admission, as in the reference:
+        # recurrent state cannot be cut at page boundaries, and capacity-factor
+        # MoE routing is a function of the token group (chunking a prompt
+        # would change its drops)
+        self.chunked = (bool(serving.prefill_chunk) and not self._exact_prefill
                         and not any(mlp == "moe" for _, mlp in cfg.layer_kinds))
         # prefix sharing and speculation need chunked admission (a tail or
         # a verify chunk streams from a mid-context offset) and a base arena
@@ -367,9 +377,10 @@ class ContinuousServeEngine:
         """Right-pad a context to the prefill bucket with its edge token
         (padding never enters attention: causal mask, logits of the true
         last position, and pack positions past the slot's capacity land on
-        the null page). Returns (padded, true length)."""
+        the null page); a recurrent stack's bucket is 1. Returns (padded,
+        true length)."""
         S = len(ctx)
-        b = self.serving.prefill_bucket
+        b = 1 if self._exact_prefill else self.serving.prefill_bucket
         S_pad = max(b, -(-S // b) * b)
         if S_pad == S:
             return ctx, S

@@ -125,16 +125,18 @@ def test_unported_knobs_raise(model, serving_kw, rt_kw):
 
 
 def test_unported_inputs_and_sampling_raise(model):
-    """Non-token inputs, the recurrent and cross-attention layer kinds, and
-    tier escalation over MLA are refused. Sampling no longer is, nor are MLA
-    and MoE: they serve, held against the reference in
-    ``test_torch_sampling.py``, ``test_torch_mla.py`` and ``test_torch_moe.py``."""
+    """Non-token inputs, the cross-attention layer kind (also inside a
+    recurrent hybrid) and tier escalation over MLA are refused. Sampling no
+    longer is, nor are MLA, MoE and the recurrent mixers: they serve, held
+    against the reference in ``test_torch_sampling.py``, ``test_torch_mla.py``,
+    ``test_torch_moe.py`` and ``test_torch_engine_recurrent.py``."""
     _, tcfg, _, tparams = model
     with pytest.raises(T.SchedulerConfigError, match="input_kind"):
         T.ContinuousServeEngine(dataclasses.replace(tcfg, input_kind="audio_frames"),
                                 tparams, serving=_serving(T, num_pages=33), device="cpu")
-    with pytest.raises(NotImplementedError, match="A19"):   # mLSTM and sLSTM layers
-        T.ContinuousServeEngine(T.smoke_config(T.ARCHS["xlstm-125m"]),
+    jamba = T.smoke_config(T.ARCHS["jamba-1.5-large-398b"])
+    with pytest.raises(NotImplementedError, match="A19: the xattn mixer"):  # in a hybrid
+        T.ContinuousServeEngine(dataclasses.replace(jamba, prefix_pattern=(("xattn", "dense"),)),
                                 tparams, serving=_serving(T, num_pages=33), device="cpu")
     vision = T.smoke_config(T.ARCHS["llama-3.2-vision-11b"])
     with pytest.raises(NotImplementedError, match="A19"):   # the xattn mixer

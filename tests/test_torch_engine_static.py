@@ -116,11 +116,14 @@ def test_prefill_and_first_decode_logits_match_jax(model, mode, fused):
 
 def test_static_engine_refusals(model):
     """Sampling serves (``test_torch_sampling.py``), and so does the T1+T2
-    mode (``test_torch_decomposed_cpq.py``); the recurrent layer kinds and
-    non-token inputs are refused."""
+    mode (``test_torch_decomposed_cpq.py``), and so do the recurrent layer
+    kinds (``test_torch_engine_recurrent.py``); the cross-attention layer kind
+    and non-token inputs are refused."""
     _, tcfg, _, tparams = model
-    with pytest.raises(NotImplementedError, match="A19"):
-        T.ServeEngine(T.smoke_config(T.ARCHS["xlstm-125m"]), tparams, device="cpu")
+    xlstm = T.smoke_config(T.ARCHS["xlstm-125m"])
+    with pytest.raises(NotImplementedError, match="A19: the xattn mixer"):
+        T.ServeEngine(dataclasses.replace(xlstm, prefix_pattern=(("xattn", "none"),)),
+                      tparams, device="cpu")
     with pytest.raises(T.SchedulerConfigError, match="A19"):
         T.ServeEngine(dataclasses.replace(tcfg, input_kind="audio_frames"), tparams,
                       device="cpu")

@@ -24,7 +24,7 @@ names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repr
 for name in names:
     importlib.import_module(name)
 for name in ("serving.trace", "serving.prng", "serving.speculative", "models.moe",
-             "models.mla"):
+             "models.mla", "models.mamba", "models.xlstm"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
