@@ -59,16 +59,25 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               one-shot prompt (1 x 512), a decode token over 575 keys (a
               prefix of a 576-key arena), each also at jamba's 64 heads over 8
               of Dh 128 as serve (o) runs them (with its static prefill of 8 x
-              512), T = S = 77, and at Dh 32, 64, 128
-              and 256 with G of 1, 4 and 8 a prompt of 200 (causal and not)
-              and a decode token; B9 decomposed_decode at qwen's T1 shape
+              512), T = S = 77, at llama-vision's cross-attention (32 heads
+              over 8 of 128: 8 x 512 and 1 x 77 prompts over 1600 patch
+              keys, non-causal, and a decode token over them), at musicgen's
+              32 heads of 64 (its static prefill of 8 x 512 and its last
+              static decode), and at Dh
+              32, 64, 128 and 256 with G of 1, 4 and 8 a prompt of 200
+              (causal and not) and a decode token; in bf16 each B8 case is
+              held against attention worked in float64 from the same bf16
+              inputs, within the bf16 tolerance and no farther from it than
+              the plain version; B9 decomposed_decode at
+              qwen's T1 shape
               (kv_r 16, Rr 32, length < N, past one key split, length 0),
               an MLA-like shape (kv_r 1, Rr 64), a no-rope shape, 32 heads,
-              N = 77 and Dm 2560-8192, each call on its route (as B3's);
+              N = 77, Dm 2560-8192 and musicgen's static decode (H 32, Dm
+              2048, no rope), each call on its route (as B3's);
               B10 cpq_decode
               with 4- and 8-bit codes, G of 1, 4 and 8 (Dh 256), tiles
-              rounded and not, pruned codes, length < N and N = 77 (float32
-              output, its tolerance); B2 at the speculative verify chunk's
+              rounded and not, pruned codes, length < N, N = 77 and
+              musicgen's KV 32 (float32 output, its tolerance); B2 at the speculative verify chunk's
               shapes (C = 2, 5, 9 rows, valid = C or 3, at offsets 0, 1,
               15, 17 and 1024 - C, G 1 and 2, over a draft's block row:
               another slot's pages, then scratch pages seeded with the
@@ -114,8 +123,9 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               (one-shot admission), dense, on the traffic of (a): B8's
               tensor-core route 24 times per admission, B1 24 times per
               decode tick, B2 never. Then the rest of the continuous tick on
-              (a)'s arena, B1 and B2 alone launched (24 times a decode step,
-              a chunk or a verify chunk; every chunk on B2's tensor cores,
+              (a)'s arena at the first REST_DEPTH = 12 of qwen's 24 layers,
+              B1 and B2 alone launched (once a layer a decode step, a chunk
+              or a verify chunk; every chunk on B2's tensor cores,
               every decode on B1's ring) and no page leaked: (h) prefix
               sharing with copy-on-write and defrag every 4 retirements on
               make_templated_workload (8 sessions of 3 turns behind one
@@ -178,14 +188,14 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               identical, or, where they differ, the first router call whose
               top-k sets differ no later than the first tick whose tokens
               differ and a near tie (relative top-k boundary gap below
-              1e-5), counted; (l) qwen1.5-0.5b cut to DCPQ_DEPTH = 12 of its
+              1e-5), counted; (l) qwen1.5-0.5b cut to DCPQ_DEPTH = 6 of its
               24 layers in mode decomposed_cpq
               (T1+T2: X in CPQ codes), chunked on (a)'s arena and static (no
               kernel: the reference has none for this tier; B8 prefills
               the static batch); (m) deepseek-moe-16b at its published
-              widths cut to 8 layers (1 dense, 7 MoE), mode dense, asked for
-              chunks but admitted one-shot (B8's prompt route, B1's ring),
-              and its f32 parity as (k)'s. Each serve's launch counts are
+              widths cut to MOE_DEPTH = 4 layers (1 dense, 3 MoE), mode
+              dense, asked for chunks but admitted one-shot (B8's prompt
+              route, B1's ring), and its f32 parity as (k)'s. Each serve's launch counts are
               set to 0 just before it and read just after
   7. recurrent (n) xlstm-125m at its published widths, nothing cut (12
               layers: 2 x [5 mLSTM, 1 sLSTM], d_model 768, 4 heads,
@@ -222,6 +232,32 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               cut to 8 of 16 (top-2 kept; 57.5 GB, the bf16 model converted
               leaf by leaf), under (k)'s gates and router-tie excuse. The
               phase prints its seconds
+  8. multimodal (p) llama-3.2-vision-11b at its published widths, nothing
+              cut (40 layers: 8 blocks of attn, attn, attn, xattn, attn;
+              d_model 4096, 32 heads over 8 of 128, SwiGLU d_ff 14336, vocab
+              128256, untied, rope theta 500000; random bf16 weights from a
+              seed, 9.79 B parameters, ~19.6 GB), every cross-attention gate
+              set to 1.0 (the reference draws it at 0, where the layer adds
+              nothing), on the static ServeEngine: 8 prompts of 512 seeded
+              tokens, each row its own 1600 patches of N(0, 1), 64 new; B8's
+              prompt route 40 times a prefill (32 causal, 8 non-causal over
+              the patch keys) and its decode route 40 times a step (8 over
+              the patch keys), both cross-attention shapes timed; arena
+              bytes by the arithmetic. (q) musicgen-large at its published
+              widths, nothing cut (48 layers, d_model 2048, 32 heads of 64,
+              GELU d_ff 8192, layernorm, absolute positions, vocab 2048;
+              ~4.85 GB), 8 rows of 512 frames of 0.3 N(0, 1), 64 new codes,
+              modes dense (B8), decomposed (B9, every launch on its sweep:
+              d_model 2048; its arena half of dense's), cpq (B10) and
+              retrieval (B7's contiguous form, top_k 256), each step kernel
+              timed. Then each model's f32 parity over its first
+              PARITY_DEPTH layers (the bf16 model freed first; llama's
+              include its first cross-attention layer), kernels on and off
+              under phase 5's gates; llama's again with its patches scaled
+              by 3 and shifted by 1, and how far that moves its logits (the
+              cross-attention is live: more than 1e-2); musicgen's T1 logits
+              within 3e-4 of its dense ones (exact at absolute positions).
+              The phase prints its seconds
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -251,6 +287,7 @@ ARGMAX_GAP = 1e-4           # top-2 gap below which a greedy tie is excused
 TOPK_GAP = 1e-4             # T3: relative proxy-score gap below which a top-k swap is a tie
 CPQ_LEVELS = 4              # HQE levels of the default CPQCfg
 PARITY_DEPTH = 4            # layers of every serve's f32 parity (of 24; deepseek-v2-lite's 27)
+REST_DEPTH = 12             # layers of serves (h)-(j) (of 24; cut to make room for phase 8)
 SEED = 0
 DEVICE = "cuda"
 # the namespaces of the attention kernels' device functions, as a profile
@@ -270,7 +307,11 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+LOG: list[str] = []         # every logged line, kept for the --out report
+
+
 def log(msg: str) -> None:
+    LOG.append(msg)
     print(msg, flush=True)
 
 
@@ -613,7 +654,8 @@ def sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr, page=16, nb=64, B=8, C=16):
     return err_dec, err_pre
 
 
-T3_SHAPES = ((16, 1, 64), (8, 4, 128), (8, 3, 128))   # KV, G, Dp (G = 3: phi4-mini)
+T3_SHAPES = ((16, 1, 64), (8, 4, 128), (8, 3, 128), (32, 1, 64))   # KV, G, Dp (G = 3:
+# phi4-mini; KV 32: musicgen)
 T3_REL = 1e-5           # B7 vs plain: max abs error <= T3_REL * max |score|
 
 
@@ -693,6 +735,11 @@ FLASH_SWEEP = (  # B, T, S, H, KV, D, causal, arena (k and v: the first S keys)
     (1, 512, 512, 64, 8, 128, True, 512),    # serve (o), jamba: 64 heads over 8, Dh 128: a
     (8, 512, 512, 64, 8, 128, True, 512),    # one-shot admission's prompt, the static
     (8, 1, 575, 64, 8, 128, False, 576),     # prefill and the last static decode
+    (8, 512, 1600, 32, 8, 128, False, 1600),  # serve (p), llama-vision's cross-attention:
+    (1, 77, 1600, 32, 8, 128, False, 1600),  # the static prompts over 1600 patch keys (T < S),
+    (8, 1, 1600, 32, 8, 128, False, 1600),   # a short one, and a decode token over them
+    (8, 512, 512, 32, 32, 64, True, 512),    # serve (q), musicgen: its static prefill and
+    (8, 1, 575, 32, 32, 64, False, 576),     # its last static decode
 ) + tuple(  # every head width and group size of the routes, a prompt (causal and not,
     # T no multiple of the 64-row tile, k and v a prefix) and a decode token
     case for D in (32, 64, 128, 256) for G in (1, 4, 8)
@@ -714,12 +761,14 @@ T1C_SWEEP = (  # B, N, H, Dm, kv_r, Rr, length
     (8, 576, 16, 512, 1, 64, 575),           # deepseek-v2-lite's static MLA decode
     (8, 576, 16, 512, 1, 64, 193),           # ... past one key split, length < N
     (2, 40, 16, 512, 1, 64, 0),              # ... length 0
+    (8, 576, 32, 2048, 32, 0, 575),          # musicgen's static T1 decode (the sweep)
 )
 CPQC_SWEEP = (  # B, N, KV, G, Dh, bits, length
     (8, 576, 16, 1, 64, 4, 575),             # qwen1.5-0.5b's static T2 decode
     (4, 300, 4, 4, 128, 8, 250),             # G = 4, length < N
     (2, 77, 16, 1, 64, 8, 77),               # N no multiple of a split
     (2, 90, 1, 8, 256, 4, 77),               # gemma-2b: 8 heads over one kv head, Dh 256
+    (8, 576, 32, 1, 64, 4, 575),             # musicgen's static T2 decode (MHA, 32 heads)
 )
 
 
@@ -732,10 +781,28 @@ MLA_FLASH_SWEEP = (  # B, T, S, H, KV, Dh, Dv, causal, arena
     (2, 200, 200, 16, 16, 192, 128, True, 208), (2, 200, 200, 16, 16, 192, 128, False, 200))
 
 
-def sweep_flash(fa_ops, dtype, cases=None) -> dict:
-    """Max abs error of B8 against its plain version per FLASH_SWEEP case (or
-    per ``cases`` of MLA_FLASH_SWEEP's form, Dh and Dv apart); every prompt
-    call in bf16 must take the tensor-core route."""
+def exact_attention(q, k, v, scale: float, causal: bool) -> torch.Tensor:
+    """Attention worked wholly in float64 from the given inputs, H / KV
+    query heads sharing each k and v head: what B8's bf16 cases are held
+    against."""
+    g = q.shape[2] // k.shape[2]
+    k, v = (t.double().repeat_interleave(g, dim=2) for t in (k, v))
+    s = torch.einsum("bthd,bshd->bhts", q.double(), k) * scale
+    if causal:  # query i sees keys 0..i
+        s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).triu(1),
+                          float("-inf"))
+    return torch.einsum("bhts,bshd->bthd", s.softmax(-1), v)
+
+
+def sweep_flash(fa_ops, dtype, cases=None, exact: dict | None = None) -> dict:
+    """Max abs error of B8 per FLASH_SWEEP case (or per ``cases`` of
+    MLA_FLASH_SWEEP's form, Dh and Dv apart): in float32 against its plain
+    version; in bf16 against ``exact_attention`` on the same bf16 inputs,
+    and no farther from it than the plain version (which rounds the
+    normalised weights to bf16, where the kernel rounds the unnormalised
+    ones, whose largest is exactly 1). ``exact`` collects each bf16 case's
+    three distances. Every prompt call in bf16 must take the tensor-core
+    route."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     out = {}
     cases = cases or [(B, T, S, H, KV, D, D, c, a) for B, T, S, H, KV, D, c, a in FLASH_SWEEP]
@@ -753,7 +820,17 @@ def sweep_flash(fa_ops, dtype, cases=None) -> dict:
         check(moved == {r: int(r == route) for r in moved},
               f"flash_attention {dtype} {tag}: routes {moved}, want {route}")
         ref = fa_ops.flash_attention_plain(q, k, v, Dh ** -0.5, causal)
-        out[tag] = (got.float() - ref.float()).abs().max().item()
+        if dtype == torch.float32:
+            out[tag] = (got - ref).abs().max().item()
+            continue
+        oracle = exact_attention(q, k, v, Dh ** -0.5, causal)
+        out[tag], plain = ((t.double() - oracle).abs().max().item() for t in (got, ref))
+        check(out[tag] <= plain, f"flash_attention {dtype} {tag}: {out[tag]} from exact "
+              f"attention, farther than the plain version's {plain}")
+        if exact is not None:
+            exact[tag] = {"kernel": out[tag], "plain": plain,
+                          "kernel_vs_plain": (got.float() - ref.float()).abs().max().item()}
+        del oracle
     return out
 
 
@@ -1295,9 +1372,10 @@ def mid_decode_window(ticks) -> tuple[int, int]:
 # ------------------------------------------ phase 4: the contiguous path
 
 
-def static_prompts(vocab: int) -> np.ndarray:
+def static_prompts(vocab: int) -> dict:
     """The static serve's batch: 8 prompts of 512 seeded tokens."""
-    return np.random.default_rng(SEED + 1).integers(0, vocab, size=(8, 512)).astype(np.int32)
+    rng = np.random.default_rng(SEED + 1)
+    return {"tokens": rng.integers(0, vocab, size=(8, 512)).astype(np.int32)}
 
 
 def arena_of(t: torch.Tensor) -> torch.Tensor:
@@ -1387,7 +1465,7 @@ def serve_static(eng, T, M, prompts, n_new: int, recorders: dict, counted: list,
     try:
         with StepTimer(M) as timer:
             t0 = time.perf_counter()
-            out, stats = eng.generate({"tokens": prompts}, T.GenerationConfig(max_new_tokens=n_new))
+            out, stats = eng.generate(prompts, T.GenerationConfig(max_new_tokens=n_new))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
@@ -1424,18 +1502,19 @@ def flash_bound(q, S, KV, Dv, causal):
     return nbytes, 2.0 * B * H * pairs * (Dh + Dv)
 
 
-def flash_prefill_case(fa_ops, scale):
-    """B8 at a sampled prompt call; the yardstick is causal
+def flash_prefill_case(fa_ops, scale, causal: bool = True):
+    """B8 at a sampled prompt call (causal over the prompt, or not: the
+    cross-attention over the patch keys); the yardstick is
     scaled_dot_product_attention on the same q, k, v."""
     def make(sample, k0, v0):
         (q,) = sample
         gqa = {"enable_gqa": True} if q.shape[2] != k0.shape[2] else {}
-        return (lambda k, v: fa_ops.flash_attention(q, k, v, scale, True),
-                lambda: fa_ops.flash_attention_plain(q, k0, v0, scale, True),
+        return (lambda k, v: fa_ops.flash_attention(q, k, v, scale, causal),
+                lambda: fa_ops.flash_attention_plain(q, k0, v0, scale, causal),
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q.transpose(1, 2), k0.transpose(1, 2), v0.transpose(1, 2), is_causal=True,
-                    scale=scale, **gqa),
-                flash_bound(q, k0.shape[1], k0.shape[2], v0.shape[3], True))
+                    q.transpose(1, 2), k0.transpose(1, 2), v0.transpose(1, 2),
+                    is_causal=causal, scale=scale, **gqa),
+                flash_bound(q, k0.shape[1], k0.shape[2], v0.shape[3], causal))
     return make
 
 
@@ -1453,6 +1532,63 @@ def flash_decode_case(fa_ops, scale):
                     scale=scale, **gqa),
                 flash_bound(q, S, k0.shape[2], v0.shape[3], False))
     return make
+
+
+def t1c_recorder(t1_ops, n_layers: int) -> Recorder:
+    """B9's Recorder: each layer's X and roped-key arenas, and a sample of
+    R, q_rope and the length as the kernel gets them."""
+    return Recorder(t1_ops.decomposed_decode, n_layers, 10, lambda qn, qr, x, kr, *r: (x, kr),
+                    lambda qn, qr, x, kr, ln, wk, wv, s: (
+                        t1_ops.query_rows(qn, wk, x.dtype)[:, 0],
+                        qr[:, 0].to(x.dtype).contiguous(), ln))
+
+
+def cpqc_recorder(cpq_ops, n_layers: int) -> Recorder:
+    """B10's Recorder: each layer's K and V codes, and a sample of the
+    float32 query grouped by kv head and the length."""
+    return Recorder(cpq_ops.cpq_decode, n_layers, 10, lambda q, kt, vt, *r: (kt, vt),
+                    lambda q, kt, vt, ln, *r: (q[:, 0].reshape(q.shape[0], kt.codes.shape[2],
+                                                               -1, q.shape[3]).float()
+                                               .contiguous(), ln))
+
+
+def t3c_recorder(t3_ops, n_layers: int) -> Recorder:
+    """B7's Recorder in its contiguous form (``proxy_scores_q``, the static
+    T3 decode): each layer's codes and proxy tables, and a sample of the
+    pre-scaled query and the length."""
+    return Recorder(t3_ops.proxy_scores_q, n_layers, 10, lambda q, sc, z, codes, ln: (codes,
+                                                                                     (sc, z)),
+                    lambda q, sc, z, codes, ln: (q.clone(), int(ln)))
+
+
+def t3c_decode_case(t3_ops):
+    """B7 at a sampled static T3 decode call (``proxy_scores_q``: one launch
+    that forms the query factors and scores the first ``length`` keys); the
+    yardstick is torch.matmul of the factors, formed beforehand, against the
+    written codes shifted by 128 and converted to float32 beforehand, plus
+    qz."""
+    def make(sample, codes0, tables0):
+        q, length = sample
+        qs, qz = t3_ops.query_factors(q, *tables0)
+        cg = (codes0[:, :length].float() + 128.0).permute(0, 2, 3, 1).contiguous()
+        n = torch.tensor(length, device=q.device)  # the plain mask's length, on the card
+        return (lambda codes, tables: t3_ops.proxy_scores_q(q, *tables, codes, length),
+                lambda: t3_ops.proxy_scores_plain(qs, qz, codes0, n),
+                lambda: torch.matmul(qs, cg) + qz,
+                t3c_bound(q, tables0, length, codes0))
+    return make
+
+
+def t3c_bound(q, tables, length, codes0):
+    """(bytes, flops, float32 flops) one contiguous B7 call needs: the first
+    ``length`` codes of every row, q, the proxy scale and zero tables and
+    the N scores of every row written; one float32 multiply-add per written
+    code and query head."""
+    B, H = q.shape[:2]
+    N, KV, Dp = codes0.shape[1:]
+    nbytes = (B * length * KV * Dp + q.numel() * q.element_size() + 2 * tables[0].numel() * 4
+              + B * H * N * 4)
+    return nbytes, 0.0, 2.0 * B * length * H * Dp
 
 
 def t1c_bound(r, qr, length, x0, kr0):
@@ -1543,7 +1679,7 @@ def profile_static(make_engine, T, M, prompts, n_new, step_ms, lo: int, hi: int)
 
     M.decode_step = step
     try:
-        eng.generate({"tokens": prompts}, T.GenerationConfig(max_new_tokens=n_new))
+        eng.generate(prompts, T.GenerationConfig(max_new_tokens=n_new))
     finally:
         M.decode_step = dec
     kernels = sorted(((e.key, e.device_time_total / 1e3, e.count)
@@ -1828,7 +1964,8 @@ def first_logits(M, cfg, rt, params, reqs, small, bt):
             n = len(ctx)
             pad = max(bucket, -(-n // bucket) * bucket)
             tok = np.concatenate([ctx, np.full(pad - n, ctx[-1], np.int32)])
-            logits, ctg = M.prefill(cfg, rt, params, torch.tensor(tok[None], device=DEVICE),
+            logits, ctg = M.prefill(cfg, rt, params, {"tokens": torch.tensor(tok[None],
+                                                                        device=DEVICE)},
                                     M.init_caches(cfg, rt, 1, pad, DEVICE), last_index=n - 1)
             M.pack_prefill_caches(cfg, rt, caches, ctg, row, s)
         for off in range(0, len(ctx), C) if C else ():
@@ -1971,10 +2108,10 @@ def check_logits(mode: str, got, out: dict) -> None:
 def static_first_logits(M, cfg, rt, params, prompts):
     """The static engine's prefill logits of the batch and the first decode
     step's (its argmax fed back)."""
-    tok = torch.tensor(prompts, device=DEVICE)
-    B, S = tok.shape
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in prompts.items()}
+    B, S = (batch["tokens"] if "tokens" in batch else batch["frames"]).shape[:2]
     caches = M.init_caches(cfg, rt, B, S + 1, DEVICE)
-    pre, caches = M.prefill(cfg, rt, params, tok, caches)
+    pre, caches = M.prefill(cfg, rt, params, batch, caches)
     dec, _ = M.decode_step(cfg, rt, params, pre.argmax(-1).to(torch.int32)[:, None], S, caches)
     return pre, dec
 
@@ -2008,7 +2145,8 @@ def static_gaps(M, gaps: dict):
     return ctx()
 
 
-def static_parity(T, M, cfg, params, prompts, mode: str, n_new: int, rt_kw=None) -> dict:
+def static_parity(T, M, cfg, params, prompts, mode: str, n_new: int, rt_kw=None,
+                  what: str | None = None) -> dict:
     """The static engine with its contiguous kernels (B8, B9, B10, B7) on
     and off, in float32: prefill and first-decode logits of the batch within
     LOGIT_TOL, then the greedy streams of ``n_new`` tokens. CPQ and T3 run in
@@ -2019,7 +2157,7 @@ def static_parity(T, M, cfg, params, prompts, mode: str, n_new: int, rt_kw=None)
     paths = (True, False)
     rts = {f: T.AttentionRuntime(mode=mode, paged_kernels=f, **(rt_kw or {})) for f in paths}
     lockstep, pinned = mode in ("cpq", "retrieval"), mode == "retrieval"
-    what = f"static {mode}"
+    what = what or f"static {mode}"
     run = {f: (lambda f=f: static_first_logits(M, cfg, rts[f], params, prompts)) for f in paths}
     out = {}
     if lockstep:
@@ -2036,19 +2174,19 @@ def static_parity(T, M, cfg, params, prompts, mode: str, n_new: int, rt_kw=None)
 
     def gather():
         with static_gaps(M, gaps):
-            return engs[False].generate({"tokens": prompts}, gen)[0]
+            return engs[False].generate(prompts, gen)[0]
 
     if lockstep:
         with SharedKV() as shared, pin_if(pinned) as pin:
             a, b = pair([shared] + [pin] * pinned,
-                        lambda: engs[True].generate({"tokens": prompts}, gen)[0], gather)
+                        lambda: engs[True].generate(prompts, gen)[0], gather)
         if pinned:
             out.update(pin_report(what, "streams", pin))
     else:
-        a, b = engs[True].generate({"tokens": prompts}, gen)[0], gather()
+        a, b = engs[True].generate(prompts, gen)[0], gather()
     out["streams_identical"] = compare_streams(
         what, {True: dict(enumerate(a)), False: dict(enumerate(b))}, gaps,
-        {row: n_new for row in range(len(prompts))})
+        {row: n_new for row in range(len(a))})
     out["lockstep"] = lockstep
     return out
 
@@ -2073,8 +2211,9 @@ def pin_report(mode: str, what: str, pin: SelectionPin) -> dict:
 
 DEEPSEEK_SERVING = dict(num_slots=8, page_size=16, num_pages=513, max_blocks_per_slot=64,
                         prefill_chunk=0, prefill_bucket=16)  # (a)'s arena, one-shot
-MOE_DEPTH = 8               # layers of serve (m): deepseek-moe-16b's dense layer and 7 MoE
-DCPQ_DEPTH = 12             # layers of serve (l) (of 24; cut to make room for phase 7)
+MOE_DEPTH = 4               # layers of serve (m): deepseek-moe-16b's dense layer and 3 MoE
+                            # (8 until phase 8 came: cut to keep the script's time)
+DCPQ_DEPTH = 6              # layers of serve (l) (of 24; cut to 12 for phase 7, to 6 for 8)
 ROUTER_GAP = 1e-5           # relative top-k boundary gap of the router below which a flip is a tie
 
 
@@ -2312,7 +2451,7 @@ def serve_deepseek(T, M, counted: list, routed: dict, static_routed: dict, fa_ro
     out, stats, timer, wall, counts = serve_static(eng, T, M, prompts, n_new, {}, counted,
                                                    fa_routes)
     steps = stats["decode_steps"]
-    check(out.shape == (len(prompts), n_new) and steps == n_new - 1, f"{what}: {out.shape}")
+    check(out.shape == (8, n_new) and steps == n_new - 1, f"{what}: {out.shape}")
     check_counts(what, counts, {"flash_attention": L, "flash_attention/prompt": L,
                                 "decomposed_decode": L * steps})
     serves[what] = static_metrics(out, stats, timer, wall, "deepseek-v2-lite")
@@ -2552,7 +2691,7 @@ def teacher_forced(T, M, cfg, params, what: str, n_new: int = 64) -> dict:
 
         def prefill(p, dev):
             caches = M.init_caches(cfg, rt, 1, S + n_new, dev)
-            return M.prefill(cfg, rt, p, tok.to(dev), caches)
+            return M.prefill(cfg, rt, p, {"tokens": tok.to(dev)}, caches)
 
         logits, caches = prefill(cpu, "cpu")
         free = prefill(params, DEVICE)[0].cpu()
@@ -2775,6 +2914,308 @@ def serve_recurrent(T, M, ops, fa_ops, counted: list, routed: dict, fa_routes: d
         + ", ".join(f"{k} {v:.1f}" for k, v in new_s.items()))
 
 
+# ------------------------------------------------------ phase 8: multimodal
+
+MUSICGEN_MODES = ("dense", "decomposed", "cpq", "retrieval")
+STEP_KERNEL = {"dense": "flash_attention", "decomposed": "decomposed_decode",
+               "cpq": "cpq_decode", "retrieval": "proxy_scores"}
+XATTN_GATE = 1.0            # (p)'s cross-attention gates (the reference draws them at 0)
+PATCH_MOVE = (3.0, 1.0)     # (p)'s parity repeated with the patches scaled by 3, shifted by 1
+DECOMPOSED_TOL = 3e-4       # (q): T1 against dense logits, exact at absolute positions
+# phase 3's cases at the shapes phase 8 times, by (kernel, shape label)
+MULTIMODAL_SWEPT = {
+    ("flash_attention_prompt", "llama-vision xattn"):
+        "bfloat16 B=8 T=512 S=1600 H=32 KV=8 D=128 causal=False",
+    ("flash_attention_prompt", "musicgen"):
+        "bfloat16 B=8 T=512 S=512 H=32 KV=32 D=64 causal=True",
+    ("flash_attention", "llama-vision xattn"):
+        "bfloat16 B=8 T=1 S=1600 H=32 KV=8 D=128 causal=False",
+    ("flash_attention", "musicgen"): "bfloat16 B=8 T=1 S=575 H=32 KV=32 D=64 causal=False",
+    ("decomposed_decode", "musicgen"):
+        "bfloat16 B=8 N=576 H=32 Dm=2048 kv_r=32 Rr=0 length=575",
+    ("cpq_decode", "musicgen"):
+        "float32 q=bfloat16 B=8 N=576 KV=32 G=1 Dh=64 bits=4 length=575 round=True",
+    ("paged_proxy_scores", "musicgen"): "float32 KV=32 G=1 Dp=64",
+}
+
+
+def vision_config(T):
+    """llama-3.2-vision-11b at its published widths, nothing cut: 40 layers,
+    8 blocks of (attn, attn, attn, xattn, attn), d_model 4096, 32 heads over
+    8 of 128, SwiGLU d_ff 14336, vocab 128256, untied, rope theta 500000,
+    1600 patch tokens."""
+    cfg = T.ARCHS["llama-3.2-vision-11b"]
+    check(cfg.num_layers == 40 and cfg.num_blocks == 8 and cfg.d_model == 4096
+          and [m for m, _ in cfg.block_pattern] == ["attn"] * 3 + ["xattn", "attn"]
+          and (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (32, 8, 128)
+          and cfg.d_ff == 14336 and cfg.mlp_act == "swiglu" and cfg.vocab_size == 128256
+          and not cfg.tie_embeddings and cfg.rope_theta == 500000.0
+          and cfg.input_kind == "text+patches" and cfg.num_patch_tokens == 1600,
+          "llama-3.2-vision-11b: not the published widths")
+    return cfg
+
+
+def musicgen_config(T):
+    """musicgen-large at its published widths, nothing cut: 48 layers,
+    d_model 2048, 32 heads of 64 (MHA), GELU d_ff 8192, layernorm, absolute
+    positions, vocab 2048, audio frames in."""
+    cfg = T.ARCHS["musicgen-large"]
+    check(cfg.num_layers == 48 and cfg.d_model == 2048
+          and (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (32, 32, 64)
+          and cfg.d_ff == 8192 and cfg.mlp_act == "gelu" and cfg.norm == "layernorm"
+          and cfg.pos_embedding == "absolute" and cfg.vocab_size == 2048
+          and cfg.input_kind == "audio_frames", "musicgen-large: not the published widths")
+    return cfg
+
+
+def multimodal_batch(cfg) -> dict:
+    """A static serve's batch of 8 rows, float32 on the card, drawn as the
+    reference's tests/test_models_smoke.py draws them: musicgen 512 frames
+    of 0.3 N(0, 1) a row; llama-vision 512 seeded tokens and 1600 patches
+    of N(0, 1) a row."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    if cfg.input_kind == "audio_frames":
+        return {"frames": 0.3 * torch.randn((8, 512, cfg.d_model), generator=gen, device=DEVICE)}
+    return {**static_prompts(cfg.vocab_size),
+            "patches": torch.randn((8, cfg.num_patch_tokens, cfg.d_model), generator=gen,
+                                   device=DEVICE)}
+
+
+def set_gates(M, cfg, params, value: float) -> int:
+    """Every cross-attention gate of ``params`` set to ``value``, in place.
+    Returns how many."""
+    n = 0
+    for (mixer, _), p in zip(cfg.layer_kinds, M.per_layer(cfg, params)):
+        if mixer == "xattn":
+            p["mixer"]["gate"].fill_(value)
+            n += 1
+    return n
+
+
+class XattnRecorder(StandIn):
+    """B8's Recorder at serve (p): the self-attention layers' calls as a
+    FlashRecorder samples them (``own``), the cross-attention layers' apart:
+    their non-causal prompt over the patch keys (``xpre``) and their decode
+    token over every patch key (``xdec``, told from a self-attention decode
+    by its arena of ``n_patches`` keys)."""
+
+    def __init__(self, fn, n_self: int, n_cross: int, n_patches: int):
+        self.fn, self.n_patches = fn, n_patches
+        self.own = FlashRecorder(fn, n_self)
+        self.xpre = Recorder(fn, n_cross, 1, lambda q, k, v, *r: (k, v),
+                             lambda q, k, v, *r: (q.clone(),))
+        self.xdec = Recorder(fn, n_cross, 10, lambda q, k, v, *r: (arena_of(k), arena_of(v)),
+                             lambda q, k, v, *r: (q.clone(), k.shape[1]))
+
+    def __call__(self, q, k, v, scale, causal=True):
+        if q.shape[1] > 1 and not causal:
+            return self.xpre(q, k, v, scale, causal)
+        if q.shape[1] == 1 and arena_of(k).shape[1] == self.n_patches:
+            return self.xdec(q, k, v, scale, causal)
+        return self.own(q, k, v, scale, causal)
+
+
+def n_params(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    return sum(n_params(t) for t in (tree.values() if isinstance(tree, dict) else tree))
+
+
+def serve_multimodal(T, M, kops: dict, counted: list, t3_cfg, serves: dict, report: dict,
+                     timing: dict, new_s: dict) -> None:
+    """Phase 8: (p) llama-3.2-vision-11b and (q) musicgen-large at their
+    published widths, nothing cut, random bf16 weights from a seed, on the
+    static ServeEngine (8 rows of 512, 64 new). (p): every cross-attention
+    gate set to XATTN_GATE, each row its own patches; mode dense: B8's
+    prompt route 40 times a prefill (32 causal, 8 non-causal over 1600 patch
+    keys) and its decode route 40 times a step (8 over the patch keys).
+    (q): audio frames in, modes dense (B8), decomposed (B9, every launch on
+    its sweep: d_model 2048), cpq (B10) and retrieval (B7's contiguous
+    form, top_k 256). The new shapes timed (``timing[kernel][shape]``); then
+    each model's f32 parity over its first PARITY_DEPTH layers (the bf16
+    model freed first): kernels on against off as phase 5 holds them, (p)
+    again with its patches moved (PATCH_MOVE) and how far its logits moved,
+    and (q)'s T1 logits against its dense ones within DECOMPOSED_TOL. Each
+    serve's launch counts are set to 0 just before it and read just
+    after."""
+    from repro_torch.params import init_params
+
+    fa_ops, t1_ops = kops["flash_attention"], kops["decomposed_decode"]
+    cpq_ops, t3_ops = kops["cpq_decode"], kops["paged_proxy_scores"]
+    routes = fa_ops.ROUTE_LAUNCHES
+    t_all = time.perf_counter()
+
+    # (p) llama-3.2-vision-11b
+    cfg = vision_config(T)
+    what = "llama-3.2-vision-11b"
+    L = cfg.num_layers
+    n_cross = sum(m == "xattn" for m, _ in cfg.layer_kinds)
+    n_self = L - n_cross
+    scale = cfg.head_dim ** -0.5
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, DEVICE)
+    gates = set_gates(M, cfg, params, XATTN_GATE)
+    torch.cuda.synchronize()
+    log(f"{what}: {n_params(params) / 1e9:.3f} B parameters, {device_bytes(params) / 1e9:.2f} "
+        f"GB of bf16 weights on the card in {time.perf_counter() - t0:.1f} s; all {gates} "
+        f"cross-attention gates set to {XATTN_GATE} (the reference draws them at 0, where "
+        "the layers add nothing)")
+    batch = multimodal_batch(cfg)
+    eng = T.ServeEngine(cfg, params, device=DEVICE)
+    rec = XattnRecorder(fa_ops.flash_attention, n_self, n_cross, cfg.num_patch_tokens)
+    out, stats, timer, wall, counts = serve_static(eng, T, M, batch, 64,
+                                                   {"flash_attention": (fa_ops, rec)}, counted,
+                                                   routes)
+    steps = stats["decode_steps"]
+    check(out.shape == (8, 64) and steps == 63, f"static {what}: {out.shape}")
+    check_counts(f"static {what}", counts, {"flash_attention": L * (1 + steps),
+                                            "flash_attention/prompt": L,
+                                            "flash_attention/decode": L * steps})
+    calls = {"causal prompt": rec.own.pre.calls, "xattn prompt": rec.xpre.calls,
+             "decode": rec.own.dec.calls, "xattn decode": rec.xdec.calls}
+    want = {"causal prompt": n_self, "xattn prompt": n_cross, "decode": n_self * steps,
+            "xattn decode": n_cross * steps}
+    check(calls == want, f"static {what}: B8 calls {calls}, want {want}")
+    kv = 2 * 2 * cfg.num_kv_heads * cfg.head_dim       # K and V, bf16, a token
+    arena = {"self-attention": n_self * 8 * (512 + 64) * kv,
+             "cross-attention": n_cross * 8 * cfg.num_patch_tokens * kv}
+    m = serves[f"static {what}"] = static_metrics(out, stats, timer, wall, what)
+    m.update(launches={k: n for k, n in counts.items() if n}, b8_calls=calls,
+             arena_by_kind=arena)
+    check(m["arena_bytes"] == sum(arena.values()),
+          f"static {what}: arena {m['arena_bytes']} bytes, want {arena}")
+    log(f"serve static {what}: B8 calls {calls}; arena {arena}")
+    del eng, timer
+    for name, r, case, n, unit in (
+            ("flash_attention_prompt", rec.xpre, flash_prefill_case(fa_ops, scale, False), 1,
+             "prefill"),
+            ("flash_attention", rec.xdec, flash_decode_case(fa_ops, scale), steps, "step")):
+        t = timing.setdefault(name, {})["llama-vision xattn"] = time_kernel(r, case)
+        log_timing(f"{name} at {what}'s cross-attention", t, n_cross * n, n_cross, unit)
+    del rec
+    new_s[what] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    depth = PARITY_DEPTH  # the first layers as a prefix: 3 self-attention and the xattn
+    cfg_p = dataclasses.replace(cfg, dtype="float32", prefix_pattern=cfg.block_pattern[:depth],
+                                num_blocks=0)
+    check([m for m, _ in cfg_p.layer_kinds].count("xattn") == 1, f"{what}: parity depth")
+    head = {**params, "prefix": [params["blocks"][j][0] for j in range(depth)],
+            "blocks": [[] for _ in cfg.block_pattern]}
+    del params
+    params = _tree_float(head)
+    del head
+    torch.cuda.empty_cache()
+    par = report["parity"]
+    par[what] = static_parity(T, M, cfg_p, params, batch, "dense", 64, what=f"static {what}")
+    moved = {**batch, "patches": PATCH_MOVE[0] * batch["patches"] + PATCH_MOVE[1]}
+    par[f"{what} patches moved"] = static_parity(T, M, cfg_p, params, moved, "dense", 64,
+                                                 what=f"static {what} patches moved")
+    rt = T.AttentionRuntime()
+    a, b = (static_first_logits(M, cfg_p, rt, params, x) for x in (batch, moved))
+    shift = {"prefill": (a[0] - b[0]).abs().max().item(),
+             "first_decode": (a[1] - b[1]).abs().max().item()}
+    par[what]["logits_moved_by_patches"] = shift
+    log(f"parity {what}: patches x {PATCH_MOVE[0]} + {PATCH_MOVE[1]} move the logits by "
+        f"{shift['prefill']:.3e} (prefill) and {shift['first_decode']:.3e} (first decode): "
+        "the cross-attention is live")
+    check(min(shift.values()) > 10 * LOGIT_TOL, f"{what}: the patches do not move the logits")
+    del params, batch, moved
+    torch.cuda.empty_cache()
+    new_s[f"parity {what}"] = time.perf_counter() - t0
+    log(f"[{time.perf_counter() - T0:.0f} s] {what} served and checked")
+
+    # (q) musicgen-large
+    cfg = musicgen_config(T)
+    what = "musicgen-large"
+    L = cfg.num_layers
+    scale = cfg.head_dim ** -0.5
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, DEVICE)
+    torch.cuda.synchronize()
+    log(f"{what}: {n_params(params) / 1e9:.3f} B parameters, {device_bytes(params) / 1e9:.2f} "
+        f"GB of bf16 weights on the card")
+    batch = multimodal_batch(cfg)
+    rts = {mode: T.AttentionRuntime(mode=mode) for mode in MUSICGEN_MODES}
+    rts["retrieval"] = T.AttentionRuntime(mode="retrieval", retrieval=t3_cfg)
+    kv = 2 * cfg.num_kv_heads * cfg.head_dim           # K or V, bf16, a token
+    arena_want = {"dense": L * 8 * (512 + 64) * 2 * kv,
+                  "decomposed": L * 8 * (512 + 64) * 2 * cfg.d_model}
+    t1_routed = {"decomposed_decode": (t1_ops.CONTIG_ROUTE_LAUNCHES, "sweep")}
+    new_s[f"{what} init"] = time.perf_counter() - t0
+    for mode in MUSICGEN_MODES:
+        t0 = time.perf_counter()
+        eng = T.ServeEngine(cfg, params, rt=rts[mode], device=DEVICE)
+        recs = {"dense": lambda: {"flash_attention": (fa_ops, FlashRecorder(
+                    fa_ops.flash_attention, L))},
+                "decomposed": lambda: {"decomposed_decode": (t1_ops, t1c_recorder(t1_ops, L))},
+                "cpq": lambda: {"cpq_decode": (cpq_ops, cpqc_recorder(cpq_ops, L))},
+                "retrieval": lambda: {"proxy_scores_q": (t3_ops, t3c_recorder(t3_ops, L))}}[mode]()
+        zero_routes(t1_routed)
+        out, stats, timer, wall, counts = serve_static(eng, T, M, batch, 64, recs, counted,
+                                                       routes)
+        steps = stats["decode_steps"]
+        tag = f"static {what} {mode}"
+        check(out.shape == (8, 64) and steps == 63, f"{tag}: {out.shape}")
+        want = {"flash_attention": L * (1 + steps * (mode == "dense")),
+                "flash_attention/prompt": L}
+        want[COUNT_KEY.get(STEP_KERNEL[mode], STEP_KERNEL[mode])] = L * steps
+        check_counts(tag, counts, want)
+        m = serves[tag] = static_metrics(out, stats, timer, wall, f"{what} {mode}")
+        m["launches"] = {k: n for k, n in counts.items() if n}
+        if mode == "decomposed":  # d_model 2048: every B9 launch on its sweep
+            m["routes"] = check_routes(tag, t1_routed, counts)
+            log(f"serve {tag}: B9 routes {m['routes']['decomposed_decode']}")
+        if mode in arena_want:
+            check(m["arena_bytes"] == arena_want[mode],
+                  f"{tag}: arena {m['arena_bytes']} bytes, want {arena_want[mode]}")
+        del eng, timer
+        if mode == "dense":
+            frec = recs["flash_attention"][1]
+            cases = (("flash_attention_prompt", frec.pre, flash_prefill_case(fa_ops, scale), 1),
+                     ("flash_attention", frec.dec, flash_decode_case(fa_ops, scale), steps))
+        else:
+            name = STEP_KERNEL[mode]
+            case = {"decomposed": t1c_decode_case(t1_ops, scale),
+                    "cpq": cpqc_decode_case(cpq_ops, scale),
+                    "retrieval": t3c_decode_case(t3_ops)}[mode]
+            cases = (("paged_proxy_scores" if mode == "retrieval" else name,
+                      next(iter(recs.values()))[1], case, steps),)
+        for name, r, case, n in cases:
+            t = timing.setdefault(name, {})["musicgen"] = time_kernel(r, case)
+            log_timing(f"{name} at {tag}", t, L * n, L, "prefill" if n == 1 else "step")
+        del recs, cases
+        torch.cuda.empty_cache()
+        new_s[tag] = time.perf_counter() - t0
+    log(f"serve static {what}: arena bytes " + ", ".join(
+        f"{mode} {serves[f'static {what} {mode}']['arena_bytes']}" for mode in MUSICGEN_MODES))
+
+    t0 = time.perf_counter()
+    depth = min(PARITY_DEPTH, cfg.num_blocks)
+    cfg_p = dataclasses.replace(cfg, dtype="float32", num_blocks=depth)
+    params = head_layers(params, cfg, depth)
+    torch.cuda.empty_cache()
+    for mode in MUSICGEN_MODES:
+        report["parity"][f"static {what} {mode}"] = static_parity(
+            T, M, cfg_p, params, batch, mode, 64,
+            dict(retrieval=t3_cfg) if mode == "retrieval" else None, f"static {what} {mode}")
+    dense, t1 = (static_first_logits(M, cfg_p, T.AttentionRuntime(mode=mode), params, batch)
+                 for mode in ("dense", "decomposed"))
+    gap = {"prefill": (dense[0] - t1[0]).abs().max().item(),
+           "first_decode": (dense[1] - t1[1]).abs().max().item()}
+    report["parity"][f"static {what} decomposed"]["against_dense"] = gap
+    log(f"parity {what}: decomposed against dense logits {gap} (atol {DECOMPOSED_TOL}: T1 is "
+        "exact at absolute positions)")
+    check(max(gap.values()) <= DECOMPOSED_TOL, f"{what}: decomposed against dense {gap}")
+    del params, batch
+    torch.cuda.empty_cache()
+    new_s[f"parity {what}"] = time.perf_counter() - t0
+    report["multimodal_phase_s"] = new_s
+    report["multimodal_timing"] = timing
+    log(f"[{time.perf_counter() - T0:.0f} s] phase 8 in {time.perf_counter() - t_all:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in new_s.items()))
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2891,7 +3332,7 @@ def check_targets(results, targets: dict, what: str) -> None:
 
 
 def check_tick_launches(what: str, counts: dict, stats: dict, L: int) -> None:
-    """B1 and B2 alone launched, 24 times a decode step and a chunk or
+    """B1 and B2 alone launched, L times a decode step and a chunk or
     verify chunk; a verify chunk counts as a decode step in ``stats``."""
     spec = stats["spec_steps"]
     want = {name: 0 for name in counts}
@@ -3026,8 +3467,8 @@ def serve_rest(T, cfg, params, serving, counted: list, routed: dict, fa_routes: 
                serves: dict, new_s: dict) -> dict:
     """Phase 4's serves of the rest of the continuous engine's tick, on
     serve (a)'s arena (``serving``), each with every launch and route count
-    set to 0 just before and read just after; B1 and B2 alone launch, 24
-    times a decode step and a prompt or verify chunk, every chunk on B2's
+    set to 0 just before and read just after; B1 and B2 alone launch, once
+    a layer a decode step and a prompt or verify chunk, every chunk on B2's
     tensor cores, every decode on B1's ring. Fills ``serves`` and the
     seconds ``new_s``; returns the traffic phase 5 replays."""
     # 4h) prefix sharing with copy-on-write and defrag: multi-turn sessions
@@ -3250,6 +3691,9 @@ def main() -> int:
     new_s = {}  # seconds of the phases added with the rest of the tick (h-j)
     errs = {name: {} for name in kmods}
     report["prefill_routes"] = {}
+    # B8's bf16 cases: the kernel's, the plain version's largest distance
+    # from exact attention, and the kernel's from the plain version
+    report["flash_bf16_exact"] = flash_exact = {}
     for dtype in (torch.bfloat16, torch.float32):
         # qwen1.5-0.5b's shape, a GQA shape, and widths of 8-byte rows
         # (Dh 24: the tensor-core route's half-chunk loads) and of no
@@ -3304,16 +3748,16 @@ def main() -> int:
                 f"{errs['paged_decomposed_decode'][tag]:.3e} over {len(T1_SERVED_DECODE)} "
                 f"layouts, planned and most splits "
                 f"({t1_ops.t1_decode_route(dtype, H, Dm, kv_r, Rr)} route; tol {TOL[dtype]})")
-        for case, err in sweep_flash(fa_ops, dtype, MLA_FLASH_SWEEP).items():
+        for case, err in sweep_flash(fa_ops, dtype, MLA_FLASH_SWEEP, flash_exact).items():
             errs["flash_attention"][f"{dname} {case}"] = err
         log(f"sweep {dname} MLA prompts: flash_attention "
             + ", ".join(f"{e:.3e}" for k, e in errs["flash_attention"].items()
                         if "Dh=192" in k and k.startswith(dname))
             + f" over {len(MLA_FLASH_SWEEP)} cases (Dh 192, Dv 128; tol {TOL[dtype]})")
-        for name, sweep_fn, mod in (("flash_attention", sweep_flash, fa_ops),
-                                    ("decomposed_decode", sweep_t1c, t1_ops)):
-            for case, err in sweep_fn(mod, dtype).items():
-                errs[name][f"{dname} {case}"] = err
+        for case, err in sweep_flash(fa_ops, dtype, exact=flash_exact).items():
+            errs["flash_attention"][f"{dname} {case}"] = err
+        for case, err in sweep_t1c(t1_ops, dtype).items():
+            errs["decomposed_decode"][f"{dname} {case}"] = err
         for case, err in sweep_cpqc(cpq_ops, dtype).items():  # float32 output
             errs["cpq_decode"][f"float32 q={dname} {case}"] = err
         log(f"sweep {dname}: flash_attention {max(errs['flash_attention'].values()):.3e} over "
@@ -3321,6 +3765,14 @@ def main() -> int:
             f"{max(errs['decomposed_decode'].values()):.3e} over {len(T1C_SWEEP)}, cpq_decode "
             f"{max(errs['cpq_decode'].values()):.3e} over {2 * len(CPQC_SWEEP)} (tol "
             f"{TOL[dtype]}, cpq_decode {TOL[torch.float32]})")
+        if dtype == torch.bfloat16:
+            top = {k: max(e[k] for e in flash_exact.values())
+                   for k in ("kernel", "plain", "kernel_vs_plain")}
+            log(f"sweep bfloat16: flash_attention against exact attention (float64) over "
+                f"{len(flash_exact)} cases: kernel {top['kernel']:.4e}, plain version "
+                f"{top['plain']:.4e}, kernel against plain {top['kernel_vs_plain']:.4e} (the "
+                f"kernel within tol {TOL[dtype]} of exact, and no farther than the plain "
+                "version, in every case)")
     for name, by_tag in errs.items():
         for tag, err in by_tag.items():
             check(err <= TOL[torch.bfloat16 if tag.startswith("bfloat16") else torch.float32],
@@ -3502,28 +3954,19 @@ def main() -> int:
     #     decode T1, T2 and T3 (24 launches per step)
     prompts = static_prompts(cfg.vocab_size)
     n_new = 64
-    step_kernel = {"dense": "flash_attention", "decomposed": "decomposed_decode",
-                   "cpq": "cpq_decode", "retrieval": "proxy_scores"}
     for mode in ("dense", "decomposed", "cpq", "retrieval"):
         eng = T.ServeEngine(cfg, params, rt=rts[mode], device=DEVICE)
         recs = {"flash_attention": (fa_ops, FlashRecorder(fa_ops.flash_attention, L))}
         if mode == "decomposed":
-            recs["decomposed_decode"] = (t1_ops, Recorder(
-                t1_ops.decomposed_decode, L, 10, lambda qn, qr, x, kr, *r: (x, kr),
-                lambda qn, qr, x, kr, ln, wk, wv, s: (t1_ops.query_rows(qn, wk, x.dtype)[:, 0],
-                                                      qr[:, 0].to(x.dtype).contiguous(), ln)))
+            recs["decomposed_decode"] = (t1_ops, t1c_recorder(t1_ops, L))
         if mode == "cpq":
-            recs["cpq_decode"] = (cpq_ops, Recorder(
-                cpq_ops.cpq_decode, L, 10, lambda q, kt, vt, *r: (kt, vt),
-                lambda q, kt, vt, ln, *r: (q[:, 0].reshape(q.shape[0], kt.codes.shape[2], -1,
-                                                           q.shape[3]).float().contiguous(),
-                                           ln)))
+            recs["cpq_decode"] = (cpq_ops, cpqc_recorder(cpq_ops, L))
         zero_routes(static_routed)
         out, stats, timer, wall, counts = serve_static(eng, T, M, prompts, n_new, recs, counted,
                                                        fa_ops.ROUTE_LAUNCHES)
         static_routes = check_routes(f"static {mode}", static_routed, counts)
         steps = stats["decode_steps"]
-        check(out.shape == (len(prompts), n_new) and steps == n_new - 1
+        check(out.shape == (8, n_new) and steps == n_new - 1
               and stats["generated_tokens"] == out.size, f"static {mode}: {out.shape}, {stats}")
         want = {name: 0 for name in counts}
         want["flash_attention"] = L * (1 + steps if mode == "dense" else 1)
@@ -3531,7 +3974,7 @@ def main() -> int:
         if mode == "dense":
             want["flash_attention/decode"] = L * steps
         else:
-            want[step_kernel[mode]] = L * steps
+            want[STEP_KERNEL[mode]] = L * steps
         check(counts == want, f"static {mode}: launch counts {counts}, want {want}")
         serves[f"static {mode}"] = static_metrics(out, stats, timer, wall, mode)
         serves[f"static {mode}"]["launches"] = {k: n for k, n in counts.items() if n}
@@ -3544,7 +3987,7 @@ def main() -> int:
             launches[name] = per_prefill[name] = counts["flash_attention/prompt"]
             log_timing(name, timing[name], launches[name], per_prefill[name], "prefill")
         if mode != "retrieval":
-            name = step_kernel[mode]
+            name = STEP_KERNEL[mode]
             rec = recs[name][1].dec if name == "flash_attention" else recs[name][1]
             case = {"flash_attention": flash_decode_case(fa_ops, scale),
                     "decomposed_decode": t1c_decode_case(t1_ops, scale),
@@ -3590,7 +4033,9 @@ def main() -> int:
     log(f"[{time.perf_counter() - T0:.0f} s] served oneshot")
 
     # 4h-4j) the rest of the continuous engine's tick
-    rest = serve_rest(T, cfg, params, serving, counted, routed, fa_ops.ROUTE_LAUNCHES, serves,
+    rest = serve_rest(T, dataclasses.replace(cfg, num_blocks=REST_DEPTH),
+                      {**params, "blocks": [b[:REST_DEPTH] for b in params["blocks"]]},
+                      serving, counted, routed, fa_ops.ROUTE_LAUNCHES, serves,
                       new_s)
 
     # C3: the T2 (HQE) and T3 (proxy) encoders on the card and on the CPU, on
@@ -3643,6 +4088,10 @@ def main() -> int:
     serve_recurrent(T, M, ops, fa_ops, counted, routed, fa_ops.ROUTE_LAUNCHES, serves, report,
                     at_jamba, {})
 
+    # 8) the multimodal stacks: llama-vision's cross-attention, musicgen's frames
+    at_multimodal = {}
+    serve_multimodal(T, M, kmods, counted, t3_cfg, serves, report, at_multimodal, {})
+
     kernel_mod = {**kmods, "flash_attention_prompt": fa_ops}
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",
                 "paged_prefill": "src/repro/kernels/flash_attn/kernel.py:170",
@@ -3692,8 +4141,9 @@ def main() -> int:
         t, key = timing[name], COUNT_KEY.get(name, name)
         by_serve = {mode: sv["launches"][key] for mode, sv in serves.items()
                     if sv.get("launches", {}).get(key)}
-        if name == "paged_proxy_scores":  # B7's contiguous wrapper, the static T3 decode
-            by_serve["static retrieval"] = serves["static retrieval"]["launches"]["proxy_scores"]
+        if name == "paged_proxy_scores":  # B7's contiguous wrapper, the static T3 decodes
+            for mode in ("static retrieval", "static musicgen-large retrieval"):
+                by_serve[mode] = serves[mode]["launches"]["proxy_scores"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(str(source[name]), root),
@@ -3712,6 +4162,13 @@ def main() -> int:
                 "max_abs_err": errs[name][JAMBA_SWEPT[name]], "swept": JAMBA_SWEPT[name],
                 **{k: at_jamba[name][k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "samples")}}
+        if name in at_multimodal:  # the shapes of phase 8's serves (p) and (q)
+            swept = {shape: MULTIMODAL_SWEPT[name, shape] for shape in at_multimodal[name]}
+            kernels[-1]["at_multimodal"] = {
+                shape: {"max_abs_err": errs[name][swept[shape]], "swept": swept[shape],
+                        **{k: t[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "samples")}}
+                for shape, t in at_multimodal[name].items()}
         if name in routed or name in static_routed:
             # B2, B3, B4, B6, B9: the tensor-core kernel; B5: the single-query
             # one; B1: the ring
@@ -3722,6 +4179,7 @@ def main() -> int:
                                     if sv.get("routes", {}).get(name, {}).get(route)}})
     report["kernels"] = kernels
     report["run_s"] = time.perf_counter() - T0
+    report["log"] = LOG
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -10,6 +10,16 @@ Prefill attention over a whole prompt is dense and causal in every mode:
 the contiguous flash kernel B8 with ``rt.paged_kernels`` (the default),
 else its plain version, ``attention_auto``, as the reference computes it.
 
+Gated cross-attention (``xattn``, llama-vision): queries from the block
+input, keys and values from the projected patches, no positions and no
+mask; the output is scaled by ``tanh(gate)``. Its K/V are static per
+request, computed once at prefill into a dense arena of the patches'
+length whatever the mode (T1, T2 and T3 apply to self-attention only), and
+each decode step attends over them: through B8 (its prompt route
+non-causal at T != S, its decode route over every patch key) with
+``rt.paged_kernels``, else the reference's ``attention_auto`` and
+``dense_attention``.
+
 Decomposed (T1 and T1+T2) rope handling: rotations do not commute with W_K, so on
 RoPE architectures only the first ``decoupled_rope_dims`` dims of each q
 and k head are roped (with tables built for that width) and the roped key
@@ -22,6 +32,7 @@ import torch
 
 from repro_torch.configs import AttentionRuntime, CPQCfg, ModelConfig
 from repro_torch.core import attention as core_attn
+from repro_torch.core import kv_cache as kvc
 from repro_torch.core.flash_ref import attention_auto
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.models.layers import apply_rope, apply_rope_rows, rms_norm_vec, rope_tables
@@ -31,20 +42,23 @@ from repro_torch.serving import paged_cache as pgc
 T1_MODES = ("decomposed", "decomposed_cpq")  # the modes that cache X (T1 operands)
 
 
-def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
-    """x (B, T, D) -> q (B, T, H, Dh), k/v (B, T, KV, Dh)."""
+def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor, xkv: torch.Tensor | None = None):
+    """x (B, T, D) -> q (B, T, H, Dh), k/v (B, S, KV, Dh) from ``xkv`` (B, S,
+    D) if given (cross-attention), else from x (S = T)."""
     B, T, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = x if xkv is None else xkv
+    S = src.shape[1]
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = src @ p["wk"]
+    v = src @ p["wv"]
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
     q = q.reshape(B, T, H, Dh)
-    k = k.reshape(B, T, KV, Dh)
-    v = v.reshape(B, T, KV, Dh)
+    k = k.reshape(B, S, KV, Dh)
+    v = v.reshape(B, S, KV, Dh)
     if cfg.qk_norm:
         q = rms_norm_vec(q, p["q_norm"])
         k = rms_norm_vec(k, p["k_norm"])
@@ -116,11 +130,12 @@ def init_attn_cache(cfg: ModelConfig, rt: AttentionRuntime, batch: int, n_max: i
         device=device)
 
 
-def _prefill_attention(rt: AttentionRuntime, q, k, v, scale: float):
-    """Causal attention over a whole prompt: B8 or its plain version."""
+def _prefill_attention(rt: AttentionRuntime, q, k, v, scale: float, causal: bool = True):
+    """Attention over a whole prompt (causal) or over a request's patches
+    (not): B8 or its plain version."""
     if rt.paged_kernels:
-        return fa_ops.flash_attention(q, k, v, scale, causal=True)
-    return attention_auto(q, k, v, scale, causal=True)
+        return fa_ops.flash_attention(q, k, v, scale, causal=causal)
+    return attention_auto(q, k, v, scale, causal=causal)
 
 
 def attn_prefill(cfg: ModelConfig, rt: AttentionRuntime, p, x: torch.Tensor,
@@ -239,3 +254,48 @@ def attn_decode_rows(cfg: ModelConfig, rt: AttentionRuntime, p, x_t: torch.Tenso
         out, cache = pgc.decode_attend_paged(rt, cache, rows, q=q, k_t=k, v_t=v,
                                              scale=_scale(cfg))
     return _out(cfg, p, out), cache
+
+
+# cross-attention: K/V are static per request (computed at prefill); decode
+# only attends, with no append
+
+
+def _gated(cfg: ModelConfig, p, o: torch.Tensor, dtype) -> torch.Tensor:
+    return _out(cfg, p, o) * torch.tanh(p["gate"]).to(dtype)
+
+
+def xattn_prefill(cfg: ModelConfig, rt: AttentionRuntime, p, x: torch.Tensor,
+                  patches: torch.Tensor, cache: kvc.DenseKVCache):
+    """Gated cross-attention of the prompt over its request's patches. x (B,
+    T, D) is the normed block input, ``patches`` (B, P, D) the projected
+    patch embeddings; their K/V are written into ``cache``'s arena (P rows
+    at least) in place, and the container returned has length P."""
+    q, k, v = _project_qkv(cfg, p, x, xkv=patches)
+    P = patches.shape[1]
+    if P > cache.k.shape[1]:
+        raise ValueError(f"xattn_prefill: {P} patches, an arena of {cache.k.shape[1]}")
+    cache = kvc.DenseKVCache(kvc.append_tokens(cache.k, k, 0), kvc.append_tokens(cache.v, v, 0),
+                             kvc.host_length(P))
+    o = _prefill_attention(rt, q, k, v, _scale(cfg), causal=False)
+    return _gated(cfg, p, o, x.dtype), cache
+
+
+def xattn_decode(cfg: ModelConfig, rt: AttentionRuntime, p, x_t: torch.Tensor,
+                 cache: kvc.DenseKVCache):
+    """One query token a row over the request's static patch K/V (its
+    ``length`` keys); x_t (B, 1, D) normed block input. The cache is
+    returned as it is."""
+    B, T = x_t.shape[:2]
+    q = x_t @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+    q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm_vec(q, p["q_norm"])
+    if rt.paged_kernels:  # B8's decode route over every patch key
+        n = int(cache.length)
+        o = fa_ops.flash_attention(q, cache.k[:, :n], cache.v[:, :n], _scale(cfg), causal=False)
+    else:
+        o = core_attn.dense_attention(q, cache.k, cache.v, _scale(cfg), causal=False,
+                                      kv_length=cache.length)
+    return _gated(cfg, p, o, x_t.dtype), cache

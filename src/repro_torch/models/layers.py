@@ -1,6 +1,6 @@
 """Shared model layers of the port: norms, RoPE, sinusoidal positions, MLP
-variants, token embeddings and the LM head (the JAX package's
-``models/layers.py``).
+variants, the input embedding (tokens or audio frames) and the LM head (the
+JAX package's ``models/layers.py``).
 
 The bf16 rounding points are copied from the reference: norms compute in
 float32 and cast back, RoPE casts its cos/sin tables to the activation dtype
@@ -96,11 +96,18 @@ def causal_conv(xin: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     return y.to(xin.dtype) + b.to(xin.dtype)
 
 
-def embed_inputs(cfg: ModelConfig, p, tokens: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) int -> (B, S, D). ``positions`` is (S,), or (B, S)
+def embed_inputs(cfg: ModelConfig, p, batch, positions: torch.Tensor) -> torch.Tensor:
+    """The layer input (B, S, D): ``batch`` is the tokens (B, S), or a dict
+    of them under ``"tokens"`` or of audio frames (B, S, D) under
+    ``"frames"`` (an audio model's prefill: the frames, cast to the model
+    dtype, replace the token lookup). ``positions`` is (S,), or (B, S)
     per-row positions under continuous batching."""
-    x = p["tok"][tokens]
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    if "frames" in batch:
+        x = batch["frames"].to(cfg.param_dtype)
+    else:
+        x = p["tok"][batch["tokens"]]
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     if cfg.pos_embedding == "absolute":

@@ -6,7 +6,13 @@ paged arenas (continuous batching): the decode step, prompt chunks, the
 speculative verify chunk, tier escalation, defrag and the copy-on-write
 page copy. A recurrent layer (Mamba, mLSTM, sLSTM) keeps a state of one row
 a slot in place of an arena: one-shot admission packs a prefilled state
-into its slot's row, and defrag, the page copy and escalation pass it by.
+into its slot's row, and defrag, the page copy and escalation pass it by; so
+do they a cross-attention layer's patch K/V, one row a slot.
+
+Inputs (``prefill``): token prompts, an audio model's frames (B, S, D) in
+place of the token lookup, and a text+patches model's patches (B, P, D),
+projected through ``mm_proj`` once a prefill for every cross-attention
+layer. Decode always feeds tokens (an audio model's codes).
 
 The JAX package scans over stacked block parameters and caches; here a
 Python loop walks the layers, each with its own parameter dict and its own
@@ -58,18 +64,42 @@ def init_caches(cfg: ModelConfig, rt: AttentionRuntime, batch: int, n_max: int, 
                        for kind in cfg.layer_kinds])
 
 
-def prefill(cfg: ModelConfig, rt: AttentionRuntime, params, tokens: torch.Tensor, caches,
+def check_inputs(cfg: ModelConfig) -> None:
+    """Raise for a stack whose cross-attention layers would find no patches
+    in its inputs (no published configuration has one)."""
+    if cfg.input_kind != "text+patches" and any(m == "xattn" for m, _ in cfg.layer_kinds):
+        raise ValueError(f"{cfg.name}: its xattn layers attend over patches, which "
+                         f"input_kind={cfg.input_kind!r} does not carry (they need "
+                         "input_kind='text+patches' and batch['patches'])")
+
+
+def _patches(cfg: ModelConfig, params, batch: dict) -> Optional[torch.Tensor]:
+    """The batch's patches (B, P, D) projected through ``mm_proj`` (a
+    text+patches model), else None."""
+    check_inputs(cfg)
+    if cfg.input_kind != "text+patches":
+        return None
+    if "patches" not in batch:
+        raise ValueError(f"{cfg.name} takes text+patches: the batch has no 'patches'")
+    return batch["patches"].to(cfg.param_dtype) @ params["embed"]["mm_proj"]
+
+
+def prefill(cfg: ModelConfig, rt: AttentionRuntime, params, batch, caches,
             last_index: Optional[int] = None):
-    """Prefill the prompts ``tokens`` (B, S) into contiguous arenas. Returns
+    """Prefill a batch of prompts into contiguous arenas. ``batch`` is the
+    reference's dict: ``"tokens"`` (B, S) or an audio model's ``"frames"``
+    (B, S, D), and a text+patches model's ``"patches"`` (B, P, D). Returns
     (logits (B, V) float32 of the last position, or of ``last_index`` when
     the prompt is right-padded to a bucket (one-shot admission), the new
     caches)."""
-    S = tokens.shape[1]
-    positions = torch.arange(S, device=tokens.device)
-    x = embed_inputs(cfg, params["embed"], tokens, positions)
+    prompt = batch["tokens"] if "tokens" in batch else batch["frames"]
+    S = prompt.shape[1]
+    positions = torch.arange(S, device=prompt.device)
+    x = embed_inputs(cfg, params["embed"], batch, positions)
+    patches = _patches(cfg, params, batch)
     new = []
     for kind, p, c in _layers(cfg, params, caches):
-        x, c = tfm.layer_prefill(cfg, rt, kind, p, x, positions, c)
+        x, c = tfm.layer_prefill(cfg, rt, kind, p, x, positions, c, patches)
         new.append(c)
     i = S - 1 if last_index is None else last_index
     x = apply_norm(cfg, params["final_norm"], x[:, i:i + 1])
@@ -93,11 +123,17 @@ def pack_prefill_caches(cfg: ModelConfig, rt: AttentionRuntime, paged, src,
                         block_row: torch.Tensor, slot: int):
     """Scatter a freshly prefilled B=1 contiguous cache tree ``src`` (from
     ``prefill``) into slot ``slot`` of the paged arenas, in place: one-shot
-    admission. A recurrent state's every leaf is written to row ``slot``."""
+    admission. A recurrent state's every leaf is written to row ``slot``; so
+    is a cross-attention layer's patch K/V, whose length becomes the
+    prefill's."""
     for (mixer, _), pc, sc in zip(cfg.layer_kinds, per_layer(cfg, paged), per_layer(cfg, src)):
         if mixer in tfm.RECURRENT:
             for dst, s in zip(pc, sc):
                 dst[slot].copy_(s[0])
+        elif mixer == "xattn":
+            pc.k[slot].copy_(sc.k[0])
+            pc.v[slot].copy_(sc.v[0])
+            pc.length.copy_(sc.length)
         else:
             pgc.pack_into(rt.mode, pc, sc, block_row, slot)
     return paged

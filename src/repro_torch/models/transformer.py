@@ -1,17 +1,22 @@
 """Layer dispatch of the port (the JAX package's ``models/transformer.py``),
-serving phases: a layer is (mixer, mlp), the mixer ``attn``, ``mla``,
-``mamba``, ``mlstm`` or ``slstm`` and the MLP ``dense``, ``moe`` or
+serving phases: a layer is (mixer, mlp), the mixer ``attn``, ``xattn``,
+``mla``, ``mamba``, ``mlstm`` or ``slstm`` and the MLP ``dense``, ``moe`` or
 ``none``, over paged arenas (continuous batching) and over contiguous
 arenas (the static engine and one-shot admission). The recurrent mixers
 keep an O(1) state a request instead of an arena: one row a slot, never
 paged, and position-free, so the continuous decode runs their contiguous
 step over every slot row (a retired slot's state is overwritten at its
 next admission) and writes the new state in place. Chunked prefill has no
-recurrent path (the engine admits such stacks one-shot). MoE's switch aux
-loss is computed and discarded, as the reference's serving phases do."""
+recurrent path (the engine admits such stacks one-shot). A cross-attention
+layer keeps its request's patch K/V in a dense arena of ``num_patch_tokens``
+rows (one a slot under continuous batching) whatever the mode, written at
+prefill and only read by decode; it has no chunked prefill either. MoE's
+switch aux loss is computed and discarded, as the reference's serving phases
+do."""
 from __future__ import annotations
 
 from repro_torch.configs import AttentionRuntime, ModelConfig
+from repro_torch.core import kv_cache as kvc
 from repro_torch.models import attention_layer as attn
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mla as mla_lib
@@ -37,11 +42,20 @@ def _apply_mlp_part(cfg: ModelConfig, mlp: str, p, x):
     return x + apply_mlp(cfg, p["mlp"], h)
 
 
+def _patch_arena(cfg: ModelConfig, batch: int, device) -> kvc.DenseKVCache:
+    """A cross-attention layer's K/V arena: ``num_patch_tokens`` rows a
+    request."""
+    return kvc.init_dense(batch, cfg.num_patch_tokens, cfg.num_kv_heads, cfg.head_dim,
+                          cfg.param_dtype, device)
+
+
 def layer_paged_cache_init(cfg: ModelConfig, rt: AttentionRuntime,
                            kind: tuple[str, str], serving, device, tiered: bool = False):
-    layer_defs(cfg, kind)  # raises for the layer kinds not ported yet
+    layer_defs(cfg, kind)  # raises for an unknown layer kind
     if kind[0] in RECURRENT:  # one state row a slot
         return RECURRENT[kind[0]][0](cfg, serving.num_slots, device)
+    if kind[0] == "xattn":  # static per request: one row a slot, not paged
+        return _patch_arena(cfg, serving.num_slots, device)
     if kind[0] == "mla":
         return mla_lib.init_paged_mla_cache(cfg, rt, serving, device)
     return attn.init_paged_attn_cache(cfg, rt, serving, device, tiered)
@@ -57,6 +71,8 @@ def layer_decode_rows(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, s
         y, new = RECURRENT[mixer][2](cfg, p["mixer"], h, cache)
         for dst, src in zip(cache, new):
             dst.copy_(src)
+    elif mixer == "xattn":
+        y, cache = attn.xattn_decode(cfg, rt, p["mixer"], h, cache)
     else:
         fn = mla_lib.mla_decode_rows if mixer == "mla" else attn.attn_decode_rows
         y, cache = fn(cfg, rt, p["mixer"], h, rows, cache)
@@ -68,7 +84,7 @@ def layer_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first
                         offset: int, valid: int, cache):
     """Chunked paged prefill of one layer for one request slot."""
     mixer, mlp = kind
-    if mixer in RECURRENT:
+    if mixer in RECURRENT or mixer == "xattn":
         raise ValueError(f"chunked prefill has no {mixer!r} path "
                          "(the engine admits such stacks one-shot)")
     fn = mla_lib.mla_prefill_chunk if mixer == "mla" else attn.attn_prefill_chunk
@@ -79,22 +95,28 @@ def layer_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first
 
 def layer_cache_init(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str],
                      batch: int, n_max: int, device):
-    layer_defs(cfg, kind)  # raises for the layer kinds not ported yet
+    layer_defs(cfg, kind)  # raises for an unknown layer kind
     if kind[0] in RECURRENT:
         return RECURRENT[kind[0]][0](cfg, batch, device)
+    if kind[0] == "xattn":
+        return _patch_arena(cfg, batch, device)
     if kind[0] == "mla":
         return mla_lib.init_mla_cache(cfg, rt, batch, n_max, device)
     return attn.init_attn_cache(cfg, rt, batch, n_max, device)
 
 
 def layer_prefill(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str], p, x,
-                  positions, cache):
+                  positions, cache, patches=None):
     """Whole-prompt prefill of one layer into its contiguous arena (a
-    recurrent mixer starts from a fresh state, as the reference's does)."""
+    recurrent mixer starts from a fresh state, as the reference's does; a
+    cross-attention layer attends over ``patches`` (B, P, D), the projected
+    patches of the batch)."""
     mixer, mlp = kind
     h = apply_norm(cfg, p["norm1"], x)
     if mixer in RECURRENT:
         y, cache = RECURRENT[mixer][1](cfg, p["mixer"], h)
+    elif mixer == "xattn":
+        y, cache = attn.xattn_prefill(cfg, rt, p["mixer"], h, patches, cache)
     else:
         fn = mla_lib.mla_prefill if mixer == "mla" else attn.attn_prefill
         y, cache = fn(cfg, rt, p["mixer"], h, positions, cache)
@@ -108,6 +130,8 @@ def layer_decode(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str], 
     h = apply_norm(cfg, p["norm1"], x_t)
     if mixer in RECURRENT:
         y, cache = RECURRENT[mixer][2](cfg, p["mixer"], h, cache)
+    elif mixer == "xattn":
+        y, cache = attn.xattn_decode(cfg, rt, p["mixer"], h, cache)
     else:
         fn = mla_lib.mla_decode if mixer == "mla" else attn.attn_decode
         y, cache = fn(cfg, rt, p["mixer"], h, pos, cache)

@@ -1,14 +1,15 @@
-"""Parameter trees of the PyTorch port: ``model_defs`` of the attention, MLA,
-Mamba and xLSTM stacks with dense, MoE or no MLPs,
-seeded initialisation on an explicit ``torch.Generator``, and ``from_jax``,
-which carries a JAX parameter tree (as numpy leaves) across.
+"""Parameter trees of the PyTorch port: ``model_defs`` of the attention,
+cross-attention, MLA, Mamba and xLSTM stacks with dense, MoE or no MLPs and
+token, audio-frame or text+patch inputs, seeded initialisation on an
+explicit ``torch.Generator``, and ``from_jax``, which carries a JAX
+parameter tree (as numpy leaves) across.
 
 The tree mirrors the JAX package's ``model_defs`` (``models/model.py:41``)
 with one change: the JAX tree stacks each block-pattern position's layers
 along a leading ``num_blocks`` axis for ``lax.scan``, while the port keeps a
 list of per-layer dicts there, since its forward pass is a Python loop::
 
-    {"embed": {"tok", ["lm_head"]},
+    {"embed": {"tok", ["mm_proj"], ["lm_head"]},
      "prefix": [layer, ...],
      "blocks": [[layer_0, ..., layer_{num_blocks-1}] per pattern position],
      "final_norm": {"scale"}}
@@ -16,7 +17,9 @@ list of per-layer dicts there, since its forward pass is a Python loop::
 Norm scales and biases are float32 whatever the model dtype, as in the JAX
 package (``layers.py:22-25``, ``attention_layer.py:50-55``), and so are the
 recurrent mixers' gate weights, biases and SSM parameters (``mamba.py:30``,
-``xlstm.py:38``, ``:233``).
+``xlstm.py:38``, ``:233``) and the cross-attention's scalar ``gate``
+(``attention_layer.py:56-57``), which starts at zero: a cross-attention layer
+adds nothing until its gate is set.
 """
 from __future__ import annotations
 
@@ -53,13 +56,6 @@ class ParamSpec:
     scale: float = 1.0
 
 
-def _unported(kind) -> NotImplementedError:
-    return NotImplementedError(
-        f"layer kind {kind} is not ported yet (ROADMAP A19: the xattn mixer); the "
-        "port runs 'attn', 'mla', 'mamba', 'mlstm' and 'slstm' mixers with 'dense', "
-        "'moe' or no MLP")
-
-
 def norm_defs(cfg: ModelConfig, dim: int | None = None):
     d = dim or cfg.d_model
     out = {"scale": ParamSpec((d,), torch.float32, "ones")}
@@ -68,7 +64,10 @@ def norm_defs(cfg: ModelConfig, dim: int | None = None):
     return out
 
 
-def attn_defs(cfg: ModelConfig):
+def attn_defs(cfg: ModelConfig, cross: bool = False):
+    """Self-attention weights, or with ``cross`` those of a gated
+    cross-attention layer: the same projections and a scalar float32
+    ``gate`` at zero, whose tanh scales the layer's output."""
     d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = cfg.param_dtype
     p = {"wq": ParamSpec((d, H * Dh), dt), "wk": ParamSpec((d, KV * Dh), dt),
@@ -80,6 +79,8 @@ def attn_defs(cfg: ModelConfig):
     if cfg.qk_norm:
         p["q_norm"] = ParamSpec((Dh,), torch.float32, "ones")
         p["k_norm"] = ParamSpec((Dh,), torch.float32, "ones")
+    if cross:
+        p["gate"] = ParamSpec((), torch.float32, "zeros")
     return p
 
 
@@ -97,11 +98,13 @@ def mlp_defs(cfg: ModelConfig):
 def layer_defs(cfg: ModelConfig, kind: tuple[str, str]):
     from repro_torch.models import mamba, mla, moe, xlstm  # they import ParamSpec
 
-    mixers = {"attn": attn_defs, "mla": mla.mla_defs, "mamba": mamba.mamba_defs,
-              "mlstm": xlstm.mlstm_defs, "slstm": xlstm.slstm_defs}
+    mixers = {"attn": attn_defs, "xattn": lambda c: attn_defs(c, cross=True),
+              "mla": mla.mla_defs, "mamba": mamba.mamba_defs, "mlstm": xlstm.mlstm_defs,
+              "slstm": xlstm.slstm_defs}
     mixer, mlp = kind
     if mixer not in mixers or mlp not in ("dense", "moe", "none"):
-        raise _unported(kind)
+        raise ValueError(f"unknown layer kind {kind}: mixers {sorted(mixers)}, MLPs "
+                         "'dense', 'moe' or 'none'")
     d = {"norm1": norm_defs(cfg), "mixer": mixers[mixer](cfg)}
     if mlp != "none":
         d["norm2"] = norm_defs(cfg)
@@ -110,11 +113,15 @@ def layer_defs(cfg: ModelConfig, kind: tuple[str, str]):
 
 
 def embed_defs(cfg: ModelConfig):
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"input_kind={cfg.input_kind!r} is not ported yet (ROADMAP A19)")
+    """The token table (audio models keep one too: decode feeds codes), the
+    patch adapter ``mm_proj`` of a text+patches model (its patches arrive
+    at d_model) and an untied LM head."""
+    if cfg.input_kind not in ("tokens", "audio_frames", "text+patches"):
+        raise ValueError(f"unknown input_kind={cfg.input_kind!r}")
     dt = cfg.param_dtype
     out = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), dt, "normal", 0.02)}
+    if cfg.input_kind == "text+patches":
+        out["mm_proj"] = ParamSpec((cfg.d_model, cfg.d_model), dt)
     if not cfg.tie_embeddings:
         out["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dt)
     return out
@@ -166,18 +173,21 @@ def init_params(cfg: ModelConfig, seed: int, device=None):
 
 
 def _leaf_to_torch(a) -> torch.Tensor:
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.asarray(a)
+    shape = a.shape  # ascontiguousarray makes a 0-d leaf (a gate) 1-d
+    a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":  # numpy carries JAX bf16 as ml_dtypes
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).reshape(shape)
+    return torch.from_numpy(a.copy()).reshape(shape)
 
 
 def from_jax(tree, device=None):
     """The JAX parameter tree (``jax.tree.map(np.asarray, params)``) as the
     port's tree: same leaves, same dtypes, and each stacked ``blocks`` leaf
     split along its leading ``num_blocks`` axis into per-layer tensors (an
-    expert leaf (num_blocks, E, d, F) into (E, d, F) each; nested trees such
-    as MoE's ``shared`` experts keep their shape)."""
+    expert leaf (num_blocks, E, d, F) into (E, d, F) each, a cross-attention
+    ``gate`` (num_blocks,) into 0-d tensors; nested trees such as MoE's
+    ``shared`` experts keep their shape)."""
     device = resolve_device(device)
     conv = lambda t: _tree_map(lambda a: _leaf_to_torch(a).to(device), t)  # noqa: E731
 

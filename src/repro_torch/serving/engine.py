@@ -56,10 +56,15 @@ through B2, see ``serving/speculative.py``). Sharing and speculation follow
 the reference's gate: chunked admissions over the dense or T1 arena (the
 dense arm of a tiered arena).
 
+The static engine also serves the non-token inputs: an audio model's frames
+(musicgen, whose decode feeds its codes as tokens) and a text+patches
+model's patches, which its cross-attention layers attend over
+(llama-vision). The continuous engine drives token prompts only and refuses
+the others with ``SchedulerConfigError``, as the reference does.
+
 Both engines run on the GPU unless ``device`` names another device. They
 refuse, with ``SchedulerConfigError``, every knob the port does not
-implement yet instead of ignoring it: non-token inputs and a device mesh
-(and, with ``NotImplementedError``, the cross-attention layer kind).
+implement yet instead of ignoring it: a device mesh.
 """
 from __future__ import annotations
 
@@ -98,8 +103,6 @@ def _unported_model(rt: AttentionRuntime, cfg: ModelConfig) -> list[str]:
         out.append("mesh (multi-device serving, ROADMAP A21)")
     if rt.mode in pgc.UNPORTED_MODES:
         out.append(f"mode={rt.mode!r} (ROADMAP {pgc.UNPORTED_MODES[rt.mode]})")
-    if cfg.input_kind != "tokens":
-        out.append(f"input_kind={cfg.input_kind!r} (ROADMAP A19)")
     return out
 
 
@@ -188,25 +191,38 @@ class ServeEngine:
         unported = _unported_model(self.rt, cfg)
         if unported:
             raise SchedulerConfigError("not ported yet: " + "; ".join(unported))
-        model_defs(cfg)  # raises NotImplementedError for unported layer kinds
+        model_defs(cfg)  # raises ValueError for an unknown layer or input kind
+        M.check_inputs(cfg)
         self.params = to_device(params, self.device)
         self.max_len = max_len
 
+    def _inputs(self, batch: dict) -> dict:
+        """The batch on the engine's device: tokens as given, frames and
+        patches cast to the parameter dtype."""
+        out = {}
+        for name, a in batch.items():
+            t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+            t = t.to(self.device)
+            out[name] = t if name == "tokens" else t.to(self.cfg.param_dtype)
+        return out
+
     def generate(self, batch: dict, gen: GenerationConfig = GenerationConfig()):
-        """batch: {'tokens': (B, S)}. Returns (generated (B, n) int32, n <=
+        """batch: {'tokens': (B, S)}, an audio model's {'frames': (B, S, D)}
+        or a text+patches model's {'tokens': (B, S), 'patches': (B, P, D)}.
+        Returns (generated (B, n) int32, n <=
         max_new_tokens, stats). With ``eos_id`` rows past their EOS emit
         ``eos_id``, the EOS itself counts as generated, and the run stops
         once every row has emitted one. Sampling (``temperature > 0``)
         draws the first token with ``PRNGKey(seed)`` and each later one
         with the next ``split`` of the key chain, as the reference does."""
         cfg = self.cfg
-        prompt = torch.as_tensor(np.asarray(batch["tokens"]), device=self.device)
-        B, S = prompt.shape
+        inputs = self._inputs(batch)
+        B, S = (inputs["tokens"] if "tokens" in inputs else inputs["frames"]).shape[:2]
         if S > self.max_len:
             raise ValueError(f"ServeEngine.generate: prompts of {S} tokens exceed "
                              f"max_len={self.max_len}")
         caches = M.init_caches(cfg, self.rt, B, S + gen.max_new_tokens, self.device)
-        logits, caches = M.prefill(cfg, self.rt, self.params, prompt, caches)
+        logits, caches = M.prefill(cfg, self.rt, self.params, inputs, caches)
 
         toks = []
         done = np.zeros((B,), bool)
@@ -302,7 +318,7 @@ class ContinuousServeEngine:
         if unported:
             raise SchedulerConfigError(
                 "not ported yet: " + "; ".join(unported))
-        model_defs(cfg)  # raises NotImplementedError for unported layer kinds
+        model_defs(cfg)  # raises ValueError for an unknown layer or input kind
         self.tiered = bool(serving.enable_escalation and rt.mode == "dense")
         if self.tiered and rt.cpq is None:
             rt = dataclasses.replace(rt, cpq=CPQCfg())
@@ -310,6 +326,11 @@ class ContinuousServeEngine:
             raise SchedulerConfigError(
                 "tier escalation supports plain-attention stacks only "
                 "(MLA already caches the compressed latent)")
+        if cfg.input_kind != "tokens":
+            raise SchedulerConfigError(
+                "continuous serving drives token prompts; "
+                f"input_kind={cfg.input_kind!r} needs the static engine")
+        M.check_inputs(cfg)
         self.rt = rt
         self.params = to_device(params, self.device)
         # recurrent mixers integrate every prefill token into their state, so
@@ -395,8 +416,8 @@ class ContinuousServeEngine:
         padded, S = self._bucketed(req.context)
         rt_t = self._rt_for_tier(req.tier)
         ctg = M.init_caches(self.cfg, rt_t, 1, len(padded), self.device)
-        logits, ctg = M.prefill(self.cfg, rt_t, self.params, self._tensor(padded[None]), ctg,
-                                last_index=S - 1)
+        batch = {"tokens": self._tensor(padded[None])}
+        logits, ctg = M.prefill(self.cfg, rt_t, self.params, batch, ctg, last_index=S - 1)
         tables = sched.alt_block_tables if req.tier == 1 else sched.block_tables
         M.pack_prefill_caches(self.cfg, rt_t, st.caches, ctg, self._tensor(tables[req.slot]),
                               req.slot)

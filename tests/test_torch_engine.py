@@ -10,6 +10,7 @@ MLA and MoE serve:
 ``test_torch_policies.py``, ``test_torch_speculative.py``,
 ``test_torch_decomposed_cpq.py``, ``test_torch_mla.py``, ``test_torch_moe.py``)."""
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -125,21 +126,27 @@ def test_unported_knobs_raise(model, serving_kw, rt_kw):
 
 
 def test_unported_inputs_and_sampling_raise(model):
-    """Non-token inputs, the cross-attention layer kind (also inside a
-    recurrent hybrid) and tier escalation over MLA are refused. Sampling no
-    longer is, nor are MLA, MoE and the recurrent mixers: they serve, held
-    against the reference in ``test_torch_sampling.py``, ``test_torch_mla.py``,
-    ``test_torch_moe.py`` and ``test_torch_engine_recurrent.py``."""
+    """Non-token inputs are refused by the continuous engine with the
+    reference's error (they serve on the static engine:
+    ``test_torch_multimodal.py``); a cross-attention layer in a stack of
+    token input (also inside a recurrent hybrid), which no configuration
+    has, raises naming the patches it lacks; tier escalation over MLA is
+    refused. Sampling no longer is, nor are MLA, MoE and the recurrent
+    mixers: they serve, held against the reference in
+    ``test_torch_sampling.py``, ``test_torch_mla.py``, ``test_torch_moe.py``
+    and ``test_torch_engine_recurrent.py``."""
     _, tcfg, _, tparams = model
-    with pytest.raises(T.SchedulerConfigError, match="input_kind"):
-        T.ContinuousServeEngine(dataclasses.replace(tcfg, input_kind="audio_frames"),
-                                tparams, serving=_serving(T, num_pages=33), device="cpu")
+    vision = T.smoke_config(T.ARCHS["llama-3.2-vision-11b"])
+    for cfg in (dataclasses.replace(tcfg, input_kind="audio_frames"), vision):
+        with pytest.raises(T.SchedulerConfigError, match=re.escape(
+                f"input_kind={cfg.input_kind!r} needs the static engine")):
+            T.ContinuousServeEngine(cfg, tparams, serving=_serving(T, num_pages=33),
+                                    device="cpu")
     jamba = T.smoke_config(T.ARCHS["jamba-1.5-large-398b"])
-    with pytest.raises(NotImplementedError, match="A19: the xattn mixer"):  # in a hybrid
+    with pytest.raises(ValueError, match="patches"):  # in a hybrid
         T.ContinuousServeEngine(dataclasses.replace(jamba, prefix_pattern=(("xattn", "dense"),)),
                                 tparams, serving=_serving(T, num_pages=33), device="cpu")
-    vision = T.smoke_config(T.ARCHS["llama-3.2-vision-11b"])
-    with pytest.raises(NotImplementedError, match="A19"):   # the xattn mixer
+    with pytest.raises(ValueError, match="patches"):   # the xattn mixer, token input
         T.ContinuousServeEngine(dataclasses.replace(vision, input_kind="tokens"),
                                 tparams, serving=_serving(T, num_pages=33), device="cpu")
     with pytest.raises(T.SchedulerConfigError, match="MLA"):  # as the reference refuses

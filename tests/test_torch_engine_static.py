@@ -103,7 +103,7 @@ def test_prefill_and_first_decode_logits_match_jax(model, mode, fused):
     B, S, n_max = 2, 15, 20
     j_logits, jc = jax.jit(partial(JM.prefill, cfg, jrt))(
         params, {"tokens": jnp.asarray(toks)}, JM.init_caches(cfg, jrt, B, n_max))
-    t_logits, tc = TM.prefill(tcfg, rt, tparams, torch.tensor(toks),
+    t_logits, tc = TM.prefill(tcfg, rt, tparams, {"tokens": torch.tensor(toks)},
                               TM.init_caches(tcfg, rt, B, n_max, "cpu"))
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), atol=1e-4, rtol=1e-4)
     nxt = np.asarray(jnp.argmax(j_logits, -1)).astype(np.int32)[:, None]
@@ -117,13 +117,24 @@ def test_prefill_and_first_decode_logits_match_jax(model, mode, fused):
 def test_static_engine_refusals(model):
     """Sampling serves (``test_torch_sampling.py``), and so does the T1+T2
     mode (``test_torch_decomposed_cpq.py``), and so do the recurrent layer
-    kinds (``test_torch_engine_recurrent.py``); the cross-attention layer kind
-    and non-token inputs are refused."""
-    _, tcfg, _, tparams = model
+    kinds (``test_torch_engine_recurrent.py``) and the non-token inputs: here
+    audio frames through qwen's stack, whose streams equal the JAX engine's
+    (the published models with them: ``test_torch_multimodal.py``). A
+    cross-attention layer in a stack of token input, which no configuration
+    has, raises naming the patches it lacks."""
+    cfg, tcfg, params, tparams = model
     xlstm = T.smoke_config(T.ARCHS["xlstm-125m"])
-    with pytest.raises(NotImplementedError, match="A19: the xattn mixer"):
+    with pytest.raises(ValueError, match="patches"):
         T.ServeEngine(dataclasses.replace(xlstm, prefix_pattern=(("xattn", "none"),)),
                       tparams, device="cpu")
-    with pytest.raises(T.SchedulerConfigError, match="A19"):
-        T.ServeEngine(dataclasses.replace(tcfg, input_kind="audio_frames"), tparams,
-                      device="cpu")
+    frames = (0.3 * np.random.default_rng(5).standard_normal((2, 9, cfg.d_model))).astype(
+        np.float32)
+    gen = dict(max_new_tokens=6)
+    want, jst = jeng.ServeEngine(dataclasses.replace(cfg, input_kind="audio_frames"),
+                                 params).generate({"frames": jnp.asarray(frames)},
+                                                  jeng.GenerationConfig(**gen))
+    got, tst = T.ServeEngine(dataclasses.replace(tcfg, input_kind="audio_frames"), tparams,
+                             device="cpu").generate({"frames": frames},
+                                                    T.GenerationConfig(**gen))
+    np.testing.assert_array_equal(got, want)
+    assert tst == jst

@@ -123,7 +123,7 @@ def test_prefill_and_decode_logits_match_jax(moe_model, mode):
     toks = np.random.default_rng(5).integers(0, cfg.vocab_size, size=(2, 13)).astype(np.int32)
     jl, jc = JM.prefill(cfg, jrt, params, {"tokens": jnp.asarray(toks)},
                         JM.init_caches(cfg, jrt, 2, 16))
-    tlg, tc = TM.prefill(tcfg, rt, tparams, torch.from_numpy(toks),
+    tlg, tc = TM.prefill(tcfg, rt, tparams, {"tokens": torch.from_numpy(toks)},
                          TM.init_caches(tcfg, rt, 2, 16, "cpu"))
     np.testing.assert_allclose(tlg.numpy(), np.asarray(jl), atol=LOGIT_TOL, rtol=LOGIT_TOL)
     for t in range(2):

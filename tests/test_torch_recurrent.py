@@ -138,13 +138,21 @@ def test_param_tree_matches_jax(arch):
 
 
 def test_only_the_xattn_mixer_is_refused():
+    """No mixer is refused any more: every mixer has its weights, the
+    cross-attention layer too (the gated ``xattn``:
+    ``test_torch_multimodal.py``); an unknown kind raises, and so does a
+    chunked prefill of a recurrent layer. The name is the one this test had
+    while ``xattn`` was the one kind refused, kept so that its record runs
+    on under one name."""
     cfg = T.smoke_config(T.ARCHS["jamba-1.5-large-398b"])
     xcfg = T.smoke_config(T.ARCHS["xlstm-125m"])
     for c, kind in ((cfg, ("mamba", "moe")), (xcfg, ("mlstm", "none")),
                     (xcfg, ("slstm", "none"))):
         assert "mixer" in layer_defs(c, kind)
-    with pytest.raises(NotImplementedError, match="A19: the xattn mixer"):
-        layer_defs(cfg, ("xattn", "dense"))
+    gate = layer_defs(cfg, ("xattn", "dense"))["mixer"]["gate"]
+    assert gate.shape == () and gate.init == "zeros" and gate.dtype == torch.float32
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        layer_defs(cfg, ("conv", "dense"))
     with pytest.raises(ValueError, match="one-shot"):   # no chunked recurrent prefill
         tfm.layer_prefill_chunk(cfg, cfg.attention, 0, True, ("mamba", "dense"), {}, None,
                                 None, 0, None, 0, 1, None)

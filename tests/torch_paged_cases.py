@@ -479,6 +479,10 @@ FLASH_CASES = [  # seed, B, T, S, H, KV, D, causal, arena (S <= arena: k, v a pr
     (6, 1, 77, 77, 2, 2, 16, True, 77),       # T and S no block multiple
     (7, 1, 70, 70, 8, 1, 256, True, 70),      # MQA at Dh 256 (gemma-2b), G = 8
     (8, 2, 100, 100, 8, 2, 128, True, 128),   # GQA at Dh 128, T no multiple of 64
+    # cross-attention (llama-vision's 32 heads over 8 of 128, here 8 over 2):
+    (9, 2, 64, 200, 8, 2, 128, False, 200),   # the prompt over more patch keys, T < S
+    (10, 1, 77, 200, 8, 2, 128, False, 208),  # ... T no tile multiple, k and v a prefix
+    (11, 2, 1, 200, 8, 2, 128, False, 200),   # a decode token over every patch key
 ]
 
 
