@@ -139,8 +139,29 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               tiled 4 times, 64 new tokens): verify steps and accepted
               drafts; (j) make_slo_workload (24 requests, interactive and
               batch classes) through the port's run_trace under the slo
-              and fifo policies, with per-class tails. No gate: layer 0's
-              K/V of the static
+              and fifo policies, with per-class tails. Then (r) the
+              replica router at full width (all 24 layers, bf16): a
+              ReplicaRouter over 2 replicas with (a)'s ServingCfg and the
+              reference fault tests' probe settings (probe_interval 2,
+              probe_failures 2, probe_backoff 2, auto_drain), load
+              placement, 16 requests ((a)'s 8 and 8 more from the next
+              seed, every third sampled at temperature 0.8, top-k 50, seed
+              100 + rid; two arrivals a tick): (r1) no fault, the router
+              built from host leaves (the device grows by at most 1.05
+              weight copies, and every weight leaf of replica 1 is replica
+              0's); (r2) a crash window at tick 16 for 4 ticks of replica
+              1's fault clock: one auto-drain, one recovery, requests
+              migrated, and the drain frees at least the drained arena's
+              bytes of device memory; (r3) one decoding and one
+              mid-prefill request of replica 0 rebalanced to replica 1.
+              Each run: every rid in results() once with its 64 tokens, its
+              events the gapless indices 0-63 once each with one finishing
+              event, no page leaked on a live replica, B1 (ring) and B2
+              (tensor cores) alone launched, 24 times a replica decode
+              step and chunk; the router's step times, decode and end-to-end
+              rates and stats()'s tokens_per_step printed (on one card the
+              replicas tick one after the other; stats() counts them as
+              parallel). No gate: layer 0's K/V of the static
               prompts encoded by the HQE compression (448 tokens at once,
               64 appended) and the T3 proxy encode on the card and on the
               CPU, and how many codes, levels and tables differ
@@ -172,7 +193,13 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               card against the CPU on 32 rows of 151936 float32 logits:
               identical Threefry bits and uniforms, and identical draws but
               where the CPU's top-2 perturbed logits lie within 1e-6
-              (relative), counted. Each added phase prints its seconds
+              (relative), counted. Then (r2) and (r3) at 2 of the 24
+              layers (ROUTER_PARITY_DEPTH, cut from the parity depth for
+              time), kernels on, against one fault-free
+              ContinuousServeEngine with (a)'s settings on the same 16
+              requests: sampled streams identical, greedy streams
+              identical but below a 1e-4 top-2 gap (excused, counted).
+              Each added phase prints its seconds
   6. deepseek (k) deepseek-v2-lite at its published widths (27 layers: MLA
               with a latent of 512, one MLA + dense layer and 26 MLA + MoE,
               64 routed and 2 shared experts, top-6; random bf16 weights
@@ -933,8 +960,8 @@ def served_config(T):
     return cfg
 
 
-def make_requests(T, vocab: int):
-    rng = np.random.default_rng(SEED)
+def make_requests(T, vocab: int, seed: int = SEED):
+    rng = np.random.default_rng(seed)
     lens = rng.integers(64, 513, size=8)
     lens[0], lens[1] = 64, 512
     return [T.Request(rid=i, prompt=rng.integers(0, vocab, size=int(n)).astype(np.int32),
@@ -1292,7 +1319,9 @@ def profile_windows(make_engine, T, reqs, ticks, windows) -> list[dict]:
     """Replays the same serve (greedy, so tick i does the same work) and
     profiles the given tick windows with torch.profiler: device time by
     kernel, and the device's busy share of those ticks' unprofiled wall
-    time (taken from ``ticks`` of the measured run)."""
+    time (taken from ``ticks`` of the measured run). Only the CUDA activity
+    is traced: the host's operator events change no device time and took
+    half of each replay's seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1312,7 +1341,7 @@ def profile_windows(make_engine, T, reqs, ticks, windows) -> list[dict]:
     for lo, hi in windows:
         run_to(lo)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run_to(hi)
             torch.cuda.synchronize()
         kernels = sorted(((e.key, e.device_time_total / 1e3, e.count)
@@ -1664,7 +1693,7 @@ def profile_static(make_engine, T, M, prompts, n_new, step_ms, lo: int, hi: int)
     from torch.profiler import ProfilerActivity, profile
 
     eng, dec, calls = make_engine(), M.decode_step, [0]
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
 
     def step(*a, **kw):
         if calls[0] == lo:
@@ -3595,6 +3624,275 @@ def parity_rest(T, cfg, params, rest: dict, vocab: int, report: dict, new_s: dic
         f"added phases: " + ", ".join(f"{k} {v:.1f}" for k, v in new_s.items()))
 
 
+# ------------------------------------------- phase 4: the replica router (r)
+
+ROUTER_REPLICAS = 2
+# the reference fault tests' probe settings
+ROUTER_PROBES = dict(probe_interval=2, probe_failures=2, probe_backoff=2, auto_drain=True)
+ROUTER_CRASH = (16, 4)      # (r2): a crash window on replica 1's fault clock (tick, duration)
+ROUTER_PARITY_DEPTH = 2     # layers of (r)'s f32 parity (of 24; cut from PARITY_DEPTH for time)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return [t for x in tree for t in tree_leaves(x)]
+
+
+def router_requests(T, vocab: int):
+    """(r)'s 16 requests: (a)'s 8 and 8 more made the same way from the next
+    seed (prompts of 64-512 seeded tokens, 64 new each); every third
+    sampled (temperature 0.8, top-k 50, seed 100 + rid), the rest greedy;
+    two arrivals a tick."""
+    base = make_requests(T, vocab) + make_requests(T, vocab, SEED + 1)
+    out = []
+    for rid, r in enumerate(base):
+        sp = (T.SamplingParams(temperature=0.8, top_k=50, seed=100 + rid,
+                               max_tokens=r.max_new_tokens) if rid % 3 == 0
+              else T.SamplingParams(max_tokens=r.max_new_tokens))
+        out.append(T.ServeRequest(prompt=r.prompt, rid=rid, sampling=sp, arrival=float(rid // 2)))
+    return out
+
+
+def crash_plan():
+    """(r2)'s fault plan of replica 1."""
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+
+    return FaultPlan((FaultEvent(ROUTER_CRASH[0], "crash", ROUTER_CRASH[1]),))
+
+
+def sampled_rids(reqs) -> set:
+    return {r.rid for r in reqs if r.sampling.temperature > 0}
+
+
+def router_run(T, cfg, params, serving, reqs, plans=None, rebalance=False) -> dict:
+    """One serve of ``reqs`` through a ReplicaRouter of ROUTER_REPLICAS
+    replicas on (a)'s arena with the probe settings, least-loaded placement
+    and fault ``plans``, tick by tick with a device sync around each tick.
+    Keeps every output event, each tick's (ms, rows decoded, a chunk ran, a
+    decode ran), each auto-drain's fall of ``torch.cuda.memory_allocated()``
+    beside the drained replica's arena bytes, and, with ``rebalance``, moves
+    one decoding and one mid-prefill request of replica 0 to replica 1 at
+    the first tick that has both."""
+    sv = dataclasses.replace(serving, **ROUTER_PROBES)
+    mem0 = torch.cuda.memory_allocated()
+    from repro_torch.serving.router import ReplicaRouter
+
+    router = ReplicaRouter(cfg, params, num_replicas=ROUTER_REPLICAS, serving=sv,
+                           placement="load", fault_plans=plans, device=DEVICE)
+    built = torch.cuda.memory_allocated() - mem0
+    drains, moved = [], []
+    auto_drain = router._auto_drain
+
+    def watched_drain(i):  # the memory right before and right after the drain
+        before = torch.cuda.memory_allocated()
+        auto_drain(i)
+        drains.append({"replica": i, "freed": before - torch.cuda.memory_allocated(),
+                       "arena_bytes": router.stats()["per_replica"][i]["arena_bytes_total"]})
+
+    router._auto_drain = watched_drain
+    router.reset(T.GenerationConfig())
+    for r in reqs:
+        router.add_request(r)
+    events, ticks = [], []
+    t_all = time.perf_counter()
+    after = router.stats()
+    while router.has_unfinished():
+        before = after
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        router.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = router.stats()
+        events += router.pending_outputs()
+        rows = after["generated_tokens"] - before["generated_tokens"]
+        ticks.append((ms, rows, after["prefill_chunks"] > before["prefill_chunks"],
+                      after["decode_steps"] > before["decode_steps"]))
+        if rebalance and not moved:
+            rows0 = [q for q in router.engines[0]._st.sched.occupied()
+                     if router.replica_of(q.rid) == 0]
+            dec = [q.rid for q in rows0 if q.state == "running"]
+            pre = [q.rid for q in rows0 if q.state == "prefilling"]
+            if dec and pre:
+                moved = [dec[0], pre[0]]
+                check(all(router.rebalance(rid, 1) for rid in moved),
+                      f"router: rebalance of {moved} refused")
+    wall = time.perf_counter() - t_all
+    return {"router": router, "built_bytes": built, "events": events, "ticks": ticks,
+            "wall": wall, "drains": drains, "moved": moved, "results": router.results(),
+            "stats": router.stats()}
+
+
+def check_exactly_once(what: str, run: dict, reqs) -> None:
+    """Every rid in ``results()`` once with its 64 tokens; its events the
+    gapless indices 0-63 once each with its tokens, and one finishing
+    event; no page leaked on a live replica."""
+    results, events = run["results"], run["events"]
+    check(set(results) == {r.rid for r in reqs}, f"{what}: rids {sorted(results)}")
+    for r in reqs:
+        toks = list(results[r.rid]["tokens"])
+        mine = [e for e in events if e.rid == r.rid]
+        got = sorted((e.index, e.token) for e in mine if e.token >= 0)
+        check(len(toks) == r.sampling.max_tokens and got == list(enumerate(toks)),
+              f"{what}: request {r.rid}: {len(toks)} tokens, events {[i for i, _ in got]}")
+        check(sum(e.finished for e in mine) == 1, f"{what}: request {r.rid} finished "
+              f"{sum(e.finished for e in mine)} times")
+    for i, eng in enumerate(run["router"].engines):
+        if eng._st is not None:
+            leaked = eng.stats()["dense_pages_leaked"]
+            check(leaked == 0, f"{what}: replica {i} leaked {leaked} pages")
+
+
+def router_metrics(what: str, run: dict) -> dict:
+    """The router's step times (every tick, and the decode-only ones), its
+    decode and end-to-end rates, and the reference's tokens_per_step."""
+    ticks, stats, wall = run["ticks"], run["stats"], run["wall"]
+    all_ms = [ms for ms, *_ in ticks]
+    pure = [(ms, rows) for ms, rows, chunk, dec in ticks if dec and not chunk]
+    out = {"router_ticks": len(ticks), "decode_steps": stats["decode_steps"],
+           "decode_steps_max": stats["decode_steps_max"],
+           "prefill_chunks": stats["prefill_chunks"],
+           "step_ms_median": float(np.median(all_ms)),
+           "step_ms_p90": float(np.percentile(all_ms, 90)),
+           "pure_decode_ticks": len(pure),
+           "decode_step_ms_median": float(np.median([ms for ms, _ in pure])) if pure else None,
+           "decode_tokens_per_s": (sum(r for _, r in pure) / sum(ms for ms, _ in pure) * 1e3
+                                   if pure else None),
+           "generated_tokens": stats["generated_tokens"], "serve_wall_s": wall,
+           "end_to_end_tokens_per_s": stats["generated_tokens"] / wall,
+           "tokens_per_step": stats["tokens_per_step"],
+           "arena_bytes": stats["arena_bytes_total"],
+           "counters": {k: stats[k] for k in ("auto_drains", "recoveries", "migrated_requests",
+                                               "rebalanced", "backlog", "timeouts", "shed")}}
+    log(f"serve {what}: {len(ticks)} router ticks ({stats['decode_steps']} replica decode "
+        f"steps, {stats['prefill_chunks']} chunks); router step median "
+        f"{out['step_ms_median']:.3f} ms (p90 {out['step_ms_p90']:.3f}); decode "
+        + (f"{out['decode_tokens_per_s']:.1f} tokens/s over {len(pure)} decode-only ticks; "
+           if pure else "none alone; ")
+        + f"end to end {out['end_to_end_tokens_per_s']:.1f} tokens/s over {wall:.2f} s; "
+        f"stats() tokens_per_step {stats['tokens_per_step']:.3f} (the replicas counted as "
+        f"parallel; on one card they tick one after the other); arenas "
+        f"{stats['arena_bytes_total'] / 1e9:.3f} GB; counters {out['counters']}")
+    return out
+
+
+def serve_router(T, cfg, params, serving, counted: list, routed: dict, fa_routes: dict,
+                 serves: dict, new_s: dict) -> None:
+    """Serve (r): the ReplicaRouter over ROUTER_REPLICAS replicas of the
+    full-width model on (a)'s arena, (r1) with no fault, (r2) with a crash
+    window on replica 1, (r3) with one decoding and one mid-prefill request
+    rebalanced from replica 0 to 1. Each with every launch and route count
+    set to 0 just before and read just after: B1 alone per replica decode
+    step and B2 per replica chunk, L launches each, on the ring and the
+    tensor cores; exactly-once delivery and no page leaked. (r1) also: one
+    weight copy (built from host leaves, the device grows by at most 1.05
+    copies, and every leaf of replica 1 is replica 0's); (r2) the drain,
+    the recovery and the fall of device memory by the drained arena."""
+    from repro_torch.params import to_device
+
+    L = cfg.num_layers
+    reqs = router_requests(T, cfg.vocab_size)
+    weight = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    host = {"r1": to_device(params, "cpu")}
+    plan = crash_plan()
+    for key, what, plans, rebalance in (
+            ("r1", "router", None, False),
+            ("r2", "router crash", [None, plan], False),
+            ("r3", "router rebalance", None, True)):
+        t1 = time.perf_counter()
+        zero_launches(counted, fa_routes)
+        zero_routes(routed)
+        run = router_run(T, cfg, host.pop(key, params), serving, reqs, plans, rebalance)
+        counts = counted_launches(counted, fa_routes)
+        routes = check_routes(what, routed, counts)
+        stats, router = run["stats"], run["router"]
+        want = {name: 0 for name in counts}
+        want.update(paged_decode=L * stats["decode_steps"],
+                    paged_prefill=L * stats["prefill_chunks"])
+        check(counts == want and want["paged_decode"] > 0 and want["paged_prefill"] > 0,
+              f"{what}: launch counts {counts}, want {want}")
+        check_exactly_once(what, run, reqs)
+        shared = [a.data_ptr() == b.data_ptr() for a, b in
+                  zip(tree_leaves(router.engines[0].params),
+                      tree_leaves(router.engines[1].params))]
+        check(all(shared) and len(shared) == len(tree_leaves(params)),
+              f"{what}: replica 1 holds its own copy of {shared.count(False)} weight leaves")
+        serves[what] = router_metrics(what, run)
+        if key == "r1":
+            check(run["built_bytes"] <= 1.05 * weight,
+                  f"{what}: building {ROUTER_REPLICAS} replicas took "
+                  f"{run['built_bytes'] / 1e9:.3f} GB of device memory for "
+                  f"{weight / 1e9:.3f} GB of weights")
+            log(f"serve {what}: {ROUTER_REPLICAS} replicas built from host leaves took "
+                f"{run['built_bytes'] / 1e9:.4f} GB of device memory, one weight copy is "
+                f"{weight / 1e9:.4f} GB; every weight leaf of replica 1 is replica 0's")
+            serves[what].update(built_bytes=run["built_bytes"], weight_bytes=weight)
+        c = serves[what]["counters"]
+        if key == "r2":
+            check(c["auto_drains"] == 1 and c["recoveries"] == 1
+                  and c["migrated_requests"] >= 1, f"{what}: counters {c}")
+            d = run["drains"]
+            check(len(d) == 1 and d[0]["replica"] == 1 and d[0]["freed"] >= d[0]["arena_bytes"],
+                  f"{what}: auto-drains {d}")
+            log(f"serve {what}: the auto-drain of replica 1 freed {d[0]['freed'] / 1e9:.4f} "
+                f"GB of device memory, its arenas {d[0]['arena_bytes'] / 1e9:.4f} GB")
+            serves[what]["drain"] = d[0]
+        if key == "r3":
+            check(c["rebalanced"] == 2 and len(run["moved"]) == 2, f"{what}: counters {c}, "
+                  f"moved {run['moved']}")
+            serves[what]["moved"] = run["moved"]
+        serves[what].update(launches={k: n for k, n in counts.items() if n}, routes=routes)
+        del run, router
+        torch.cuda.empty_cache()
+        new_s[what] = time.perf_counter() - t1
+        log(f"[{time.perf_counter() - T0:.0f} s] served {what} in {new_s[what]:.1f} s")
+
+
+def router_parity(T, cfg, params, serving, report: dict, new_s: dict) -> None:
+    """(r2) and (r3) in float32 (TF32 off, kernels on; ``cfg``/``params``
+    cut to ROUTER_PARITY_DEPTH layers) against one fault-free
+    ContinuousServeEngine with (a)'s settings on the same 16 requests:
+    sampled streams identical, greedy streams identical but for a first
+    divergence below ARGMAX_GAP of the engine's top-2 gap (excused,
+    counted)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t1 = time.perf_counter()
+    reqs = router_requests(T, cfg.vocab_size)
+    eng = T.ContinuousServeEngine(cfg, params, serving=serving, device=DEVICE)
+    gaps = {}
+    watch_gaps(eng, gaps)
+    ref = {rid: r["tokens"] for rid, r in eng.serve(reqs)[0].items()}
+    del eng
+    sampled = sampled_rids(reqs)
+    plan = crash_plan()
+    for what, plans, rebalance in (("router crash", [None, plan], False),
+                                   ("router rebalance", None, True)):
+        run = router_run(T, cfg, params, serving, reqs, plans, rebalance)
+        got = {rid: r["tokens"] for rid, r in run["results"].items()}
+        for rid in sorted(sampled):
+            check(np.array_equal(got[rid], ref[rid]),
+                  f"parity {what}: sampled request {rid} differs from the engine's")
+        greedy = {r.rid: r.sampling.max_tokens for r in reqs if r.rid not in sampled}
+        same = compare_streams(what, {True: got, False: ref}, gaps, greedy,
+                               names=("router", "engine"))
+        c = run["stats"]
+        report["parity"][what] = {"sampled_identical": len(sampled),
+                                  "greedy_identical": same, "greedy": len(greedy),
+                                  "auto_drains": c["auto_drains"], "recoveries": c["recoveries"],
+                                  "migrated_requests": c["migrated_requests"],
+                                  "rebalanced": c["rebalanced"]}
+        log(f"parity {what}: {len(sampled)}/{len(sampled)} sampled streams identical to the "
+            f"engine's; counters {report['parity'][what]}")
+        del run
+        torch.cuda.empty_cache()
+    new_s["parity router"] = time.perf_counter() - t1
+    log(f"[{time.perf_counter() - T0:.0f} s] parity router in {new_s['parity router']:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the report as JSON here")
@@ -4037,6 +4335,11 @@ def main() -> int:
                       {**params, "blocks": [b[:REST_DEPTH] for b in params["blocks"]]},
                       serving, counted, routed, fa_ops.ROUTE_LAUNCHES, serves,
                       new_s)
+    # 4r) the replica router: two replicas of the full-width model on (a)'s
+    #     arena sharing one weight copy; no fault, a crash window auto-drained
+    #     and re-admitted, and a rebalance of a decoding and a prefilling row
+    serve_router(T, cfg, params, serving, counted, routed, fa_ops.ROUTE_LAUNCHES, serves,
+                 new_s)
 
     # C3: the T2 (HQE) and T3 (proxy) encoders on the card and on the CPU, on
     #     layer 0's K/V of the static prompts (448 at once, 64 appended)
@@ -4069,6 +4372,10 @@ def main() -> int:
     # the rest of the tick: (h), its copy-on-write probe and (i), kernels on
     # and off, the feature on and off; then the sampler, card against CPU
     parity_rest(T, cfg_p, params_p, rest, cfg.vocab_size, report, new_s)
+    # (r)'s crash and rebalance runs against one fault-free engine
+    router_parity(T, dataclasses.replace(cfg_p, num_blocks=ROUTER_PARITY_DEPTH),
+                  {**params_p, "blocks": [b[:ROUTER_PARITY_DEPTH] for b in params_p["blocks"]]},
+                  serving, report, new_s)
     report["parity"]["oneshot"] = parity(T, M, cfg_p, params_p, reqs, "dense",
                                          serving_kw=dict(prefill_chunk=0))
     for mode in ("dense", "decomposed", "cpq", "retrieval"):

@@ -62,6 +62,13 @@ model's patches, which its cross-attention layers attend over
 (llama-vision). The continuous engine drives token prompts only and refuses
 the others with ``SchedulerConfigError``, as the reference does.
 
+The continuous engine also carries the surface the replica router
+(``serving/router.py``) drives: ``adopt_compiled`` (replicas share one
+device weight tree), ``arena_stats``, a host-only ``health`` probe,
+``queued_requests``, ``outstanding_tokens``, and the ``drain`` /
+``drain_request`` snapshots that replay elsewhere through recompute
+preemption, then ``release`` of the arenas.
+
 Both engines run on the GPU unless ``device`` names another device. They
 refuse, with ``SchedulerConfigError``, every knob the port does not
 implement yet instead of ignoring it: a device mesh.
@@ -575,6 +582,112 @@ class ContinuousServeEngine:
         """Finished-request records so far: rid -> {tokens, finish_reason,
         admitted_step, token_steps, ...}."""
         return dict(self._st.results) if self._st is not None else {}
+
+    # ------------------------------------------------ router support surface
+
+    def adopt_compiled(self, other: "ContinuousServeEngine") -> None:
+        """Share ``other``'s device weight tree. The reference shares its
+        jitted step functions here; the port compiles nothing, and what
+        data-parallel replicas of one (cfg, rt) on one device share is the
+        weights: N replicas, one copy of the weights, N arenas.
+        ``ServingCfg`` may differ."""
+        assert other.cfg == self.cfg and other.rt == self.rt, (
+            "adopt_compiled requires an identical (cfg, rt) pair")
+        assert other.device == self.device, (
+            f"adopt_compiled across devices ({other.device} vs {self.device})")
+        self.params = other.params
+
+    def arena_stats(self) -> dict:
+        """The scheduler's allocator counters plus the dense free-page
+        fraction, which placement policies read."""
+        sched = self._ensure_state().sched
+        return {**sched.arena_stats(), "free_frac": sched.free_frac()}
+
+    def health(self) -> dict:
+        """The router's health probe: host bookkeeping only (no device
+        tensor is read, nothing syncs). ``progress`` moves whenever the
+        engine does anything (tick clock + admissions + retirements);
+        ``exhausted`` is False here, and fault injection overrides it."""
+        st = self._st
+        if st is None:
+            return {"alive": True, "has_work": False, "queued": 0,
+                    "progress": 0, "free_frac": 1.0, "exhausted": False}
+        sched = st.sched
+        return {"alive": True,
+                "has_work": sched.has_work(),
+                "queued": len(sched.queue),
+                "progress": (st.step + sched.stats["admitted"]
+                             + sched.stats["retired"]),
+                "free_frac": sched.free_frac(),
+                "exhausted": False}
+
+    def queued_requests(self) -> list[Request]:
+        """The admission queue, in order (a read-only copy)."""
+        st = self._st
+        return list(st.sched.queue) if st is not None else []
+
+    def drain_request(self, rid: int) -> Optional[Request]:
+        """Snapshot one incomplete request for replay elsewhere and free its
+        pages (the router's ``rebalance``). A resident row (decoding or
+        mid-prefill) leaves through recompute preemption; a queued request
+        is simply removed. Returns the Request (context = prompt +
+        generated so far, pinned SamplingParams) or None when ``rid`` is
+        not incomplete here."""
+        st = self._st
+        if st is None:
+            return None
+        sched = st.sched
+        for req in sched.occupied():
+            if req.rid == rid:
+                slot = req.slot
+                sched.preempt(req)          # pages freed, state -> queued
+                self._clear_row_sampling(st, slot)
+                sched.queue.remove(req)     # preempt requeued at the front
+                return req
+        for req in list(sched.queue):
+            if req.rid == rid:
+                sched.queue.remove(req)
+                return req
+        return None
+
+    def outstanding_tokens(self) -> int:
+        """Work still owed across queued and resident requests: prefill
+        tokens not yet in the arena plus undelivered generation budget (the
+        load that least-outstanding placement balances)."""
+        st = self._st
+        if st is None:
+            return 0
+        total = 0
+        for r in list(st.sched.queue) + st.sched.occupied():
+            total += max(len(r.prompt) + r.num_generated - r.length, 0)
+            total += max(r.max_new_tokens - r.num_generated, 0)
+        return total
+
+    def drain(self) -> list[Request]:
+        """Snapshot every incomplete request (queued, mid-prefill or
+        decoding) for replay elsewhere and free their pages. Slot holders
+        leave through recompute preemption, then the whole queue is handed
+        over, by (arrival, rid). Greedy rows are deterministic and seeded
+        rows draw ``fold_in(seed, token_index)``, so a replayed stream goes
+        on token for token. Results and counters stay here; ``release()``
+        drops the arenas."""
+        st = self._st
+        if st is None:
+            return []
+        sched = st.sched
+        for req in sorted(sched.occupied(), key=lambda r: r.admitted_step):
+            slot = req.slot
+            sched.preempt(req)
+            self._clear_row_sampling(st, slot)
+        out = sorted(sched.queue, key=lambda r: (r.arrival, r.rid))
+        sched.queue.clear()
+        return out
+
+    def release(self) -> None:
+        """Drop the serving session: scheduler, arenas (their device memory
+        is freed with them), sampling rows and output buffers. The next
+        ``add_request()`` / ``reset()`` starts a fresh session."""
+        self._st = None
 
     # ----------------------------------------------------- result plumbing
 

@@ -1,6 +1,7 @@
-"""Scheduler policies of the port (the JAX package's ``serving/policies.py``):
-the ``SchedulerPolicy`` protocol, ``FifoPolicy``, ``PriorityPolicy`` and
-``SloAwarePolicy``.
+"""Scheduler and placement policies of the port (the JAX package's
+``serving/policies.py``): the ``SchedulerPolicy`` protocol, ``FifoPolicy``,
+``PriorityPolicy`` and ``SloAwarePolicy``; the router's ``PlacementPolicy``
+protocol over ``ReplicaView`` and ``make_placement``.
 
 ``serving/scheduler.py`` keeps the mechanisms (page allocation, slot
 bookkeeping, state transitions) and delegates every decision to a policy:
@@ -20,11 +21,17 @@ escalate or de-escalate between arena tiers.
                       slack, low-priority victims, and de-escalation on by
                       default.
 
-The replica placement policies of the reference belong to its router, which
-the port does not have yet (ROADMAP A17).
+The replica placement policies decide where ``ReplicaRouter`` places a
+new request, over ``ReplicaView`` snapshots of the replicas:
+
+  ``RoundRobinPlacement``   cycles over the offered replicas.
+  ``LeastLoadedPlacement``  least outstanding tokens first.
+  ``SloPressurePlacement``  latency-bound requests to the freest arena,
+                            batch work by least outstanding tokens.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import TYPE_CHECKING, Optional, Protocol, runtime_checkable
 
@@ -257,3 +264,99 @@ def make_policy(name: str, **kw) -> SchedulerPolicy:
     except KeyError:
         raise ValueError(f"unknown scheduler policy {name!r}; "
                          f"choose from {sorted(_POLICIES)}") from None
+
+
+# --------------------------------------------------- replica placement (router)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaView:
+    """Read-only snapshot of one engine replica at placement time (built by
+    ``ReplicaRouter`` from public engine surfaces; draining replicas are
+    never offered). ``outstanding_tokens`` is the replica's owed work
+    (``engine.outstanding_tokens()``: unprefilled context + undelivered
+    generation budget); ``free_frac`` its dense free-page fraction
+    (``engine.arena_stats()``); ``queued`` the number of requests waiting
+    in its admission queue (saturation signal for backpressure)."""
+
+    index: int
+    outstanding_tokens: int
+    free_frac: float
+    queued: int = 0
+
+
+@runtime_checkable
+class PlacementPolicy(Protocol):
+    """Where a request runs: consulted by ``ReplicaRouter.add_request`` with
+    the non-draining replicas (ordered by index, never empty) after session
+    affinity. Must return the ``.index`` of one offered view,
+    deterministically."""
+
+    name: str
+
+    def select(self, views: list[ReplicaView], req: "Request") -> int:
+        ...
+
+
+class RoundRobinPlacement:
+    """Cycle over the offered replicas in order; a drained replica drops out
+    of the rotation."""
+
+    name = "rr"
+
+    def __init__(self):
+        self._turn = 0
+
+    def select(self, views, req):
+        v = views[self._turn % len(views)]
+        self._turn += 1
+        return v.index
+
+
+class LeastLoadedPlacement:
+    """Least outstanding tokens first (ties by replica index): balances the
+    owed work (remaining prefill plus undelivered generation budget), not
+    request counts."""
+
+    name = "load"
+
+    def select(self, views, req):
+        return min(views, key=lambda v: (v.outstanding_tokens, v.index)).index
+
+
+class SloPressurePlacement:
+    """SLO- and arena-pressure-aware placement.
+
+    Latency-bound requests (a finite ``ttft_target`` or priority at or above
+    ``interactive_priority``) go to the replica with the most free pages
+    (ties: least outstanding); deadline-free batch work packs by least
+    outstanding tokens (ties: most free pages)."""
+
+    name = "slo"
+
+    def __init__(self, interactive_priority: int = 2):
+        self.interactive_priority = interactive_priority
+
+    def select(self, views, req):
+        slo = slo_of(req)
+        latency_bound = (math.isfinite(slo.ttft_target)
+                         or slo.priority >= self.interactive_priority)
+        if latency_bound:
+            return max(views, key=lambda v: (v.free_frac,
+                                             -v.outstanding_tokens,
+                                             -v.index)).index
+        return min(views, key=lambda v: (v.outstanding_tokens,
+                                         -v.free_frac, v.index)).index
+
+
+_PLACEMENTS = {"rr": RoundRobinPlacement, "load": LeastLoadedPlacement,
+               "slo": SloPressurePlacement}
+
+
+def make_placement(name: str, **kw) -> PlacementPolicy:
+    """Placement factory for config strings: rr | load | slo."""
+    try:
+        return _PLACEMENTS[name](**kw)
+    except KeyError:
+        raise ValueError(f"unknown placement policy {name!r}; "
+                         f"choose from {sorted(_PLACEMENTS)}") from None

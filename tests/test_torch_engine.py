@@ -28,6 +28,8 @@ from repro.serving.trace import make_workload
 import repro_torch as T
 from repro_torch.params import from_jax
 
+from torch_paged_cases import share_compiled
+
 TIMERS = ("wall_time_s", "tokens_per_s")
 
 
@@ -52,7 +54,7 @@ def test_streams_and_stats_match_jax(model, num_pages, fused):
     cfg, tcfg, params, tparams = model
     work = make_workload(0, 10, cfg.vocab_size, 0.5)
     kw = dict(num_pages=num_pages, use_paged_kernels=fused)
-    je = jeng.ContinuousServeEngine(cfg, params, serving=_serving(jconfigs, **kw))
+    je = share_compiled(jeng.ContinuousServeEngine(cfg, params, serving=_serving(jconfigs, **kw)))
     jres, jst = je.serve([JRequest(rid=w.rid, prompt=w.prompt, max_new_tokens=w.target,
                                    arrival=w.arrival) for w in work],
                          jeng.GenerationConfig(max_new_tokens=80))
@@ -81,8 +83,8 @@ def test_request_api_events_match_jax(model):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, 256, size=n).astype(np.int32) for n in (9, 3, 17, 5)]
     events = []
-    for mod, eng in ((jconfigs, jeng.ContinuousServeEngine(
-                          cfg, params, serving=_serving(jconfigs, num_pages=33))),
+    for mod, eng in ((jconfigs, share_compiled(jeng.ContinuousServeEngine(
+                          cfg, params, serving=_serving(jconfigs, num_pages=33)))),
                      (T, T.ContinuousServeEngine(tcfg, tparams,
                                                  serving=_serving(T, num_pages=33),
                                                  device="cpu"))):
@@ -103,8 +105,8 @@ def test_request_api_events_match_jax(model):
 def test_generate_matches_jax(model):
     cfg, tcfg, params, tparams = model
     toks = np.random.default_rng(2).integers(0, 256, size=(3, 7)).astype(np.int32)
-    out_j, _ = jeng.ContinuousServeEngine(
-        cfg, params, serving=_serving(jconfigs, num_pages=33)).generate(
+    out_j, _ = share_compiled(jeng.ContinuousServeEngine(
+        cfg, params, serving=_serving(jconfigs, num_pages=33))).generate(
         {"tokens": toks}, jeng.GenerationConfig(max_new_tokens=5))
     out_t, _ = T.ContinuousServeEngine(
         tcfg, tparams, serving=_serving(T, num_pages=33), device="cpu").generate(

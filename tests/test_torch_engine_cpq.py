@@ -21,6 +21,8 @@ from repro.serving.trace import make_workload
 import repro_torch as T
 from repro_torch.params import from_jax
 
+from torch_paged_cases import share_compiled
+
 TIMERS = ("wall_time_s", "tokens_per_s")
 
 
@@ -38,9 +40,9 @@ def _serve_both(model, requests, max_new, mode="dense", **serving_kw):
     """Serve the same (rid, prompt, max_new_tokens, arrival) requests on both
     engines; assert identical results and stats; return the stats."""
     cfg, tcfg, params, tparams = model
-    jres, jst = jeng.ContinuousServeEngine(
+    jres, jst = share_compiled(jeng.ContinuousServeEngine(
         cfg, params, rt=jconfigs.AttentionRuntime(mode=mode),
-        serving=jconfigs.ServingCfg(**serving_kw)).serve(
+        serving=jconfigs.ServingCfg(**serving_kw))).serve(
         [JRequest(rid=r, prompt=p, max_new_tokens=n, arrival=a) for r, p, n, a in requests],
         jeng.GenerationConfig(max_new_tokens=max_new))
     tres, tst = T.ContinuousServeEngine(

@@ -23,6 +23,8 @@ from repro.serving.trace import make_workload
 import repro_torch as T
 from repro_torch.params import from_jax
 
+from torch_paged_cases import share_compiled
+
 TIMERS = ("wall_time_s", "tokens_per_s")
 
 
@@ -50,9 +52,9 @@ def _serve_both(model, work, max_new, mode, **serving_kw):
     cfg, tcfg, params, tparams = model
     kw = dict(num_slots=3, page_size=4, max_blocks_per_slot=32, prefill_chunk=8)
     kw.update(serving_kw)
-    jres, jst = jeng.ContinuousServeEngine(
+    jres, jst = share_compiled(jeng.ContinuousServeEngine(
         cfg, params, rt=jconfigs.AttentionRuntime(mode=mode),
-        serving=jconfigs.ServingCfg(**kw)).serve(
+        serving=jconfigs.ServingCfg(**kw))).serve(
         [JRequest(rid=w.rid, prompt=w.prompt, max_new_tokens=w.target, arrival=w.arrival)
          for w in work], jeng.GenerationConfig(max_new_tokens=max_new))
     tres, tst = T.ContinuousServeEngine(

@@ -29,6 +29,8 @@ from repro_torch.configs import RetrievalCfg
 from repro_torch.params import from_jax
 from repro_torch.serving import scheduler as TS
 
+from torch_paged_cases import share_compiled
+
 TIMERS = ("wall_time_s", "tokens_per_s")
 
 
@@ -56,8 +58,8 @@ def _serve_both(model, requests, max_new, mode="dense", fused=True, **serving_kw
     the port's scheduler admitted into)."""
     cfg, tcfg, params, tparams = model
     kw = dict(prefill_chunk=0, **serving_kw)
-    jres, jst = jeng.ContinuousServeEngine(
-        cfg, params, rt=_rt(jconfigs, mode), serving=jconfigs.ServingCfg(**kw)).serve(
+    jres, jst = share_compiled(jeng.ContinuousServeEngine(
+        cfg, params, rt=_rt(jconfigs, mode), serving=jconfigs.ServingCfg(**kw))).serve(
         [JRequest(rid=r, prompt=p, max_new_tokens=n, arrival=a) for r, p, n, a in requests],
         jeng.GenerationConfig(max_new_tokens=max_new))
     tiers, admit = [], TS.Scheduler.admit_next

@@ -32,6 +32,8 @@ import repro_torch as T
 from repro_torch.configs import RetrievalCfg
 from repro_torch.params import from_jax
 
+from torch_paged_cases import share_compiled
+
 TIMERS = ("wall_time_s", "tokens_per_s")
 TOP_K, RECENT = 12, 4
 
@@ -56,8 +58,8 @@ def _serve_both(model, work, max_new, **serving_kw):
         top_k=TOP_K, recent_window=RECENT))
     trt = T.AttentionRuntime(mode="retrieval", retrieval=RetrievalCfg(
         top_k=TOP_K, recent_window=RECENT))
-    jres, jst = jeng.ContinuousServeEngine(
-        cfg, params, rt=jrt, serving=jconfigs.ServingCfg(**kw)).serve(
+    jres, jst = share_compiled(jeng.ContinuousServeEngine(
+        cfg, params, rt=jrt, serving=jconfigs.ServingCfg(**kw))).serve(
         [JRequest(rid=w.rid, prompt=w.prompt, max_new_tokens=w.target, arrival=w.arrival)
          for w in work], jeng.GenerationConfig(max_new_tokens=max_new))
     tres, tst = T.ContinuousServeEngine(

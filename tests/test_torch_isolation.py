@@ -12,6 +12,7 @@ import torch
 
 import repro_torch as T
 from repro_torch.params import init_params, resolve_device
+from repro_torch.serving.router import ReplicaRouter
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -24,7 +25,8 @@ names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repr
 for name in names:
     importlib.import_module(name)
 for name in ("serving.trace", "serving.prng", "serving.speculative", "models.moe",
-             "models.mla", "models.mamba", "models.xlstm"):
+             "models.mla", "models.mamba", "models.xlstm", "serving.router",
+             "serving.faults", "serving.health"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
@@ -55,3 +57,16 @@ def test_entry_points_need_a_gpu_or_an_explicit_device():
         T.ContinuousServeEngine(cfg, params)
     eng = T.ContinuousServeEngine(cfg, params, device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_router_needs_a_gpu_or_an_explicit_device_and_refuses_a_mesh():
+    cfg = dataclasses.replace(T.smoke_config(T.ARCHS["qwen1.5-0.5b"]), dtype="float32")
+    params = init_params(cfg, 0, device="cpu")
+    with pytest.raises(T.SchedulerConfigError, match="ROADMAP A21"):
+        ReplicaRouter(cfg, params, num_replicas=2, mesh=object(), device="cpu")
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicaRouter(cfg, params, num_replicas=2)
+    router = ReplicaRouter(cfg, params, num_replicas=2, device="cpu")
+    assert [e.device.type for e in router.engines] == ["cpu", "cpu"]

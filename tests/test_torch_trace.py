@@ -12,7 +12,7 @@ import pytest
 from repro.serving import trace as jtrace
 from repro_torch.serving import trace as ttrace
 
-from torch_paged_cases import assert_same, packages, smoke_pair
+from torch_paged_cases import assert_same, packages, share_compiled, smoke_pair
 
 GENERATORS = [
     ("make_workload", dict(seed=0, n_requests=12, vocab=256, rate=0.5)),
@@ -61,8 +61,11 @@ def _run_pair(model, make_work, serving, **kw):
     out = []
     for ns, c, p in zip(packages(), (cfg, tcfg), (params, tparams)):
         work, slos = make_work(ns)
+        # the JAX engine adopts the process's donor of its (cfg, rt)
+        donor = {} if ns.device else {"donor": share_compiled(ns.Engine(
+            c, p, rt=kw.get("mode_rt"), serving=ns.ServingCfg(**serving)))}
         out.append(ns.trace.run_trace(c, p, work, ns.ServingCfg(**serving), slos=slos,
-                                      **kw, **ns.device))
+                                      **kw, **ns.device, **donor))
     jm, tm = out
     assert_same(jm, tm, "run_trace")
     return jm

@@ -1,13 +1,20 @@
 """Paged-attention test layouts shared by the port's kernel tests, free of
 JAX so that the CUDA cases also run where JAX is not installed.
 ``pool_layout`` is ``test_kernels_paged._pool_layout`` verbatim. The engine
-parity helpers at the end (``smoke_pair``, ``serve_pair``) import JAX when
-called, never at import."""
+and router parity helpers at the end (``smoke_pair``, ``serve_pair``,
+``router_pair``) import JAX when called, never at import."""
 import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+
+# The CPU tests run the port's plain path on tiny tensors, where torch's
+# intra-op threads add only overhead: with one thread a core in each of the
+# suite's parallel workers they oversubscribe the cores and spin, which
+# was most of the port files' CPU time. Every worker imports every test
+# module at collection, so this holds in each of them.
+torch.set_num_threads(1)
 
 DECODE_CASES = [  # seed, page, nb, B, KV, g, Dh
     (0, 4, 4, 3, 2, 1, 16),
@@ -563,10 +570,12 @@ def packages():
     the JAX package and in the port."""
     from repro import configs as jconfigs
     from repro.serving import engine as jeng, policies as jpol, request as jreq
+    from repro.serving import faults as jfaults, health as jhealth, router as jrouter
     from repro.serving import trace as jtrace
     from repro.serving.scheduler import Request as JRequest
     import repro_torch as T
     from repro_torch.serving import policies as tpol, request as treq
+    from repro_torch.serving import faults as tfaults, health as thealth, router as trouter
     from repro_torch.serving import trace as ttrace
 
     J = SimpleNamespace(ServingCfg=jconfigs.ServingCfg,
@@ -575,25 +584,50 @@ def packages():
                         GenerationConfig=jeng.GenerationConfig, Request=JRequest,
                         ServeRequest=jreq.ServeRequest,
                         SamplingParams=jreq.SamplingParams, SloClass=jreq.SloClass,
-                        policies=jpol, trace=jtrace, device={})
+                        request=jreq, policies=jpol, trace=jtrace, faults=jfaults,
+                        health=jhealth, Router=jrouter.ReplicaRouter, device={})
     P = SimpleNamespace(ServingCfg=T.ServingCfg, AttentionRuntime=T.AttentionRuntime,
                         Engine=T.ContinuousServeEngine,
                         GenerationConfig=T.GenerationConfig, Request=T.Request,
                         ServeRequest=T.ServeRequest, SamplingParams=T.SamplingParams,
-                        SloClass=treq.SloClass, policies=tpol, trace=ttrace,
+                        SloClass=treq.SloClass, request=treq, policies=tpol, trace=ttrace,
+                        faults=tfaults, health=thealth, Router=trouter.ReplicaRouter,
                         device={"device": "cpu"})
     return J, P
 
 
+# the first JAX continuous engine built on each (cfg, rt) in this process:
+# later engines of that pair adopt its compiled step functions
+_DONORS: dict = {}
+
+
+def share_compiled(eng):
+    """Have a JAX ``ContinuousServeEngine`` (or a ``FaultyReplica`` around
+    one) adopt the compiled step functions of the first engine this process
+    built on the same (cfg, rt), through the reference's own
+    ``adopt_compiled``; the first becomes the donor. Only executables are
+    shared (the ``ServingCfg`` may differ), so nothing that a parity test
+    compares changes. Returns ``eng``."""
+    inner = getattr(eng, "engine", eng)
+    donor = _DONORS.setdefault((inner.cfg, inner.rt), inner)
+    if donor is not inner:
+        inner.adopt_compiled(donor)
+    return eng
+
+
 def assert_same(a, b, what=""):
-    """Two results dicts, stats dicts or metrics dicts are equal, key by key,
-    apart from the wall-clock timers."""
+    """Two results dicts, stats dicts or metrics dicts are equal, key by key
+    (lists of dicts item by item), apart from the wall-clock timers."""
     assert set(a) == set(b), (what, set(a) ^ set(b))
     for key in a:
         if key in TIMERS:
             continue
         if isinstance(a[key], dict):
             assert_same(a[key], b[key], f"{what}[{key}]")
+        elif isinstance(a[key], list) and a[key] and isinstance(a[key][0], dict):
+            assert len(a[key]) == len(b[key]), (what, key)
+            for i, (x, y) in enumerate(zip(a[key], b[key])):
+                assert_same(x, y, f"{what}[{key}][{i}]")
         else:
             np.testing.assert_array_equal(np.asarray(b[key]), np.asarray(a[key]),
                                           err_msg=f"{what}[{key}]")
@@ -615,6 +649,8 @@ def serve_pair(model, requests, serving, *, gen=None, rt=None, policy=None,
         pol = policy(ns) if callable(policy) else policy
         eng = ns.Engine(c, p, rt=ns.AttentionRuntime(**(rt or {})),
                         serving=ns.ServingCfg(**serving), policy=pol, **ns.device)
+        if not ns.device:
+            share_compiled(eng)
         g = ns.GenerationConfig(**(gen or {}))
         if drive is None:
             res, stats = eng.serve(requests(ns), g)
@@ -629,3 +665,90 @@ def serve_pair(model, requests, serving, *, gen=None, rt=None, policy=None,
     assert jev == tev
     assert tst["dense_pages_leaked"] == 0
     return (jres, jst), (tres, tst)
+
+
+def router_pair(model, drive, serving, *, n=2, placement="rr", plans=None, rt=None):
+    """Build the JAX ``ReplicaRouter`` and the port's alike (``serving`` and
+    ``rt`` keyword dicts; ``plans(ns)`` the fault plans, one per replica, or
+    None), run ``drive(router, ns)`` on each, and assert identical results,
+    stats (timers aside) and output events left in the routers' buffers.
+    The JAX replicas adopt the process's donor (``share_compiled``).
+    Returns ((jvalue, jrouter), (tvalue, trouter)), the values ``drive``
+    returned."""
+    cfg, tcfg, params, tparams = model
+    out = []
+    for ns, c, p in zip(packages(), (cfg, tcfg), (params, tparams)):
+        router = ns.Router(c, p, num_replicas=n, rt=ns.AttentionRuntime(**(rt or {})),
+                           serving=ns.ServingCfg(**serving), placement=placement,
+                           fault_plans=None if plans is None else plans(ns), **ns.device)
+        if not ns.device:
+            for eng in router.engines:
+                share_compiled(eng)
+        value = drive(router, ns)
+        events = [dataclasses.astuple(e) for e in router.pending_outputs()]
+        out.append((value, router.results(), router.stats(), events, router))
+    (jv, jres, jst, jev, jr), (tv, tres, tst, tev, tr) = out
+    assert_same(jres, tres, "results")
+    assert_same(jst, tst, "stats")
+    assert jev == tev
+    assert tst["dense_pages_leaked"] == 0
+    return (jv, jr), (tv, tr)
+
+
+# -------------------------------------- the router's traffic (reference tests)
+
+ROUTER_SERVING = dict(num_slots=2, page_size=4, num_pages=33, max_blocks_per_slot=8,
+                      prefill_bucket=4, prefill_chunk=4)
+# the reference fault tests' probe settings
+PROBED_SERVING = dict(ROUTER_SERVING, probe_interval=2, probe_failures=2, probe_backoff=2,
+                      auto_drain=True)
+
+
+def mixed_trace(ns, n=6, max_tokens=6):
+    """The reference fault tests' fixed trace in ``ns``'s names: every third
+    request seeded (temperature 0.8, top-k 10, seed 11 + i), the others
+    greedy, interactive and batch classes alternating, two arrivals a tick."""
+    rng = np.random.default_rng(42)
+    out = []
+    for i in range(n):
+        sp = (ns.SamplingParams(temperature=0.8, top_k=10, seed=11 + i, max_tokens=max_tokens)
+              if i % 3 == 0 else ns.SamplingParams(max_tokens=max_tokens))
+        out.append(ns.ServeRequest(
+            prompt=rng.integers(1, 200, size=int(rng.integers(3, 10))), sampling=sp,
+            slo=ns.request.INTERACTIVE if i % 2 else ns.request.BATCH,
+            arrival=float(i // 2)))
+    return out
+
+
+def run_router(router, cap=800):
+    """Step ``router`` until it has no work, at most ``cap`` ticks."""
+    for _ in range(cap):
+        if not router.has_unfinished():
+            return
+        router.step()
+    raise AssertionError(f"router did not finish within {cap} steps "
+                         f"(backlog={len(router._backlog)}, "
+                         f"draining={sorted(router._draining)})")
+
+
+def exactly_once(events, results, rids) -> None:
+    """Every rid of ``rids`` has one record in ``results``, its token events
+    carry the gapless indices 0..n-1 once each and its tokens, and exactly
+    one event finishes it (the reference's exactly-once check)."""
+    assert set(results) == set(rids), "lost or phantom request records"
+    for rid in rids:
+        toks = list(results[rid]["tokens"])
+        mine = [e for e in events if e.rid == rid]
+        got = sorted((e.index, e.token) for e in mine if e.token >= 0)
+        assert got == list(enumerate(toks)), f"rid {rid}: events {got}"
+        assert sum(e.finished for e in mine) == 1, f"rid {rid} finished twice or never"
+
+
+def check_alloc(eng) -> None:
+    """No leaked, double-owned or null page on a live replica."""
+    eng = getattr(eng, "engine", eng)
+    sched = eng._st.sched
+    owned = [p for r in sched.occupied() if r.tier == 0 for p in r.pages]
+    assert len(set(owned)) == len(owned), "double-owned page"
+    assert 0 not in owned
+    assert sched.dense_alloc.num_used == len(owned), "leaked or phantom pages"
