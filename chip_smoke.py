@@ -285,6 +285,32 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               cross-attention is live: more than 1e-2); musicgen's T1 logits
               within 3e-4 of its dense ones (exact at absolute positions).
               The phase prints its seconds
+  9. train    (t1) qwen1.5-0.5b at its published widths, nothing cut (24
+              layers; random bf16 weights from a seed) trained through the
+              port's entry points (make_train_step, AdamW on
+              cosine_schedule, remat, SyntheticLMData) for 12 steps of 4 x
+              2048 tokens: past 1024 positions every layer takes flash
+              attention and its custom backward (plain PyTorch, as the
+              reference's is plain jnp). Gates: every loss finite, the loss
+              falls, and no kernel wrapper or route counter of B1-B10
+              moves (the reference's training launches no Pallas kernel
+              either; the counts are set to 0 just before and read just
+              after). Prints the step's median wall time, training
+              tokens/s, peak device memory and the share of the card's
+              bf16 peak, beside the card's name and power limit, and a
+              profile of one more step (device time by kernel). (t2) the
+              flash backward against autograd through dense_attention,
+              both on the card in float32, at qwen's heads (16 of 64),
+              jamba's (64 over 8 of 128), MLA's (Dh 192, Dv 128) and a
+              cross-attention's (non-causal, 512 over 1600 keys), causal
+              and not, T = S = 2048 and T != S with a q_offset: dq, dk, dv
+              within 5e-5 of the largest gradient. (t3) the smoke config at
+              float32: a train step on the card against the CPU
+              (gradients, loss and parameters within 1e-4), AdamW's update
+              of one set of gradients on both, and on the card remat
+              against none, two microbatches against one and a
+              checkpoint resume against a straight run (within 1e-5).
+              The phase prints its seconds
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -295,7 +321,9 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -3893,6 +3921,383 @@ def router_parity(T, cfg, params, serving, report: dict, new_s: dict) -> None:
     log(f"[{time.perf_counter() - T0:.0f} s] parity router in {new_s['parity router']:.1f} s")
 
 
+# ------------------------------------------------------ phase 9: training
+
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_STEPS = 12            # (t1): AdamW steps at full width
+TRAIN_SHAPE = (4, 2048)     # (t1): rows, tokens a row (past 1024: flash attention)
+TRAIN_LR = (1e-3, 2)        # (t1): cosine_schedule's peak lr and warmup steps
+BF16_PEAK = 989e12          # H100 SXM dense bf16 FLOP/s at 700 W (NVIDIA data sheet)
+FLASH_BWD_TOL = 5e-5        # (t2): flash gradients vs dense autograd, each over its own largest
+TRAIN_TOL = 1e-5            # (t3): card vs CPU, each tensor over its own largest |value|
+MICRO_TOL = 1e-5            # (t3): remat, microbatches, resume on the card, the same measure
+PARITY_LR = 0.5             # (t3): the SGD probe's lr in the card-vs-CPU step
+PARITY_BLOCKS = 3           # (t3): blocks of the smoke config (stacked optimizer leaves)
+REL_FLOOR = 1e-12           # the least scale of a tensor in rel_err and step_err
+BF16_ULP = 2.0 ** -7        # a bf16 step, relative (Adafactor's first moment)
+FLASH_BWD_CASES = (  # what, B, T, S, H, KV, Dh, Dv, causal, q_offset
+    ("qwen causal", 1, 2048, 2048, 16, 16, 64, 64, True, 0),
+    ("qwen non-causal", 1, 2048, 2048, 16, 16, 64, 64, False, 0),
+    ("qwen T!=S q_offset", 1, 1536, 2048, 16, 16, 64, 64, True, 512),
+    ("jamba causal", 1, 2048, 2048, 64, 8, 128, 128, True, 0),
+    ("jamba T!=S q_offset", 1, 1000, 2048, 64, 8, 128, 128, True, 1048),
+    ("mla causal", 1, 2048, 2048, 16, 16, 192, 128, True, 0),
+    ("cross non-causal", 2, 512, 1600, 32, 8, 128, 128, False, 0),
+)
+
+
+def rel_err(got, want) -> float:
+    """Over two lists of tensors, the largest max |got - want| over the
+    tensor's own largest |want| (at least REL_FLOOR)."""
+    return max(float((g.double().cpu() - w.double().cpu()).abs().max())
+               / max(REL_FLOOR, float(w.abs().max())) for g, w in zip(got, want) if w.numel())
+
+
+def step_err(got, want, old) -> float:
+    """Two steps from the same tensors ``old``: over the tensors, the largest
+    max |got - want|, less one float32 rounding step of the tensor's largest
+    value (each side rounds its new values to float32), over the largest
+    change |want - old|. A step that changes nothing gives about 1."""
+    out = 0.0
+    for g, w, o in zip(got, want, old):
+        g, w, o = (t.double().cpu() for t in (g, w, o))
+        d = float((g - w).abs().max()) - 2.0 ** -23 * float(w.abs().max())
+        out = max(out, max(0.0, d) / max(REL_FLOOR, float((w - o).abs().max())))
+    return out
+
+
+def bf16_err(got, want, allow) -> tuple[float, float]:
+    """bf16 values (or values made from them) that may round the other way
+    where the inputs differ in the last float32 bit: (the share of elements
+    off by more than TRAIN_TOL of their tensor's largest |want|, the
+    largest error over that plus ``allow``, the tensor's allowance)."""
+    off, n, worst = 0, 0, 0.0
+    for g, w, a in zip(got, want, allow):
+        g, w = g.double().cpu(), w.double().cpu()
+        tol = TRAIN_TOL * max(REL_FLOOR, float(w.abs().max()))
+        off += int(((g - w).abs() > tol).sum())
+        n += w.numel()
+        worst = max(worst, float((g - w).abs().max()) / (tol + a))
+    return off / n, worst
+
+
+def flash_backward(report: dict) -> None:
+    """(t2): the flash autograd.Function's gradients against autograd
+    through dense_attention, both on the card in float32."""
+    from repro_torch.core import flash_ref
+    from repro_torch.core.attention import dense_attention
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = report["train"]["flash_backward"] = {}
+    for what, B, T, S, H, KV, Dh, Dv, causal, off in FLASH_BWD_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE)
+                   for shape in ((B, T, H, Dh), (B, S, KV, Dh), (B, S, KV, Dv)))
+        w = torch.randn((B, T, H, Dv), generator=gen, device=DEVICE)
+        scale = Dh ** -0.5
+
+        def grads(fn):
+            qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+            return torch.autograd.grad((fn(qq, kk, vv) * w).sum(), (qq, kk, vv))
+
+        def flash(a, b, c):
+            return flash_ref.flash_attention(a, b, c, scale, causal, off)
+
+        def dense(a, b, c):
+            return dense_attention(a, b, c, scale, causal=causal, q_offset=off)
+
+        err = rel_err(grads(flash), grads(dense))
+        out[what] = {"shape": [B, T, S, H, KV, Dh, Dv, causal, off], "rel_err": err,
+                     "flash_ms": cuda_ms(lambda: grads(flash), 3),
+                     "dense_ms": cuda_ms(lambda: grads(dense), 3)}
+        log(f"(t2) flash backward {what} (B {B}, T {T}, S {S}, H {H} over {KV}, Dh {Dh}, "
+            f"Dv {Dv}): dq, dk, dv within {err:.3e} of dense autograd's (x each one's "
+            f"largest |grad|; gate {FLASH_BWD_TOL}); forward+backward "
+            f"{out[what]['flash_ms']:.2f} ms "
+            f"(plain flash) vs {out[what]['dense_ms']:.2f} ms (dense), float32")
+        check(err <= FLASH_BWD_TOL, f"(t2) {what}: flash gradients off by {err:.3e}")
+        del q, k, v, w
+    torch.cuda.empty_cache()
+
+
+def train_full(T, smi: str, zero, counts, report: dict) -> None:
+    """(t1): full-width qwen1.5-0.5b in bf16, random weights from SEED,
+    AdamW on cosine_schedule, remat, SyntheticLMData at TRAIN_SHAPE. Gates:
+    every loss finite, the loss falls, no kernel wrapper or route counter
+    of B1-B10 moves (the reference's training launches no Pallas kernel)."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.params import init_params
+    from repro_torch.train.step import TrainStepCfg, make_train_step
+
+    cfg = T.get_config(TRAIN_ARCH)
+    check(cfg.param_dtype == torch.bfloat16 and cfg.num_blocks == 24 and cfg.d_model == 1024,
+          f"(t1) {TRAIN_ARCH} is not at its published widths in bf16")
+    B, S = TRAIN_SHAPE
+    opt = adamw(cosine_schedule(TRAIN_LR[0], TRAIN_LR[1], TRAIN_STEPS))
+    step_fn = make_train_step(cfg, opt, TrainStepCfg(microbatches=1, remat=True))
+    data = SyntheticLMData(cfg, ShapeCfg("train", S, B, "train"), DataConfig(seed=SEED))
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(s).items()}
+               for s in range(TRAIN_STEPS)]
+    params = init_params(cfg, SEED, DEVICE)
+    n = n_params(params)
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # weights, moments, batches, what earlier phases hold
+    zero()
+    losses, secs = [], []
+    for s in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, s, batches[s])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+    launched = {k: c for k, c in counts().items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(secs[1:])
+    # one more step under torch.profiler (CUDA activity only): where the
+    # device time of a step goes
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    extra = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(TRAIN_STEPS).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, opt_state, _ = step_fn(params, opt_state, TRAIN_STEPS, extra)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
+                     key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    gemm = sum(ms for k, ms, _ in kernels
+               if any(g in k for g in ("gemm", "nvjet", "cutlass", "xmma")))
+    L, H, Dh = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    flops = 6 * n * B * S + 3 * L * B * H * (Dh + Dh) * S * S  # causal attention: half
+    r = report["train"]["full"] = {
+        "arch": TRAIN_ARCH, "params": n, "batch": [B, S], "steps": TRAIN_STEPS,
+        "losses": losses, "step_s": secs, "median_step_s": step_s,
+        "tokens_per_s": B * S / step_s, "peak_bytes": peak, "allocated_before": base,
+        "model_flops": flops,
+        "bf16_peak_share": flops / step_s / BF16_PEAK, "launches": launched, "card": smi,
+        "profile": {"device_busy_ms": busy, "busy_share": busy / (step_s * 1e3),
+                    "gemm_ms": gemm, "kernels": len(kernels),
+                    "launches": sum(n for _, _, n in kernels),
+                    "top_kernels": [{"name": k, "ms": ms, "count": n}
+                                    for k, ms, n in kernels[:12]]}}
+    log(f"(t1) {TRAIN_ARCH} train, {n / 1e6:.1f} M parameters bf16, {B} x {S} tokens a step, "
+        f"remat, AdamW: losses {', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"(t1) [{smi}] step median {step_s * 1e3:.3f} ms (steps 2-{TRAIN_STEPS}; first "
+        f"{secs[0] * 1e3:.3f} ms), {r['tokens_per_s']:.1f} training tokens/s, peak device "
+        f"memory {peak / 1e9:.3f} GB ({base / 1e9:.3f} GB allocated before the first step), "
+        f"{r['bf16_peak_share'] * 100:.2f} % of the bf16 peak "
+        f"({flops / 1e12:.2f} TFLOP a step: 6 N tokens + causal attention, remat's "
+        "recompute not counted)")
+    log(f"(t1) profile of one more step: device busy {busy:.2f} ms of the {step_s * 1e3:.2f} "
+        f"ms median step ({busy / (step_s * 1e3):.1%}), {r['profile']['launches']} kernel "
+        f"launches; GEMMs {gemm:.2f} ms")
+    for k, ms, n in kernels[:8]:
+        log(f"(t1) profile:   {ms:9.3f} ms {n:6d}x {k[:100]}")
+    check(all(math.isfinite(x) for x in losses), f"(t1) a loss is not finite: {losses}")
+    check(losses[-1] < losses[0] and sum(losses[-3:]) < sum(losses[:3]),
+          f"(t1) the loss did not fall: {losses}")
+    check(not launched, f"(t1) training launched attention kernels: {launched}")
+    del params, opt_state, batches
+    torch.cuda.empty_cache()
+
+
+def sgd_probe(lr: float):
+    """A plain SGD (``-lr * g``) as an Optimizer: the train step's float32
+    gradient accumulation reaches the parameters as it is (AdamW's first
+    step divides each gradient by its own magnitude, so an element whose
+    gradient is near eps, 1e-8, turns a last-ulp difference into one of up
+    to twice the lr)."""
+    from repro_torch.optim import Optimizer
+    from repro_torch.params import tree_map
+
+    return Optimizer(init=lambda p: (),
+                     update=lambda g, st, p, step: (tree_map(lambda x: -lr * x, g), st))
+
+
+def train_parity(T, M, report: dict) -> None:
+    """(t3): qwen1.5-0.5b's smoke config at float32 and PARITY_BLOCKS blocks,
+    every error a tensor's own (rel_err, step_err). On the card against the
+    CPU from the same weights and batch: the loss and the gradients; one
+    make_train_step step under an SGD probe at lr PARITY_LR, its change of
+    the parameters (the step's gradients reach them as they are; under
+    AdamW's first step g / (|g| + eps) a gradient near 0 that differs in
+    its last bits flips sign); two AdamW and two Adafactor updates of the
+    same seeded gradients, updates and every state tensor (the stacked
+    leaves: Adafactor factors a norm scale's (num_blocks, d) leaf; its
+    first moment is bf16 and may round the other way for a few elements,
+    held within one bf16 step). Each within TRAIN_TOL. Then on the card:
+    remat against none (gradients), two microbatches against one (the SGD
+    probe), and 2 steps, a save, a restore and 2 more against 4 straight
+    (AdamW; deterministic algorithms on: the embedding's backward otherwise
+    sums with atomics), each within MICRO_TOL."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager, split_train_state, train_state
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.params import (init_params, ref_leaves, ref_unflatten, stack_blocks,
+                                    to_device, tree_map)
+    from repro_torch.train.step import TrainStepCfg, make_train_step
+
+    cfg = dataclasses.replace(T.smoke_config(T.ARCHS[TRAIN_ARCH]), dtype="float32",
+                              num_blocks=PARITY_BLOCKS)
+    cpu = init_params(cfg, SEED, device="cpu")
+    card = to_device(cpu, DEVICE)
+    data = SyntheticLMData(cfg, ShapeCfg("train", 64, 4, "train"), DataConfig(seed=SEED))
+    host = [{k: torch.from_numpy(v) for k, v in data.batch(s).items()} for s in range(4)]
+    dev = [{k: v.to(DEVICE) for k, v in b.items()} for b in host]
+    out = report["train"]["parity"] = {}
+
+    def grads(params, batch, remat=True):
+        leaves = [t.detach().requires_grad_(True) for t in ref_leaves(params)]
+        loss, _ = M.loss_fn(cfg, ref_unflatten(params, leaves), batch, remat=remat)
+        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+    def leaves(tree):
+        return ref_leaves(stack_blocks(tree))
+
+    def loss_rel(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    (l_cpu, g_cpu), (l_card, g_card) = grads(cpu, host[0]), grads(card, dev[0])
+    out["loss_card_vs_cpu"] = loss_rel(l_card, l_cpu)
+    out["grads_card_vs_cpu"] = rel_err(g_card, g_cpu)
+    step = make_train_step(cfg, sgd_probe(PARITY_LR), TrainStepCfg())
+    p_cpu, _, m_cpu = step(cpu, (), 0, host[0])
+    p_card, _, m_card = step(card, (), 0, dev[0])
+    out["step_loss_card_vs_cpu"] = loss_rel(m_card["loss"], m_cpu["loss"])
+    out["step_card_vs_cpu"] = step_err(leaves(p_card), leaves(p_cpu), leaves(cpu))
+    # the optimizers alone, on the same seeded gradients (global norm 4:
+    # the clip acts), two updates each
+    gen = torch.Generator().manual_seed(SEED)
+    g_host = []
+    for _ in range(2):
+        g = tree_map(lambda t: torch.randn(t.shape, generator=gen), cpu)
+        norm = math.sqrt(sum(float(x.double().square().sum()) for x in ref_leaves(g)))
+        g_host.append(tree_map(lambda x, c=4.0 / norm: x * c, g))
+    peak = 1e-2
+    for name, make in (("adamw", adamw), ("adafactor", adafactor)):
+        opt = make(peak, weight_decay=0.1)
+        res = {}
+        for where, params in (("cpu", cpu), ("card", card)):
+            state, us, ms, rest = opt.init(params), [], [], []
+            for i, g in enumerate(g_host):
+                u, state = opt.update(to_device(g, params["embed"]["tok"].device), state,
+                                      params, i)
+                us += leaves(u)
+                ms += ref_leaves(state[0])
+                rest += [x for f in state[1:] for x in ref_leaves(f)]
+            res[where] = (us, ms, rest, state)
+        (u_cpu, m_cpu, r_cpu, _), (u_card, m_card, r_card, st) = res["cpu"], res["card"]
+        if name == "adamw":
+            out["adamw_updates_card_vs_cpu"] = rel_err(u_card, u_cpu)
+            out["adamw_state_card_vs_cpu"] = rel_err(m_card + r_card, m_cpu + r_cpu)
+            continue
+        # a bf16 moment may round one step the other way; an update moves by
+        # lr times that step (lr at most peak)
+        m_allow = [BF16_ULP * float(w.abs().max()) for w in m_cpu]
+        out["adafactor_m_off_share"], out["adafactor_m_card_vs_cpu"] = bf16_err(
+            m_card, m_cpu, m_allow)
+        out["adafactor_updates_off_share"], out["adafactor_updates_card_vs_cpu"] = bf16_err(
+            u_card, u_cpu, [peak * a for a in m_allow])
+        out["adafactor_factored_card_vs_cpu"] = rel_err(r_card, r_cpu)
+        out["adafactor_norm_scale_moments"] = {
+            k: list(getattr(st, k)["blocks"][0]["norm1"]["scale"].shape)
+            for k in ("v_row", "v_col")}
+    (l1, g1), (l0, g0) = grads(card, dev[0], remat=True), grads(card, dev[0], remat=False)
+    out["remat_vs_none"] = max(loss_rel(l1, l0), rel_err(g1, g0))
+    probe = {k: make_train_step(cfg, sgd_probe(PARITY_LR), TrainStepCfg(microbatches=k))(
+        card, (), 0, dev[0]) for k in (1, 2)}
+    out["microbatches_2_vs_1"] = max(
+        loss_rel(probe[2][2]["loss"], probe[1][2]["loss"]),
+        step_err(leaves(probe[2][0]), leaves(probe[1][0]), leaves(card)))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        opt = adamw(1e-3)
+        step = make_train_step(cfg, opt, TrainStepCfg())
+
+        def run(params, state, steps):
+            for s in steps:
+                params, state, m = step(params, state, s, dev[s])
+            return params, state, float(m["loss"])
+
+        straight = run(card, opt.init(card), range(4))
+        half = run(card, opt.init(card), range(2))
+        with tempfile.TemporaryDirectory() as d:
+            mgr = CheckpointManager(d)
+            mgr.save(2, train_state(half[0], half[1]))
+            params, state = split_train_state(mgr.restore(2, train_state(card, opt.init(card))))
+            mgr.close()
+        resumed = run(params, state, range(2, 4))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["resume_loss_rel"] = abs(resumed[2] - straight[2]) / abs(straight[2])
+    out["resume_vs_straight"] = max(
+        step_err(leaves(resumed[0]), leaves(straight[0]), leaves(card)),
+        rel_err(ref_leaves(resumed[1]), ref_leaves(straight[1])))
+    log(f"(t3) {cfg.name} float32 at {PARITY_BLOCKS} blocks, card vs CPU (each tensor over "
+        f"its own largest): loss {out['loss_card_vs_cpu']:.3e}, gradients "
+        f"{out['grads_card_vs_cpu']:.3e}; SGD-probe step (lr {PARITY_LR}) loss "
+        f"{out['step_loss_card_vs_cpu']:.3e}, change of the parameters "
+        f"{out['step_card_vs_cpu']:.3e}; AdamW updates {out['adamw_updates_card_vs_cpu']:.3e}, "
+        f"moments {out['adamw_state_card_vs_cpu']:.3e}; Adafactor factored moments "
+        f"{out['adafactor_factored_card_vs_cpu']:.3e} (norm1's scale: "
+        f"{out['adafactor_norm_scale_moments']}), "
+        f"bf16 moment {out['adafactor_m_card_vs_cpu']:.3f} of its allowance "
+        f"({out['adafactor_m_off_share']:.2e} of elements past {TRAIN_TOL}), updates "
+        f"{out['adafactor_updates_card_vs_cpu']:.3f} ({out['adafactor_updates_off_share']:.2e});"
+        f" gate {TRAIN_TOL}")
+    log(f"(t3) on the card: remat vs none {out['remat_vs_none']:.3e}, 2 microbatches vs 1 "
+        f"{out['microbatches_2_vs_1']:.3e}, resume vs straight {out['resume_vs_straight']:.3e}"
+        f" (loss rel {out['resume_loss_rel']:.3e}); gates {MICRO_TOL}, loss 1e-5")
+    for key in ("loss_card_vs_cpu", "grads_card_vs_cpu", "step_loss_card_vs_cpu",
+                "step_card_vs_cpu", "adamw_updates_card_vs_cpu", "adamw_state_card_vs_cpu",
+                "adafactor_factored_card_vs_cpu"):
+        check(out[key] <= TRAIN_TOL, f"(t3) {key} {out[key]:.3e} past {TRAIN_TOL}")
+    for key in ("adafactor_m", "adafactor_updates"):
+        check(out[f"{key}_card_vs_cpu"] <= 1.0 and out[f"{key}_off_share"] <= 1e-3,
+              f"(t3) {key}: {out[f'{key}_card_vs_cpu']:.3f} of its allowance, "
+              f"{out[f'{key}_off_share']:.2e} of elements past {TRAIN_TOL}")
+    check(out["adafactor_norm_scale_moments"] == {"v_row": [PARITY_BLOCKS],
+                                                   "v_col": [cfg.d_model]},
+          f"(t3) Adafactor did not factor the stacked norm scale: "
+          f"{out['adafactor_norm_scale_moments']}")
+    for key in ("remat_vs_none", "microbatches_2_vs_1", "resume_vs_straight"):
+        check(out[key] <= MICRO_TOL, f"(t3) {key} {out[key]:.3e} past {MICRO_TOL}")
+    check(out["resume_loss_rel"] <= 1e-5, f"(t3) resumed loss off by {out['resume_loss_rel']}")
+
+
+def train_phase(T, M, smi: str, counted: list, routed: dict, fa_routes: dict,
+                report: dict) -> None:
+    """Phase 9: training. (t1) full-width qwen1.5-0.5b, (t2) the flash
+    backward at served heads, (t3) the smoke config's step on the card
+    against the CPU, remat, microbatches and a checkpoint resume. ``routed``
+    holds every kernel's route counters, ``fa_routes`` B8's."""
+    t0 = time.perf_counter()
+    report["train"] = {}
+
+    def zero():
+        zero_launches(counted, fa_routes)
+        zero_routes(routed)
+
+    def counts():
+        return {**counted_launches(counted, fa_routes),
+                **{f"{name}/{r}": n for name, (c, _) in routed.items() for r, n in c.items()}}
+
+    train_full(T, smi, zero, counts, report)
+    flash_backward(report)
+    train_parity(T, M, report)
+    report["train"]["seconds"] = time.perf_counter() - t0
+    log(f"[{time.perf_counter() - T0:.0f} s] phase 9 (training) took "
+        f"{report['train']['seconds']:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the report as JSON here")
@@ -4398,6 +4803,9 @@ def main() -> int:
     # 8) the multimodal stacks: llama-vision's cross-attention, musicgen's frames
     at_multimodal = {}
     serve_multimodal(T, M, kmods, counted, t3_cfg, serves, report, at_multimodal, {})
+
+    # 9) training: full-width qwen1.5-0.5b, the flash backward, card vs CPU
+    train_phase(T, M, smi, counted, {**routed, **static_routed}, fa_ops.ROUTE_LAUNCHES, report)
 
     kernel_mod = {**kmods, "flash_attention_prompt": fa_ops}
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",

@@ -1,8 +1,9 @@
 """Config system of the PyTorch port.
 
 Field-for-field copies of the JAX package's dataclasses (``ModelConfig``,
-``AttentionRuntime``, ``ServingCfg`` and the sub-configs), the architecture
-registry ``ARCHS`` and ``smoke_config``. The port keeps its own copy because
+``AttentionRuntime``, ``ServingCfg``, ``ShapeCfg`` and the sub-configs), the
+architecture registry ``ARCHS``, the shape registry ``SHAPES`` and
+``smoke_config``. The port keeps its own copy because
 the JAX package's config module imports ``jax.numpy``; the only difference is
 ``ModelConfig.param_dtype``, which returns a ``torch.dtype``.
 """
@@ -362,6 +363,28 @@ def _configs() -> tuple[ModelConfig, ...]:
 
 
 ARCHS: dict[str, ModelConfig] = {c.name: c for c in _configs()}
+
+
+# ------------------------------------------------------------------- shapes
+
+
+@dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    def __post_init__(self):
+        assert self.kind in ("train", "prefill", "decode")
+
+
+SHAPES: dict[str, ShapeCfg] = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}
 
 
 def get_config(name: str) -> ModelConfig:

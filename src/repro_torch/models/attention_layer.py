@@ -1,10 +1,11 @@
-"""GQA/MQA/MHA attention layer of the port, serving phases (the JAX
-package's ``models/attention_layer.py``): over paged arenas (chunked prefill
-and per-row decode) and over contiguous arenas (``attn_prefill`` of a whole
-prompt and ``attn_decode`` at one shared position: the static engine and
-one-shot admission): the dense, decomposed (T1), CPQ (T2), retrieval (T3)
-and decomposed_cpq (T1+T2: T1's operands with X in CPQ codes) modes and
-the tiered dense + CPQ arena.
+"""GQA/MQA/MHA attention layer of the port (the JAX package's
+``models/attention_layer.py``): training over a whole sequence
+(``attn_train``, ``xattn_train``), and the serving phases over paged
+arenas (chunked prefill and per-row decode) and over contiguous arenas
+(``attn_prefill`` of a whole prompt and ``attn_decode`` at one shared
+position: the static engine and one-shot admission): the dense,
+decomposed (T1), CPQ (T2), retrieval (T3) and decomposed_cpq (T1+T2: T1's
+operands with X in CPQ codes) modes and the tiered dense + CPQ arena.
 
 Prefill attention over a whole prompt is dense and causal in every mode:
 the contiguous flash kernel B8 with ``rt.paged_kernels`` (the default),
@@ -119,6 +120,28 @@ def _out(cfg: ModelConfig, p, o: torch.Tensor) -> torch.Tensor:
 
 def _scale(cfg: ModelConfig) -> float:
     return cfg.head_dim ** -0.5
+
+
+# ------------------------------------------------------------------- train
+
+
+def attn_train(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention over a whole training sequence: the dense
+    oracle up to 1024 positions, flash attention (its custom backward)
+    beyond, as the reference's ``attention_auto`` picks."""
+    q, k, v = _project_qkv(cfg, p, x)
+    q, k = _rope_qk(cfg, q, k, positions, positions)
+    return _out(cfg, p, attention_auto(q, k, v, _scale(cfg), causal=True))
+
+
+def xattn_train(cfg: ModelConfig, p, x: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
+    """Gated cross-attention of a training sequence over its projected
+    patches, non-causal, scaled by ``tanh(gate)``."""
+    q, k, v = _project_qkv(cfg, p, x, xkv=patches)
+    return _gated(cfg, p, attention_auto(q, k, v, _scale(cfg), causal=False), x.dtype)
+
+
+# ----------------------------------------------------------------- serving
 
 
 def init_attn_cache(cfg: ModelConfig, rt: AttentionRuntime, batch: int, n_max: int,

@@ -8,15 +8,18 @@ Prefill runs the chunked selective scan: a Python loop over chunks of
 discretized ``(exp(dt A), dt x B)`` pairs, where the reference calls
 ``associative_scan``. (A closed form through ``cumsum(dt A)`` would need
 ``exp(-cumsum)``, which overflows within a chunk: ``dt A`` reaches tens a
-token.) Decode is the O(1) recurrent step over the conv tail and the state.
+token.) Under autograd each chunk is checkpointed, as the reference remats
+it. Decode is the O(1) recurrent step over the conv tail and the state.
 The reference has no Pallas kernel for this mixer, so it is plain PyTorch.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models.layers import causal_conv
@@ -87,26 +90,36 @@ def _scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
-def _ssm_chunked(p, x_c, dt, Bm, Cm, h0):
+def _chunk_step(A, h, xc_c, dt_c, B_c, C_c):
+    """One chunk of the scan from state h: (the chunk's y, the last state)."""
+    dA = torch.exp(dt_c[..., None] * A)                                # (B, L, d, N)
+    dBx = (dt_c * xc_c.float())[..., None] * B_c[:, :, None, :]
+    acc_a, acc_b = _scan(dA, dBx)
+    h_all = acc_a * h[:, None] + acc_b
+    return torch.einsum("blds,bls->bld", h_all, C_c), h_all[:, -1]
+
+
+def _ssm_chunked(p, x_c, dt, Bm, Cm, h0, remat: bool = True):
     """Selective scan over chunks of CHUNK tokens, the last zero-padded: a
     padded token has dt = 0, so it carries the state through unchanged
-    (exp(0) = 1, no input). Returns (y (B, T, d_in) float32, the last
-    state)."""
+    (exp(0) = 1, no input). Under autograd with ``remat`` (the reference's
+    default) each chunk is checkpointed, so the backward recomputes one
+    chunk's (B, L, d_in, d_state) tensors at a time. Returns (y (B, T, d_in)
+    float32, the last state)."""
     B, T, d_in = x_c.shape
     A = -torch.exp(p["A_log"])                                         # (d_in, N)
     L = min(CHUNK, T)
     pad = (-T) % L
     if pad:
         x_c, dt, Bm, Cm = (F.pad(t, (0, 0, 0, pad)) for t in (x_c, dt, Bm, Cm))
+    step = _chunk_step
+    if remat and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x_c, dt, Bm, Cm, h0, A)):
+        step = partial(checkpoint, _chunk_step, use_reentrant=False)
     h, ys = h0, []
     for s in range(0, T + pad, L):
-        xc_c, dt_c, B_c, C_c = (t[:, s:s + L] for t in (x_c, dt, Bm, Cm))
-        dA = torch.exp(dt_c[..., None] * A)                            # (B, L, d, N)
-        dBx = (dt_c * xc_c.float())[..., None] * B_c[:, :, None, :]
-        acc_a, acc_b = _scan(dA, dBx)
-        h_all = acc_a * h[:, None] + acc_b
-        ys.append(torch.einsum("blds,bls->bld", h_all, C_c))
-        h = h_all[:, -1]
+        y, h = step(A, h, *(t[:, s:s + L] for t in (x_c, dt, Bm, Cm)))
+        ys.append(y)
     return torch.cat(ys, dim=1)[:, :T], h
 
 

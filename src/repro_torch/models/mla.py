@@ -1,5 +1,6 @@
-"""Multi-head latent attention (DeepSeek-V2) of the port, serving phases (the
-JAX package's ``models/mla.py``), as an instance of T1's decomposition.
+"""Multi-head latent attention (DeepSeek-V2) of the port (the JAX package's
+``models/mla.py``): training through the naive path (``mla_train``), and the
+serving phases as an instance of T1's decomposition.
 
 MLA caches a learned latent ``c_kv = Norm(X W_DKV)`` (``kv_lora_rank`` wide)
 and one roped key of ``qk_rope_head_dim`` shared by every head, instead of
@@ -26,6 +27,7 @@ from repro_torch.configs import AttentionRuntime, ModelConfig
 from repro_torch.core import cpq as cpq_lib
 from repro_torch.core import kv_cache as kvc
 from repro_torch.core.decomposed_attention import decomposed_attention
+from repro_torch.core.flash_ref import attention_auto
 from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.models.attention_layer import _prefill_attention
 from repro_torch.models.layers import apply_rope, apply_rope_rows, rms_norm_vec, rope_tables
@@ -83,6 +85,23 @@ def _scale(cfg: ModelConfig) -> float:
 def _out(p, o: torch.Tensor) -> torch.Tensor:
     B, T = o.shape[:2]
     return o.reshape(B, T, -1) @ p["wo"]
+
+
+# ----------------------------------------------------------------- train
+
+
+def mla_train(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The naive path, not absorbed: per-head K/V made from the latent and
+    causal attention over them (the dense oracle up to 1024 positions,
+    flash attention beyond, Dh = Dn + Dr and Dv apart)."""
+    B, T, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope, c, k_rope = _q_ckv(cfg, p, x, positions)
+    k_nope = torch.einsum("btl,lhd->bthd", c, p["wuk"])
+    v = torch.einsum("btl,lhd->bthd", c, p["wuv"])
+    k = torch.cat([k_nope, k_rope.expand(B, T, H, k_rope.shape[-1])], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return _out(p, attention_auto(q, k, v, _scale(cfg), causal=True))
 
 
 # ------------------------------------------------------------ contiguous

@@ -1,5 +1,6 @@
-"""Full model of the port for serving (the JAX package's ``models/model.py``):
-embed -> layers -> final norm -> LM head, over contiguous arenas (``prefill``
+"""Full model of the port (the JAX package's ``models/model.py``): embed ->
+layers -> final norm -> LM head, for training (``forward_train``,
+``loss_fn``) and for serving over contiguous arenas (``prefill``
 and ``decode_step``: the static engine and one-shot admission, whose B=1
 prefill ``pack_prefill_caches`` scatters into a slot's pages) and over
 paged arenas (continuous batching): the decode step, prompt chunks, the
@@ -22,9 +23,11 @@ and the contiguous ones return new containers, which carry the new
 lengths."""
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import AttentionRuntime, CPQCfg, ModelConfig
 from repro_torch.models import transformer as tfm
@@ -82,6 +85,79 @@ def _patches(cfg: ModelConfig, params, batch: dict) -> Optional[torch.Tensor]:
     if "patches" not in batch:
         raise ValueError(f"{cfg.name} takes text+patches: the batch has no 'patches'")
     return batch["patches"].to(cfg.param_dtype) @ params["embed"]["mm_proj"]
+
+
+# -------------------------------------------------------------------- train
+
+
+def _barrier(tree):
+    """The identity. The reference's ``_barrier`` is an optimization
+    barrier that keeps XLA's partitioner from gathering the whole stacked
+    block weights out of its scan; it pins sharding only, and the port
+    keeps one tensor a layer on one device, so there is nothing to pin."""
+    return tree
+
+
+def forward_train(cfg: ModelConfig, params, batch: dict, remat: bool = True):
+    """Teacher-forced forward of a training batch (the reference's dict:
+    ``"tokens"`` (B, S) or ``"frames"`` (B, S, D), and ``"patches"`` for a
+    text+patches model). Returns (logits (B, S, V) float32, the MoE aux
+    loss summed over the layers, a float32 scalar).
+
+    With ``remat`` the reference's two checkpoint levels: each block (one
+    layer of every block-pattern position) is checkpointed, so the backward
+    keeps only each block's input, and inside it each layer too when the
+    pattern has more than one; the prefix layers are not."""
+    S = (batch["tokens"] if "tokens" in batch else batch["frames"]).shape[1]
+    positions = torch.arange(S, device=params["final_norm"]["scale"].device)
+    x = embed_inputs(cfg, params["embed"], batch, positions)
+    patches = _patches(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p in zip(cfg.prefix_pattern, params["prefix"]):
+        x, a = tfm.layer_train(cfg, kind, p, x, positions, patches)
+        aux = aux + a
+
+    def one_layer(kind):
+        def f(x, p):
+            return tfm.layer_train(cfg, kind, p, x, positions, patches)
+        if remat and len(cfg.block_pattern) > 1:
+            return partial(checkpoint, f, use_reentrant=False)
+        return f
+
+    layer_fns = [one_layer(k) for k in cfg.block_pattern]
+
+    def body(x, block_params):
+        block_params = _barrier(block_params)
+        a_blk = torch.zeros((), dtype=torch.float32, device=x.device)
+        for f, p in zip(layer_fns, block_params):
+            x, a = f(x, p)
+            a_blk = a_blk + a
+        return x, a_blk
+
+    if remat:
+        body = partial(checkpoint, body, use_reentrant=False)
+    for i in range(cfg.num_blocks):
+        x, a = body(x, [b[i] for b in params["blocks"]])
+        aux = aux + a
+    x = apply_norm(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch: dict, remat: bool = True,
+            aux_weight: float = 0.01):
+    """Next-token cross entropy plus ``aux_weight`` times the MoE aux loss.
+    ``batch["labels"]`` (B, S) int, -1 = padding. Returns (loss, {"nll",
+    "aux"})."""
+    logits, aux = forward_train(cfg, params, batch, remat)
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = batch["labels"][:, 1:]
+    ok = tgt >= 0
+    nll = -torch.gather(logp, -1, tgt.clamp_min(0).long()[..., None])[..., 0]
+    loss = torch.sum(nll * ok) / ok.sum().clamp_min(1)
+    return loss + aux_weight * aux, {"nll": loss, "aux": aux}
+
+
+# ------------------------------------------------------------------ serving
 
 
 def prefill(cfg: ModelConfig, rt: AttentionRuntime, params, batch, caches,

@@ -1,8 +1,9 @@
 """Layer dispatch of the port (the JAX package's ``models/transformer.py``),
-serving phases: a layer is (mixer, mlp), the mixer ``attn``, ``xattn``,
-``mla``, ``mamba``, ``mlstm`` or ``slstm`` and the MLP ``dense``, ``moe`` or
-``none``, over paged arenas (continuous batching) and over contiguous
-arenas (the static engine and one-shot admission). The recurrent mixers
+training (``layer_train``) and serving phases: a layer is (mixer, mlp), the
+mixer ``attn``, ``xattn``, ``mla``, ``mamba``, ``mlstm`` or ``slstm`` and
+the MLP ``dense``, ``moe`` or ``none``, over paged arenas (continuous
+batching) and over contiguous arenas (the static engine and one-shot
+admission). The recurrent mixers
 keep an O(1) state a request instead of an arena: one row a slot, never
 paged, and position-free, so the continuous decode runs their contiguous
 step over every slot row (a retired slot's state is overwritten at its
@@ -12,8 +13,10 @@ layer keeps its request's patch K/V in a dense arena of ``num_patch_tokens``
 rows (one a slot under continuous batching) whatever the mode, written at
 prefill and only read by decode; it has no chunked prefill either. MoE's
 switch aux loss is computed and discarded, as the reference's serving phases
-do."""
+do; ``layer_train`` returns it."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs import AttentionRuntime, ModelConfig
 from repro_torch.core import kv_cache as kvc
@@ -34,12 +37,30 @@ RECURRENT = {
 
 
 def _apply_mlp_part(cfg: ModelConfig, mlp: str, p, x):
+    """The MLP half of a layer: (x, the MoE aux loss, or None without MoE)."""
     if mlp == "none":
-        return x
+        return x, None
     h = apply_norm(cfg, p["norm2"], x)
     if mlp == "moe":
-        return x + moe_lib.apply_moe(cfg, p["mlp"], h)[0]
-    return x + apply_mlp(cfg, p["mlp"], h)
+        y, aux = moe_lib.apply_moe(cfg, p["mlp"], h)
+        return x + y, aux
+    return x + apply_mlp(cfg, p["mlp"], h), None
+
+
+def layer_train(cfg: ModelConfig, kind: tuple[str, str], p, x, positions, patches=None):
+    """One layer over a whole training sequence x (B, S, D). Returns (x,
+    the layer's MoE aux loss, a float32 scalar; zero without MoE)."""
+    mixer, mlp = kind
+    h = apply_norm(cfg, p["norm1"], x)
+    if mixer in RECURRENT:
+        y = RECURRENT[mixer][1](cfg, p["mixer"], h)[0]
+    elif mixer == "xattn":
+        y = attn.xattn_train(cfg, p["mixer"], h, patches)
+    else:
+        fn = mla_lib.mla_train if mixer == "mla" else attn.attn_train
+        y = fn(cfg, p["mixer"], h, positions)
+    x, aux = _apply_mlp_part(cfg, mlp, p, x + y)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
 
 def _patch_arena(cfg: ModelConfig, batch: int, device) -> kvc.DenseKVCache:
@@ -76,7 +97,7 @@ def layer_decode_rows(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, s
     else:
         fn = mla_lib.mla_decode_rows if mixer == "mla" else attn.attn_decode_rows
         y, cache = fn(cfg, rt, p["mixer"], h, rows, cache)
-    return _apply_mlp_part(cfg, mlp, p, x_t + y), cache
+    return _apply_mlp_part(cfg, mlp, p, x_t + y)[0], cache
 
 
 def layer_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first: bool,
@@ -90,7 +111,7 @@ def layer_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first
     fn = mla_lib.mla_prefill_chunk if mixer == "mla" else attn.attn_prefill_chunk
     y, cache = fn(cfg, rt, tier, first, p["mixer"], apply_norm(cfg, p["norm1"], x), positions,
                   slot, block_row, offset, valid, cache)
-    return _apply_mlp_part(cfg, mlp, p, x + y), cache
+    return _apply_mlp_part(cfg, mlp, p, x + y)[0], cache
 
 
 def layer_cache_init(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str],
@@ -120,7 +141,7 @@ def layer_prefill(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str],
     else:
         fn = mla_lib.mla_prefill if mixer == "mla" else attn.attn_prefill
         y, cache = fn(cfg, rt, p["mixer"], h, positions, cache)
-    return _apply_mlp_part(cfg, mlp, p, x + y), cache
+    return _apply_mlp_part(cfg, mlp, p, x + y)[0], cache
 
 
 def layer_decode(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str], p, x_t,
@@ -135,4 +156,4 @@ def layer_decode(cfg: ModelConfig, rt: AttentionRuntime, kind: tuple[str, str], 
     else:
         fn = mla_lib.mla_decode if mixer == "mla" else attn.attn_decode
         y, cache = fn(cfg, rt, p["mixer"], h, pos, cache)
-    return _apply_mlp_part(cfg, mlp, p, x_t + y), cache
+    return _apply_mlp_part(cfg, mlp, p, x_t + y)[0], cache

@@ -1,8 +1,10 @@
 """Parameter trees of the PyTorch port: ``model_defs`` of the attention,
 cross-attention, MLA, Mamba and xLSTM stacks with dense, MoE or no MLPs and
 token, audio-frame or text+patch inputs, seeded initialisation on an
-explicit ``torch.Generator``, and ``from_jax``, which carries a JAX
-parameter tree (as numpy leaves) across.
+explicit ``torch.Generator``, ``from_jax``, which carries a JAX parameter
+tree (as numpy leaves) across, and its inverse ``stack_blocks`` with
+``ref_leaves``, which give a tree's leaves in the reference's layout and
+order (the optimizers, the checkpoints and the tests compare there).
 
 The tree mirrors the JAX package's ``model_defs`` (``models/model.py:41``)
 with one change: the JAX tree stacks each block-pattern position's layers
@@ -137,15 +139,57 @@ def model_defs(cfg: ModelConfig):
     }
 
 
-# ------------------------------------------------------------------- init
+# ------------------------------------------------------------------ trees
 
 
-def _tree_map(fn, tree):
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (dicts, lists,
+    tuples and NamedTuples of tensors)."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, list):
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
+    if isinstance(t, tuple):
+        vals = [tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
+    return None if t is None else fn(*trees)
+
+
+def ref_leaves(tree) -> list:
+    """The leaves of a tree in ``jax.tree.flatten``'s order: dict keys
+    sorted, lists and tuples (state NamedTuples by field) in order, None a
+    node with no leaf."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [x for k in sorted(tree) for x in ref_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in ref_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def ref_unflatten(like, leaves):
+    """A tree shaped like ``like`` whose leaves are ``leaves``, in
+    ``ref_leaves``' order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        if isinstance(t, tuple):
+            vals = [build(v) for v in t]
+            return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
+        return None if t is None else next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+# ------------------------------------------------------------------- init
 
 
 def init_params(cfg: ModelConfig, seed: int, device=None):
@@ -169,7 +213,7 @@ def init_params(cfg: ModelConfig, seed: int, device=None):
         w = torch.randn(s.shape, generator=gen, dtype=torch.float32, device=device)
         return (w * std).to(s.dtype)
 
-    return _tree_map(make, model_defs(cfg))
+    return tree_map(make, model_defs(cfg))
 
 
 def _leaf_to_torch(a) -> torch.Tensor:
@@ -189,31 +233,37 @@ def from_jax(tree, device=None):
     ``gate`` (num_blocks,) into 0-d tensors; nested trees such as MoE's
     ``shared`` experts keep their shape)."""
     device = resolve_device(device)
-    conv = lambda t: _tree_map(lambda a: _leaf_to_torch(a).to(device), t)  # noqa: E731
+    tree = unstack_blocks(tree_map(lambda a: _leaf_to_torch(a).to(device), tree))
+    return {k: tree[k] for k in ("embed", "prefix", "blocks", "final_norm")}
 
+
+def unstack_blocks(tree):
+    """A tree in the reference's layout (each ``blocks`` leaf stacked along
+    a leading ``num_blocks`` axis) as the port's: every block leaf split
+    into per-layer views."""
     def unstack(stacked):
-        n = {len(t) for t in _leaves(stacked)}
+        n = {len(t) for t in ref_leaves(stacked)}
         if len(n) != 1:
             raise ValueError(f"stacked block leaves disagree on num_blocks: {n}")
-        return [_tree_map(lambda t, i=i: t[i], stacked) for i in range(n.pop())]
+        return [tree_map(lambda t, i=i: t[i], stacked) for i in range(n.pop())]
 
-    return {
-        "embed": conv(tree["embed"]),
-        "prefix": conv(tree["prefix"]),
-        "blocks": [unstack(conv(b)) for b in tree["blocks"]],
-        "final_norm": conv(tree["final_norm"]),
-    }
+    return {**tree, "blocks": [unstack(b) for b in tree["blocks"]]}
 
 
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, list):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+def stack_blocks(tree):
+    """The inverse of ``unstack_blocks``: the port's tree (parameters, or a
+    tree shaped like them, such as their gradients) in the reference's
+    layout, each block-pattern position's per-layer leaves stacked into one
+    (num_blocks, ...) tensor (a copy)."""
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([lay[k] for lay in layers]) for k in layers[0]}
+        return torch.stack(layers)
+
+    return {**tree, "blocks": [stack(b) for b in tree["blocks"]]}
 
 
 def to_device(tree, device):
     """Move every leaf of a parameter tree to ``device`` (no copy for
     leaves already there)."""
-    return _tree_map(lambda t: t.to(device), tree)
+    return tree_map(lambda t: t.to(device), tree)

@@ -1,7 +1,9 @@
 """The port stands alone: every ``repro_torch`` module and ``chip_smoke``
 import with JAX and the JAX package made unimportable, and no JAX module is
-loaded afterwards. Entry points run on the GPU unless told otherwise: with
-no GPU and no explicit device they raise instead of running on the CPU."""
+loaded afterwards. Entry points (the engines, the router, the train
+launcher) run on the GPU unless told otherwise: with no GPU and no
+explicit device they raise instead of running on the CPU; the train
+launcher refuses a mesh, naming its ROADMAP item."""
 import dataclasses
 import os
 import subprocess
@@ -26,7 +28,9 @@ for name in names:
     importlib.import_module(name)
 for name in ("serving.trace", "serving.prng", "serving.speculative", "models.moe",
              "models.mla", "models.mamba", "models.xlstm", "serving.router",
-             "serving.faults", "serving.health"):
+             "serving.faults", "serving.health", "launch.train", "train.step",
+             "optim.optimizers", "optim.schedule", "optim.compression", "data.pipeline",
+             "checkpoint.manager", "checkpoint.msgpack_lite"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
@@ -70,3 +74,18 @@ def test_router_needs_a_gpu_or_an_explicit_device_and_refuses_a_mesh():
         ReplicaRouter(cfg, params, num_replicas=2)
     router = ReplicaRouter(cfg, params, num_replicas=2, device="cpu")
     assert [e.device.type for e in router.engines] == ["cpu", "cpu"]
+
+
+def test_train_entry_point_needs_a_gpu_or_an_explicit_device_and_refuses_a_mesh():
+    from repro_torch.launch.train import main
+
+    args = ["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "1", "--batch", "2",
+            "--seq", "8"]
+    for mesh in ("single", "multi"):
+        with pytest.raises(ValueError, match="ROADMAP A21"):
+            main(args + ["--mesh", mesh, "--device", "cpu"])
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(args)
+    assert main(args + ["--device", "cpu"]) > 0
