@@ -311,6 +311,36 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               against none, two microbatches against one and a
               checkpoint resume against a straight run (within 1e-5).
               The phase prints its seconds
+ 10. tune     (u1) B1, B2, B5 and B6 against their plain versions, bf16
+              and f32, at the tuner's smoke heads (KV 4, G 1, Dh 16) on
+              pages of 4 and 8 and chunks of 4, 8, 32 and 64 rows, on
+              phase 3's layouts, each call on its route, under phase 3's
+              tolerances; (u2) the port's ServingObjective on the card and
+              on the CPU, the qwen1.5-0.5b smoke config at float32 with
+              the same weights, over five genomes (the default; spec_len 2
+              under slo; escalation on pages of 4; chunks of 4 pages of
+              16; escalation on pages of 4 in chunks of one page from one
+              row's arena, where rows are admitted into the CPQ tier):
+              objective tuples and metrics identical, B1 and B2 launched,
+              B5 by the tiered genomes, B6 by the last; the objectives
+              depend on scheduling alone, so each trace is then served
+              again on either side and its greedy streams compared
+              (identical, or a first divergence at a CPU top-2 logit gap
+              below ARGMAX_GAP); (u3) the tune entry
+              point (--smoke, 12 evaluations, bf16, written to a temporary
+              file): its own contract, B1 and B2 on their bf16 routes, no
+              committed presets file touched, evaluations a second; (u4)
+              the serve entry point at full width (qwen1.5-0.5b, random
+              bf16 weights from a seed, 8 prompts of 64, 32 new):
+              --continuous with each committed preset (default, latency,
+              throughput, energy), --continuous --mode decomposed,
+              retrieval and cpq, static --mode cpq and --continuous
+              --replicas 2 --inject-faults 0: output shapes, the kernels
+              each launches on their bf16 routes, and the default preset's
+              greedy output identical to a ContinuousServeEngine built with
+              the same ServingCfg, weights and batch; tokens/s of each run
+              beside the card's name and power limit. The phase prints its
+              seconds
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -320,12 +350,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
+import io
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -469,9 +502,11 @@ def sweep_decode_served(ops, dtype, page=16, nb=64) -> dict:
     return errs
 
 
-def sweep(ops, dtype, KV, G, Dh, page=16, nb=64, B=8, C=16):
+def sweep(ops, dtype, KV, G, Dh, page=16, nb=64, B=8, C=16, calls_of=None):
     """Max abs error of B1 and B2 against their plain versions; every B1 and
-    B2 call must take the route its dtype and width pick."""
+    B2 call must take the route its dtype and width pick. ``calls_of(long
+    row's length)`` gives the chunks (``chunk_calls`` at ``C`` unless
+    given)."""
     rng = np.random.default_rng(SEED)
     dev = DEVICE
     num_pages, lengths, bt = layout(rng, B, nb, page)
@@ -485,7 +520,7 @@ def sweep(ops, dtype, KV, G, Dh, page=16, nb=64, B=8, C=16):
     err_dec = decode_err(ops, dtype, q, kp, vp, bt_t, len_t, scale)
     err_pre = 0.0
     row = bt_t[-1]                               # the long row's pages
-    calls = chunk_calls(int(lengths[-1]), C)
+    calls = (calls_of or (lambda n: chunk_calls(n, C)))(int(lengths[-1]))
     before = dict(ops.ROUTE_LAUNCHES)
     for offset, valid, c in calls:
         qc = torch.randn(1, c, KV * G, Dh, device=dev).to(dtype)
@@ -568,11 +603,12 @@ def cpq_pool(gen, P, page, KV, D, slots, bits, L=CPQ_LEVELS):
                           torch.zeros((slots, KV, D), device=dev))
 
 
-def sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits, page=16, nb=64, B=8, C=16):
+def sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits, page=16, nb=64, B=8, C=16, calls_of=None):
     """Max abs error of B5 and B6 against their plain versions. Row 0 is
     empty; row 1 has a live length over an all-null block row (the CPQ arm
     of a tiered decode on a dense-tier row); the last row is long, with a
-    partial last page, and serves the prefill chunks."""
+    partial last page, and serves the prefill chunks (``calls_of`` as in
+    ``sweep``)."""
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     num_pages, lengths, bt = layout(rng, B, nb, page)
@@ -595,7 +631,7 @@ def sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits, page=16, nb=64, B=8, C=16):
     check(not out[0].any().item(), "paged_cpq_decode: an empty row is not zero")
     err_pre = 0.0
     row, slot = bt_t[-1], B - 1
-    calls = chunk_calls(int(lengths[-1]), C)
+    calls = (calls_of or (lambda n: chunk_calls(n, C)))(int(lengths[-1]))
     before = dict(cpq_ops.ROUTE_LAUNCHES)
     for offset, valid, c in calls:
         qc, k_raw, v_raw = (torch.randn((1, c, h, Dh), generator=gen, device=DEVICE).to(dtype)
@@ -4298,6 +4334,312 @@ def train_phase(T, M, smi: str, counted: list, routed: dict, fa_routes: dict,
         f"{report['train']['seconds']:.1f} s")
 
 
+# ------------------------------------------------ phase 10: tune and launch
+
+TUNE_SHAPE = (4, 1, 16)      # KV, G, Dh of the tuner's smoke model (qwen1.5-0.5b's smoke heads)
+TUNE_PAGES = (4, 8)          # the tuner's page sizes that phase 3 does not sweep (it sweeps 16)
+TUNE_CHUNKS = (4, 8, 32, 64)  # the tuner's chunk lengths (chunk_pages x page_size) beside 16
+TUNE_BUDGET = 12             # (u3): evaluations of the tune entry point's --smoke search
+TUNE_GENOMES = (  # (u2): what, the knobs set apart from DEFAULT_GENOME, the space's budget rows
+    ("default", {}, None),
+    ("spec 2 slo", {"spec_len": 2, "policy": "slo"}, None),
+    ("tiered pages 4", {"enable_escalation": True, "page_size": 4}, None),
+    ("chunks 4 pages 16", {"chunk_pages": 4, "page_size": 16}, None),
+    # the tuner's arena holds 4 full-length rows, so its tiered genomes never
+    # cross the low watermark on its trace and admit nothing into the CPQ
+    # tier: this one is served from one row's arena, where rows are admitted
+    # into the CPQ tier in chunks of 4 (B6 at pages of 4)
+    ("tiered pages 4, one row's arena", {"enable_escalation": True, "page_size": 4,
+                                         "chunk_pages": 1, "low_watermark": 0.4}, 1),
+)
+LAUNCH_SHAPE = ("--batch", "8", "--prompt", "64", "--new", "32")
+PRESETS = ("default", "latency", "throughput", "energy")
+PAGED = ("paged_decode", "paged_prefill")
+
+
+def tuner_calls(long_len: int, page: int) -> tuple:
+    """(offset, valid, C) of the chunks (u1) runs over a long row at each
+    of TUNE_CHUNKS: a first chunk, valid < C at a mid-page offset, a chunk
+    far in and the row's last tokens."""
+    out = []
+    for C in TUNE_CHUNKS:
+        out += [(0, C, C), (page + page // 2, max(1, C - 3), C), (long_len - C - 1, C, C),
+                (long_len - 3, 3, C)]
+    return tuple(out)
+
+
+def sweep_tuner(ops, cpq_ops, errs: dict) -> None:
+    """(u1): B1, B2, B5 and B6 against their plain versions at the tuner's
+    heads (KV 4, G 1, Dh 16), on pages of 4 and 8 and chunks of 4-64 rows,
+    on phase 3's layouts, each call on its route, under phase 3's
+    tolerances."""
+    KV, G, Dh = TUNE_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        for page in TUNE_PAGES:
+            tag = f"{dname} KV={KV} G={G} Dh={Dh} page={page} chunks={TUNE_CHUNKS}"
+            calls_of = lambda n, page=page: tuner_calls(n, page)  # noqa: E731
+            e_dec, e_pre = sweep(ops, dtype, KV, G, Dh, page=page, calls_of=calls_of)
+            errs["paged_decode"][tag], errs["paged_prefill"][tag] = e_dec, e_pre
+            e_cd = e_cp = 0.0
+            for bits in (4, 8):
+                d, p = sweep_cpq(cpq_ops, dtype, KV, G, Dh, bits, page=page, calls_of=calls_of)
+                errs["paged_cpq_decode"][f"{tag} bits={bits}"] = d
+                errs["paged_cpq_prefill"][f"{tag} bits={bits}"] = p
+                e_cd, e_cp = max(e_cd, d), max(e_cp, p)
+            log(f"sweep {tag}: paged_decode {e_dec:.3e} ({ops.decode_route(dtype, Dh, Dh, 64)} "
+                f"route), paged_prefill {e_pre:.3e} ({ops.prefill_route(dtype, Dh, Dh)} route), "
+                f"paged_cpq_decode {e_cd:.3e} ({cpq_ops.cpq_decode_route(Dh, Dh)} route), "
+                f"paged_cpq_prefill {e_cp:.3e} "
+                f"({cpq_ops.cpq_prefill_route(dtype, Dh, Dh, CPQ_LEVELS)} route; bits 4 and 8; "
+                f"tol {TOL[dtype]})")
+            for name in ("paged_decode", "paged_prefill", "paged_cpq_decode", "paged_cpq_prefill"):
+                for t, err in errs[name].items():
+                    if t.startswith(tag):
+                        check(err <= TOL[dtype], f"(u1) {name} {t}: error {err}")
+
+
+def objective_parity(T, counted: list, routed: dict, fa_routes: dict, report: dict) -> None:
+    """(u2): the port's ServingObjective on the card and on the CPU, the
+    smoke config at float32 with the same weights, over TUNE_GENOMES:
+    objective tuples and metrics identical; B1 and B2 launched by every
+    genome on the card, B5 by the tiered ones, B6 by the one served from
+    one row's arena (the counts set to 0 just before each evaluation and
+    read just after). The objectives depend on scheduling alone (the trace
+    never stops at EOS), so each genome's trace is then served once more on
+    either side through ``run_trace`` and its greedy streams compared
+    (``trace_streams``)."""
+    from repro_torch.params import init_params
+    from repro_torch.serving.trace import run_trace
+    from repro_torch.tuning import DEFAULT_GENOME, KnobSpace, ServingObjective
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(T.smoke_config(T.ARCHS["qwen1.5-0.5b"]), dtype="float32")
+    params = init_params(cfg, SEED, "cpu")
+    sides = {"card": ServingObjective(cfg, params, device=DEVICE),
+             "cpu": ServingObjective(cfg, params, device="cpu")}
+    max_len = sides["cpu"].space.max_len
+    out = report["tune"]["objective"] = {}
+    for what, knobs, rows in TUNE_GENOMES:
+        genome = {**DEFAULT_GENOME, **knobs}
+        got, streams = {}, {}
+        for side, obj in sides.items():
+            if rows is not None:
+                obj = ServingObjective(cfg, params, space=KnobSpace(max_len=max_len,
+                                                                    budget_slots=rows),
+                                       device=obj.device)
+            zero_launches(counted, fa_routes)
+            zero_routes(routed)
+            got[side] = obj(genome)
+            if side == "card":
+                counts = {k: n for k, n in counted_launches(counted, fa_routes).items() if n}
+                routes = {name: {r: n for r, n in c.items() if n}
+                          for name, (c, _) in routed.items() if any(c.values())}
+            run = run_trace(cfg, obj.params, obj.work, obj.space.to_serving(genome),
+                            slos=obj.slos, device=obj.device)
+            streams[side] = {rid: np.asarray(r["tokens"]) for rid, r in run["results"].items()}
+        tiered = genome["enable_escalation"]
+        want = set(PAGED) | ({"paged_cpq_decode"} if tiered else set()) | (
+            {"paged_cpq_prefill"} if rows is not None else set())
+        out[what] = {"objectives": got["card"][0], "metrics": got["card"][1],
+                     "launches": counts, "routes": routes}
+        log(f"(u2) objective {what}: card {got['card'][0]}, CPU {got['cpu'][0]}; launches on "
+            f"the card {counts}, routes {routes}")
+        check(got["card"] == got["cpu"],
+              f"(u2) {what}: card {got['card']} against CPU {got['cpu']}")
+        out[what]["streams_excused"] = trace_streams(cfg, params, sides["cpu"].work, streams,
+                                                     what)
+        check(want <= set(counts) <= want | {"paged_cpq_prefill"},
+              f"(u2) {what}: launches {counts}, want {sorted(want)}")
+
+
+def trace_streams(cfg, params, work, streams: dict, what: str) -> int:
+    """(u2): a trace's greedy streams on the card and on the CPU, by
+    request: identical, but for a first divergence where the CPU's top-2
+    logit gap is below ARGMAX_GAP. The gap is taken from a dense float32
+    forward on the CPU of the prompt and the CPU's tokens before the
+    divergence. Returns the number of excused streams."""
+    from repro_torch.models import model as M
+
+    excused = 0
+    for w in work:
+        a, b = streams["card"][w.rid], streams["cpu"][w.rid]
+        check(len(a) == len(b), f"(u2) {what}: request {w.rid} lengths {len(a)}, {len(b)}")
+        diff = np.flatnonzero(a != b)
+        if not len(diff):
+            continue
+        t = int(diff[0])   # after a divergence the contexts differ: stop there
+        seq = torch.as_tensor(np.concatenate([np.asarray(w.prompt), b[:t]])[None],
+                              dtype=torch.long)
+        with torch.no_grad():
+            logits, _ = M.forward_train(cfg, params, {"tokens": seq}, remat=False)
+        gap = top2_gap(logits[0, -1]).item()
+        log(f"(u2) {what}: request {w.rid} diverges at token {t}: card {a[t]} vs CPU {b[t]}, "
+            f"CPU top-2 gap {gap:.3e}")
+        check(gap < ARGMAX_GAP, f"(u2) {what}: request {w.rid} token {t} differs at a "
+              f"resolvable gap {gap:.3e}")
+        excused += 1
+    log(f"(u2) {what}: greedy streams card against CPU identical for "
+        f"{len(work) - excused}/{len(work)} requests, {excused} near-tie divergences excused")
+    return excused
+
+
+def tune_entry(T, counted: list, routed: dict, fa_routes: dict, report: dict) -> None:
+    """(u3): the tune entry point on the card at its default dtype (bf16),
+    a --smoke search of TUNE_BUDGET evaluations written to a temporary
+    file: its own contract must pass (assertions inside main), B1 and B2
+    launch on their bf16 routes, and neither package's committed presets
+    file changes."""
+    from repro_torch.launch import tune
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    committed = [T.ServingCfg.preset_path(),
+                 os.path.join(root, "src", "repro", "configs", "serving_presets.json")]
+
+    def digests():
+        return [hashlib.sha256(open(p, "rb").read()).hexdigest() if os.path.exists(p) else None
+                for p in committed]
+
+    before = digests()
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "presets.json")
+        zero_launches(counted, fa_routes)
+        zero_routes(routed)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tune.main(["--budget", str(TUNE_BUDGET), "--smoke", "--out", out])
+        seconds = time.perf_counter() - t0
+        counts = {k: n for k, n in counted_launches(counted, fa_routes).items() if n}
+        with open(out) as f:
+            doc = json.load(f)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if not line.startswith("[tune] eval"):
+            log(line)
+    runs = sum(line.startswith("[tune] eval") for line in text.splitlines())
+    check(rc == 0 and "smoke PASS" in text, "(u3) the tune entry point's --smoke contract")
+    check(digests() == before, "(u3) a committed presets file changed")
+    check(set(PAGED) <= set(counts), f"(u3) launches {counts}")
+    routes = check_routes("(u3) tune", routed, counts)
+    report["tune"]["entry"] = {"seconds": seconds, "evaluations": doc["budget"],
+                               "engine_runs": runs, "launches": counts, "routes": routes,
+                               "trace": doc["trace"], "hypervolume": doc["hypervolume"]}
+    log(f"(u3) tune --smoke: {doc['budget']} evaluations ({runs} engine runs) in {seconds:.2f} s "
+        f"= {doc['budget'] / seconds:.3f} evaluations/s ({runs / seconds:.3f} engine runs/s); "
+        f"launches {counts}")
+
+
+def launch_runs(tiered: dict) -> tuple:
+    """(u4): (what, serve arguments, kernels that must launch, kernels that
+    may) of the serve entry point's runs at full width; ``tiered`` says of
+    each preset whether it escalates (then B5 launches, and B6 may)."""
+    runs = []
+    for p in PRESETS:
+        cpq = {"paged_cpq_decode"} if tiered[p] else set()
+        runs.append((f"preset {p}", ("--continuous", "--preset", p), set(PAGED) | cpq,
+                     {"paged_cpq_prefill"} if cpq else set()))
+    runs += [
+        ("continuous decomposed", ("--continuous", "--mode", "decomposed"),
+         {"paged_decomposed_decode", "paged_decomposed_prefill"}, set()),
+        ("continuous retrieval", ("--continuous", "--mode", "retrieval"),
+         {"paged_proxy_scores", "paged_prefill"}, set()),
+        ("continuous cpq", ("--continuous", "--mode", "cpq"),
+         {"paged_cpq_decode", "paged_cpq_prefill"}, set()),
+        ("static cpq", ("--mode", "cpq"), {"flash_attention", "flash_attention/prompt",
+                                           "cpq_decode"}, set()),
+        ("replicas 2, faults 0", ("--continuous", "--replicas", "2", "--inject-faults", "0"),
+         set(PAGED), set()),
+    ]
+    return tuple(runs)
+
+
+def serve_entry(T, smi: str, counted: list, routed: dict, fa_routes: dict,
+                report: dict) -> None:
+    """(u4): the serve entry point at full width: qwen1.5-0.5b (24 layers,
+    random bf16 weights from SEED), 8 prompts of 64 tokens, 32 new. Each
+    run's output shape, the kernels it launches (the counts set to 0 just
+    before and read just after) and their bf16 routes; the default preset's
+    greedy output against a ContinuousServeEngine built here with the same
+    ServingCfg, weights and batch; each run's tokens/s."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import serve
+    from repro_torch.params import init_params
+    from repro_torch.serving.paged_cache import pages_needed
+
+    tiered = {p: T.ServingCfg.from_preset(p).enable_escalation for p in PRESETS}
+    outs, report["tune"]["serve"] = {}, {}
+    for what, args, need, may in launch_runs(tiered):
+        zero_launches(counted, fa_routes)
+        zero_routes(routed)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = serve.main(["--arch", "qwen1.5-0.5b", *LAUNCH_SHAPE, *args])
+        seconds = time.perf_counter() - t0
+        counts = {k: n for k, n in counted_launches(counted, fa_routes).items() if n}
+        torch.cuda.empty_cache()
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(f"(u4) {what}: {line}")
+        gen = next(line for line in lines if line.startswith("[serve] generated"))
+        tok_s = float(gen.split("(")[-1].split(" tok/s")[0])
+        check(out.shape == (8, 32) and out.min() >= 0, f"(u4) {what}: output {out.shape}")
+        check(need <= set(counts) <= need | may, f"(u4) {what}: launches {counts}, want "
+              f"{sorted(need)}")
+        routes = check_routes(f"(u4) {what}", routed, counts)
+        check(counts.get("flash_attention", 0) == counts.get("flash_attention/prompt", 0),
+              f"(u4) {what}: a flash_attention launch off its prompt route: {counts}")
+        outs[what] = out
+        report["tune"]["serve"][what] = {"tokens_per_s": tok_s, "seconds": seconds,
+                                         "launches": counts, "routes": routes}
+        log(f"(u4) {what}: {tok_s:.1f} tokens/s ({smi}); {seconds:.1f} s with the weights' "
+            f"init; launches {counts}")
+    # the default preset against the engine built here
+    cfg = served_config(T)
+    params = init_params(cfg, SEED, DEVICE)
+    batch = SyntheticLMData(cfg, ShapeCfg("serve", 64, 8, "prefill"),
+                            DataConfig(seed=SEED)).batch(0)
+    batch.pop("labels")
+    n_max = 64 + 32
+    base = T.ServingCfg.from_preset("default")
+    serving = T.ServingCfg.from_preset(
+        "default", num_pages=base.num_slots * pages_needed(n_max, base.page_size) + 1,
+        max_blocks_per_slot=pages_needed(n_max, base.page_size),
+        prefill_bucket=base.prefill_chunk or base.page_size)
+    eng = T.ContinuousServeEngine(cfg, params, serving=serving, device=DEVICE)
+    want, _ = eng.generate(batch, T.GenerationConfig(max_new_tokens=32, seed=SEED))
+    del eng, params
+    torch.cuda.empty_cache()
+    check(np.array_equal(outs["preset default"], want),
+          "(u4) the default preset's greedy output differs from the engine's")
+    log("(u4) preset default: greedy output identical to a ContinuousServeEngine built with "
+        "the same ServingCfg, weights and batch")
+
+
+def tune_phase(T, ops, cpq_ops, errs: dict, smi: str, counted: list, routed: dict,
+               fa_routes: dict, report: dict) -> None:
+    """Phase 10: the tuner's kernel shapes (u1), the objective card against
+    CPU (u2), the tune entry point (u3) and the serve entry point (u4)."""
+    t0 = time.perf_counter()
+    report["tune"] = {}
+    seconds = {}
+    for what, fn in (("(u1)", lambda: sweep_tuner(ops, cpq_ops, errs)),
+                     ("(u2)", lambda: objective_parity(T, counted, routed, fa_routes, report)),
+                     ("(u3)", lambda: tune_entry(T, counted, routed, fa_routes, report)),
+                     ("(u4)", lambda: serve_entry(T, smi, counted, routed, fa_routes, report))):
+        t1 = time.perf_counter()
+        fn()
+        seconds[what] = time.perf_counter() - t1
+    report["tune"]["seconds"] = time.perf_counter() - t0
+    report["tune"]["step_seconds"] = seconds
+    log(f"[{time.perf_counter() - T0:.0f} s] phase 10 (tune and launch) took "
+        f"{report['tune']['seconds']:.1f} s: "
+        + ", ".join(f"{k} {s:.1f}" for k, s in seconds.items()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the report as JSON here")
@@ -4807,6 +5149,11 @@ def main() -> int:
     # 9) training: full-width qwen1.5-0.5b, the flash backward, card vs CPU
     train_phase(T, M, smi, counted, {**routed, **static_routed}, fa_ops.ROUTE_LAUNCHES, report)
 
+    # 10) tune and launch: the tuner's kernel shapes, its objective card
+    #     against CPU, the tune and serve entry points
+    tune_phase(T, ops, cpq_ops, errs, smi, counted, {**routed, **static_routed},
+               fa_ops.ROUTE_LAUNCHES, report)
+
     kernel_mod = {**kmods, "flash_attention_prompt": fa_ops}
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",
                 "paged_prefill": "src/repro/kernels/flash_attn/kernel.py:170",
@@ -4872,6 +5219,11 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library": library[name], "timed_samples": t["samples"],
             "launches_by_serve": by_serve})
+        tune = report["tune"]  # phase 10's runs: the objective's genomes, tune, serve
+        runs = {**{f"objective {w}": r for w, r in tune["objective"].items()},
+                "tune --smoke": tune["entry"], **{f"serve {w}": r for w, r in tune["serve"].items()}}
+        kernels[-1]["launches_in_phase_10"] = {w: r["launches"][key] for w, r in runs.items()
+                                               if r["launches"].get(key)}
         if name in at_jamba:  # B1 and B8 at jamba's attention: 64 heads over 8, Dh 128
             kernels[-1]["at_jamba"] = {
                 "max_abs_err": errs[name][JAMBA_SWEPT[name]], "swept": JAMBA_SWEPT[name],

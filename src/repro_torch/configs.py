@@ -10,6 +10,8 @@ the JAX package's config module imports ``jax.numpy``; the only difference is
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -206,6 +208,34 @@ class ServingCfg:
     def max_len(self) -> int:
         """Per-request logical context ceiling (tokens)."""
         return self.page_size * self.max_blocks_per_slot
+
+    @classmethod
+    def preset_path(cls) -> str:
+        """The port's packaged presets file, written by the port's tuner
+        (``python -m repro_torch.launch.tune``) on the GPU."""
+        return os.path.join(os.path.dirname(__file__), "serving_presets.json")
+
+    @classmethod
+    def list_presets(cls, path: Optional[str] = None) -> list[str]:
+        with open(path or cls.preset_path()) as f:
+            return sorted(json.load(f)["presets"])
+
+    @classmethod
+    def from_preset(cls, name: str, path: Optional[str] = None,
+                    **overrides) -> "ServingCfg":
+        """A named operating point of a presets file (``latency`` /
+        ``throughput`` / ``energy`` / ``default``); ``overrides`` replace
+        preset fields, as the serve launcher does to size the arena for its
+        own context ceiling."""
+        with open(path or cls.preset_path()) as f:
+            data = json.load(f)
+        if name not in data["presets"]:
+            raise ValueError(
+                f"unknown serving preset {name!r}; available: "
+                f"{sorted(data['presets'])}")
+        kwargs = dict(data["presets"][name]["serving"])
+        kwargs.update(overrides)
+        return cls(**kwargs).validate()
 
 
 # ------------------------------------------------------------------- model

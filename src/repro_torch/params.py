@@ -139,6 +139,12 @@ def model_defs(cfg: ModelConfig):
     }
 
 
+def count_params(defs) -> int:
+    """Parameters of a ``model_defs`` tree, counted from its ``ParamSpec``
+    shapes (nothing is allocated)."""
+    return sum(math.prod(s.shape) for s in ref_leaves(defs))
+
+
 # ------------------------------------------------------------------ trees
 
 

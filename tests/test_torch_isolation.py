@@ -1,9 +1,9 @@
 """The port stands alone: every ``repro_torch`` module and ``chip_smoke``
 import with JAX and the JAX package made unimportable, and no JAX module is
-loaded afterwards. Entry points (the engines, the router, the train
-launcher) run on the GPU unless told otherwise: with no GPU and no
-explicit device they raise instead of running on the CPU; the train
-launcher refuses a mesh, naming its ROADMAP item."""
+loaded afterwards. Entry points (the engines, the router, the tuner's
+objective, the train, serve and tune launchers) run on the GPU unless told
+otherwise: with no GPU and no explicit device they raise instead of running
+on the CPU; the train launcher refuses a mesh, naming its ROADMAP item."""
 import dataclasses
 import os
 import subprocess
@@ -30,7 +30,9 @@ for name in ("serving.trace", "serving.prng", "serving.speculative", "models.moe
              "models.mla", "models.mamba", "models.xlstm", "serving.router",
              "serving.faults", "serving.health", "launch.train", "train.step",
              "optim.optimizers", "optim.schedule", "optim.compression", "data.pipeline",
-             "checkpoint.manager", "checkpoint.msgpack_lite"):
+             "checkpoint.manager", "checkpoint.msgpack_lite", "tuning.space",
+             "tuning.frontier", "tuning.evolution", "tuning.objectives", "tuning.presets",
+             "tuning.energy", "launch.serve", "launch.tune"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
@@ -46,7 +48,7 @@ def test_port_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", ISOLATED, ROOT], capture_output=True,
                        text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 18  # every module of the port was imported
+    assert int(r.stdout.split()[-1]) >= 26  # every module of the port was imported
 
 
 def test_entry_points_need_a_gpu_or_an_explicit_device():
@@ -89,3 +91,24 @@ def test_train_entry_point_needs_a_gpu_or_an_explicit_device_and_refuses_a_mesh(
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(args)
     assert main(args + ["--device", "cpu"]) > 0
+
+
+def test_tuner_and_launchers_need_a_gpu_or_an_explicit_device():
+    from repro_torch.launch import serve, tune
+    from repro_torch.tuning import ServingObjective
+
+    cfg = dataclasses.replace(T.smoke_config(T.ARCHS["qwen1.5-0.5b"]), dtype="float32")
+    params = init_params(cfg, 0, device="cpu")
+    serve_args = ["--arch", "qwen1.5-0.5b", "--smoke", "--batch", "1", "--prompt", "4",
+                  "--new", "2"]
+    tune_args = ["--budget", "1", "--out", os.devnull]
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingObjective(cfg, params)
+    assert ServingObjective(cfg, params, device="cpu").device.type == "cpu"
+    for main, args in ((serve.main, serve_args), (serve.main, serve_args + ["--continuous"]),
+                       (tune.main, tune_args)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(args)
+    assert serve.main(serve_args + ["--device", "cpu"]).shape == (1, 2)

@@ -62,3 +62,11 @@ def test_cuda_includes_resolve_to_package_data(source):
         target = (source.parent / name).resolve()
         assert target.exists(), f"{source.name} includes {name}, which does not exist"
         assert _packaged(target), f"{source.name} includes {name}, which is not package data"
+
+
+def test_the_ports_presets_are_package_data():
+    """``ServingCfg.preset_path()`` of an installed port: the presets file
+    the serve launcher's ``--preset`` reads ships with the package."""
+    presets = SRC / "repro_torch" / "serving_presets.json"
+    assert presets.exists()
+    assert _packaged(presets), "serving_presets.json is not in pyproject.toml's package data"
