@@ -341,6 +341,51 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               the same ServingCfg, weights and batch; tokens/s of each run
               beside the card's name and power limit. The phase prints its
               seconds
+ 11. mesh     the serving mesh (serving/sharded.py; model shards on
+              distinct cards where the machine has them, else all on the
+              one card): (v1) the kernels at the shapes a model shard
+              launches them, bf16 and f32, on phase 3's layouts, each call
+              on its route, under phase 3's tolerances: B1, B2, B5 and B6
+              at KV 8 and 4 (G 1, Dh 64), B3 and B4 at H 8 over Dm 1024
+              with 8 roped keys of 32 and over the MLA latent of 512 with
+              its one roped key of 64, B7 at KV 8; B3 and B4 in bf16 over
+              2 and 4 head shards of qwen's T1 call (and 2 of MLA's), each
+              planned as the whole call, equal to the whole call bit for
+              bit; (v2) full-width
+              qwen1.5-0.5b in bf16 on ContinuousServeEngine with phase 4's
+              8 requests and arenas: dense and decomposed over
+              make_serve_mesh(1, 2) at all 24 layers against phase 4's
+              serves (a) and (d), then cpq, retrieval and tiered over
+              (1, 2) and dense over (1, 4) at the first MESH_DEPTH = 4
+              layers (cut for time; --mesh-depth 24 runs them whole, as
+              PERF.md records) against unsharded serves of those layers
+              made here (phase 4's at 24): each
+              tier's kernel launched layers x mp times a tick on phase 4's
+              routes, the greedy streams identical to unsharded (a first
+              divergence excused only at an unsharded top-2 gap below
+              ARGMAX_GAP), model_shards, arena_bytes_per_device x mp =
+              arena_bytes_total and the interconnect bytes by the
+              reference's accounting; the decode tick's median and p90 and
+              decode tokens/s beside unsharded, with the card's name and
+              power limit; on two cards or more each card's
+              memory_allocated; (v3) float32 at PARITY_DEPTH layers,
+              sharded against unsharded on the card, dense and decomposed:
+              first logits within 1e-5, streams identical as (v2); then
+              the card's sharded engine against the CPU's (shards sharing
+              the CPU), dense: first logits within 1e-3, two requests'
+              streams identical but for a CPU near tie below ARGMAX_GAP;
+              (v4) deepseek-v2-lite at its published widths cut to
+              MOE_DEPTH layers, one-shot, over (1, 2): B3 once a shard a
+              layer a decode tick over the latent gathered whole, on its
+              tensor cores in bf16 and its sweep in float32; in both
+              dtypes streams identical to the unsharded engine's as (v2);
+              (v5) flash decoding, the ring
+              scores and GPipe over CUDA shards against one device at
+              tests/test_distributed.py's sizes (1e-5, 2e-4, 1e-6), flash
+              decoding also at qwen1.5-0.5b's decode shape in bf16 (2e-2);
+              (v6) the serve entry point with --mesh 1,2: at full width on
+              two cards, refused on one naming the count. The phase prints
+              its seconds
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -1012,7 +1057,9 @@ class Recorder(StandIn):
         if len(self.arenas) < self.n_layers:
             self.arenas.append(self.split(*args))
         if self.calls % (self.n_layers * self.every) == 0:
-            self.samples.append(self.snap(*args, **kw))
+            # a launch's plan (``whole``) is no input of its kernel's
+            self.samples.append(self.snap(*args, **{k: v for k, v in kw.items()
+                                                    if k != "whole"}))
         self.calls += 1
         return self.fn(*args, **kw)
 
@@ -2040,41 +2087,43 @@ def gather_gaps(M, eng, gaps: dict):
     return step
 
 
-def first_logits(M, cfg, rt, params, reqs, small, bt):
+def first_logits(M, cfg, rt, params, reqs, small, bt, device=None):
     """Two slots (the shortest and the longest prompt) streamed chunk by
     chunk through prefill_chunk_rows, or admitted one-shot when
     ``small.prefill_chunk`` is 0 (the prompt padded to the bucket, prefilled
     as a B=1 contiguous cache and packed into its pages), then one decode
-    step: the prompt logits of each slot (2, V) and the decode logits (2, V)."""
+    step: the prompt logits of each slot (2, V) and the decode logits (2, V).
+    On DEVICE unless ``device`` names another (the params' own)."""
     from repro_torch.serving.paged_cache import RowState
 
-    caches = M.init_paged_caches(cfg, rt, small, DEVICE)
+    dev = device or DEVICE
+    caches = M.init_paged_caches(cfg, rt, small, dev)
     C, bucket = small.prefill_chunk, small.prefill_bucket
     pre = []
     for s in range(2):
-        ctx, row = reqs[s].prompt, torch.tensor(bt[s], device=DEVICE)
+        ctx, row = reqs[s].prompt, torch.tensor(bt[s], device=dev)
         if not C:
             n = len(ctx)
             pad = max(bucket, -(-n // bucket) * bucket)
             tok = np.concatenate([ctx, np.full(pad - n, ctx[-1], np.int32)])
             logits, ctg = M.prefill(cfg, rt, params, {"tokens": torch.tensor(tok[None],
-                                                                        device=DEVICE)},
-                                    M.init_caches(cfg, rt, 1, pad, DEVICE), last_index=n - 1)
+                                                                        device=dev)},
+                                    M.init_caches(cfg, rt, 1, pad, dev), last_index=n - 1)
             M.pack_prefill_caches(cfg, rt, caches, ctg, row, s)
         for off in range(0, len(ctx), C) if C else ():
             valid = min(C, len(ctx) - off)
             tok = np.concatenate([ctx[off:off + valid],
                                   np.full(C - valid, ctx[off + valid - 1], np.int32)])
             logits, _ = M.prefill_chunk_rows(cfg, rt, 0, off == 0, params,
-                                             torch.tensor(tok[None], device=DEVICE), s, row,
+                                             torch.tensor(tok[None], device=dev), s, row,
                                              off, valid, caches)
         pre.append(logits)
     first = torch.cat([p.argmax(-1) for p in pre]).to(torch.int32)
     lens = [len(reqs[0].prompt), len(reqs[1].prompt)]
-    rows = RowState(lengths=torch.tensor(lens, dtype=torch.int32, device=DEVICE),
-                    block_table=torch.tensor(bt, device=DEVICE),
-                    active=torch.ones(2, dtype=torch.bool, device=DEVICE),
-                    tier=torch.zeros(2, dtype=torch.int32, device=DEVICE))
+    rows = RowState(lengths=torch.tensor(lens, dtype=torch.int32, device=dev),
+                    block_table=torch.tensor(bt, device=dev),
+                    active=torch.ones(2, dtype=torch.bool, device=dev),
+                    tier=torch.zeros(2, dtype=torch.int32, device=dev))
     dec, _ = M.decode_step_rows(cfg, rt, params, first[:, None], rows, caches)
     return torch.cat(pre), dec
 
@@ -2165,11 +2214,11 @@ def parity(T, M, cfg, params, reqs, mode: str, rt_kw=None, serving_kw=None) -> d
 
 
 def compare_streams(mode: str, streams: dict, gaps: dict, lengths: dict,
-                    names=("kernels", "gather")) -> int:
+                    names=("kernels", "gather"), gap: float = ARGMAX_GAP) -> int:
     """Greedy streams of the kernel path (``streams[True]``) and the gather
     path (or the two ``names``), by request id: identical, but for a first
-    divergence where the gather path's top-2 logit gap is below ARGMAX_GAP.
-    Returns the number of identical streams."""
+    divergence where the gather path's top-2 logit gap is below ``gap``
+    (ARGMAX_GAP unless given). Returns the number of identical streams."""
     excused = 0
     for rid, n in lengths.items():
         a, b = streams[True][rid], streams[False][rid]
@@ -2178,11 +2227,11 @@ def compare_streams(mode: str, streams: dict, gaps: dict, lengths: dict,
         if not len(diff):
             continue
         t = int(diff[0])   # after a divergence the contexts differ: stop there
-        gap = gaps[(rid, t)]
+        at = gaps[(rid, t)]
         log(f"parity {mode}: request {rid} diverges at token {t}: {names[0]} {a[t]} vs "
-            f"{names[1]} {b[t]}, {names[1]} top-2 gap {gap:.3e}")
-        check(gap < ARGMAX_GAP, f"parity {mode}: request {rid} token {t} differs at a "
-              f"resolvable gap {gap:.3e}")
+            f"{names[1]} {b[t]}, {names[1]} top-2 gap {at:.3e}")
+        check(at < gap, f"parity {mode}: request {rid} token {t} differs at a "
+              f"resolvable gap {at:.3e} (tie below {gap:.1e})")
         excused += 1
     log(f"parity {mode}: greedy streams identical for {len(lengths) - excused}/"
         f"{len(lengths)} requests, {excused} near-tie divergences excused")
@@ -3307,6 +3356,550 @@ def serve_multimodal(T, M, kops: dict, counted: list, t3_cfg, serves: dict, repo
     report["multimodal_timing"] = timing
     log(f"[{time.perf_counter() - T0:.0f} s] phase 8 in {time.perf_counter() - t_all:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in new_s.items()))
+
+
+# ------------------------------------------------------- phase 11: the mesh
+
+MESH_MODES = ("dense", "cpq", "decomposed", "retrieval", "tiered")
+MESH_KERNELS = {  # mode -> (decode kernel, chunk kernel)
+    "dense": ("paged_decode", "paged_prefill"),
+    "cpq": ("paged_cpq_decode", "paged_cpq_prefill"),
+    "decomposed": ("paged_decomposed_decode", "paged_decomposed_prefill"),
+    "retrieval": ("paged_proxy_scores", "paged_prefill"),
+}
+MESH_LOGIT_TOL = 1e-5       # (v3): f32 first logits, sharded vs unsharded on the card
+MESH_CPU_TOL = 1e-3         # (v3): f32 first logits, the card's sharded engine vs the CPU's
+MESH_CPU_NEW = 8            # (v3): tokens of the card-vs-CPU streams (2 requests)
+MESH_PARITY_MODES = ("dense", "decomposed")  # (v3): a head-split arena and a split latent
+MESH_DEPTH = PARITY_DEPTH   # (v2): layers of the serves but MESH_FULL's (of 24; each
+                            # mode's unsharded serve is made again at this depth)
+MESH_FULL = (("dense", 2), ("decomposed", 2))  # (v2): served at all 24 layers
+
+
+def mesh_devices(mp: int) -> list:
+    """``mp`` shard devices: distinct cards where the machine has them, else
+    the one card repeated (its shards then share it)."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(mp)] if n >= mp else [torch.device(DEVICE)] * mp
+
+
+def shard_kernel_sweeps(ops, cpq_ops, t1_ops, t3_ops, errs: dict) -> None:
+    """(v1): the kernels at the shapes a model shard launches them, bf16 and
+    f32, on phase 3's layouts, each call on its route: B1, B2, B5 and B6 at
+    qwen1.5-0.5b's 16 kv heads split 2 and 4 ways (KV 8 and 4, G 1, Dh 64);
+    B3 and B4 at half its 16 query heads over the whole d_model (H 8, Dm
+    1024, 8 roped keys of 32) and over the MLA latent (H 8, Dm 512, the one
+    shared roped key of 64); B7 at KV 8 (float32)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        for KV in (8, 4):
+            tag = f"{dname} mesh shard KV={KV} G=1 Dh=64"
+            e_dec, e_pre = sweep(ops, dtype, KV, 1, 64)
+            errs["paged_decode"][tag], errs["paged_prefill"][tag] = e_dec, e_pre
+            cpq = [sweep_cpq(cpq_ops, dtype, KV, 1, 64, bits) for bits in (4, 8)]
+            errs["paged_cpq_decode"][tag] = max(e for e, _ in cpq)
+            errs["paged_cpq_prefill"][tag] = max(e for _, e in cpq)
+            log(f"(v1) sweep {tag}: paged_decode {e_dec:.3e}, paged_prefill {e_pre:.3e}, "
+                f"paged_cpq_decode {errs['paged_cpq_decode'][tag]:.3e}, paged_cpq_prefill "
+                f"{errs['paged_cpq_prefill'][tag]:.3e} (bits 4 and 8; tol {TOL[dtype]})")
+        for H, Dm, kv_r, Rr in ((8, 1024, 8, 32), (8, 512, 1, 64)):
+            tag = f"{dname} mesh shard H={H} Dm={Dm} kv_r={kv_r} Rr={Rr}"
+            e_dec, e_pre = sweep_t1(t1_ops, dtype, H, Dm, kv_r, Rr)
+            errs["paged_decomposed_decode"][tag] = e_dec
+            errs["paged_decomposed_prefill"][tag] = e_pre
+            log(f"(v1) sweep {tag}: paged_decomposed_decode {e_dec:.3e} "
+                f"({t1_ops.t1_decode_route(dtype, H, Dm, kv_r, Rr)} route), "
+                f"paged_decomposed_prefill {e_pre:.3e} "
+                f"({t1_ops.t1_prefill_route(dtype, Dm, Rr)} route; tol {TOL[dtype]})")
+        for name in ("paged_decode", "paged_prefill", "paged_cpq_decode", "paged_cpq_prefill",
+                     "paged_decomposed_decode", "paged_decomposed_prefill"):
+            for tag, err in errs[name].items():
+                if "mesh shard" in tag and tag.startswith(dname):
+                    check(err <= TOL[dtype], f"(v1) {name} {tag}: error {err}")
+    tag = "float32 mesh shard KV=8 G=1 Dp=64"
+    errs["paged_proxy_scores"][tag] = sweep_t3(t3_ops, 8, 1, 64)
+    log(f"(v1) sweep {tag}: paged_proxy_scores {errs['paged_proxy_scores'][tag]:.3e} "
+        f"(tol {T3_REL} x max |score|)")
+    for H, Dm, kv_r, Rr, mp in ((16, 1024, 16, 32, 2), (16, 1024, 16, 32, 4),
+                                (16, 512, 1, 64, 2)):
+        n_dec, n_pre = t1_shards_differ(t1_ops, H, Dm, kv_r, Rr, mp)
+        log(f"(v1) bf16 B3, B4 over {mp} head shards of H={H} Dm={Dm} kv_r={kv_r} Rr={Rr}, "
+            f"planned as the whole call: {n_dec} and {n_pre} outputs differ from the whole "
+            f"call's")
+        check(n_dec == n_pre == 0, f"(v1) T1 over {mp} shards: {n_dec}, {n_pre} differ")
+
+
+def t1_shards_differ(t1_ops, H, Dm, kv_r, Rr, mp, page=16, nb=64, B=8, C=16):
+    """(v1): B3 and B4 in bf16 over ``mp`` head shards, each launch planned
+    as the whole call (``single_query.Whole``, as serving/sharded.py plans
+    a shard's), against the whole call on the same inputs (sweep_t1's
+    layout): the number of outputs that differ, decode and prefill."""
+    from repro_torch.kernels import single_query
+
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    num_pages, lengths, bt = layout(rng, B, nb, page)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+    xp, krp = randn(num_pages, page, Dm), randn(num_pages, page, kv_r, Rr)
+    bt_t, len_t = torch.tensor(bt, device=DEVICE), torch.tensor(lengths, device=DEVICE)
+    scale = (Dm + Rr) ** -0.5
+    groups = mp if kv_r > 1 else 1               # MLA's one roped key is held whole
+    offset, valid, _ = chunk_calls(int(lengths[-1]), C)[-1]
+    r, qr, rc, qc = randn(B, H, Dm), randn(B, H, Rr), randn(C, H, Dm), randn(C, H, Rr)
+
+    def calls(i):                                # shard i's heads; None: every head
+        hs = gs = slice(None)
+        whole = single_query.WHOLE
+        if i is not None:
+            whole = single_query.Whole(mp, groups, i)
+            hs = slice(i * H // mp, (i + 1) * H // mp)
+            if groups > 1:
+                gs = slice(i * kv_r // groups, (i + 1) * kv_r // groups)
+        kr = krp[:, :, gs].contiguous()
+        return (t1_ops.paged_decomposed_decode_fwd(r[:, hs].contiguous(), qr[:, hs].contiguous(),
+                                                   xp, kr, bt_t, len_t, scale, whole=whole),
+                t1_ops.paged_decomposed_prefill_fwd(rc[:, hs].contiguous(),
+                                                    qc[:, hs].contiguous(), xp, kr, bt_t[-1],
+                                                    offset, valid, scale, whole=whole)[:valid])
+
+    whole_dec, whole_pre = calls(None)
+    shards = [calls(i) for i in range(mp)]
+    torch.cuda.synchronize()
+    dec = torch.cat([d for d, _ in shards], dim=1)
+    pre = torch.cat([p for _, p in shards], dim=1)
+    return int((dec != whole_dec).sum().item()), int((pre != whole_pre).sum().item())
+
+
+def mesh_want(mode: str, L: int, mp: int, stats: dict) -> dict:
+    """The launches a serve over ``mp`` shards must make: each tier's kernel
+    once a shard a layer a decode tick or a prompt chunk."""
+    dec, chunks = L * mp * stats["decode_steps"], L * mp * stats["prefill_chunks"]
+    if mode == "tiered":
+        return {"paged_decode": dec, "paged_cpq_decode": dec, "chunks": chunks}
+    d, c = MESH_KERNELS[mode]
+    return {d: dec, c: chunks}
+
+
+def check_mesh_launches(what: str, mode: str, counts: dict, want: dict) -> None:
+    if mode == "tiered":
+        chunks = counts.get("paged_prefill", 0) + counts.get("paged_cpq_prefill", 0)
+        check(counts.get("paged_decode") == want["paged_decode"]
+              and counts.get("paged_cpq_decode") == want["paged_cpq_decode"]
+              and chunks == want["chunks"], f"{what}: launches {counts}, want {want}")
+        return
+    check({k: counts.get(k, 0) for k in want} == want
+          and not any(n for k, n in counts.items() if k not in want),
+          f"{what}: launches {counts}, want {want}")
+
+
+def mesh_interconnect(cfg, mode: str, mp: int, stats: dict, slots: int, pool_x: int) -> float:
+    """The reference's interconnect bytes of a chunked serve: (mp - 1) / mp
+    of the concatenated head outputs for every token a model invocation
+    writes (each prompt token of a chunk, each decode row), plus, for T1,
+    the X pool gathered once an invocation (``pool_x`` bytes a layer)."""
+    concat = (mp - 1) / mp * cfg.num_heads * cfg.head_dim * cfg.param_dtype.itemsize \
+        * cfg.num_layers
+    rows = stats["prefill_tokens"] + round(stats["slot_utilization"] * stats["decode_steps"]
+                                           * slots)
+    gather = (mp - 1) / mp * pool_x * cfg.num_layers if mode == "decomposed" else 0.0
+    return rows * concat + (stats["decode_steps"] + stats["prefill_chunks"]) * gather
+
+
+def streams_match(T, M, what: str, got: dict, want: dict, make_eng, reqs_fn,
+                  gap: float = ARGMAX_GAP) -> int:
+    """Greedy streams over the mesh against the unsharded engine's: equal,
+    or a first divergence where the unsharded engine's own top-2 logit gap
+    is below ``gap`` (the unsharded serve is then run again to read its
+    gaps). Returns the number of identical streams."""
+    if all(np.array_equal(got[r], want[r]) for r in want):
+        log(f"{what}: greedy streams identical to the unsharded engine's for "
+            f"{len(want)}/{len(want)} requests")
+        return len(want)
+    gaps, eng = {}, make_eng()
+    eng.reset(T.GenerationConfig())
+    for r in reqs_fn():
+        eng.add_request(r)
+    step = gather_gaps(M, eng, gaps)
+    while eng.has_unfinished():
+        step()
+    del eng
+    return compare_streams(what, {True: got, False: want}, gaps,
+                           {r: len(want[r]) for r in want}, names=("mesh", "unsharded"),
+                           gap=gap)
+
+
+def mesh_serve(T, M, kmods: dict, routed: dict, cfg, params, mode: str, mp: int, sv, rt,
+               base: dict, smi: str) -> dict:
+    """One serve of ``make_requests`` over make_serve_mesh(1, mp) against the
+    unsharded serve ``base`` ({"streams", "metrics", "make"}: its streams,
+    serve_metrics and an engine factory): launches and routes, streams,
+    mesh statistics, tick times."""
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    what = f"(v2) {mode} mp {mp} at {cfg.num_layers} layers"
+    mesh = make_serve_mesh(1, mp, devices=mesh_devices(mp))
+    eng = T.ContinuousServeEngine(cfg, params, rt=rt, serving=sv, mesh=mesh)
+    for name, mod in kmods.items():
+        getattr(mod, name).launches = 0
+    zero_routes(routed)
+    reqs_fn = lambda: make_requests(T, cfg.vocab_size)  # noqa: E731
+    results, stats, ticks, wall = serve_timed(eng, T, reqs_fn())
+    counts = {name: getattr(mod, name).launches for name, mod in kmods.items()
+              if getattr(mod, name).launches}
+    del eng
+    torch.cuda.empty_cache()
+    check_finished(results, reqs_fn(), what)
+    check_mesh_launches(what, mode, counts, mesh_want(mode, cfg.num_layers, mp, stats))
+    routes = check_routes(what, routed, counts)
+    met = serve_metrics(stats, ticks, wall, what)
+    got = {rid: r["tokens"] for rid, r in results.items()}
+    identical = streams_match(T, M, what, got, base["streams"], base["make"], reqs_fn)
+    pool_x = sv.num_pages * sv.page_size * cfg.d_model * cfg.param_dtype.itemsize
+    want_ic = mesh_interconnect(cfg, mode, mp, stats, sv.num_slots, pool_x)
+    check(stats["model_shards"] == mp, f"{what}: model_shards {stats['model_shards']}")
+    check(stats["arena_bytes_per_device"] * mp == stats["arena_bytes_total"],
+          f"{what}: arena {stats['arena_bytes_per_device']} a device of "
+          f"{stats['arena_bytes_total']}")
+    check(abs(stats["interconnect_bytes"] - want_ic) <= 1e-9 * want_ic,
+          f"{what}: interconnect {stats['interconnect_bytes']} vs {want_ic}")
+    if mode == "tiered":
+        check(stats["escalations"] >= 1, f"{what}: no escalation")
+    b = base["metrics"]
+    log(f"{what}: decode tick median {met['decode_step_ms_median']:.3f} ms (p90 "
+        f"{met['decode_step_ms_p90']:.3f}) vs unsharded {b['decode_step_ms_median']:.3f} (p90 "
+        f"{b['decode_step_ms_p90']:.3f}); decode {met['decode_tokens_per_s']:.1f} vs "
+        f"{b['decode_tokens_per_s']:.1f} tokens/s ({smi}); arena "
+        f"{stats['arena_bytes_per_device'] / 2**20:.1f} MiB a device of "
+        f"{stats['arena_bytes_total'] / 2**20:.1f}; interconnect "
+        f"{stats['interconnect_bytes_per_token']:.1f} B/token; launches {counts}")
+    return {**met, "layers": cfg.num_layers, "launches": counts, "routes": routes,
+            "streams_identical": identical, "model_shards": mp,
+            "arena_bytes_per_device": stats["arena_bytes_per_device"],
+            "arena_bytes_total": stats["arena_bytes_total"],
+            "interconnect_bytes_per_token": stats["interconnect_bytes_per_token"],
+            "escalations": stats.get("escalations", 0),
+            "unsharded_decode_step_ms_median": b["decode_step_ms_median"],
+            "unsharded_decode_step_ms_p90": b["decode_step_ms_p90"],
+            "unsharded_decode_tokens_per_s": b["decode_tokens_per_s"],
+            "devices": [str(d) for d in mesh.axis_devices("model")]}
+
+
+def mesh_serves(T, M, kmods: dict, routed: dict, unsharded: dict, smi: str, t3_cfg,
+                depth: int) -> dict:
+    """(v2): full-width qwen1.5-0.5b in bf16 over model shards, phase 4's
+    requests and arenas: MESH_FULL's serves (dense and T1 over
+    make_serve_mesh(1, 2)) at all 24 layers against phase 4's unsharded
+    serves (their streams and tick times); cpq, retrieval and tiered over
+    (1, 2) and dense over (1, 4) at the first ``depth`` layers, each against
+    an unsharded serve of the same layers made here (phase 4's at 24). On
+    two cards or more, each card's memory_allocated under the dense serve
+    over two of them."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.params import init_params
+
+    full = served_config(T)
+    params = init_params(full, SEED, DEVICE)
+    serving = T.ServingCfg(num_slots=8, page_size=16, num_pages=513, max_blocks_per_slot=64)
+    tiered = T.ServingCfg(num_slots=8, page_size=16, num_pages=97, max_blocks_per_slot=64,
+                          escalated_pages=513, low_watermark=0.5, critical_watermark=0.45,
+                          enable_escalation=True)
+    rts = {mode: T.AttentionRuntime(mode=mode) for mode in ("dense", "cpq", "decomposed")}
+    rts["retrieval"] = T.AttentionRuntime(mode="retrieval", retrieval=t3_cfg)
+    rts["tiered"] = T.AttentionRuntime(mode="dense")
+    shared = torch.cuda.device_count() < 2
+    log(f"(v2) {'the shards share one card' if shared else 'one card a shard'} ({smi}): "
+        f"{torch.cuda.device_count()} visible")
+    cut = dataclasses.replace(full, num_blocks=depth)
+    cut_params = {**params, "blocks": [b[:depth] for b in params["blocks"]]}
+
+    def unsharded_of(cfg, p, mode, sv):
+        make = lambda: T.ContinuousServeEngine(cfg, p, rt=rts[mode], serving=sv,  # noqa: E731
+                                               device=DEVICE)
+        if cfg.num_layers == full.num_layers:  # phase 4 served it
+            return {"streams": unsharded[mode], "metrics": unsharded[f"{mode} metrics"],
+                    "make": make}
+        res, stats, ticks, wall = serve_timed(make(), T, make_requests(T, cfg.vocab_size))
+        torch.cuda.empty_cache()
+        return {"streams": {rid: r["tokens"] for rid, r in res.items()}, "make": make,
+                "metrics": serve_metrics(stats, ticks, wall, f"(v2) {mode} unsharded at "
+                                         f"{cfg.num_layers} layers")}
+
+    out = {}
+    for mode, mp in [(m, 2) for m in MESH_MODES] + [("dense", 4)]:
+        cfg, p = (full, params) if (mode, mp) in MESH_FULL else (cut, cut_params)
+        sv = tiered if mode == "tiered" else serving
+        out[f"{mode} mp{mp}"] = mesh_serve(T, M, kmods, routed, cfg, p, mode, mp, sv,
+                                           rts[mode], unsharded_of(cfg, p, mode, sv), smi)
+    if not shared:  # distinct cards: what each one holds
+        mesh = make_serve_mesh(1, 2, devices=mesh_devices(2))
+        eng = T.ContinuousServeEngine(full, params, rt=rts["dense"], serving=serving, mesh=mesh)
+        serve_timed(eng, T, make_requests(T, full.vocab_size))
+        out["memory_allocated"] = {str(d): torch.cuda.memory_allocated(d)
+                                   for d in mesh.axis_devices("model")}
+        log(f"(v2) dense over 2 cards: memory_allocated {out['memory_allocated']}")
+        del eng
+    del params, cut_params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_parity(T, M, t3_cfg, report: dict) -> dict:
+    """(v3): float32 at PARITY_DEPTH layers, over make_serve_mesh(1, 2)
+    against unsharded on the card, dense and decomposed (MESH_PARITY_MODES:
+    the other modes' bf16 serves of (v2) are already bit-identical to
+    unsharded, PERF.md): the first logits of two
+    slots within MESH_LOGIT_TOL and the greedy streams identical (a first
+    divergence excused only below ARGMAX_GAP); then the card's sharded
+    engine against the CPU's (shards that share the CPU), dense: first
+    logits within MESH_CPU_TOL and two requests' streams identical (a CPU
+    near tie below ARGMAX_GAP excused)."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.params import init_params, to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(served_config(T), dtype="float32", num_blocks=PARITY_DEPTH)
+    params = init_params(cfg, SEED, DEVICE)
+    mesh = make_serve_mesh(1, 2, devices=mesh_devices(2))
+    reqs = make_requests(T, cfg.vocab_size)
+    small = T.ServingCfg(num_slots=2, page_size=16, num_pages=80, max_blocks_per_slot=64)
+    bt = np.zeros((2, 64), np.int32)
+    lens = [len(reqs[0].prompt), len(reqs[1].prompt)]
+    perm = np.random.default_rng(SEED).permutation(np.arange(1, 80))
+    bt[0, :lens[0] // 16 + 1] = perm[:lens[0] // 16 + 1]
+    bt[1, :lens[1] // 16 + 1] = perm[40:40 + lens[1] // 16 + 1]
+    serving = T.ServingCfg(num_slots=8, page_size=16, num_pages=513, max_blocks_per_slot=64)
+    tiered = T.ServingCfg(num_slots=8, page_size=16, num_pages=97, max_blocks_per_slot=64,
+                          escalated_pages=513, low_watermark=0.5, critical_watermark=0.45,
+                          enable_escalation=True)
+    out = {}
+    for mode in MESH_PARITY_MODES:
+        what = f"(v3) {mode}"
+        rt = T.AttentionRuntime(mode="dense" if mode == "tiered" else mode,
+                                **({"retrieval": t3_cfg} if mode == "retrieval" else {}))
+        sv = tiered if mode == "tiered" else serving
+        rec = {}
+        if mode != "tiered":  # the tiered arena's first logits are dense's
+            a = first_logits(M, cfg, rt, params, reqs, small, bt)
+            b = first_logits(M, cfg, dataclasses.replace(rt, mesh=mesh), params, reqs, small, bt)
+            rec = {f"{n}_logits_max_abs_diff": (x - y).abs().max().item()
+                   for n, x, y in zip(("prefill", "first-decode"), a, b)}
+            for n, err in rec.items():
+                log(f"{what}: {n} {err:.3e}, sharded vs unsharded (tol {MESH_LOGIT_TOL})")
+                check(err <= MESH_LOGIT_TOL, f"{what}: {n} {err:.3e}")
+        runs = {}
+        for sharded in (True, False):
+            eng = T.ContinuousServeEngine(cfg, params, rt=rt, serving=sv,
+                                          **({"mesh": mesh} if sharded else {"device": DEVICE}))
+            res, _ = eng.serve(make_requests(T, cfg.vocab_size))
+            runs[sharded] = {rid: r["tokens"] for rid, r in res.items()}
+            del eng
+        rec["streams_identical"] = streams_match(
+            T, M, what, runs[True], runs[False],
+            lambda rt=rt, sv=sv: T.ContinuousServeEngine(cfg, params, rt=rt, serving=sv,
+                                                         device=DEVICE),
+            lambda: make_requests(T, cfg.vocab_size))
+        out[mode] = rec
+    # the card's sharded engine against the CPU's, dense
+    cpu_params = to_device(params, "cpu")
+    cpu_mesh = make_serve_mesh(1, 2, devices="cpu")
+    rt = T.AttentionRuntime(mode="dense")
+    card = first_logits(M, cfg, dataclasses.replace(rt, mesh=mesh), params, reqs, small, bt)
+    cpu = first_logits(M, cfg, dataclasses.replace(rt, mesh=cpu_mesh), cpu_params, reqs,
+                       small, bt, device="cpu")
+    rec = {f"{n}_logits_max_abs_diff": (x.cpu() - y).abs().max().item()
+           for n, x, y in zip(("prefill", "first-decode"), card, cpu)}
+    for n, err in rec.items():
+        log(f"(v3) card vs CPU, sharded: {n} {err:.3e} (tol {MESH_CPU_TOL})")
+        check(err <= MESH_CPU_TOL, f"(v3) card vs CPU: {n} {err:.3e}")
+    two = [T.Request(rid=r.rid, prompt=r.prompt, max_new_tokens=MESH_CPU_NEW) for r in reqs[:2]]
+    small_sv = T.ServingCfg(num_slots=2, page_size=16, num_pages=80, max_blocks_per_slot=64)
+    cres, _ = T.ContinuousServeEngine(cfg, params, rt=rt, serving=small_sv,
+                                      mesh=mesh).serve(list(two))
+    gaps, eng = {}, T.ContinuousServeEngine(cfg, cpu_params, rt=rt, serving=small_sv,
+                                            mesh=cpu_mesh)
+    eng.reset(T.GenerationConfig())
+    for r in two:
+        eng.add_request(T.Request(rid=r.rid, prompt=r.prompt, max_new_tokens=MESH_CPU_NEW))
+    step = gather_gaps(M, eng, gaps)
+    while eng.has_unfinished():
+        step()
+    rec["streams_identical"] = compare_streams(
+        "(v3) card vs CPU, sharded",
+        {True: {rid: r["tokens"] for rid, r in cres.items()},
+         False: {rid: r["tokens"] for rid, r in eng.results().items()}},
+        gaps, {r.rid: MESH_CPU_NEW for r in two}, names=("card", "CPU"))
+    out["card vs CPU"] = rec
+    del params, cpu_params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_mla(T, M, kmods: dict, routed: dict) -> dict:
+    """(v4): deepseek-v2-lite at its published widths cut to MOE_DEPTH layers
+    (one-shot admission: its MoE layers) over make_serve_mesh(1, 2) against
+    unsharded, in bf16 (B3 once a shard a layer a decode tick on its tensor
+    cores over the latent gathered whole) and in float32 (B3's sweep): the
+    greedy streams identical to the unsharded engine's (a first divergence
+    excused below ARGMAX_GAP)."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.params import init_params
+
+    out = {}
+    mesh = make_serve_mesh(1, 2, devices=mesh_devices(2))
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(deepseek_config(T, "deepseek-v2-lite-16b",
+                                                  MOE_DEPTH - len(T.ARCHS[
+                                                      "deepseek-v2-lite-16b"].prefix_pattern)),
+                                  dtype=dtype)
+        params = init_params(cfg, SEED, DEVICE)
+        serving = T.ServingCfg(**DEEPSEEK_SERVING)
+        what = f"(v4) deepseek-v2-lite {dtype} at {cfg.num_layers} layers"
+        runs = {}
+        for sharded in (True, False):
+            for name, mod in kmods.items():
+                getattr(mod, name).launches = 0
+            zero_routes(routed)
+            eng = T.ContinuousServeEngine(cfg, params, serving=serving,
+                                          **({"mesh": mesh} if sharded else {"device": DEVICE}))
+            res, stats = eng.serve(make_requests(T, cfg.vocab_size))
+            counts = {name: getattr(mod, name).launches for name, mod in kmods.items()
+                      if getattr(mod, name).launches}
+            runs[sharded] = ({rid: r["tokens"] for rid, r in res.items()}, stats, counts)
+            del eng
+            if sharded and dtype == "bfloat16":
+                check_routes(what, routed, counts)
+        got, stats, counts = runs[True]
+        want = {"paged_decomposed_decode": cfg.num_layers * 2 * stats["decode_steps"]}
+        paged = {k: n for k, n in counts.items() if k.startswith("paged")}
+        check(paged == want, f"{what}: launches {counts}, want {want} (and B8's prompts)")
+        rec = {"launches": counts, "interconnect_bytes_per_token":
+               stats["interconnect_bytes_per_token"],
+               "arena_bytes_per_device": stats["arena_bytes_per_device"],
+               "arena_bytes_total": stats["arena_bytes_total"]}
+        rec["streams_identical"] = streams_match(
+            T, M, what, got, runs[False][0],
+            lambda: T.ContinuousServeEngine(cfg, params, serving=serving, device=DEVICE),
+            lambda: make_requests(T, cfg.vocab_size))
+        log(f"{what}: B3 launches {counts} ({cfg.num_layers} layers x 2 shards a decode "
+            f"tick); streams identical to unsharded {rec['streams_identical']}/{len(got)}; arena "
+            f"{stats['arena_bytes_per_device'] / 2**20:.1f} MiB a device of "
+            f"{stats['arena_bytes_total'] / 2**20:.1f}; interconnect "
+            f"{stats['interconnect_bytes_per_token']:.1f} B/token")
+        out[dtype] = rec
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_collectives() -> dict:
+    """(v5): flash decoding, the ring scores and GPipe over CUDA shards (8, 8
+    and 4 of them: the cards, or one card repeated) against the computation
+    on one device, at tests/test_distributed.py's sizes; flash decoding
+    also at qwen1.5-0.5b's decode shape (8 rows, 16 heads of 64, a capacity
+    of 1024 keys over 2 shards, bf16)."""
+    from repro_torch.distributed.collectives import (flash_decoding_attention,
+                                                     ring_decomposed_scores, shard_along)
+    from repro_torch.distributed.pipeline import gpipe_forward
+    from repro_torch.distributed.sharding import Mesh
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    def line(n, name):
+        return Mesh(np.array(mesh_devices(n), dtype=object), (name,))
+
+    def dense(q, k, v, length, scale):
+        g = q.shape[2] // k.shape[2]
+        kk, vv = k.repeat_interleave(g, 2).float(), v.repeat_interleave(g, 2).float()
+        s = torch.einsum("bhd,bnhd->bhn", q[:, 0].float(), kk) * scale
+        s[..., length:] = -1e30
+        return torch.einsum("bhn,bnhd->bhd", torch.softmax(s, -1), vv)[:, None]
+
+    out = {}
+    for what, (B, H, KV, Dh, N, n, length, dtype, tol) in {
+            "flash decoding (test sizes)": (2, 8, 4, 32, 128, 8, 100, torch.float32, 1e-5),
+            "flash decoding (qwen decode)": (8, 16, 16, 64, 1024, 2, 1000, torch.bfloat16,
+                                             2e-2)}.items():
+        mesh = line(n, "s")
+        q, k, v = (randn(B, 1, H, Dh).to(dtype), randn(B, N, KV, Dh).to(dtype),
+                   randn(B, N, KV, Dh).to(dtype))
+        devs = mesh.axis_devices("s")
+        got = flash_decoding_attention(mesh, "s")(q, shard_along(k, 1, devs),
+                                                  shard_along(v, 1, devs), length, Dh ** -0.5)
+        out[what] = (got.float() - dense(q, k, v, length, Dh ** -0.5)).abs().max().item()
+    r, x = randn(2, 16, 64), randn(2, 128, 64)
+    mesh = line(8, "s")
+    devs = mesh.axis_devices("s")
+    parts = ring_decomposed_scores(mesh, "s")(shard_along(r, 1, devs), shard_along(x, 1, devs))
+    out["ring scores"] = (torch.cat([p.to(DEVICE) for p in parts], 1)
+                          - torch.einsum("bhm,bnm->bhn", r, x)).abs().max().item()
+    w, xm = randn(8, 16, 16) / 4.0, randn(6, 2, 16)
+    got = gpipe_forward(line(4, "pod"), "pod", lambda p, h: torch.tanh(h @ p))(w, xm)
+    seq = xm
+    for i in range(8):
+        seq = torch.tanh(seq @ w[i])
+    out["gpipe"] = (got - seq).abs().max().item()
+    tols = {"flash decoding (test sizes)": 1e-5, "flash decoding (qwen decode)": 2e-2,
+            "ring scores": 2e-4, "gpipe": 1e-6}
+    for what, err in out.items():
+        log(f"(v5) {what}: {err:.3e} against one device (tol {tols[what]})")
+        check(err <= tols[what], f"(v5) {what}: {err:.3e}")
+    return out
+
+
+def mesh_launcher(T) -> dict:
+    """(v6): the serve entry point with --mesh 1,2 at full width where two
+    cards are visible; on one card its refusal, naming the count."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "qwen1.5-0.5b", "--continuous", "--mesh", "1,2", *LAUNCH_SHAPE]
+    if torch.cuda.device_count() < 2:
+        try:
+            serve.main(argv)
+        except ValueError as e:
+            check(str(e).startswith("mesh (1,2) needs 2 devices, have 1 "),
+                  f"(v6) the launcher's refusal: {e}")
+            log(f"(v6) one card: --mesh 1,2 refused: {e}")
+            return {"refused": str(e)}
+        check(False, "(v6) --mesh 1,2 served on one card")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = serve.main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"(v6) {line}")
+    check(got.shape == (8, 32) and any(ln.startswith("[serve] mesh: data=1 model=2")
+                                       for ln in lines), "(v6) --mesh 1,2: output or mesh line")
+    return {"lines": lines}
+
+
+def mesh_phase(T, M, ops, cpq_ops, t1_ops, t3_ops, kmods: dict, routed: dict, errs: dict,
+               unsharded: dict, smi: str, t3_cfg, report: dict, depth: int) -> None:
+    """Phase 11: the serving mesh, (v1)-(v6); (v2)'s cut serves at
+    ``depth`` layers."""
+    t0 = time.perf_counter()
+    seconds, rep = {}, {}
+    for what, fn in (
+            ("(v1)", lambda: shard_kernel_sweeps(ops, cpq_ops, t1_ops, t3_ops, errs)),
+            ("(v2)", lambda: rep.update(serves=mesh_serves(T, M, kmods, routed, unsharded,
+                                                           smi, t3_cfg, depth))),
+            ("(v3)", lambda: rep.update(parity=mesh_parity(T, M, t3_cfg, report))),
+            ("(v4)", lambda: rep.update(mla=mesh_mla(T, M, kmods, routed))),
+            ("(v5)", lambda: rep.update(collectives=mesh_collectives())),
+            ("(v6)", lambda: rep.update(launcher=mesh_launcher(T)))):
+        t1 = time.perf_counter()
+        fn()
+        seconds[what] = time.perf_counter() - t1
+    rep["seconds"], rep["step_seconds"] = time.perf_counter() - t0, seconds
+    report["mesh"] = rep
+    log(f"[{time.perf_counter() - T0:.0f} s] phase 11 (mesh) took {rep['seconds']:.1f} s: "
+        + ", ".join(f"{k} {s:.1f}" for k, s in seconds.items()))
 
 
 # ------------------------------------------------------------------ main
@@ -4651,6 +5244,9 @@ def main() -> int:
                     help="with --against: comma-separated substrings of '<source> "
                          "<kernel>' whose ptxas reports may differ (kernels changed on "
                          "purpose); every difference is still printed")
+    ap.add_argument("--mesh-depth", type=int, default=MESH_DEPTH,
+                    help="layers (of 24) of phase 11's mesh serves that are cut for time "
+                         "(cpq, retrieval, tiered over 2 shards, dense over 4)")
     args = ap.parse_args()
     global T0
     T0 = time.perf_counter()
@@ -4842,6 +5438,7 @@ def main() -> int:
     scale = cfg.head_dim ** -0.5
     L = cfg.num_layers
     launches, per_tick, per_prefill, timing, serves = {}, {}, {}, {}, {}
+    unsharded = {}  # phase 4's streams and tick times, which phase 11's mesh serves meet
 
     def recorders_of(dec, pre):
         return {name: (kmods[name], Recorder(getattr(kmods[name], name), L, every,
@@ -4900,6 +5497,8 @@ def main() -> int:
         serves[mode] = serve_metrics(stats, ticks, wall, mode)
         serves[mode]["launches"] = counts
         serves[mode]["routes"] = routes
+        unsharded[mode] = {rid: r["tokens"] for rid, r in results.items()}
+        unsharded[f"{mode} metrics"] = serves[mode]
         log(f"[{time.perf_counter() - T0:.0f} s] served {mode}")
         for name in (dec, pre):
             if name in timing:  # B2 again, under T3: its launches are logged only
@@ -4963,6 +5562,8 @@ def main() -> int:
                   if name not in tiered_kernels), "tiered: a T1 or T3 kernel launched")
     check_finished(results, run, "tiered")
     serves["tiered"] = serve_metrics(stats, ticks, wall, "tiered")
+    unsharded["tiered"] = {rid: r["tokens"] for rid, r in results.items()}
+    unsharded["tiered metrics"] = serves["tiered"]
     serves["tiered"].update(
         escalations=stats["escalations"], cpq_admissions=int(sum(tiers)),
         admissions=len(tiers), launches=counts, routes=routes,
@@ -5154,6 +5755,12 @@ def main() -> int:
     tune_phase(T, ops, cpq_ops, errs, smi, counted, {**routed, **static_routed},
                fa_ops.ROUTE_LAUNCHES, report)
 
+    # 11) the serving mesh: the kernels at a shard's shapes, full-width
+    #     qwen1.5-0.5b over model shards, its f32 parity, MLA, the
+    #     collectives and GPipe, the launcher
+    mesh_phase(T, M, ops, cpq_ops, t1_ops, t3_ops, kmods, routed, errs, unsharded, smi,
+               t3_cfg, report, args.mesh_depth)
+
     kernel_mod = {**kmods, "flash_attention_prompt": fa_ops}
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",
                 "paged_prefill": "src/repro/kernels/flash_attn/kernel.py:170",
@@ -5224,6 +5831,13 @@ def main() -> int:
                 "tune --smoke": tune["entry"], **{f"serve {w}": r for w, r in tune["serve"].items()}}
         kernels[-1]["launches_in_phase_10"] = {w: r["launches"][key] for w, r in runs.items()
                                                if r["launches"].get(key)}
+        mesh = report["mesh"]  # phase 11: the serves over model shards, a launch a shard
+        in_11 = {w: r["launches"][key] for w, r in mesh["serves"].items()
+                 if isinstance(r, dict) and r.get("launches", {}).get(key)}
+        in_11.update({f"deepseek-v2-lite {d}": r["launches"][key]
+                      for d, r in mesh["mla"].items() if r["launches"].get(key)})
+        if in_11:
+            kernels[-1]["launches_in_phase_11"] = in_11
         if name in at_jamba:  # B1 and B8 at jamba's attention: 64 heads over 8, Dh 128
             kernels[-1]["at_jamba"] = {
                 "max_abs_err": errs[name][JAMBA_SWEPT[name]], "swept": JAMBA_SWEPT[name],

@@ -85,7 +85,8 @@ class AttentionRuntime:
     # paged serving: run the hand-written paged-attention kernels (True) or
     # the gather path over logical views, which is the numerics oracle
     paged_kernels: bool = True
-    # multi-device serving is not ported; a non-None mesh is refused
+    # paged serving over a device mesh (distributed.sharding.Mesh, from
+    # launch.mesh.make_serve_mesh): the arenas split over its model axis
     mesh: Optional[object] = None
 
     def __post_init__(self):

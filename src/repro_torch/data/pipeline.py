@@ -9,7 +9,7 @@ thread prefetches ``prefetch`` steps ahead.
 The token stream is a Zipf-ish categorical over the vocab with a repeating
 bigram structure, so next-token loss is learnable with no corpus.
 ``make_batch_specs`` (sharding specs of a batch) waits for multi-device
-training (ROADMAP A21).
+training (ROADMAP A21b).
 """
 from __future__ import annotations
 

@@ -276,12 +276,14 @@ def paged_cpq_prefill_plain(q, kt, vt, k_raw, v_raw, slot: int, block_row,
 
 
 def paged_cpq_prefill(q, kt, vt, k_raw, v_raw, slot: int, block_row,
-                      offset: int, valid: int, scale: float):
+                      offset: int, valid: int, scale: float,
+                      whole: single_query.Whole = single_query.WHOLE):
     """Chunked paged T2 prefill for one slot. q (1, C, H, Dh) roped chunk
     queries; kt/vt ``PagedCPQTensor`` arenas; k_raw/v_raw (1, C, KV, Dh|Dv)
     the chunk's raw roped K/V in q's dtype; slot, offset, valid host ints;
-    block_row (nb,) int32. Returns (1, C, H, Dv); rows past ``valid`` are
-    padding, never read."""
+    block_row (nb,) int32; ``whole`` the call a model shard's launch is
+    planned as. Returns (1, C, H, Dv); rows past ``valid`` are padding,
+    never read."""
     if q.device.type == "cpu":
         return paged_cpq_prefill_plain(q, kt, vt, k_raw, v_raw, slot, block_row,
                                        offset, valid, scale)
@@ -304,7 +306,7 @@ def paged_cpq_prefill(q, kt, vt, k_raw, v_raw, slot: int, block_row,
     route = cpq_prefill_route(q.dtype, Dh, Dv, L)
     if route == "tensor_core":
         splits, keys, part, counters = chunk_plan(C, H // KV, KV, offset + valid, Dv,
-                                                  q.device)
+                                                  q.device, whole)
         q, k_raw, v_raw = aligned16(q), aligned16(k_raw), aligned16(v_raw)
         run(launcher("paged_cpq_prefill", "paged_cpq_prefill_mma"), "paged_cpq_prefill",
             q.device, q.data_ptr(), kt.codes.data_ptr(), vt.codes.data_ptr(),

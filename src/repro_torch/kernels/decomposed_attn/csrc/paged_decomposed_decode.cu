@@ -50,12 +50,14 @@ extern "C" int paged_decomposed_decode_launch(
 
 // The tensor-core route: r, q_rope, x_pages, kr_pages, out bf16; part and
 // counters and the splits as t1_token::launch says (splits planned from the
-// capacity nb * page).
+// capacity nb * page). A serving mesh's model shard passes its first roped
+// column in the whole call's, rope_col0, and the whole call's roped columns,
+// rope_cols (0 and 0 for a whole call).
 extern "C" int paged_decomposed_decode_mma_launch(
     const void* r, const void* q_rope, const void* x_pages, const void* kr_pages,
     const void* block_table, const void* lengths, void* out, void* part, void* counters,
     int B, int H, int kv_r, int Rr, int Dm, int page, int nb, int splits, int split_keys,
-    float scale, void* stream) {
+    int rope_col0, int rope_cols, float scale, void* stream) {
   using t1_token::bf16;
   if (page < 1 || nb < 1) return cudaErrorInvalidValue;
   t1_token::Params p{};
@@ -73,6 +75,8 @@ extern "C" int paged_decomposed_decode_mma_launch(
   p.Dm = Dm;
   p.splits = splits;
   p.split_keys = split_keys;
+  p.rc_off = rope_col0;
+  p.rw_all = rope_cols;
   t1_token::PagedRows rows{static_cast<const int*>(block_table),
                            static_cast<const int*>(lengths), page, nb};
   return t1_token::launch(p, rows, nb * page, scale, static_cast<cudaStream_t>(stream));

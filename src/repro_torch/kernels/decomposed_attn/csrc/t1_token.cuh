@@ -117,7 +117,9 @@ struct Params {
   int* counters;     // one per unit (row, head tile, rank); zero between launches
   int B, H, kv_r, Rr, Dm;
   int hpg, rw;       // heads per roped group; roped columns of a key
-  int cs, rsteps;    // cluster size; roped k16 steps per rank
+  int rc_off, rw_all;  // a model shard's first roped column in the whole call's
+                       // and the whole call's roped columns (0: this call's)
+  int cs, rsteps;    // cluster size; roped k16 steps per rank (of the whole call's)
   int ksl;           // keys per rank in the scores' reduce-scatter (a multiple of 4)
   int row_tiles;     // ceil(H / 16)
   int splits, split_keys;
@@ -184,7 +186,11 @@ __global__ void __launch_bounds__(kThreads, 2) token_kernel(Params p, Rows rows)
   if (split >= nsplit) return;  // past the row's length: the whole cluster leaves
   const int k0 = split * p.split_keys, nk = max(0, min(len - k0, p.split_keys));
   const int nk16 = (nk + 15) / 16 * 16;  // keys loaded (zeros past nk)
-  const int c0 = rank * kSlice, rc0 = rank * p.rsteps * 16, ldr = ldr_of(p.rsteps);
+  // this rank's roped columns, placed as in the whole call: a model shard's
+  // head keeps its roped term in the rank that adds it unsharded, so the
+  // ranks' partial scores sum alike (columns before the shard's are zeros)
+  const int c0 = rank * kSlice, rc0 = rank * p.rsteps * 16 - p.rc_off;
+  const int ldr = ldr_of(p.rsteps);
 
   bf16* sX = reinterpret_cast<bf16*>(t1_smem);
   bf16* sKR = sX + kKeys * kLDX;
@@ -204,7 +210,7 @@ __global__ void __launch_bounds__(kThreads, 2) token_kernel(Params p, Rows rows)
   for (int i = tid; i < kRows * p.rsteps * 2; i += kThreads) {
     const int row = i / (p.rsteps * 2), c = i % (p.rsteps * 2), h = h0 + row;
     const int col = rc0 + c * 8;
-    const bool ok = h < p.H && col < p.rw && col / p.Rr == h / p.hpg;
+    const bool ok = h < p.H && col >= 0 && col < p.rw && col / p.Rr == h / p.hpg;
     cp_async16(sQA + row * ldr + c * 8,
                ok ? p.qr + ((long)b * p.H + h) * p.Rr + col % p.Rr : p.qr, ok);
   }
@@ -219,7 +225,7 @@ __global__ void __launch_bounds__(kThreads, 2) token_kernel(Params p, Rows rows)
   for (int i = tid; i < nk16 * 8; i += kThreads) {
     const int k = i >> 3, c = i & 7, col = rc0 + c * 8;
     if (c >= 2 * p.rsteps) continue;
-    const bool ok = k < nk && col < p.rw;
+    const bool ok = k < nk && col >= 0 && col < p.rw;
     const long at = ok ? rows.at(b, k0 + k) : 0;
     cp_async16(sKR + k * ldr + c * 8, ok ? p.kr + at * p.rw + col : p.kr, ok);
   }
@@ -474,8 +480,10 @@ int launch(Params p, const Rows& rows, int capacity, float scale, cudaStream_t s
     return cudaErrorInvalidValue;
   p.hpg = p.H / p.kv_r;
   p.rw = p.kv_r * p.Rr;
+  if (p.rw_all == 0) p.rw_all = p.rw;
+  if (p.rc_off < 0 || p.rc_off % 8 || p.rc_off + p.rw > p.rw_all) return cudaErrorInvalidValue;
   p.cs = (p.Dm + kSlice - 1) / kSlice;
-  p.rsteps = ((p.rw + 15) / 16 + p.cs - 1) / p.cs;
+  p.rsteps = ((p.rw_all + 15) / 16 + p.cs - 1) / p.cs;
   p.ksl = ((kKeys + p.cs - 1) / p.cs + 3) / 4 * 4;
   if (p.rsteps > kRopeSteps) return cudaErrorInvalidValue;
   p.row_tiles = (p.H + kRows - 1) / kRows;

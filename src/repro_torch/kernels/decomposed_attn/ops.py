@@ -118,8 +118,9 @@ _ARGTYPES = {
     # B, H, kv_r, Rr, Dm, N, length, split_tokens, scale, stream
     "decomposed_decode": [_I] + [_P] * 6 + [_I] * 8 + [_F, _P],
     # r, q_rope, x_pages, kr_pages, block_table, lengths, out, part, counters,
-    # B, H, kv_r, Rr, Dm, page, nb, splits, split_keys, scale, stream
-    "paged_decomposed_decode_mma": [_P] * 9 + [_I] * 9 + [_F, _P],
+    # B, H, kv_r, Rr, Dm, page, nb, splits, split_keys, rope_col0, rope_cols, scale,
+    # stream
+    "paged_decomposed_decode_mma": [_P] * 9 + [_I] * 11 + [_F, _P],
     # r, q_rope, x, k_rope, out, part, counters,
     # B, H, kv_r, Rr, Dm, N, length, splits, split_keys, scale, stream
     "decomposed_decode_mma": [_P] * 7 + [_I] * 9 + [_F, _P],
@@ -143,12 +144,14 @@ def t1_prefill_route(dtype: torch.dtype, Dm: int, Rr: int) -> str:
     return "sweep"
 
 
-def t1_chunk_plan(C: int, H: int, kv_r: int, end: int, device: torch.device):
+def t1_chunk_plan(C: int, H: int, kv_r: int, end: int, device: torch.device,
+                  whole: single_query.Whole = single_query.WHOLE):
     """The tensor-core route's key splits over its row tiles (CHUNK_ROWS rows
     of one roped group each): ``single_query.plan`` over the tiles and
     ``end`` keys (about one wave, at least CHUNK_SPLIT_KEYS keys and at most
-    MAX_CHUNK_SPLITS splits), in whole tiles of CHUNK_KEYS. Returns
-    (splits, split_keys)."""
+    MAX_CHUNK_SPLITS splits), in whole tiles of CHUNK_KEYS. A model shard
+    plans as its ``whole`` call. Returns (splits, split_keys)."""
+    H, kv_r = H * whole.heads, kv_r * whole.rope_groups
     tiles = kv_r * -(-(H // kv_r) * C // CHUNK_ROWS)
     splits, keys = single_query.plan(tiles, end, device, CHUNK_SPLIT_KEYS, MAX_CHUNK_SPLITS)
     keys = -(-keys // CHUNK_KEYS) * CHUNK_KEYS
@@ -170,7 +173,7 @@ def t1_decode_route(dtype: torch.dtype, H: int, Dm: int, kv_r: int, Rr: int) -> 
 
 
 def t1_decode_plan(B: int, H: int, Dm: int, capacity: int, device: torch.device,
-                   of: str = "length"):
+                   of: str = "length", whole: single_query.Whole = single_query.WHOLE):
     """The tensor-core route's key splits over ``capacity`` keys a row, ``of``
     "length" (B9: its host length; the fewest splits of at most TOKEN_KEYS
     keys) or "capacity" (B3: the arena's nb * page, planned on the host
@@ -178,12 +181,12 @@ def t1_decode_plan(B: int, H: int, Dm: int, capacity: int, device: torch.device,
     TOKEN_SPLIT_KEYS keys, at most TOKEN_MAX_SPLITS of them or
     single_query.BLOCKS_PER_SM blocks an SM over the B * ceil(H / 16) *
     ceil(Dm / 128) blocks of a split, then as many more as keep every split
-    within TOKEN_KEYS keys). Keys a multiple of 16. Returns (splits,
-    split_keys)."""
+    within TOKEN_KEYS keys). Keys a multiple of 16. A model shard plans as
+    its ``whole`` call. Returns (splits, split_keys)."""
     n = max(capacity, 1)
     splits = 1
     if of == "capacity":
-        units = B * -(-H // TOKEN_ROWS) * -(-Dm // TOKEN_SLICE)
+        units = B * -(-H * whole.heads // TOKEN_ROWS) * -(-Dm // TOKEN_SLICE)
         room = max(1, single_query.BLOCKS_PER_SM * single_query._sm_count(device) // units)
         splits = min(-(-n // TOKEN_SPLIT_KEYS), room, TOKEN_MAX_SPLITS)
     per = -(-n // max(splits, -(-n // TOKEN_KEYS)))  # keys per split, at most TOKEN_KEYS
@@ -273,11 +276,12 @@ def paged_decomposed_decode_plain(r, q_rope, x_pages, kr_pages, block_table, len
 
 
 def paged_decomposed_decode_fwd(r, q_rope, x_pages, kr_pages, block_table, lengths,
-                                scale: float):
+                                scale: float, whole: single_query.Whole = single_query.WHOLE):
     """The decode sweep over the X pages: r (B, H, Dm) = q_nope W_K^T and
     q_rope (B, H, Rr) in the arena dtype (Rr may be 0); x_pages
     (P, page, Dm); kr_pages (P, page, kv_r, Rr); block_table (B, nb) int32,
-    0 = null page; lengths (B,) int32. Returns P (B, H, Dm)."""
+    0 = null page; lengths (B,) int32; ``whole`` the call a model shard's
+    launch is planned as. Returns P (B, H, Dm)."""
     if x_pages.device.type == "cpu":
         return paged_decomposed_decode_plain(r, q_rope, x_pages, kr_pages, block_table,
                                              lengths, scale)
@@ -297,16 +301,20 @@ def paged_decomposed_decode_fwd(r, q_rope, x_pages, kr_pages, block_table, lengt
                 [block_table, lengths])
     dev = x_pages.device
     out = torch.empty((B, H, Dm), dtype=x_pages.dtype, device=dev)
-    route = t1_decode_route(x_pages.dtype, H, Dm, kv_r, Rr)
+    # a model shard takes the whole call's route and places its roped
+    # columns as the whole call does
+    groups = whole.rope_groups
+    route = t1_decode_route(x_pages.dtype, H, Dm, kv_r * groups, Rr)
     if route == "tensor_core":
-        splits, keys = t1_decode_plan(B, H, Dm, nb * page, dev, "capacity")
+        splits, keys = t1_decode_plan(B, H, Dm, nb * page, dev, "capacity", whole)
         part, counters = _token_scratch(B, H, Dm, splits, dev)
         r, q_rope = aligned16(r), aligned16(q_rope)
+        rope0 = whole.shard * kv_r * Rr if groups > 1 else 0
         run(launcher("paged_decomposed_decode", "paged_decomposed_decode_mma"),
             "paged_decomposed_decode", dev, r.data_ptr(), q_rope.data_ptr(),
             x_pages.data_ptr(), kr_pages.data_ptr(), block_table.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, H,
-            kv_r, Rr, Dm, page, nb, splits, keys, float(scale))
+            kv_r, Rr, Dm, page, nb, splits, keys, rope0, kv_r * Rr * groups, float(scale))
     else:
         pps = _pages_per_split("decode", page)
         part = _partials(B * -(-H // ROWS), -(-nb // pps), Dm, dev)
@@ -321,15 +329,17 @@ def paged_decomposed_decode_fwd(r, q_rope, x_pages, kr_pages, block_table, lengt
 
 
 def paged_decomposed_decode(q_nope, q_rope, x_pages, kr_pages, block_table, lengths,
-                            w_k_nope, w_v, scale: float):
+                            w_k_nope, w_v, scale: float,
+                            whole: single_query.Whole = single_query.WHOLE):
     """Paged T1 decode over an X arena through its block table.
     q_nope (B, 1, H, Dn); q_rope (B, 1, H, Rr), Rr may be 0; kr_pages
     (P, page, kv_r, Rr); w_k_nope (Dm, KV, Dn); w_v (Dm, KV, Dv);
-    block_table (B, nb) int32; lengths (B,) int32. Returns (B, 1, H, Dv)."""
+    block_table (B, nb) int32; lengths (B,) int32; ``whole`` the call a
+    model shard's launch is planned as. Returns (B, 1, H, Dv)."""
     r = query_rows(q_nope, w_k_nope, x_pages.dtype)[:, 0]
     qr = q_rope[:, 0].to(x_pages.dtype).contiguous()
     p = paged_decomposed_decode_fwd(r, qr, x_pages, kr_pages,
-                                    block_table, lengths, scale)
+                                    block_table, lengths, scale, whole=whole)
     return value_rows(p[:, None], w_v)
 
 
@@ -367,11 +377,13 @@ def paged_decomposed_prefill_plain(r, q_rope, x_pages, kr_pages, block_row, offs
 
 
 def paged_decomposed_prefill_fwd(r, q_rope, x_pages, kr_pages, block_row, offset: int,
-                                 valid: int, scale: float):
+                                 valid: int, scale: float,
+                                 whole: single_query.Whole = single_query.WHOLE):
     """The chunk sweep over one slot's X pages [0, offset + valid): r
     (C, H, Dm) and q_rope (C, H, Rr) in the arena dtype; block_row (nb,)
-    int32; offset/valid host ints. Returns P (C, H, Dm); rows past ``valid``
-    are padding, never read."""
+    int32; offset/valid host ints; ``whole`` the call a model shard's
+    launch is planned as. Returns P (C, H, Dm); rows past ``valid`` are
+    padding, never read."""
     if x_pages.device.type == "cpu":
         return paged_decomposed_prefill_plain(r, q_rope, x_pages, kr_pages, block_row,
                                               offset, valid, scale)
@@ -391,7 +403,7 @@ def paged_decomposed_prefill_fwd(r, q_rope, x_pages, kr_pages, block_row, offset
     out = torch.empty((C, H, Dm), dtype=x_pages.dtype, device=x_pages.device)
     route = t1_prefill_route(x_pages.dtype, Dm, Rr)
     if route == "tensor_core":
-        splits, keys = t1_chunk_plan(C, H, kv_r, offset + valid, x_pages.device)
+        splits, keys = t1_chunk_plan(C, H, kv_r, offset + valid, x_pages.device, whole)
         r, q_rope = aligned16(r), aligned16(q_rope)
         run(launcher("paged_decomposed_prefill", "paged_decomposed_prefill_mma"),
             "paged_decomposed_prefill", x_pages.device, r.data_ptr(), q_rope.data_ptr(),
@@ -413,16 +425,18 @@ def paged_decomposed_prefill_fwd(r, q_rope, x_pages, kr_pages, block_row, offset
 
 
 def paged_decomposed_prefill(q_nope, q_rope, x_pages, kr_pages, block_row, offset: int,
-                             valid: int, w_k_nope, w_v, scale: float):
+                             valid: int, w_k_nope, w_v, scale: float,
+                             whole: single_query.Whole = single_query.WHOLE):
     """Chunked paged T1 prefill for one slot: the chunk's C queries attend
     the slot's X (+ roped key) pages [0, offset + valid), its own rows
     already written there. q_nope (1, C, H, Dn); q_rope (1, C, H, Rr), Rr
-    may be 0; block_row (nb,) int32; offset/valid host ints. Returns
-    (1, C, H, Dv); rows past ``valid`` are padding."""
+    may be 0; block_row (nb,) int32; offset/valid host ints; ``whole`` the
+    call a model shard's launch is planned as. Returns (1, C, H, Dv); rows
+    past ``valid`` are padding."""
     r = query_rows(q_nope, w_k_nope, x_pages.dtype)[0]
     qr = q_rope[0].to(x_pages.dtype).contiguous()
     p = paged_decomposed_prefill_fwd(r, qr, x_pages, kr_pages,
-                                     block_row, offset, valid, scale)
+                                     block_row, offset, valid, scale, whole=whole)
     return value_rows(p[None], w_v)
 
 

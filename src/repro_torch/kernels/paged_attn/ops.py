@@ -98,13 +98,15 @@ def decode_route(dtype: torch.dtype, Dh: int, Dv: int, nb: int) -> str:
     return "sweep"
 
 
-def decode_plan(B: int, KV: int, G: int, capacity: int, device: torch.device) -> int:
+def decode_plan(B: int, KV: int, G: int, capacity: int, device: torch.device,
+                whole: single_query.Whole = single_query.WHOLE) -> int:
     """The ring route's ranks a unit, planned on the host from the units
     (rows x kv heads x head groups of 4, or 1 at G = 1) and the capacity
     nb * page, since the lengths live on the card: doubled up to
     RING_MAX_CLUSTER while the blocks still fit one to an SM and every rank
-    keeps at least RING_MIN_KEYS keys of the capacity."""
-    units = B * KV * (1 if G == 1 else -(-G // 4))
+    keeps at least RING_MIN_KEYS keys of the capacity. A model shard plans
+    as its ``whole`` call."""
+    units = B * KV * whole.heads * (1 if G == 1 else -(-G // 4))
     sms = single_query._sm_count(device)
     cs = 1
     while (cs < RING_MAX_CLUSTER and 2 * cs * units <= sms
@@ -123,13 +125,15 @@ def prefill_route(dtype: torch.dtype, Dh: int, Dv: int) -> str:
     return "sweep"
 
 
-def chunk_plan(C: int, G: int, KV: int, end: int, Dv: int, device: torch.device):
+def chunk_plan(C: int, G: int, KV: int, end: int, Dv: int, device: torch.device,
+               whole: single_query.Whole = single_query.WHOLE):
     """The tensor-core route's key splits (``single_query.plan`` over the
     (kv head, 16-row tile) pairs and ``end`` keys: about one wave, at least
     CHUNK_SPLIT_KEYS keys and at most MAX_CHUNK_SPLITS splits), its partials
-    buffer and its counters: (splits, split_keys, part, counters)."""
+    buffer and its counters: (splits, split_keys, part, counters). A model
+    shard plans as its ``whole`` call."""
     tiles = -(-C * G // CHUNK_ROWS)
-    splits, keys = single_query.plan(KV * tiles, end, device, CHUNK_SPLIT_KEYS,
+    splits, keys = single_query.plan(KV * whole.heads * tiles, end, device, CHUNK_SPLIT_KEYS,
                                      MAX_CHUNK_SPLITS)
     part = torch.empty(KV * tiles * CHUNK_ROWS * splits * (Dv + 2), dtype=torch.float32,
                        device=device)
@@ -198,10 +202,12 @@ def paged_decode_plain(q, k_pages, v_pages, block_table, lengths, scale: float):
     return o.reshape(B, 1, H, -1).to(q.dtype)
 
 
-def paged_decode(q, k_pages, v_pages, block_table, lengths, scale: float):
+def paged_decode(q, k_pages, v_pages, block_table, lengths, scale: float,
+                 whole: single_query.Whole = single_query.WHOLE):
     """Paged single-token decode. q (B, 1, H, Dh); k_pages/v_pages
     (P, page, KV, Dh|Dv); block_table (B, nb) int32, 0 = null page;
-    lengths (B,) int32 live tokens per row. Returns (B, 1, H, Dv)."""
+    lengths (B,) int32 live tokens per row; ``whole`` the call a model
+    shard's launch is planned as. Returns (B, 1, H, Dv)."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, block_table, lengths, scale)
     B, T, H, Dh = q.shape
@@ -220,7 +226,7 @@ def paged_decode(q, k_pages, v_pages, block_table, lengths, scale: float):
         if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
             raise ValueError("paged_decode: K/V arenas not 16-byte aligned")
         q = aligned16(q)
-        cs = decode_plan(B, KV, H // KV, nb * page, q.device)
+        cs = decode_plan(B, KV, H // KV, nb * page, q.device, whole)
         run(launcher("paged_decode", "paged_decode_ring"), "paged_decode", q.device,
             int(q.dtype == torch.bfloat16), q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
@@ -269,10 +275,11 @@ def paged_prefill_plain(q, k_pages, v_pages, block_row, offset: int, valid: int,
 
 
 def paged_prefill(q, k_pages, v_pages, block_row, offset: int, valid: int,
-                  scale: float):
+                  scale: float, whole: single_query.Whole = single_query.WHOLE):
     """Chunked paged prefill for one slot: the chunk's C queries attend the
     slot's pages [0, offset + valid) under the per-token causal mask.
-    q (1, C, H, Dh); block_row (nb,) int32; offset/valid host ints. Returns
+    q (1, C, H, Dh); block_row (nb,) int32; offset/valid host ints;
+    ``whole`` the call a model shard's launch is planned as. Returns
     (1, C, H, Dv); rows past ``valid`` are padding, never read."""
     if q.device.type == "cpu":
         return paged_prefill_plain(q, k_pages, v_pages, block_row, offset, valid, scale)
@@ -292,7 +299,7 @@ def paged_prefill(q, k_pages, v_pages, block_row, offset: int, valid: int,
     route = prefill_route(q.dtype, Dh, Dv)
     if route == "tensor_core":
         splits, keys, part, counters = chunk_plan(C, H // KV, KV, offset + valid, Dv,
-                                                  q.device)
+                                                  q.device, whole)
         q = aligned16(q)
         run(launcher("paged_prefill", "paged_prefill_mma"), "paged_prefill", q.device,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -14,6 +14,7 @@ stream, one after another, as the engines issue them.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -24,6 +25,27 @@ MIN_SPLIT_KEYS = 64
 SPLIT_ALIGN = 16
 
 _counters: dict[torch.device, torch.Tensor] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class Whole:
+    """The whole call a serving mesh's model shard launches a part of: the
+    shard (``shard``) holds 1/``heads`` of the call's kv (and query) heads
+    and 1/``rope_groups`` of a T1 call's roped key groups (1 where those
+    are held whole). The plans that size their splits by the units they can
+    fill (B1's ring, the tensor-core chunks of B2, B4 and B6, B3) take it,
+    so a shard splits each head's keys as the whole call does, and B3 adds
+    each head's roped term in the cluster rank that adds it in the whole
+    call: every head's arithmetic is the whole call's, bit for bit.
+    ``serving/sharded.py`` makes one for each shard's call; ``WHOLE`` is
+    a call that is whole."""
+
+    heads: int = 1
+    rope_groups: int = 1
+    shard: int = 0
+
+
+WHOLE = Whole()
 
 
 def plan(pairs: int, length: int, device: torch.device, min_keys: int = MIN_SPLIT_KEYS,

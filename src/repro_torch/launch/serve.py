@@ -15,13 +15,20 @@ configurations; ``--continuous`` serves token prompts on
 ``ContinuousServeEngine`` (or on a ``ReplicaRouter`` with ``--replicas``),
 with ``--preset`` the tuned knobs of the port's presets file
 (``src/repro_torch/serving_presets.json``). Prints the decode cache bytes
-a token next to throughput. ``--mesh`` (multi-device serving) is refused:
-it waits for ROADMAP A21.
+a token next to throughput. ``--mesh dp,mp`` serves the continuous engine
+over a device mesh: every paged arena split over ``mp`` model shards
+(``serving/sharded.py``), on distinct visible GPUs, or with ``--device
+cpu`` on shards that all share the CPU (the reference's launcher emulates
+host devices there):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke \
+      --continuous --mesh 1,2 --batch 2 --prompt 24 --new 6 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch
 
 from repro_torch.configs import ServingCfg, ShapeCfg, get_config, smoke_config
 from repro_torch.data import DataConfig, SyntheticLMData
@@ -107,8 +114,11 @@ def main(argv=None):
                          "recovery machinery (requires --replicas > 1; "
                          "implies --auto-drain)")
     ap.add_argument("--mesh", default=None, metavar="dp,mp",
-                    help="serve over a device mesh (requires --continuous); "
-                         "not ported yet (ROADMAP A21): refused")
+                    help="serve over a device mesh: dp-way engine replication"
+                         " x mp-way model sharding of the paged arenas "
+                         "(kv-head axis; requires --continuous). On distinct "
+                         "visible GPUs; with --device cpu the shards share "
+                         "the CPU.")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain path there)")
@@ -151,12 +161,15 @@ def main(argv=None):
     if args.inject_faults is not None and args.replicas < 2:
         ap.error("--inject-faults requires --replicas > 1 (faults exercise "
                  "the router's drain/recovery machinery)")
+    mesh = None
     if args.mesh:
         if not args.continuous:
             ap.error("--mesh requires --continuous (paged arenas)")
-        raise ValueError(f"--mesh {args.mesh}: multi-device serving is not ported "
-                         "yet (ROADMAP A21)")
-    device = resolve_device(args.device)
+        from repro_torch.launch.mesh import parse_mesh_arg
+
+        cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        mesh = parse_mesh_arg(args.mesh, devices="cpu" if cpu else None)
+    device = mesh.devices.reshape(-1)[0] if mesh is not None else resolve_device(args.device)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -210,7 +223,7 @@ def main(argv=None):
                          for i in range(args.replicas)]
             eng = ReplicaRouter(cfg, params, num_replicas=args.replicas,
                                 serving=serving, placement=args.placement,
-                                fault_plans=plans, device=device)
+                                mesh=mesh, fault_plans=plans, device=device)
             print(f"[serve] router: {args.replicas} replicas, "
                   f"placement={args.placement} "
                   f"({args.replicas * args.batch} slots aggregate)")
@@ -222,7 +235,8 @@ def main(argv=None):
                 print(f"[serve] fault injection seed={args.inject_faults}: "
                       f"{events} (auto-drain on)")
         else:
-            eng = ContinuousServeEngine(cfg, params, serving=serving, device=device)
+            eng = ContinuousServeEngine(cfg, params, serving=serving, mesh=mesh,
+                                        device=device)
         print(f"[serve] policy={serving.policy}; chunked prefill: "
               f"{'on, chunk=' + str(serving.prefill_chunk) if eng.chunked else 'off (one-shot admission)'}")
         if serving.spec_len:
@@ -230,6 +244,10 @@ def main(argv=None):
                          args.replicas > 1)  # router: per-replica gate
             print(f"[serve] speculative decoding: "
                   f"{f'on, k={serving.spec_len} (prompt lookup)' if on else 'requested but gated off (needs chunked dense/decomposed)'}")
+        if mesh is not None:
+            print(f"[serve] mesh: data={mesh.shape['data']} "
+                  f"model={mesh.shape['model']} "
+                  f"(arenas sharded over the kv-head axis)")
     else:
         eng = ServeEngine(cfg, params, max_len=args.prompt + args.new, device=device)
     gen = GenerationConfig(max_new_tokens=args.new, temperature=args.temperature,
@@ -254,6 +272,12 @@ def main(argv=None):
     else:  # retrieval: dense cache + proxy codes; V reads drop to top_k
         bpt = 2.0 * cfg.num_kv_heads * cfg.head_dim * 2 + cfg.num_kv_heads * cfg.head_dim
 
+    if args.continuous and mesh is not None:
+        print(f"[serve] arena: {stats['arena_bytes_per_device'] / 2**20:.2f} "
+              f"MiB/device of {stats['arena_bytes_total'] / 2**20:.2f} MiB "
+              f"total; interconnect "
+              f"{stats['interconnect_bytes_per_token']:.1f} B/token "
+              "(per-head partial concat + latent pool gathers)")
     if args.replicas > 1:
         rows = ", ".join(
             f"r{p['replica']}: {p['generated_tokens']} tok @ "

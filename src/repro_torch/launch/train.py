@@ -16,7 +16,8 @@ package restores it), saves asynchronously every ``--ckpt-every`` steps
 and once at the end, replays the batch sequence exactly (the data is a pure
 function of the step) and appends its ``[train]`` records to
 ``<ckpt-dir>/metrics.jsonl``. ``--mesh single|multi`` (multi-device
-training) is refused: it waits for ROADMAP A21.
+training) is refused: it waits for ROADMAP A21b (the serving mesh is
+ported: launch/serve.py --mesh).
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "none":
         raise ValueError(f"--mesh {args.mesh}: multi-device training is not ported yet "
-                         "(ROADMAP A21)")
+                         "(ROADMAP A21b)")
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch)

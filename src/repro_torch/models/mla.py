@@ -189,12 +189,37 @@ def mla_prefill_chunk(cfg: ModelConfig, rt: AttentionRuntime, tier: int, first: 
     and attends through ``decomposed_cpq_chunk_prefill``."""
     q_nope, q_rope, c, k_rope = _q_ckv(cfg, p, x, positions)
     wuk, wuv, scale = p["wuk"], p["wuv"], _scale(cfg)
+
+    def cpq_attend(latent, row):
+        return pgc.decomposed_cpq_chunk_prefill(q_nope, q_rope, latent.x, latent.k_rope, row,
+                                                slot, c, k_rope, offset, valid, wuk, wuv,
+                                                scale)
+
+    if isinstance(cache, pgc.ShardedPagedCache) and isinstance(cache.logical,
+                                                               pgc.PagedCPQXCache):
+        # a CPQ latent under a mesh keeps global-semantics compute over its
+        # replicated code pools (serving/sharded.py)
+        from repro_torch.serving import sharded
+
+        o = sharded.cpq_x_chunk(rt, cache, first=first, slot=slot, block_row=block_row,
+                                offset=offset, valid=valid, x_c=c, k_rope_c=k_rope,
+                                attend=lambda view, table: cpq_attend(view, table[0]))
+        return _out(p, o), cache
+    if isinstance(cache, pgc.ShardedPagedCache):
+        # mesh-native: query heads and W_UK/W_UV split over "model", the
+        # latent pages split on their feature axis and gathered whole on
+        # each shard's device (serving/sharded.py)
+        from repro_torch.serving import sharded
+
+        o, cache = sharded.chunk_attend_sharded(
+            rt, cache, tier=tier, first=first, slot=slot, block_row=block_row,
+            offset=offset, valid=valid, q=None, k_c=None, v_c=None, x_c=c,
+            k_rope_c=k_rope, q_nope=q_nope, q_rope=q_rope, w_k_nope=wuk, w_v=wuv,
+            scale=scale)
+        return _out(p, o), cache
     if isinstance(cache, pgc.PagedCPQXCache):
         pgc.chunk_cpq_x(cache, rt.cpq, slot, block_row, offset, valid, c, k_rope, first)
-        o = pgc.decomposed_cpq_chunk_prefill(q_nope, q_rope, cache.x, cache.k_rope,
-                                             block_row, slot, c, k_rope, offset, valid,
-                                             wuk, wuv, scale)
-        return _out(p, o), cache
+        return _out(p, cpq_attend(cache, block_row)), cache
     pgc.write_chunk_pages(cache.x, block_row, offset, valid, c[0])
     pgc.write_chunk_pages(cache.k_rope, block_row, offset, valid, k_rope[0])
     if rt.paged_kernels:
@@ -217,18 +242,38 @@ def mla_decode_rows(cfg: ModelConfig, rt: AttentionRuntime, p, x_t: torch.Tensor
     q_nope, q_rope, c_t, k_rope_t = _q_ckv_rows(cfg, p, x_t, rows.lengths)
     new_len = rows.lengths + rows.active.to(rows.lengths.dtype)
     wuk, wuv, scale = p["wuk"], p["wuv"], _scale(cfg)
+
+    def cpq_attend(latent, table):
+        c_arena = cpq_lib.cpq_dequant(pgc.logical_cpq(latent.x, table), x_t.dtype)[:, :, 0, :]
+        return decomposed_attention(q_nope, q_rope, c_arena,
+                                    pgc.gather_pages(latent.k_rope, table), wuk, wuv, new_len,
+                                    scale)
+
+    if isinstance(cache, pgc.ShardedPagedCache) and isinstance(cache.logical,
+                                                               pgc.PagedCPQXCache):
+        # global-semantics compute over the replicated code pools, as
+        # mla_prefill_chunk's
+        from repro_torch.serving import sharded
+
+        o = sharded.cpq_x_decode(rt, cache, rows, c_t, k_rope_t, cpq_attend)
+        return _out(p, o), cache
+    if isinstance(cache, pgc.ShardedPagedCache):
+        # mesh-native absorbed decode, as mla_prefill_chunk's
+        from repro_torch.serving import sharded
+
+        o, cache = sharded.decode_attend_sharded(
+            rt, cache, rows, q=None, k_t=None, v_t=None, x_t=c_t, k_rope_t=k_rope_t,
+            q_nope=q_nope, q_rope=q_rope, w_k_nope=wuk, w_v=wuv, scale=scale)
+        return _out(p, o), cache
     if isinstance(cache, pgc.PagedCPQXCache):
         pgc.append_cpq_x(cache, rows, c_t, k_rope_t, rt.cpq)
-        c_arena = cpq_lib.cpq_dequant(pgc.logical_cpq(cache.x, rows.block_table),
-                                      x_t.dtype)[:, :, 0, :]
-    else:
-        pgc.append_x(cache, rows, c_t, k_rope_t)
-        if rt.paged_kernels:
-            o = t1_ops.paged_decomposed_decode(q_nope, q_rope, cache.x, cache.k_rope,
-                                               rows.block_table, new_len, wuk, wuv, scale)
-            return _out(p, o), cache
-        c_arena = pgc.gather_pages(cache.x, rows.block_table)
-    o = decomposed_attention(q_nope, q_rope, c_arena,
+        return _out(p, cpq_attend(cache, rows.block_table)), cache
+    pgc.append_x(cache, rows, c_t, k_rope_t)
+    if rt.paged_kernels:
+        o = t1_ops.paged_decomposed_decode(q_nope, q_rope, cache.x, cache.k_rope,
+                                           rows.block_table, new_len, wuk, wuv, scale)
+        return _out(p, o), cache
+    o = decomposed_attention(q_nope, q_rope, pgc.gather_pages(cache.x, rows.block_table),
                              pgc.gather_pages(cache.k_rope, rows.block_table), wuk, wuv,
                              new_len, scale)
     return _out(p, o), cache

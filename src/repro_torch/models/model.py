@@ -221,8 +221,23 @@ def init_paged_caches(cfg: ModelConfig, rt: AttentionRuntime, serving, device,
     ``num_slots`` rows per recurrent layer, shaped like the parameter tree:
     {"prefix": [arena, ...], "blocks": [[arena per block] per position]}.
     ``tiered`` gives every layer a dense base arena and a CPQ escalation
-    arena."""
+    arena. Under a serving mesh (``rt.mesh``) every arena is placed over
+    the mesh's model axis (``serving/sharded.shard_container``: a
+    ``ShardedPagedCache`` of one container a shard, each on its device);
+    recurrent and cross-attention state stays whole on ``device``, where
+    the layers' projections run."""
+    if rt.mesh is not None:
+        import dataclasses
+
+        from repro_torch.serving import sharded
+
+        small = dataclasses.replace(serving, num_pages=2, num_slots=1, escalated_pages=2)
+
     def one(kind):
+        if rt.mesh is not None and kind[0] in ("attn", "mla"):
+            meta = tfm.layer_paged_cache_init(cfg, rt, kind, serving, "meta", tiered)
+            probe = tfm.layer_paged_cache_init(cfg, rt, kind, small, "cpu", tiered)
+            return sharded.shard_container(meta, rt.mesh, probe)
         return tfm.layer_paged_cache_init(cfg, rt, kind, serving, device, tiered)
 
     return {"prefix": [one(k) for k in cfg.prefix_pattern],
@@ -318,10 +333,17 @@ def escalate_slot(cfg: ModelConfig, rt: AttentionRuntime, caches,
     freshly allocated CPQ block row; the host frees the dense pages."""
     cpq_cfg = rt.cpq or CPQCfg()
     for kind, c in zip(cfg.layer_kinds, per_layer(cfg, caches)):
-        if kind[0] != "attn" or not isinstance(c, pgc.TieredPagedCache):
+        if kind[0] != "attn" or not isinstance(pgc.logical_of(c), pgc.TieredPagedCache):
             continue
-        src = pgc.compress_dense_slot(
-            pgc.gather_pages(c.dense.k, dense_row[None]),
-            pgc.gather_pages(c.dense.v, dense_row[None]), length, cpq_cfg)
-        pgc.pack_cpq(c.cpq, src, cpq_row, slot)
+        # a sharded arena re-compresses each shard's heads on its device:
+        # the CPQ fit is per (kv head, channel), so the shards' codes are
+        # the slices of the whole arena's
+        shards = c.shards if isinstance(c, pgc.ShardedPagedCache) else [c]
+        for shard in shards:
+            dev = shard.dense.k.device
+            d_row, c_row = dense_row.to(dev), cpq_row.to(dev)
+            src = pgc.compress_dense_slot(
+                pgc.gather_pages(shard.dense.k, d_row[None]),
+                pgc.gather_pages(shard.dense.v, d_row[None]), length, cpq_cfg)
+            pgc.pack_cpq(shard.cpq, src, c_row, slot)
     return caches

@@ -1,7 +1,7 @@
 """Int8 gradient compression (the JAX package's ``optim/compression.py``):
 symmetric per-tensor codes and their decode. The reference's
 ``compressed_psum``, an error-feedback all-reduce of these codes, needs a
-collective and waits for multi-device training (ROADMAP A21)."""
+collective and waits for multi-device training (ROADMAP A21b)."""
 from __future__ import annotations
 
 import torch

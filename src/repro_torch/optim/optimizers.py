@@ -18,7 +18,7 @@ so a checkpoint writes them as they are. The global norm sums the
 reference's leaves in its order.
 
 ``state_like`` and ``state_specs`` (abstract states and sharding specs)
-wait for multi-device training (ROADMAP A21).
+wait for multi-device training (ROADMAP A21b).
 """
 from __future__ import annotations
 

@@ -69,9 +69,15 @@ device weight tree), ``arena_stats``, a host-only ``health`` probe,
 ``drain_request`` snapshots that replay elsewhere through recompute
 preemption, then ``release`` of the arenas.
 
-Both engines run on the GPU unless ``device`` names another device. They
-refuse, with ``SchedulerConfigError``, every knob the port does not
-implement yet instead of ignoring it: a device mesh.
+The continuous engine also serves over a device mesh (``mesh=``, from
+``launch/mesh.make_serve_mesh``): every paged arena is split over the
+mesh's model axis, a head shard a device, and the attends run per shard
+(``serving/sharded.py``); the weights, the scheduler and the sampler stay
+on the lead device. ``stats()`` reports the shards, the arena bytes in all
+and on each device, and the interconnect bytes by the reference's
+accounting. The static engine takes no mesh, as in the reference.
+
+Both engines run on the GPU unless ``device`` names another device.
 """
 from __future__ import annotations
 
@@ -83,11 +89,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import AttentionRuntime, CPQCfg, ModelConfig, ServingCfg
+from repro_torch.distributed.sharding import Mesh, canonical_device
 from repro_torch.models import model as M
 from repro_torch.models.transformer import RECURRENT
 from repro_torch.params import model_defs, resolve_device, to_device
 from repro_torch.serving import paged_cache as pgc
-from repro_torch.serving import prng
+from repro_torch.serving import prng, sharded
 from repro_torch.serving.policies import derive_deadlines, make_policy, slo_of
 from repro_torch.serving.request import RequestOutput, SamplingParams, ServeRequest
 from repro_torch.serving.scheduler import Request, Scheduler, SchedulerConfigError
@@ -106,8 +113,6 @@ def _unported_model(rt: AttentionRuntime, cfg: ModelConfig) -> list[str]:
     """The runtime and model settings neither engine serves yet, each with
     its ROADMAP item."""
     out = []
-    if rt.mesh is not None:
-        out.append("mesh (multi-device serving, ROADMAP A21)")
     if rt.mode in pgc.UNPORTED_MODES:
         out.append(f"mode={rt.mode!r} (ROADMAP {pgc.UNPORTED_MODES[rt.mode]})")
     return out
@@ -198,6 +203,10 @@ class ServeEngine:
         unported = _unported_model(self.rt, cfg)
         if unported:
             raise SchedulerConfigError("not ported yet: " + "; ".join(unported))
+        if self.rt.mesh is not None:
+            raise SchedulerConfigError(
+                "the static ServeEngine serves on one device, as the reference's "
+                "does: serve over a mesh with ContinuousServeEngine")
         model_defs(cfg)  # raises ValueError for an unknown layer or input kind
         M.check_inputs(cfg)
         self.params = to_device(params, self.device)
@@ -296,6 +305,26 @@ class _ServeState:
         self.trace_active: list[int] = []
         self.trace_util: list[float] = []
         self.t0 = time.time()
+        # interconnect accounting under model sharding (the reference's):
+        # each device sends its per-head output partial and receives the
+        # others', (mp - 1) / mp of the concatenated head outputs a token a
+        # layer whose arena is head-split (exact for the per-shard tiers; the
+        # CPQ-X tiers replicate their code pools and are not charged) ...
+        mp = eng.model_shards
+        cfg = eng.cfg
+        dv = cfg.mla.v_head_dim if cfg.mla is not None else cfg.head_dim
+        n_concat = sum(
+            1 for m, _ in cfg.layer_kinds
+            if (m == "attn" and (eng.tiered or eng.rt.mode in
+                                 ("dense", "cpq", "decomposed", "retrieval")))
+            or (m == "mla" and eng.rt.mode != "cpq"))
+        self.concat_bpt = (0.0 if mp <= 1 else
+                           (mp - 1) / mp * cfg.num_heads * dv * cfg.param_dtype.itemsize
+                           * n_concat)
+        # ... plus, for split latent pools (T1 X / MLA c_kv), their gather,
+        # charged once a model invocation
+        self.gather_bps = eng._latent_gather_bytes_per_step(self.caches)
+        self.interconnect = 0.0
 
 
 class ContinuousServeEngine:
@@ -306,11 +335,12 @@ class ContinuousServeEngine:
     ``serve(requests, gen)`` resets the session, submits everything and
     drains. The decode clock is the time base: a request with
     ``arrival=t`` becomes admissible after t ticks. ``policy`` (a policy
-    object or name) overrides ``ServingCfg.policy``."""
+    object or name) overrides ``ServingCfg.policy``. ``mesh`` (or
+    ``rt.mesh``) serves over a device mesh: the engine's device is then
+    the mesh's first, and the arenas are split over its model axis."""
 
     def __init__(self, cfg: ModelConfig, params, rt: Optional[AttentionRuntime] = None,
-                 serving: ServingCfg = ServingCfg(), policy=None, device=None):
-        self.device = resolve_device(device)
+                 serving: ServingCfg = ServingCfg(), mesh=None, policy=None, device=None):
         self.cfg = cfg
         self.serving = serving
         try:
@@ -318,6 +348,24 @@ class ContinuousServeEngine:
         except ValueError as e:
             raise SchedulerConfigError(str(e)) from None
         rt = rt or cfg.attention
+        if mesh is not None:
+            if rt.mesh is not None and rt.mesh != mesh:
+                raise SchedulerConfigError(
+                    "conflicting device meshes: rt.mesh and the mesh= "
+                    "argument disagree — set one or make them equal")
+            rt = dataclasses.replace(rt, mesh=mesh)
+        self.mesh = rt.mesh
+        if self.mesh is not None:
+            if not isinstance(self.mesh, Mesh):
+                raise SchedulerConfigError(
+                    f"mesh must be a repro_torch.distributed.sharding.Mesh "
+                    f"(launch.mesh.make_serve_mesh), not {type(self.mesh).__name__}")
+            lead = self.mesh.devices.reshape(-1)[0]
+            if device is not None and canonical_device(device) != lead:
+                raise SchedulerConfigError(
+                    f"device={device} is not the mesh's first device {lead}")
+            device = lead
+        self.device = resolve_device(device)
         if (serving.use_paged_kernels is not None
                 and rt.paged_kernels != serving.use_paged_kernels):
             rt = dataclasses.replace(rt, paged_kernels=serving.use_paged_kernels)
@@ -339,6 +387,9 @@ class ContinuousServeEngine:
                 f"input_kind={cfg.input_kind!r} needs the static engine")
         M.check_inputs(cfg)
         self.rt = rt
+        # mesh-native serving: the model axis must divide every head and
+        # latent axis it splits (1 = no model sharding)
+        self.model_shards = sharded.validate_serve_mesh(cfg, rt, self.tiered)
         self.params = to_device(params, self.device)
         # recurrent mixers integrate every prefill token into their state, so
         # bucket padding would pollute it (attention only masks): such stacks
@@ -383,12 +434,29 @@ class ContinuousServeEngine:
         for (mixer, _), c in zip(self.cfg.layer_kinds, M.per_layer(self.cfg, caches)):
             if mixer not in ("attn", "mla"):
                 continue
+            c = pgc.logical_of(c)
             if isinstance(c, pgc.TieredPagedCache):
                 return (pgc.bytes_per_token(c.dense, ps),
                         pgc.bytes_per_token(c.cpq, ps, self.rt.cpq))
             b = pgc.bytes_per_token(c, ps, self.rt.cpq)
             return b, b
         return 0.0, 0.0
+
+    def _latent_gather_bytes_per_step(self, caches) -> float:
+        """Interconnect bytes ONE model invocation moves gathering the split
+        latent pools (``PagedXCache.x``, serving/sharded.py): each device
+        ships its feature shard to the mp - 1 others, a latent layer. Zero
+        unsharded. It dwarfs the per-head output concat: the price of
+        splitting the latent for capacity, paid every step."""
+        mp = self.model_shards
+        if mp <= 1:
+            return 0.0
+        total = 0
+        for c in M.per_layer(self.cfg, caches):
+            x = pgc.logical_of(c)
+            if isinstance(x, pgc.PagedXCache) and x.x.shape[-1] % mp == 0:
+                total += x.x.numel() * x.x.element_size()
+        return total * (mp - 1) / mp
 
     def _escalate(self, st: _ServeState, req: Request) -> None:
         """Move a running dense row to the CPQ tier: the scheduler hands its
@@ -872,6 +940,7 @@ class ContinuousServeEngine:
         st.decode_steps += 1
         st.live_steps += 1
         st.traffic += float(L + k + 1) * st.bpt0 * self._n_cache_layers
+        st.interconnect += (k + 1) * st.concat_bpt + st.gather_bps
         util = sched.dense_alloc.utilization
         st.util_peak = max(st.util_peak, util)
         st.util_sum += util
@@ -940,6 +1009,9 @@ class ContinuousServeEngine:
                 continue
             tok, padded = self._admit(req, st)
             st.step += -(-padded // st.quantum)
+            # no interconnect charge, as in the reference: the one-shot
+            # prefill runs whole on the lead device and the pack writes each
+            # shard's slice
             st.prefill_tokens += req.length
             st.prefill_write_bytes += (req.length * (st.bpt1 if req.tier else st.bpt0)
                                        * self._n_cache_layers)
@@ -971,6 +1043,7 @@ class ContinuousServeEngine:
                 st.prefill_tokens += valid
                 st.prefill_write_bytes += (valid * (st.bpt1 if req.tier else st.bpt0)
                                            * self._n_cache_layers)
+                st.interconnect += valid * st.concat_bpt + st.gather_bps
                 # every page the chunk filled is immutable from here on:
                 # register it, so that concurrent admissions can mount it
                 sched.register_prefix(req)
@@ -1057,6 +1130,7 @@ class ContinuousServeEngine:
         st.traffic += float(sum(
             (sched.lengths[s] + 1.0) * (st.bpt1 if sched.tiers[s] else st.bpt0)
             for s in range(B) if active[s])) * self._n_cache_layers
+        st.interconnect += int(active.sum()) * st.concat_bpt + st.gather_bps
         util = sched.dense_alloc.utilization
         st.util_peak = max(st.util_peak, util)
         st.util_sum += util
@@ -1090,11 +1164,11 @@ class ContinuousServeEngine:
             "spec_accept_rate": (sched.stats["spec_accepted"]
                                  / max(sched.stats["spec_drafted"], 1)),
             "policy": sched.policy.name,
-            "model_shards": 1,
+            "model_shards": self.model_shards,
             "arena_bytes_total": total_bytes,
-            "arena_bytes_per_device": float(total_bytes),
-            "interconnect_bytes": 0.0,
-            "interconnect_bytes_per_token": 0.0,
+            "arena_bytes_per_device": float(pgc.device_arena_bytes(st.caches)),
+            "interconnect_bytes": st.interconnect,
+            "interconnect_bytes_per_token": st.interconnect / max(st.generated, 1),
             "decode_steps": st.decode_steps,
             "prefill_chunks": st.prefill_chunks,
             "prefill_tokens": st.prefill_tokens,

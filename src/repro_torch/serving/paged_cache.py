@@ -28,9 +28,17 @@ Mode -> paged container:
                                   d_model), slot tables, roped key pages
                                   (T1+T2, and MLA's latent in mode cpq)
   tiered      TieredPagedCache    dense base arena + CPQ escalation arena
+
+Under a serving mesh (``AttentionRuntime.mesh``) every container above is
+split over the mesh's model axis into a ``ShardedPagedCache``: one
+container of the same type per model shard, each on its device, holding its
+slice of the kv-head (or latent feature) axis. The host operations here
+(defrag, the page copy, the admission pack, the traffic and byte counts)
+reach every shard; the attends run per shard in ``serving/sharded.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -43,6 +51,7 @@ from repro_torch.core import kv_cache as kvc
 from repro_torch.core import retrieval_attention as ret_lib
 from repro_torch.core.kv_cache import CPQKVCache
 from repro_torch.core.decomposed_attention import decomposed_attention
+from repro_torch.kernels import single_query
 from repro_torch.kernels.cpq_attn import ops as cpq_ops
 from repro_torch.kernels.decomposed_attn import ops as t1_ops
 from repro_torch.kernels.paged_attn import ops
@@ -240,6 +249,10 @@ def permute_pool(cache, perm: torch.Tensor):
     into a fresh buffer and copied back. Per-slot side state and a tiered
     arena's CPQ escalation arm (its own allocator and tables) stay."""
     perm = perm.to(torch.long)
+    if isinstance(cache, ShardedPagedCache):
+        for shard in cache.shards:
+            permute_pool(shard, perm)
+        return cache
 
     def take(*pools):
         for pool in pools:
@@ -269,7 +282,10 @@ def copy_page(cache, src: int, dst: int):
     dense arm. The CPQ and retrieval tiers never share pages (their reads
     go through per-slot side state fitted to one request), so no copy is
     defined for them."""
-    if isinstance(cache, TieredPagedCache):
+    if isinstance(cache, ShardedPagedCache):
+        for shard in cache.shards:
+            copy_page(shard, src, dst)
+    elif isinstance(cache, TieredPagedCache):
         copy_page(cache.dense, src, dst)
     elif isinstance(cache, PagedDenseKVCache):
         cache.k[dst] = cache.k[src]
@@ -339,6 +355,69 @@ class TieredPagedCache(NamedTuple):
 
     dense: PagedDenseKVCache
     cpq: PagedCPQKVCache
+
+
+PAGED_TYPES = (PagedDenseKVCache, PagedXCache, PagedCPQKVCache, PagedRetrievalCache,
+               PagedCPQXCache, TieredPagedCache)
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of containers of one structure (NamedTuples,
+    nested), returning a container of that structure. A leaf is anything
+    else: a tensor, a PartitionSpec (a plain tuple subclass)."""
+    t = trees[0]
+    if isinstance(t, tuple) and hasattr(type(t), "_fields"):
+        return type(t)(*(tree_map(fn, *(getattr(x, f) for x in trees)) for f in t._fields))
+    return fn(*trees)
+
+
+@dataclasses.dataclass
+class ShardedPagedCache:
+    """A paged container split over a serving mesh's model axis: one
+    container of the same type per model shard, each on its device. A leaf
+    whose fitted spec (``specs``, a tree of PartitionSpecs) splits an axis
+    over ``model`` holds its shard's slice of that axis; any other leaf is
+    held whole in every shard, as each device of the reference's mesh holds
+    it. ``logical`` is the whole container on the meta device: its shapes
+    and dtypes, no memory."""
+
+    shards: list
+    specs: object
+    logical: object
+    devices: list
+
+    def shard_of(self, t: torch.Tensor, d: Optional[int], i: int) -> torch.Tensor:
+        """Shard ``i``'s part of ``t`` split along dim ``d`` (None: all of
+        ``t``, which every shard holds whole)."""
+        if d is None:
+            return t
+        n = t.shape[d] // len(self.shards)
+        return t.narrow(d, i * n, n)
+
+
+def model_dim(spec):
+    """The dimension a fitted spec splits over the model axis, or None."""
+    from repro_torch.distributed.sharding import axis_dim
+
+    return axis_dim(spec, "model")
+
+
+def assemble(cache: ShardedPagedCache):
+    """The whole container on the lead device, a logical view: the split
+    leaves concatenated, the others the lead shard's own tensors."""
+    lead = cache.devices[0]
+
+    def whole(spec, *parts):
+        d = model_dim(spec)
+        return parts[0] if d is None else torch.cat([p.to(lead) for p in parts], dim=d)
+
+    return tree_map(whole, cache.specs, *cache.shards)
+
+
+def logical_of(cache):
+    """A container's types and shapes: the meta container of a sharded
+    arena, the arena itself otherwise."""
+    return cache.logical if isinstance(cache, ShardedPagedCache) else cache
 
 
 def init_paged_dense(num_pages: int, page_size: int, kv: int, dh: int,
@@ -514,7 +593,16 @@ def pack_cpq_x(cache: PagedCPQXCache, src: kvc.CPQXCache, block_row: torch.Tenso
 def pack_into(rt_mode: str, cache, src, block_row: torch.Tensor, slot: int):
     """Mode dispatch of the admission pack (contiguous B=1 prefill -> a
     slot's pages); a tiered arena takes a dense source into its dense arm
-    and a CPQ source into its CPQ arm."""
+    and a CPQ source into its CPQ arm. A sharded arena takes each shard's
+    slice of the source, on the shard's device."""
+    if isinstance(cache, ShardedPagedCache):
+        specs = cache.specs
+        if isinstance(specs, TieredPagedCache):
+            specs = specs.dense if isinstance(src, kvc.DenseKVCache) else specs.cpq
+        for i, (shard, dev) in enumerate(zip(cache.shards, cache.devices)):
+            part = _source_part(cache, specs, src, i, dev)
+            pack_into(rt_mode, shard, part, block_row.to(dev), slot)
+        return cache
     if isinstance(cache, TieredPagedCache):
         if isinstance(src, kvc.DenseKVCache):
             pack_dense(cache.dense, src, block_row)
@@ -534,6 +622,18 @@ def pack_into(rt_mode: str, cache, src, block_row: torch.Tensor, slot: int):
     raise unported_mode(rt_mode)
 
 
+def _source_part(cache: ShardedPagedCache, specs, src, i: int, dev):
+    """Shard ``i``'s part of a contiguous pack source, field by field
+    against the paged leaf of the same name, whose head and feature axes
+    sit where the source's do (the ``length`` a contiguous cache carries
+    has no paged leaf and is kept)."""
+    if isinstance(src, tuple) and hasattr(type(src), "_fields"):
+        return type(src)(*(
+            _source_part(cache, getattr(specs, f), getattr(src, f), i, dev)
+            if hasattr(specs, f) else getattr(src, f) for f in src._fields))
+    return cache.shard_of(src, model_dim(specs), i).to(dev)
+
+
 # --------------------------------------------------------------- traffic
 
 
@@ -543,8 +643,9 @@ def bytes_per_token(cache, page_size: int, cpq_cfg: Optional[CPQCfg] = None) -> 
     ``cpq_bytes_per_token`` for K and V or for X as one head of d_model
     plus the roped key slices, or T3's K and V plus one byte per proxy
     channel) plus the amortized block-table entry. A tiered
-    arena counts its base tier."""
+    arena counts its base tier; a sharded arena counts the whole."""
     overhead = 4.0 / page_size
+    cache = logical_of(cache)
     if isinstance(cache, TieredPagedCache):
         return bytes_per_token(cache.dense, page_size, cpq_cfg)
     if isinstance(cache, PagedDenseKVCache):
@@ -569,12 +670,28 @@ def bytes_per_token(cache, page_size: int, cpq_cfg: Optional[CPQCfg] = None) -> 
 
 
 def arena_bytes(caches) -> int:
-    """Total bytes of every arena tensor in a cache tree."""
+    """Total bytes of every arena tensor in a cache tree (a sharded arena:
+    of the whole container, once)."""
     if isinstance(caches, torch.Tensor):
         return caches.numel() * caches.element_size()
+    if isinstance(caches, ShardedPagedCache):
+        return arena_bytes(caches.logical)
     if isinstance(caches, dict):
         caches = list(caches.values())
     return sum(arena_bytes(c) for c in caches)
+
+
+def device_arena_bytes(caches) -> int:
+    """The arena bytes each device of a serving mesh holds: a sharded
+    arena's shard (its split leaves shrink, the others do not), every other
+    arena whole. Equal to ``arena_bytes`` without a mesh."""
+    if isinstance(caches, ShardedPagedCache):
+        return arena_bytes(caches.shards[0])
+    if isinstance(caches, torch.Tensor):
+        return arena_bytes(caches)
+    if isinstance(caches, dict):
+        caches = list(caches.values())
+    return sum(device_arena_bytes(c) for c in caches)
 
 
 # ------------------------------------------------------- chunked prefill
@@ -673,11 +790,13 @@ def decomposed_cpq_chunk_prefill(q_nope, q_rope, xt: PagedCPQTensor, kr_pages, b
 
 
 def _dense_chunk_attend(rt, k_pages, v_pages, block_row, offset: int, valid: int, q,
-                        scale: float) -> torch.Tensor:
+                        scale: float, whole: single_query.Whole) -> torch.Tensor:
     """A chunk's C queries over the slot's K/V pages [0, offset + valid):
-    B2 with ``rt.paged_kernels``, the gather path otherwise."""
+    B2 with ``rt.paged_kernels`` (planned as ``whole``), the gather path
+    otherwise."""
     if rt.paged_kernels:
-        return ops.paged_prefill(q, k_pages, v_pages, block_row, offset, valid, scale)
+        return ops.paged_prefill(q, k_pages, v_pages, block_row, offset, valid, scale,
+                                 whole=whole)
     return core_attn.dense_attention(
         q, gather_pages(k_pages, block_row[None]), gather_pages(v_pages, block_row[None]),
         scale, causal=True, q_offset=offset, kv_length=offset + valid)
@@ -730,7 +849,8 @@ def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
                        q_nope: Optional[torch.Tensor] = None,
                        q_rope: Optional[torch.Tensor] = None,
                        w_k_nope: Optional[torch.Tensor] = None,
-                       w_v: Optional[torch.Tensor] = None):
+                       w_v: Optional[torch.Tensor] = None,
+                       whole: single_query.Whole = single_query.WHOLE):
     """Write one prompt chunk straight into the slot's arena pages, then
     attend the chunk's C queries over the slot's pages [0, offset + valid):
     the B2 (dense and T3), B4 (T1) or B6 (CPQ) kernel with
@@ -745,18 +865,28 @@ def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
     q_nope (1, C, H, Dn), q_rope (1, C, H, R), w_k_nope (Dm, KV, Dn) and
     w_v (Dm, KV, Dv); T1+T2 compresses the chunk's X as the CPQ arena
     compresses K/V and attends through ``decomposed_cpq_chunk_prefill``.
-    Returns (out (1, C, H, Dv), cache); rows past ``valid`` are padding."""
+    Returns (out (1, C, H, Dv), cache); rows past ``valid`` are padding.
+    Under a serving mesh the arena is a ``ShardedPagedCache`` and the chunk
+    runs a head shard a device (``serving/sharded.chunk_attend_sharded``),
+    each shard's kernels planned as their ``whole`` call."""
+    if isinstance(cache, ShardedPagedCache):
+        from repro_torch.serving import sharded
+
+        return sharded.chunk_attend_sharded(
+            rt, cache, tier=tier, first=first, slot=slot, block_row=block_row,
+            offset=offset, valid=valid, q=q, k_c=k_c, v_c=v_c, scale=scale, x_c=x_c,
+            k_rope_c=k_rope_c, q_nope=q_nope, q_rope=q_rope, w_k_nope=w_k_nope, w_v=w_v)
     if isinstance(cache, TieredPagedCache):
         arm_rt, arm = (rt, cache.dense) if tier == 0 else (_cpq_runtime(rt), cache.cpq)
         out, _ = chunk_attend_paged(arm_rt, arm, tier=0, first=first, slot=slot,
                                     block_row=block_row, offset=offset, valid=valid,
-                                    q=q, k_c=k_c, v_c=v_c, scale=scale)
+                                    q=q, k_c=k_c, v_c=v_c, scale=scale, whole=whole)
         return out, cache
     if isinstance(cache, PagedDenseKVCache) and rt.mode == "dense":
         write_chunk_pages(cache.k, block_row, offset, valid, k_c[0])
         write_chunk_pages(cache.v, block_row, offset, valid, v_c[0])
         return _dense_chunk_attend(rt, cache.k, cache.v, block_row, offset, valid, q,
-                                   scale), cache
+                                   scale, whole=whole), cache
     if isinstance(cache, PagedRetrievalCache) and rt.mode == "retrieval":
         chunk_proxy(cache, rt.retrieval, slot, block_row, offset, valid, k_c, first)
         write_chunk_pages(cache.k, block_row, offset, valid, k_c[0])
@@ -764,14 +894,14 @@ def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
         # prefill COMPUTE is dense (T3 gates decode reads only): the K/V
         # pages hold the raw payload, so the dense chunk kernel serves them
         return _dense_chunk_attend(rt, cache.k, cache.v, block_row, offset, valid, q,
-                                   scale), cache
+                                   scale, whole=whole), cache
     if isinstance(cache, PagedXCache) and rt.mode == "decomposed":
         write_chunk_pages(cache.x, block_row, offset, valid, x_c[0])
         write_chunk_pages(cache.k_rope, block_row, offset, valid, k_rope_c[0])
         if rt.paged_kernels:
             out = t1_ops.paged_decomposed_prefill(q_nope, q_rope, cache.x, cache.k_rope,
                                                   block_row, offset, valid, w_k_nope,
-                                                  w_v, scale)
+                                                  w_v, scale, whole=whole)
         else:
             qpos = offset + torch.arange(q.shape[1], device=q.device)
             out = decomposed_attention(
@@ -784,7 +914,7 @@ def chunk_attend_paged(rt, cache, *, tier: int, first: bool, slot: int,
         chunk_cpq_tensor(cache.v, slot, block_row, offset, valid, v_c, rt.cpq, first)
         if rt.paged_kernels:
             out = cpq_ops.paged_cpq_prefill(q, cache.k, cache.v, k_c, v_c, slot,
-                                            block_row, offset, valid, scale)
+                                            block_row, offset, valid, scale, whole=whole)
         else:
             out = cpq_chunk_prefill_attention(q, cache.k, cache.v, block_row, slot,
                                               k_c, v_c, offset, valid, scale)
@@ -808,7 +938,8 @@ def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
                         q_nope: Optional[torch.Tensor] = None,
                         q_rope: Optional[torch.Tensor] = None,
                         w_k_nope: Optional[torch.Tensor] = None,
-                        w_v: Optional[torch.Tensor] = None):
+                        w_v: Optional[torch.Tensor] = None,
+                        whole: single_query.Whole = single_query.WHOLE):
     """Write one token per row through the block table, then attend with
     per-row lengths: the B1 (dense), B3 (T1), B5 (CPQ) or B7 (T3) kernel
     with ``rt.paged_kernels`` (the default), the gather path otherwise. A tiered
@@ -821,22 +952,31 @@ def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
     (B, 1, H, Dn), q_rope (B, 1, H, R), w_k_nope (Dm, KV, Dn) and w_v
     (Dm, KV, Dv); the T1+T2 arena HQE-appends X and decodes through
     ``decomposed_cpq_chunked_decode`` over its logical view (no kernel in
-    the reference). Returns (out (B, 1, H, Dv), cache)."""
+    the reference). Returns (out (B, 1, H, Dv), cache). Under a serving
+    mesh the arena is a ``ShardedPagedCache`` and every shard attends its
+    heads on its device (``serving/sharded.decode_attend_sharded``), its
+    kernels planned as their ``whole`` call."""
+    if isinstance(cache, ShardedPagedCache):
+        from repro_torch.serving import sharded
+
+        return sharded.decode_attend_sharded(
+            rt, cache, rows, q=q, k_t=k_t, v_t=v_t, scale=scale, x_t=x_t,
+            k_rope_t=k_rope_t, q_nope=q_nope, q_rope=q_rope, w_k_nope=w_k_nope, w_v=w_v)
     if isinstance(cache, TieredPagedCache):
         rows_d = rows._replace(active=rows.active & (rows.tier == 0))
         rows_c = rows._replace(active=rows.active & (rows.tier == 1),
                                block_table=rows.alt_block_table)
         out_d, _ = decode_attend_paged(rt, cache.dense, rows_d, q=q, k_t=k_t,
-                                       v_t=v_t, scale=scale)
+                                       v_t=v_t, scale=scale, whole=whole)
         out_c, _ = decode_attend_paged(_cpq_runtime(rt), cache.cpq, rows_c, q=q,
-                                       k_t=k_t, v_t=v_t, scale=scale)
+                                       k_t=k_t, v_t=v_t, scale=scale, whole=whole)
         return torch.where((rows.tier == 1)[:, None, None, None], out_c, out_d), cache
     new_len = rows.lengths + rows.active.to(rows.lengths.dtype)
     if isinstance(cache, PagedDenseKVCache) and rt.mode == "dense":
         append_dense(cache, rows, k_t, v_t)
         if rt.paged_kernels:
             return ops.paged_decode(q, cache.k, cache.v, rows.block_table, new_len,
-                                    scale), cache
+                                    scale, whole=whole), cache
         out = core_attn.dense_attention(
             q, gather_pages(cache.k, rows.block_table),
             gather_pages(cache.v, rows.block_table),
@@ -864,7 +1004,7 @@ def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
         if rt.paged_kernels:
             return t1_ops.paged_decomposed_decode(q_nope, q_rope, cache.x, cache.k_rope,
                                                   rows.block_table, new_len, w_k_nope,
-                                                  w_v, scale), cache
+                                                  w_v, scale, whole=whole), cache
         out = decomposed_attention(
             q_nope, q_rope, gather_pages(cache.x, rows.block_table),
             gather_pages(cache.k_rope, rows.block_table), w_k_nope, w_v, new_len, scale)
@@ -881,11 +1021,20 @@ def decode_attend_paged(rt, cache, rows: RowState, *, q: torch.Tensor,
         return out, cache
     if isinstance(cache, PagedCPQXCache) and rt.mode == "decomposed_cpq":
         append_cpq_x(cache, rows, x_t, k_rope_t, rt.cpq)
-        out = core_attn.decomposed_cpq_chunked_decode(
-            q_nope, q_rope, logical_cpq(cache.x, rows.block_table),
-            gather_pages(cache.k_rope, rows.block_table), w_k_nope, w_v, new_len, scale)
-        return out, cache
+        return cpq_x_decode_attend(cache, rows.block_table, new_len, q_nope, q_rope,
+                                   w_k_nope, w_v, scale), cache
     raise _unported_cache(rt, cache)
+
+
+def cpq_x_decode_attend(cache: PagedCPQXCache, block_table: torch.Tensor,
+                        lengths: torch.Tensor, q_nope, q_rope, w_k_nope, w_v,
+                        scale: float) -> torch.Tensor:
+    """T1+T2 decode attend over a CPQ-X arena's logical view (no kernel in
+    the reference): ``decomposed_cpq_chunked_decode``. lengths (B,) after
+    this step's append. Returns (B, 1, H, Dv)."""
+    return core_attn.decomposed_cpq_chunked_decode(
+        q_nope, q_rope, logical_cpq(cache.x, block_table),
+        gather_pages(cache.k_rope, block_table), w_k_nope, w_v, lengths, scale)
 
 
 def retrieval_decode_paged(cache: PagedRetrievalCache, block_table: torch.Tensor,

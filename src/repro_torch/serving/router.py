@@ -49,7 +49,7 @@ engine buffers drain into the router's each tick, and a drain hands its
 un-emitted events over before the replica's session is dropped.
 
 Like the engines, the router runs on the GPU unless ``device`` names
-another device, and refuses a device mesh (ROADMAP A21).
+another device; a device mesh goes to every replica (serving/sharded.py).
 """
 from __future__ import annotations
 
@@ -89,8 +89,9 @@ class ReplicaRouter:
     the others are built on replica 0's device tree and adopt it, so the
     weights are on the device once. ``placement`` is a ``PlacementPolicy``
     object or name (``rr`` | ``load`` | ``slo``); ``policy``, ``serving``,
-    ``rt`` and ``device`` go to every replica. ``mesh`` is refused with the
-    engines' ``SchedulerConfigError`` (ROADMAP A21). ``fault_plans`` (one
+    ``rt``, ``mesh`` and ``device`` go to every replica (under a mesh each
+    replica splits its own arenas over the model axis; the replicas still
+    share one weight tree, on the mesh's first device). ``fault_plans`` (one
     ``FaultPlan`` per replica, None for no faults) wraps replicas in
     ``FaultyReplica`` for deterministic chaos runs."""
 
@@ -102,13 +103,11 @@ class ReplicaRouter:
                  fault_plans: Optional[list] = None, device=None):
         if num_replicas < 1:
             raise SchedulerConfigError("num_replicas must be >= 1")
-        if mesh is not None:  # the engines refuse it, naming its ROADMAP item
-            rt = dataclasses.replace(rt or cfg.attention, mesh=mesh)
         self.serving = serving
         engines = []
         for _ in range(num_replicas):
             eng = ContinuousServeEngine(cfg, engines[0].params if engines else params,
-                                        rt=rt, serving=serving, policy=policy,
+                                        rt=rt, serving=serving, mesh=mesh, policy=policy,
                                         device=device)
             if engines:
                 eng.adopt_compiled(engines[0])

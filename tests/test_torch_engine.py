@@ -115,13 +115,29 @@ def test_generate_matches_jax(model):
 
 
 @pytest.mark.parametrize("serving_kw,rt_kw", [
-    ({}, dict(mesh=object())),
-    ({}, dict(mode="decomposed_cpq", mesh=object())),  # T1+T2 serves, not over a mesh
-    ({}, dict(mode="retrieval", mesh=object())),  # T3 serves, but not over a mesh
+    ({}, dict(mesh=object())),                         # not a mesh: refused
+    ({}, dict(mode="decomposed_cpq", mesh="1,2")),     # T1+T2 serves over a mesh
+    ({}, dict(mode="retrieval", mesh="1,2")),          # so does T3
 ])
 def test_unported_knobs_raise(model, serving_kw, rt_kw):
+    """The mesh knob, once refused, is served (tests/test_torch_sharded_engine.py
+    holds the streams): what is left to refuse is a mesh that is not the
+    port's ``Mesh``. The static engine takes no mesh, as the reference's."""
+    from repro_torch.launch.mesh import parse_mesh_arg
+
     _, tcfg, _, tparams = model
-    with pytest.raises(T.SchedulerConfigError, match="not ported yet"):
+    if isinstance(rt_kw["mesh"], str):
+        rt = T.AttentionRuntime(**dict(rt_kw, mesh=parse_mesh_arg(rt_kw["mesh"], "cpu")))
+        eng = T.ContinuousServeEngine(tcfg, tparams, rt=rt,
+                                      serving=_serving(T, num_pages=33, **serving_kw),
+                                      device="cpu")
+        out, stats = eng.generate({"tokens": np.arange(12, dtype=np.int32).reshape(2, 6)},
+                                  T.GenerationConfig(max_new_tokens=3))
+        assert out.shape == (2, 3) and stats["model_shards"] == 2
+        with pytest.raises(T.SchedulerConfigError, match="static ServeEngine"):
+            T.ServeEngine(tcfg, tparams, rt=rt, device="cpu")
+        return
+    with pytest.raises(T.SchedulerConfigError, match="mesh must be a"):
         T.ContinuousServeEngine(tcfg, tparams, rt=T.AttentionRuntime(**rt_kw),
                                 serving=_serving(T, num_pages=33, **serving_kw),
                                 device="cpu")

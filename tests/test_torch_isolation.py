@@ -3,7 +3,8 @@ import with JAX and the JAX package made unimportable, and no JAX module is
 loaded afterwards. Entry points (the engines, the router, the tuner's
 objective, the train, serve and tune launchers) run on the GPU unless told
 otherwise: with no GPU and no explicit device they raise instead of running
-on the CPU; the train launcher refuses a mesh, naming its ROADMAP item."""
+on the CPU; the train launcher refuses a mesh, naming its ROADMAP item
+(A21b)."""
 import dataclasses
 import os
 import subprocess
@@ -32,7 +33,9 @@ for name in ("serving.trace", "serving.prng", "serving.speculative", "models.moe
              "optim.optimizers", "optim.schedule", "optim.compression", "data.pipeline",
              "checkpoint.manager", "checkpoint.msgpack_lite", "tuning.space",
              "tuning.frontier", "tuning.evolution", "tuning.objectives", "tuning.presets",
-             "tuning.energy", "launch.serve", "launch.tune"):
+             "tuning.energy", "launch.serve", "launch.tune", "launch.mesh",
+             "distributed.sharding", "distributed.rules", "distributed.cache_specs",
+             "distributed.collectives", "distributed.pipeline", "serving.sharded"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
@@ -66,10 +69,18 @@ def test_entry_points_need_a_gpu_or_an_explicit_device():
 
 
 def test_router_needs_a_gpu_or_an_explicit_device_and_refuses_a_mesh():
+    """The router forwards a mesh to every replica (each splits its own
+    arenas, all share one weight tree) and refuses what is not a mesh."""
+    from repro_torch.launch.mesh import make_serve_mesh
+
     cfg = dataclasses.replace(T.smoke_config(T.ARCHS["qwen1.5-0.5b"]), dtype="float32")
     params = init_params(cfg, 0, device="cpu")
-    with pytest.raises(T.SchedulerConfigError, match="ROADMAP A21"):
+    with pytest.raises(T.SchedulerConfigError, match="mesh must be a"):
         ReplicaRouter(cfg, params, num_replicas=2, mesh=object(), device="cpu")
+    mesh = make_serve_mesh(1, 2, devices="cpu")
+    router = ReplicaRouter(cfg, params, num_replicas=2, mesh=mesh)
+    assert all(e.mesh == mesh and e.model_shards == 2 for e in router.engines)
+    assert router.engines[1].params is router.engines[0].params
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -84,7 +95,7 @@ def test_train_entry_point_needs_a_gpu_or_an_explicit_device_and_refuses_a_mesh(
     args = ["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "1", "--batch", "2",
             "--seq", "8"]
     for mesh in ("single", "multi"):
-        with pytest.raises(ValueError, match="ROADMAP A21"):
+        with pytest.raises(ValueError, match="ROADMAP A21b"):
             main(args + ["--mesh", mesh, "--device", "cpu"])
     if torch.cuda.is_available():
         return

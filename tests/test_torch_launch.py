@@ -8,9 +8,11 @@ reference's own message, and a tune --smoke search that writes where it is
 told and nowhere else."""
 import dataclasses
 import hashlib
+import re
 
 import numpy as np
 import pytest
+import torch
 
 import repro_torch as T
 from repro.launch import serve as jserve
@@ -129,10 +131,25 @@ def test_argument_errors_match_the_reference(argv, capsys):
     assert "error: " in want and got == want
 
 
-def test_mesh_is_refused_naming_its_roadmap_item():
-    with pytest.raises(ValueError, match="ROADMAP A21"):
-        serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--continuous", "--mesh", "1,1",
-                    *SMALL])
+def test_mesh_is_refused_naming_its_roadmap_item(capsys):
+    """``--mesh`` serves the continuous engine over the mesh (the shards share
+    the CPU under ``--device cpu``) and prints the reference launcher's
+    mesh and arena lines; without ``--continuous`` it is still refused
+    (``ERRORS``), and without a device of its own it needs distinct GPUs."""
+    argv = ["--arch", "qwen1.5-0.5b", "--smoke", "--continuous", "--mesh", "1,2", *SMALL]
+    out = serve.main(argv)
+    assert out.shape == (2, 6)
+    lines = capsys.readouterr().out.splitlines()
+    assert "[serve] mesh: data=1 model=2 (arenas sharded over the kv-head axis)" in lines
+    arena = [ln for ln in lines if ln.startswith("[serve] arena: ")]
+    assert len(arena) == 1 and re.fullmatch(
+        r"\[serve\] arena: \d+\.\d\d MiB/device of \d+\.\d\d MiB total; interconnect "
+        r"\d+\.\d B/token \(per-head partial concat \+ latent pool gathers\)", arena[0])
+    np.testing.assert_array_equal(out, serve.main([a for a in argv if a not in ("--mesh",
+                                                                               "1,2")]))
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match=r"mesh \(1,2\) needs 2 devices, have 0"):
+            serve.main(argv[:-2])
 
 
 def _digest(path):
