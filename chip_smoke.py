@@ -386,6 +386,30 @@ Phases, each of which fails the run (nonzero exit) on a miss:
               (v6) the serve entry point with --mesh 1,2: at full width on
               two cards, refused on one naming the count. The phase prints
               its seconds
+ 12. train mesh the training mesh (train/sharded.py: FSDP storage by the
+              reference's specs, the ZeRO-3 step over the data replicas;
+              every position on the one card): (w1) full-width
+              qwen1.5-0.5b at float32 over Mesh(data 2, model 2), phase 9's
+              4 x 2048 tokens, deterministic algorithms on: an SGD-probe
+              step against the unsharded step in one pass and over the
+              mesh's own split of the rows (2 microbatches); 3 AdamW and 3
+              Adafactor steps against the unsharded step over that split:
+              every loss, and after the last step the parameters and every
+              state tensor, each within phase 9's TRAIN_TOL a tensor
+              (Adafactor's bf16 first moment within one bf16 step more);
+              then bf16 AdamW, 3 steps each way, the step times beside
+              each other; (w2) python -m
+              repro_torch.launch.train --mesh single --device cuda:0 (256
+              shards at full width, 2 steps of 16 x 512) against --mesh
+              none: final losses within 1e-3 relative, step times and peak
+              memory; --mesh multi (512 shards) at --smoke likewise; (w3)
+              compressed_psum over 8 shards of the card against the CPU,
+              the reference test's 20 steps: codes identical, its drift
+              bound; (w4) the sharded parameters and AdamW state at every
+              position of the (16, 16) mesh equal launch.dryrun's
+              per-device bytes. No kernel of B1-B10 is launched (the counts
+              are set to 0 before and read after). The phase prints its
+              seconds
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches, error and times.
@@ -393,6 +417,7 @@ every kernel with its launches, error and times.
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import dataclasses
 import hashlib
@@ -5233,6 +5258,336 @@ def tune_phase(T, ops, cpq_ops, errs: dict, smi: str, counted: list, routed: dic
         + ", ".join(f"{k} {s:.1f}" for k, s in seconds.items()))
 
 
+# ------------------------------------------------- phase 12: the training mesh
+
+TMESH_STEPS = 3             # (w1): AdamW and Adafactor steps over the (2, 2) mesh
+TMESH_LR = 1e-4             # (w1): the optimizers' (constant) lr
+TMESH_LOSS_TOL = 1e-3       # (w2): the launcher's losses, mesh vs none, relative
+TMESH_LAUNCH = ("--arch", TRAIN_ARCH, "--steps", "2", "--batch", "16", "--seq", "512",
+                "--log-every", "1")
+TMESH_SMOKE = ("--arch", TRAIN_ARCH, "--smoke", "--steps", "2", "--batch", "16", "--seq",
+               "32", "--log-every", "1")
+
+
+def leaf_names(tree, pre: str = "") -> list:
+    """The paths of a tree's leaves, in ``ref_leaves``' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{pre}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{pre}[{i}]")]
+    return [pre]
+
+
+def leaf_step_errs(got, want, old, allow=None) -> list:
+    """step_err leaf by leaf, less each leaf's ``allow`` (0 by default),
+    worked on the tensors' device in float64 (a full-width tree is too
+    large to move to the host for each check)."""
+    out = []
+    for i, (g, w, o) in enumerate(zip(got, want, old)):
+        g, w, o = (t.double() for t in (g, w, o))
+        d = float((g - w).abs().max()) - 2.0 ** -23 * float(w.abs().max())
+        d -= allow[i] if allow else 0.0
+        out.append(max(0.0, d) / max(REL_FLOOR, float((w - o).abs().max())))
+    return out
+
+
+def leaf_rel_errs(got, want) -> list:
+    """rel_err leaf by leaf on the tensors' device in float64; a bf16 leaf
+    (Adafactor's first moment) less one bf16 step of its largest |want|
+    (it may round one step the other way where its inputs differ in the
+    last float32 bit)."""
+    out = []
+    for g, w in zip(got, want):
+        allow = BF16_ULP * float(w.abs().max()) if w.dtype == torch.bfloat16 else 0.0
+        d = max(0.0, float((g.double() - w.double()).abs().max()) - allow)
+        out.append(d / max(REL_FLOOR, float(w.double().abs().max())))
+    return out
+
+
+def worst(errs: list, names: list) -> tuple[float, str]:
+    """The largest of per-leaf errors, and the name of its leaf."""
+    i = max(range(len(errs)), key=errs.__getitem__)
+    return errs[i], names[i]
+
+
+def sgd_sharded(lr: float):
+    """phase 9's SGD probe, also over sharded trees (train/sharded.py)."""
+    from repro_torch.optim import Optimizer
+    from repro_torch.params import tree_map
+
+    def sharded(g, st, p, step):
+        return tree_map(lambda gg, pp: pp.map(lambda a, b: (a.float() - lr * b).to(a.dtype),
+                                              gg), g, p), st
+
+    return Optimizer(init=lambda p: (),
+                     update=lambda g, st, p, step: (tree_map(lambda x: -lr * x, g), st),
+                     state_like=lambda p: (), state_specs=lambda ps, a: (),
+                     update_sharded=sharded)
+
+
+def mesh_step_parity(T, smi: str, report: dict) -> None:
+    """(w1): full-width qwen1.5-0.5b at float32 over Mesh(data 2, model 2)
+    of the one card against the unsharded step on the card, at TRAIN_SHAPE
+    (2 data replicas of 2 rows), deterministic algorithms on: an SGD-probe
+    step (its gradients reach the parameters as they are) against the
+    unsharded step in one pass and over the mesh's own split of the rows (2
+    microbatches); then TMESH_STEPS AdamW and TMESH_STEPS Adafactor steps
+    against the unsharded step over that split: every loss, and after the
+    last step the parameters and every state tensor, each within TRAIN_TOL,
+    phase 9's (t3) measure (Adafactor's bf16 first moment within one bf16
+    step more, and its parameters within lr times that a step). Then bf16:
+    TMESH_STEPS AdamW steps each way (the unsharded one in one pass), the
+    step times beside each other."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.params import init_params, ref_leaves, stack_blocks
+    from repro_torch.train.sharded import (gather_params, gather_tree, init_sharded,
+                                           make_mesh_train_step, replica_axes,
+                                           replica_devices)
+    from repro_torch.train.step import TrainStepCfg, make_train_step
+
+    out = report["train_mesh"]["w1"] = {}
+    base = T.get_config(TRAIN_ARCH)
+    check(base.num_blocks == 24 and base.d_model == 1024,
+          f"(w1) {TRAIN_ARCH} is not at its published widths")
+    mesh = make_serve_mesh(2, 2, devices=DEVICE)
+    B, S = TRAIN_SHAPE
+    tcfg = TrainStepCfg(microbatches=1, remat=True)
+    replicas = len(replica_devices(mesh, replica_axes(base, B, mesh)))
+    split = dataclasses.replace(tcfg, microbatches=replicas)
+    check(replicas == 2, f"(w1) {replicas} data replicas, not 2")
+    leaves = lambda t: ref_leaves(stack_blocks(t))  # noqa: E731
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        data = SyntheticLMData(cfg, ShapeCfg("train", S, B, "train"), DataConfig(seed=SEED))
+        batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(s).items()}
+                   for s in range(TMESH_STEPS)]
+        # the split's microbatches weigh alike, the mesh's replicas by their
+        # labelled tokens: one function where every row has as many
+        check(all(bool((b["labels"] >= 0).all()) for b in batches),
+              "(w1) the synthetic batch has unlabelled tokens")
+        params = init_params(cfg, SEED, DEVICE)
+        names = leaf_names(stack_blocks(params))
+        old = leaves(params)
+        res = out[dtype] = {}
+        # float32 with deterministic algorithms (the embedding's backward
+        # otherwise sums with atomics), so that the gated numbers repeat
+        torch.use_deterministic_algorithms(dtype == "float32", warn_only=True)
+        if dtype == "float32":
+            sgd = sgd_sharded(PARITY_LR)
+            sp, _ = init_sharded(cfg, sgd, params, mesh)
+            got, _, m_got = make_mesh_train_step(cfg, sgd, tcfg, mesh)(sp, (), 0, batches[0])
+            got = ref_leaves(gather_tree(got, DEVICE))
+            del sp
+            for k in (1, replicas):
+                want, _, m_want = make_train_step(cfg, sgd, dataclasses.replace(
+                    tcfg, microbatches=k))(params, (), 0, batches[0])
+                res[f"sgd_loss_rel_mb{k}"] = abs(float(m_got["loss"]) - float(
+                    m_want["loss"])) / abs(float(m_want["loss"]))
+                res[f"sgd_step_mb{k}"], res[f"sgd_worst_mb{k}"] = worst(
+                    leaf_step_errs(got, leaves(want), old), names)
+                del want
+            del got
+        opts = (("adamw", adamw(TMESH_LR, weight_decay=0.1)),
+                ("adafactor", adafactor(TMESH_LR))) if dtype == "float32" else (
+            ("adamw", adamw(TMESH_LR, weight_decay=0.1)),)
+        for name, opt in opts:
+            ref_cfg = split if dtype == "float32" else tcfg
+            step = make_train_step(cfg, opt, ref_cfg)
+            mesh_step = make_mesh_train_step(cfg, opt, tcfg, mesh)
+            p, st = params, opt.init(params)
+            sp, sst = init_sharded(cfg, opt, params, mesh)
+            losses, secs = {"mesh": [], "none": []}, {"mesh": [], "none": []}
+            for s in range(TMESH_STEPS):
+                t = time.perf_counter()
+                p, st, m = step(p, st, s, batches[s])
+                torch.cuda.synchronize()
+                secs["none"].append(time.perf_counter() - t)
+                losses["none"].append(float(m["loss"]))
+                t = time.perf_counter()
+                sp, sst, m = mesh_step(sp, sst, s, batches[s])
+                torch.cuda.synchronize()
+                secs["mesh"].append(time.perf_counter() - t)
+                losses["mesh"].append(float(m["loss"]))
+            r = res[name] = {"losses": losses, "step_s": secs, "loss_rel": max(
+                abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["none"]))}
+            # Adafactor: a bf16 moment one step the other way moves the update
+            # by lr times that step, each step
+            allow = ([TMESH_STEPS * TMESH_LR * BF16_ULP * float(x.abs().max())
+                      for x in ref_leaves(st.m)] if name == "adafactor" else None)
+            r["params"], r["params_worst"] = worst(
+                leaf_step_errs(leaves(gather_params(sp, DEVICE)), leaves(p), old, allow), names)
+            snames = leaf_names(tuple(st))
+            r["state"], r["state_worst"] = worst(
+                leaf_rel_errs(ref_leaves(gather_tree(sst, DEVICE)), ref_leaves(st)), snames)
+            how = (f"over the same split ({replicas} microbatches)" if ref_cfg is split
+                   else "in one pass")
+            log(f"(w1) [{smi}] {TRAIN_ARCH} {dtype} {name} lr {TMESH_LR} over Mesh(data 2, "
+                f"model 2) of one card, {B} x {S} tokens, against the unsharded step {how}: "
+                f"losses mesh {', '.join(f'{x:.6f}' for x in losses['mesh'])} vs "
+                f"{', '.join(f'{x:.6f}' for x in losses['none'])} (rel {r['loss_rel']:.3e}); "
+                f"step s mesh {', '.join(f'{x:.3f}' for x in secs['mesh'])} vs unsharded "
+                f"{', '.join(f'{x:.3f}' for x in secs['none'])}; after {TMESH_STEPS} steps "
+                f"parameters {r['params']:.3e} (worst {r['params_worst']}), state "
+                f"{r['state']:.3e} (worst {r['state_worst']})")
+            check(all(math.isfinite(x) for x in losses["mesh"]),
+                  f"(w1) {dtype} {name}: a loss is not finite")
+            if dtype == "float32":
+                for key in ("loss_rel", "params", "state"):
+                    check(r[key] <= TRAIN_TOL,
+                          f"(w1) {name} {key} {r[key]:.3e} past {TRAIN_TOL}")
+            del p, st, sp, sst
+        if dtype == "float32":
+            log(f"(w1) float32 SGD probe, each tensor over its own largest (gate "
+                f"{TRAIN_TOL}): against the unsharded step in one pass: loss "
+                f"{res['sgd_loss_rel_mb1']:.3e}, change of the parameters "
+                f"{res['sgd_step_mb1']:.3e} (worst {res['sgd_worst_mb1']}); over the same "
+                f"split ({replicas} microbatches): loss {res[f'sgd_loss_rel_mb{replicas}']:.3e}, "
+                f"parameters {res[f'sgd_step_mb{replicas}']:.3e}")
+            for key in ("sgd_loss_rel_mb1", "sgd_step_mb1", f"sgd_loss_rel_mb{replicas}",
+                        f"sgd_step_mb{replicas}"):
+                check(res[key] <= TRAIN_TOL, f"(w1) {key} {res[key]:.3e} past {TRAIN_TOL}")
+        del params, batches
+        torch.use_deterministic_algorithms(False)
+        torch.cuda.empty_cache()
+
+
+def launcher_run(argv: list) -> dict:
+    """One train launcher run in this process: its final loss, [train]
+    records, seconds and peak device memory."""
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        loss = train.main(argv)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    recs = [ast.literal_eval(ln[len("[train] "):]) for ln in lines
+            if ln.startswith("[train] {")]
+    return {"loss": loss, "records": recs, "lines": lines, "s": time.perf_counter() - t,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "step_s": [b["elapsed_s"] - a["elapsed_s"] for a, b in zip(recs, recs[1:])]}
+
+
+def mesh_launcher_train(smi: str, report: dict) -> None:
+    """(w2): the train entry point with --mesh single on the card (256
+    shards at full width) against --mesh none with the same flags, and
+    --mesh multi (512 shards) at --smoke against --mesh none."""
+    out = report["train_mesh"]["w2"] = {}
+    for what, flags, mesh in (("full", TMESH_LAUNCH, "single"),
+                              ("smoke", TMESH_SMOKE, "multi")):
+        runs = {m: launcher_run([*flags, "--device", f"{DEVICE}:0" if DEVICE == "cuda"
+                                 else DEVICE, "--mesh", m]) for m in ("none", mesh)}
+        rel = abs(runs[mesh]["loss"] - runs["none"]["loss"]) / abs(runs["none"]["loss"])
+        out[what] = {m: {k: v for k, v in r.items() if k != "lines"} for m, r in runs.items()}
+        out[what]["loss_rel"] = rel
+        mesh_line = next(ln for ln in runs[mesh]["lines"] if ln.startswith("[train] mesh:"))
+        log(f"(w2) [{smi}] launch.train {' '.join(flags)} --mesh {mesh} ({mesh_line[8:]}): "
+            f"final loss {runs[mesh]['loss']:.6f} vs --mesh none {runs['none']['loss']:.6f} "
+            f"(rel {rel:.3e}, gate {TMESH_LOSS_TOL}); step 2 "
+            f"{runs[mesh]['step_s'][-1]:.3f} s vs {runs['none']['step_s'][-1]:.3f} s; run "
+            f"{runs[mesh]['s']:.1f} s vs {runs['none']['s']:.1f} s; peak device memory "
+            f"{runs[mesh]['peak_bytes'] / 1e9:.3f} GB vs {runs['none']['peak_bytes'] / 1e9:.3f}")
+        check(rel <= TMESH_LOSS_TOL, f"(w2) {what} --mesh {mesh}: loss off by {rel:.3e}")
+
+
+def mesh_compressed_psum(report: dict) -> None:
+    """(w3): compressed_psum over 8 shards of the card against the CPU, the
+    reference test's 20 error-feedback steps on (8, 128) seeded rows: the
+    codes identical, and the reference's drift bound."""
+    from repro_torch.distributed.collectives import shard_along
+    from repro_torch.optim.compression import compressed_psum
+
+    x = torch.from_numpy(np.random.default_rng(SEED).normal(size=(8, 128)).astype(np.float32))
+    runs = {}
+    for where in (DEVICE, "cpu"):
+        xs = shard_along(x, 0, [torch.device(where)] * 8)
+        errs = [torch.zeros_like(t) for t in xs]
+        codes, means = [], []
+        for _ in range(20):
+            xf = torch.cat([t + e for t, e in zip(xs, errs)]).cpu()
+            m, errs = compressed_psum(xs, errs)
+            ne = torch.cat(errs).cpu()
+            scale = max(float(xf.abs().max()) / 127.0, 1e-12)
+            codes.append(torch.round((xf - ne) / scale).to(torch.int64))
+            means.append(m[0][0].cpu())
+        runs[where] = (codes, means)
+    same = all(torch.equal(a, b) for a, b in zip(runs[DEVICE][0], runs["cpu"][0]))
+    means = runs[DEVICE][1]
+    true_mean = x.mean(0)
+    drift = float((sum(means) / 20 - true_mean).abs().max())
+    one = float((means[-1] - true_mean).abs().max())
+    mean_err = max(float((a - b).abs().max()) for a, b in zip(means, runs["cpu"][1]))
+    report["train_mesh"]["w3"] = {"codes_identical": same, "drift": drift, "one": one,
+                                  "mean_card_vs_cpu": mean_err}
+    log(f"(w3) compressed_psum over 8 shards of the card vs the CPU, 20 steps: codes "
+        f"identical {same}, means within {mean_err:.3e}; drift {drift:.3e} < "
+        f"{one:.3e} x 0.5 + 1e-5")
+    check(same, "(w3) compressed_psum codes differ card vs CPU")
+    check(drift < one * 0.5 + 1e-5, f"(w3) drift {drift} past {one} x 0.5 + 1e-5")
+
+
+def mesh_state_bytes(T, report: dict) -> None:
+    """(w4): full-width qwen1.5-0.5b's sharded parameters and AdamW state on
+    the production mesh (16 x 16) of the card: the bytes at every grid
+    position equal launch.dryrun's per-device bytes for the cell."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.params import init_params
+    from repro_torch.train.sharded import init_sharded, position_bytes
+
+    cfg = T.get_config(TRAIN_ARCH)
+    mesh = make_production_mesh(False, DEVICE)
+    opt = adamw(TMESH_LR)
+    sp, sst = init_sharded(cfg, opt, init_params(cfg, SEED, DEVICE), mesh)
+    rec = dryrun.trace_cell(TRAIN_ARCH, "train_4k", False, count_flops=False)
+    held = {(position_bytes(sp, pos), position_bytes(sst, pos))
+            for pos in np.ndindex(*mesh.devices.shape)}
+    want = (rec["param_bytes_per_device"], rec["state_bytes_per_device"])
+    report["train_mesh"]["w4"] = {"positions": int(mesh.devices.size),
+                                  "held": sorted(held), "dryrun": want}
+    log(f"(w4) {TRAIN_ARCH} on the (16, 16) mesh: every one of {mesh.devices.size} positions "
+        f"holds {sorted(held)} bytes (parameters, AdamW state); launch.dryrun's per-device "
+        f"bytes {want}")
+    check(held == {want}, f"(w4) position bytes {sorted(held)} vs the dry-run's {want}")
+    del sp, sst
+    torch.cuda.empty_cache()
+
+
+def train_mesh_phase(T, smi: str, counted: list, routed: dict, fa_routes: dict,
+                     report: dict) -> None:
+    """Phase 12: the training mesh, (w1)-(w4); no kernel of B1-B10 may be
+    launched (the reference's training reaches none)."""
+    t0 = time.perf_counter()
+    report["train_mesh"] = {}
+    zero_launches(counted, fa_routes)
+    zero_routes(routed)
+    seconds = {}
+    for what, fn in (("(w1)", lambda: mesh_step_parity(T, smi, report)),
+                     ("(w2)", lambda: mesh_launcher_train(smi, report)),
+                     ("(w3)", lambda: mesh_compressed_psum(report)),
+                     ("(w4)", lambda: mesh_state_bytes(T, report))):
+        t1 = time.perf_counter()
+        fn()
+        seconds[what] = time.perf_counter() - t1
+    launched = {k: c for k, c in {
+        **counted_launches(counted, fa_routes),
+        **{f"{name}/{r}": n for name, (c, _) in routed.items() for r, n in c.items()}}.items()
+        if c}
+    report["train_mesh"].update(seconds=time.perf_counter() - t0, step_seconds=seconds,
+                                launches=launched)
+    check(not launched, f"(w) the training mesh launched attention kernels: {launched}")
+    log(f"[{time.perf_counter() - T0:.0f} s] phase 12 (training mesh) took "
+        f"{report['train_mesh']['seconds']:.1f} s: "
+        + ", ".join(f"{k} {s:.1f}" for k, s in seconds.items()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the report as JSON here")
@@ -5760,6 +6115,12 @@ def main() -> int:
     #     collectives and GPipe, the launcher
     mesh_phase(T, M, ops, cpq_ops, t1_ops, t3_ops, kmods, routed, errs, unsharded, smi,
                t3_cfg, report, args.mesh_depth)
+
+    # 12) the training mesh: full-width qwen1.5-0.5b over a mesh of the
+    #     card against the unsharded step, the launcher's --mesh,
+    #     compressed_psum, the dry-run's bytes
+    train_mesh_phase(T, smi, counted, {**routed, **static_routed}, fa_ops.ROUTE_LAUNCHES,
+                     report)
 
     kernel_mod = {**kmods, "flash_attention_prompt": fa_ops}
     replaces = {"paged_decode": "src/repro/kernels/flash_attn/kernel.py:223",

@@ -418,6 +418,21 @@ SHAPES: dict[str, ShapeCfg] = {
 }
 
 
+# the configurations the dry-run covers: every one but opt-6.7b
+ASSIGNED = tuple(n for n in ARCHS if n != "opt-6.7b")
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeCfg) -> tuple[bool, str]:
+    """Whether (arch x shape) is a defined cell, and why not if skipped."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, (
+            "long_500k requires sub-quadratic attention; "
+            f"{cfg.name} is pure full-attention (enable attention.mode='retrieval' "
+            "— the paper's T3 — to run this cell)"
+        )
+    return True, ""
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")

@@ -8,8 +8,8 @@ thread prefetches ``prefetch`` steps ahead.
 
 The token stream is a Zipf-ish categorical over the vocab with a repeating
 bigram structure, so next-token loss is learnable with no corpus.
-``make_batch_specs`` (sharding specs of a batch) waits for multi-device
-training (ROADMAP A21b).
+``make_batch_specs`` gives a batch's PartitionSpecs over a mesh (its rows
+over the batch axes), which the training mesh splits it by.
 """
 from __future__ import annotations
 
@@ -89,3 +89,11 @@ class SyntheticLMData:
                 yield q.get()
         finally:
             stop.set()
+
+
+def make_batch_specs(cfg: ModelConfig, batch: dict, batch_axes: tuple):
+    """PartitionSpecs matching a concrete batch dict: rows over
+    ``batch_axes``, the other dimensions whole."""
+    from repro_torch.distributed.sharding import PartitionSpec as P
+    b = batch_axes if batch_axes else None
+    return {k: P(b, *([None] * (a.ndim - 1))) for k, a in batch.items()}

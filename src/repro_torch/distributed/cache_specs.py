@@ -1,14 +1,91 @@
-"""PartitionSpec trees of the paged serving arenas (the paged half of the
-JAX package's ``distributed/cache_specs.py``). The contiguous
-``layer_cache_specs`` and ``cache_pspecs`` wait for ROADMAP A21b.
+"""PartitionSpec trees of the decode caches (the JAX package's
+``distributed/cache_specs.py``): the contiguous arenas of
+``models/model.init_caches`` (``layer_cache_specs``, ``cache_pspecs``) and
+the paged serving arenas (``paged_cache_pspecs``).
 
-The port keeps one arena a layer (``models/model.init_paged_caches``), so
-``paged_cache_pspecs`` gives one spec a layer where the reference's stacked
-block arenas carry a leading replicated layer axis."""
+Contiguous strategy (``distributed/rules.py``): batch over (pod,) data;
+feature dims (head dim, latent dim, d_inner) over model, so one-token
+cache writes stay local; a batch-1 long-context shape shards the token
+arena over the axes the batch cannot use.
+
+The port keeps one arena a layer (``models/model.init_caches`` and
+``init_paged_caches``), so both trees give one spec a layer where the
+reference's stacked block arenas carry a leading replicated layer axis."""
 from __future__ import annotations
 
 from repro_torch.configs import AttentionRuntime, ModelConfig
 from repro_torch.distributed.sharding import PartitionSpec as P
+
+
+def _cpq_tensor_specs(b, s):
+    from repro_torch.core.cpq import CPQTensor
+    return CPQTensor(
+        codes=P(b, s, None, "model"),
+        scale=P(b, None, None, "model"),
+        zero=P(b, None, None, "model"),
+        level=P(b, s, None),
+        num_levels=P(b, None),
+        prune_thr=P(b, None, "model"),
+    )
+
+
+def layer_cache_specs(cfg: ModelConfig, rt: AttentionRuntime, kind, b, s):
+    """One layer's contiguous cache specs. b: mesh axes for the batch (str,
+    tuple or None); s: mesh axes for the token arena."""
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.models.mamba import MambaState
+    from repro_torch.models.xlstm import MLSTMState, SLSTMState
+
+    mixer, _ = kind
+    if mixer == "xattn":
+        return kvc.DenseKVCache(k=P(b, None, None, "model"),
+                                v=P(b, None, None, "model"), length=P())
+    if mixer == "mla":
+        if rt.mode == "cpq":
+            return kvc.CPQXCache(x=_cpq_tensor_specs(b, s),
+                                 k_rope=P(b, s, None, None), length=P())
+        return kvc.XCache(x=P(b, s, "model"), k_rope=P(b, s, None, None), length=P())
+    if mixer == "attn":
+        if rt.mode == "dense":
+            return kvc.DenseKVCache(k=P(b, s, None, "model"),
+                                    v=P(b, s, None, "model"), length=P())
+        if rt.mode == "decomposed":
+            return kvc.XCache(x=P(b, s, "model"), k_rope=P(b, s, None, None), length=P())
+        if rt.mode == "decomposed_cpq":
+            return kvc.CPQXCache(x=_cpq_tensor_specs(b, s),
+                                 k_rope=P(b, s, None, None), length=P())
+        if rt.mode == "cpq":
+            return kvc.CPQKVCache(k=_cpq_tensor_specs(b, s),
+                                  v=_cpq_tensor_specs(b, s), length=P())
+        if rt.mode == "retrieval":
+            return kvc.RetrievalCache(
+                k=P(b, s, None, "model"), v=P(b, s, None, "model"),
+                proxy=P(b, s, None, "model"),
+                proxy_scale=P(b, None, "model"), proxy_zero=P(b, None, "model"),
+                length=P())
+        raise ValueError(rt.mode)
+    if mixer == "mamba":
+        return MambaState(conv=P(b, None, "model"), h=P(b, "model", None))
+    if mixer == "mlstm":
+        return MLSTMState(C=P(b, None, None, "model"), n=P(b, None, "model"),
+                          m=P(b, None), conv=P(b, None, "model"))
+    if mixer == "slstm":
+        return SLSTMState(c=P(b, "model"), n=P(b, "model"),
+                          h=P(b, "model"), m=P(b, "model"))
+    raise ValueError(mixer)
+
+
+def cache_pspecs(cfg: ModelConfig, rt: AttentionRuntime, batch_axes, seq_axes):
+    """Spec tree matching ``models.model.init_caches``: {"prefix": [spec a
+    layer], "blocks": [[spec a block] a pattern position]}."""
+    b = batch_axes if batch_axes else None
+    s = seq_axes if seq_axes else None
+    return {"prefix": [layer_cache_specs(cfg, rt, k, b, s) for k in cfg.prefix_pattern],
+            "blocks": [[layer_cache_specs(cfg, rt, k, b, s) for _ in range(cfg.num_blocks)]
+                       for k in cfg.block_pattern]}
+
+
+# ------------------------------------------------------- paged serving arenas
 
 
 def _paged_cpq_specs(rules: dict, latent: bool):

@@ -15,9 +15,18 @@ the reference's stacked layout beside the optimizer state, so either
 package restores it), saves asynchronously every ``--ckpt-every`` steps
 and once at the end, replays the batch sequence exactly (the data is a pure
 function of the step) and appends its ``[train]`` records to
-``<ckpt-dir>/metrics.jsonl``. ``--mesh single|multi`` (multi-device
-training) is refused: it waits for ROADMAP A21b (the serving mesh is
-ported: launch/serve.py --mesh).
+``<ckpt-dir>/metrics.jsonl``.
+
+``--mesh single|multi`` trains over ``make_production_mesh`` ((16, 16)
+data x model, or (2, 16, 16) pod x data x model) through
+``train/sharded.py``: parameters and optimizer state split by their fitted
+specs (FSDP over data, and pod, storage over model), the step ZeRO-3 over
+the data replicas. A device given with ``--device`` stands for every
+position of the grid (the CPU tests and one card run the 256 or 512
+shards so); without it the visible CUDA devices are used, each once, and
+too few are refused with the count. Checkpoints are saved gathered, in the
+reference's layout, so a mesh run resumes an unsharded run's checkpoint
+and the reverse.
 """
 from __future__ import annotations
 
@@ -32,7 +41,10 @@ from repro_torch.checkpoint import CheckpointManager, split_train_state, train_s
 from repro_torch.configs import ShapeCfg, get_config, smoke_config
 from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.optim import adafactor, adamw, cosine_schedule
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.params import init_params, resolve_device
+from repro_torch.train.sharded import (gather_params, gather_tree, init_sharded,
+                                       make_mesh_train_step)
 from repro_torch.train.step import TrainStepCfg, make_train_step
 
 
@@ -56,10 +68,12 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the plain path there)")
     args = ap.parse_args(argv)
+    mesh = None
     if args.mesh != "none":
-        raise ValueError(f"--mesh {args.mesh}: multi-device training is not ported yet "
-                         "(ROADMAP A21b)")
-    device = resolve_device(args.device)
+        mesh = make_production_mesh(args.mesh == "multi", args.device)
+        device = mesh.devices.reshape(-1)[0]
+    else:
+        device = resolve_device(args.device)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -67,8 +81,7 @@ def main(argv=None):
     shape = ShapeCfg("train", args.seq, args.batch, "train")
     lr = cosine_schedule(args.lr, args.warmup, args.steps)
     opt = adamw(lr) if args.optimizer == "adamw" else adafactor(lr)
-    step_fn = make_train_step(cfg, opt, TrainStepCfg(microbatches=args.microbatches,
-                                                     remat=args.remat))
+    tcfg = TrainStepCfg(microbatches=args.microbatches, remat=args.remat)
     data = SyntheticLMData(cfg, shape, DataConfig(seed=args.seed))
     params = init_params(cfg, args.seed, device)
     opt_state = opt.init(params)
@@ -80,6 +93,17 @@ def main(argv=None):
         params, opt_state = split_train_state(
             ckpt.restore(start, train_state(params, opt_state)))
         print(f"[train] resumed from step {start}")
+    if mesh is None:
+        step_fn = make_train_step(cfg, opt, tcfg)
+        whole = lambda p, s: (p, s)  # noqa: E731
+    else:
+        params, opt_state = init_sharded(cfg, opt, params, mesh, state=opt_state)
+        step_fn = make_mesh_train_step(cfg, opt, tcfg, mesh)
+        print(f"[train] mesh: {' '.join(f'{a}={n}' for a, n in mesh.shape.items())} over "
+              f"{len(set(str(d) for d in mesh.devices.reshape(-1)))} device(s)")
+
+        def whole(p, s):  # the gathered trees, for a checkpoint
+            return gather_params(p, device), gather_tree(s, device)
 
     log_path = Path(args.ckpt_dir) / "metrics.jsonl" if args.ckpt_dir else None
     it = data.iter_from(start)
@@ -97,9 +121,9 @@ def main(argv=None):
                     with open(log_path, "a") as f:
                         f.write(json.dumps(rec) + "\n")
             if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save_async(step + 1, train_state(params, opt_state))
+                ckpt.save_async(step + 1, train_state(*whole(params, opt_state)))
         if ckpt:
-            ckpt.save(args.steps, train_state(params, opt_state))
+            ckpt.save(args.steps, train_state(*whole(params, opt_state)))
     finally:
         it.close()
         if ckpt:

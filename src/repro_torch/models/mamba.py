@@ -39,15 +39,15 @@ def mamba_defs(cfg: ModelConfig):
     d, dt = cfg.d_model, cfg.param_dtype
     d_in, dt_rank, d_state, d_conv = _dims(cfg)
     f32 = torch.float32
-    return {"in_proj": ParamSpec((d, 2 * d_in), dt),
-            "conv_w": ParamSpec((d_conv, d_in), dt),
-            "conv_b": ParamSpec((d_in,), f32, "zeros"),
-            "x_proj": ParamSpec((d_in, dt_rank + 2 * d_state), dt),
-            "dt_w": ParamSpec((dt_rank, d_in), dt),
-            "dt_bias": ParamSpec((d_in,), f32, "zeros"),
-            "A_log": ParamSpec((d_in, d_state), f32, "s4d"),
-            "D": ParamSpec((d_in,), f32, "ones"),
-            "out_proj": ParamSpec((d_in, d), dt)}
+    return {"in_proj": ParamSpec((d, 2 * d_in), dt, ("embed", "mlp")),
+            "conv_w": ParamSpec((d_conv, d_in), dt, (None, "mlp")),
+            "conv_b": ParamSpec((d_in,), f32, (None,), "zeros"),
+            "x_proj": ParamSpec((d_in, dt_rank + 2 * d_state), dt, ("mlp", None)),
+            "dt_w": ParamSpec((dt_rank, d_in), dt, (None, "mlp")),
+            "dt_bias": ParamSpec((d_in,), f32, (None,), "zeros"),
+            "A_log": ParamSpec((d_in, d_state), f32, ("mlp", None), "s4d"),
+            "D": ParamSpec((d_in,), f32, (None,), "ones"),
+            "out_proj": ParamSpec((d_in, d), dt, ("mlp", "embed"))}
 
 
 class MambaState(NamedTuple):

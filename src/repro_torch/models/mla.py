@@ -44,12 +44,12 @@ def mla_defs(cfg: ModelConfig):
     d, H = cfg.d_model, cfg.num_heads
     L, Dn, Dr, Dv = _dims(cfg)
     dt = cfg.param_dtype
-    return {"wq": ParamSpec((d, H * (Dn + Dr)), dt),
-            "wdkv": ParamSpec((d, L + Dr), dt),
-            "kv_norm": ParamSpec((L,), torch.float32, "ones"),
-            "wuk": ParamSpec((L, H, Dn), dt),
-            "wuv": ParamSpec((L, H, Dv), dt),
-            "wo": ParamSpec((H * Dv, d), dt)}
+    return {"wq": ParamSpec((d, H * (Dn + Dr)), dt, ("embed", "heads")),
+            "wdkv": ParamSpec((d, L + Dr), dt, ("embed", None)),
+            "kv_norm": ParamSpec((L,), torch.float32, (None,), "ones"),
+            "wuk": ParamSpec((L, H, Dn), dt, (None, "heads", None)),
+            "wuv": ParamSpec((L, H, Dv), dt, (None, "heads", None)),
+            "wo": ParamSpec((H * Dv, d), dt, ("heads", "embed"))}
 
 
 def _project(cfg: ModelConfig, p, x: torch.Tensor):

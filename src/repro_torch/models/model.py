@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import AttentionRuntime, CPQCfg, ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, embed_inputs, lm_logits
+from repro_torch.params import model_defs, spec_tree, stack_blocks, stack_defs, tree_map
 from repro_torch.serving import paged_cache as pgc
 from repro_torch.serving.paged_cache import RowState
 
@@ -57,6 +58,26 @@ def _tree(cfg: ModelConfig, layers: list):
     nb, npos = cfg.num_blocks, len(cfg.block_pattern)
     return {"prefix": layers[:n],
             "blocks": [[layers[n + i * npos + j] for i in range(nb)] for j in range(npos)]}
+
+
+def abstract_params(cfg: ModelConfig, stacked: bool = False):
+    """The parameter tree on the ``meta`` device (shapes and dtypes,
+    nothing allocated): the port's per-layer layout, or with ``stacked``
+    the reference's (each block-pattern position's layers in one
+    (num_blocks, ...) leaf)."""
+    defs = model_defs(cfg)
+    tree = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), defs)
+    return stack_blocks(tree) if stacked else tree
+
+
+def param_specs(cfg: ModelConfig, rules: dict, mesh_shape: dict | None = None,
+                stacked: bool = False):
+    """PartitionSpecs of the parameters from their logical axes
+    (``params.spec_tree``): one a layer in the port's layout, or with
+    ``stacked`` the reference's ``param_specs`` (a leading ``"layers"``
+    axis, rule None, on each stacked block leaf)."""
+    defs = model_defs(cfg)
+    return spec_tree(stack_defs(defs) if stacked else defs, rules, mesh_shape)
 
 
 def init_caches(cfg: ModelConfig, rt: AttentionRuntime, batch: int, n_max: int, device):

@@ -28,14 +28,15 @@ def moe_defs(cfg: ModelConfig):
     m = cfg.moe
     d, dt = cfg.d_model, cfg.param_dtype
     E, Fe = m.num_experts, m.d_ff_expert
-    p = {"router": ParamSpec((d, E), torch.float32),
-         "w_gate": ParamSpec((E, d, Fe), dt),
-         "w_up": ParamSpec((E, d, Fe), dt),
-         "w_down": ParamSpec((E, Fe, d), dt)}
+    p = {"router": ParamSpec((d, E), torch.float32, ("embed", None)),
+         "w_gate": ParamSpec((E, d, Fe), dt, ("experts", "embed", "expert_mlp")),
+         "w_up": ParamSpec((E, d, Fe), dt, ("experts", "embed", "expert_mlp")),
+         "w_down": ParamSpec((E, Fe, d), dt, ("experts", "expert_mlp", "embed"))}
     if m.num_shared > 0:
         fs = m.num_shared * Fe
-        p["shared"] = {"w_gate": ParamSpec((d, fs), dt), "w_up": ParamSpec((d, fs), dt),
-                       "w_down": ParamSpec((fs, d), dt)}
+        p["shared"] = {"w_gate": ParamSpec((d, fs), dt, ("embed", "mlp")),
+                       "w_up": ParamSpec((d, fs), dt, ("embed", "mlp")),
+                       "w_down": ParamSpec((fs, d), dt, ("mlp", "embed"))}
     return p
 
 

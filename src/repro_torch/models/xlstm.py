@@ -46,16 +46,16 @@ def mlstm_defs(cfg: ModelConfig):
     d, dt = cfg.d_model, cfg.param_dtype
     d_in, H, _ = _mdims(cfg)
     f32 = torch.float32
-    return {"up": ParamSpec((d, 2 * d_in), dt),
-            "conv_w": ParamSpec((cfg.xlstm.conv_kernel, d_in), dt),
-            "conv_b": ParamSpec((d_in,), f32, "zeros"),
-            "wq": ParamSpec((d_in, d_in), dt),
-            "wk": ParamSpec((d_in, d_in), dt),
-            "wv": ParamSpec((d_in, d_in), dt),
-            "w_if": ParamSpec((d_in, 2 * H), f32),
-            "b_if": ParamSpec((2 * H,), f32, "zeros"),
-            "norm": ParamSpec((d_in,), f32, "ones"),
-            "down": ParamSpec((d_in, d), dt)}
+    return {"up": ParamSpec((d, 2 * d_in), dt, ("embed", "mlp")),
+            "conv_w": ParamSpec((cfg.xlstm.conv_kernel, d_in), dt, (None, "mlp")),
+            "conv_b": ParamSpec((d_in,), f32, (None,), "zeros"),
+            "wq": ParamSpec((d_in, d_in), dt, ("mlp", None)),
+            "wk": ParamSpec((d_in, d_in), dt, ("mlp", None)),
+            "wv": ParamSpec((d_in, d_in), dt, ("mlp", None)),
+            "w_if": ParamSpec((d_in, 2 * H), f32, ("mlp", None)),
+            "b_if": ParamSpec((2 * H,), f32, (None,), "zeros"),
+            "norm": ParamSpec((d_in,), f32, (None,), "ones"),
+            "down": ParamSpec((d_in, d), dt, ("mlp", "embed"))}
 
 
 class MLSTMState(NamedTuple):
@@ -203,13 +203,13 @@ def slstm_defs(cfg: ModelConfig):
     dh = d // H
     up = int(cfg.xlstm.proj_factor * d)
     f32 = torch.float32
-    return {"w": ParamSpec((d, 4 * d), dt),
-            "r": ParamSpec((4, H, dh, dh), dt),
-            "b": ParamSpec((4 * d,), f32, "zeros"),
-            "norm": ParamSpec((d,), f32, "ones"),
-            "up_1": ParamSpec((d, up), dt),
-            "up_2": ParamSpec((d, up), dt),
-            "down": ParamSpec((up, d), dt)}
+    return {"w": ParamSpec((d, 4 * d), dt, ("embed", "mlp")),
+            "r": ParamSpec((4, H, dh, dh), dt, (None, "heads", None, None)),
+            "b": ParamSpec((4 * d,), f32, (None,), "zeros"),
+            "norm": ParamSpec((d,), f32, (None,), "ones"),
+            "up_1": ParamSpec((d, up), dt, ("embed", "mlp")),
+            "up_2": ParamSpec((d, up), dt, ("embed", "mlp")),
+            "down": ParamSpec((up, d), dt, ("mlp", "embed"))}
 
 
 class SLSTMState(NamedTuple):

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.distributed.sharding import PartitionSpec
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,17 +53,26 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclass(frozen=True)
 class ParamSpec:
+    """One parameter: its shape, dtype, one logical sharding axis (or None)
+    a dimension, as the reference's ``ParamDef`` names them (``"embed"``,
+    ``"heads"``, ``"mlp"``, ...; ``distributed/rules.py`` maps them onto
+    mesh axes), and its initializer."""
     shape: tuple[int, ...]
     dtype: torch.dtype
+    axes: tuple
     init: str = "fan_in"  # fan_in | normal | zeros | ones | s4d
     scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"{self.shape} given the logical axes {self.axes}")
 
 
 def norm_defs(cfg: ModelConfig, dim: int | None = None):
     d = dim or cfg.d_model
-    out = {"scale": ParamSpec((d,), torch.float32, "ones")}
+    out = {"scale": ParamSpec((d,), torch.float32, (None,), "ones")}
     if cfg.norm == "layernorm":
-        out["bias"] = ParamSpec((d,), torch.float32, "zeros")
+        out["bias"] = ParamSpec((d,), torch.float32, (None,), "zeros")
     return out
 
 
@@ -72,29 +82,32 @@ def attn_defs(cfg: ModelConfig, cross: bool = False):
     ``gate`` at zero, whose tanh scales the layer's output."""
     d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = cfg.param_dtype
-    p = {"wq": ParamSpec((d, H * Dh), dt), "wk": ParamSpec((d, KV * Dh), dt),
-         "wv": ParamSpec((d, KV * Dh), dt), "wo": ParamSpec((H * Dh, d), dt)}
+    p = {"wq": ParamSpec((d, H * Dh), dt, ("embed", "heads")),
+         "wk": ParamSpec((d, KV * Dh), dt, ("embed", "kv_heads")),
+         "wv": ParamSpec((d, KV * Dh), dt, ("embed", "kv_heads")),
+         "wo": ParamSpec((H * Dh, d), dt, ("heads", "embed"))}
     if cfg.qkv_bias:
-        p["bq"] = ParamSpec((H * Dh,), torch.float32, "zeros")
-        p["bk"] = ParamSpec((KV * Dh,), torch.float32, "zeros")
-        p["bv"] = ParamSpec((KV * Dh,), torch.float32, "zeros")
+        p["bq"] = ParamSpec((H * Dh,), torch.float32, (None,), "zeros")
+        p["bk"] = ParamSpec((KV * Dh,), torch.float32, (None,), "zeros")
+        p["bv"] = ParamSpec((KV * Dh,), torch.float32, (None,), "zeros")
     if cfg.qk_norm:
-        p["q_norm"] = ParamSpec((Dh,), torch.float32, "ones")
-        p["k_norm"] = ParamSpec((Dh,), torch.float32, "ones")
+        p["q_norm"] = ParamSpec((Dh,), torch.float32, (None,), "ones")
+        p["k_norm"] = ParamSpec((Dh,), torch.float32, (None,), "ones")
     if cross:
-        p["gate"] = ParamSpec((), torch.float32, "zeros")
+        p["gate"] = ParamSpec((), torch.float32, (), "zeros")
     return p
 
 
 def mlp_defs(cfg: ModelConfig):
     d, ff, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
     if cfg.mlp_act in ("swiglu", "geglu"):
-        return {"w_gate": ParamSpec((d, ff), dt), "w_up": ParamSpec((d, ff), dt),
-                "w_down": ParamSpec((ff, d), dt)}
-    return {"w_in": ParamSpec((d, ff), dt),
-            "b_in": ParamSpec((ff,), torch.float32, "zeros"),
-            "w_out": ParamSpec((ff, d), dt),
-            "b_out": ParamSpec((d,), torch.float32, "zeros")}
+        return {"w_gate": ParamSpec((d, ff), dt, ("embed", "mlp")),
+                "w_up": ParamSpec((d, ff), dt, ("embed", "mlp")),
+                "w_down": ParamSpec((ff, d), dt, ("mlp", "embed"))}
+    return {"w_in": ParamSpec((d, ff), dt, ("embed", "mlp")),
+            "b_in": ParamSpec((ff,), torch.float32, (None,), "zeros"),
+            "w_out": ParamSpec((ff, d), dt, ("mlp", "embed")),
+            "b_out": ParamSpec((d,), torch.float32, (None,), "zeros")}
 
 
 def layer_defs(cfg: ModelConfig, kind: tuple[str, str]):
@@ -121,11 +134,12 @@ def embed_defs(cfg: ModelConfig):
     if cfg.input_kind not in ("tokens", "audio_frames", "text+patches"):
         raise ValueError(f"unknown input_kind={cfg.input_kind!r}")
     dt = cfg.param_dtype
-    out = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), dt, "normal", 0.02)}
+    out = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), dt, ("vocab", "embed"), "normal",
+                            0.02)}
     if cfg.input_kind == "text+patches":
-        out["mm_proj"] = ParamSpec((cfg.d_model, cfg.d_model), dt)
+        out["mm_proj"] = ParamSpec((cfg.d_model, cfg.d_model), dt, ("embed", "mlp"))
     if not cfg.tie_embeddings:
-        out["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dt)
+        out["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dt, ("embed", "vocab"))
     return out
 
 
@@ -139,6 +153,47 @@ def model_defs(cfg: ModelConfig):
     }
 
 
+def stack_defs(defs):
+    """A ``model_defs`` tree in the reference's layout: each block-pattern
+    position's per-layer specs stacked into one (num_blocks, ...) spec whose
+    leading logical axis is ``"layers"`` (the reference's ``stack_defs``)."""
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([lay[k] for lay in layers]) for k in layers[0]}
+        s = layers[0]
+        return ParamSpec((len(layers),) + s.shape, s.dtype, ("layers",) + s.axes, s.init,
+                         s.scale)
+
+    return {**defs, "blocks": [stack(b) for b in defs["blocks"]]}
+
+
+def spec_tree(defs, rules: dict, mesh_shape: dict | None = None):
+    """Logical axes -> PartitionSpecs (the reference's ``spec_tree``):
+    ``rules`` maps a logical name to a mesh axis, a tuple of mesh axes or
+    None; a mesh axis is used once a spec. With ``mesh_shape``, the axes
+    that do not divide their dimension are dropped (4 sLSTM heads over a
+    16-way model axis)."""
+    def one(d: ParamSpec) -> PartitionSpec:
+        mesh_axes, seen = [], set()
+        for dim, ax in zip(d.shape, d.axes):
+            m = rules.get(ax) if ax is not None else None
+            ms = () if m is None else ((m,) if isinstance(m, str) else tuple(m))
+            ms = tuple(a for a in ms if a not in seen)
+            if mesh_shape is not None:
+                kept, prod = [], 1
+                for a in ms:
+                    k = mesh_shape.get(a, 1)
+                    if dim % (prod * k) == 0:
+                        kept.append(a)
+                        prod *= k
+                ms = tuple(kept)
+            seen.update(ms)
+            mesh_axes.append(ms if len(ms) > 1 else (ms[0] if ms else None))
+        return PartitionSpec(*mesh_axes)
+
+    return tree_map(one, defs)
+
+
 def count_params(defs) -> int:
     """Parameters of a ``model_defs`` tree, counted from its ``ParamSpec``
     shapes (nothing is allocated)."""
@@ -150,8 +205,10 @@ def count_params(defs) -> int:
 
 def tree_map(fn, *trees):
     """``fn`` over the leaves of trees of one structure (dicts, lists,
-    tuples and NamedTuples of tensors)."""
+    tuples and NamedTuples of tensors; a ``PartitionSpec`` is a leaf)."""
     t = trees[0]
+    if isinstance(t, PartitionSpec):
+        return fn(*trees)
     if isinstance(t, dict):
         return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
     if isinstance(t, list):
@@ -165,7 +222,9 @@ def tree_map(fn, *trees):
 def ref_leaves(tree) -> list:
     """The leaves of a tree in ``jax.tree.flatten``'s order: dict keys
     sorted, lists and tuples (state NamedTuples by field) in order, None a
-    node with no leaf."""
+    node with no leaf, a ``PartitionSpec`` a leaf."""
+    if isinstance(tree, PartitionSpec):
+        return [tree]
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in ref_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -179,6 +238,8 @@ def ref_unflatten(like, leaves):
     it = iter(leaves)
 
     def build(t):
+        if isinstance(t, PartitionSpec):
+            return next(it)
         if isinstance(t, dict):
             out = {k: build(t[k]) for k in sorted(t)}
             return {k: out[k] for k in t}

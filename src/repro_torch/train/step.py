@@ -24,9 +24,10 @@ class TrainStepCfg:
     aux_weight: float = 0.01
 
 
-def make_train_step(cfg: ModelConfig, optimizer: Optimizer, tcfg: TrainStepCfg):
+def make_grads_of(cfg: ModelConfig, tcfg: TrainStepCfg):
+    """grads_of(params, batch) -> (loss, metrics, gradients in the
+    parameters' dtypes) of one batch."""
     def grads_of(params, batch):
-        """(loss, metrics, gradients in the parameters' dtypes)."""
         leaves = [t.detach().requires_grad_(True) for t in ref_leaves(params)]
         loss, metrics = loss_fn(cfg, ref_unflatten(params, leaves), batch,
                                 remat=tcfg.remat, aux_weight=tcfg.aux_weight)
@@ -34,6 +35,12 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, tcfg: TrainStepCfg):
         grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 ref_unflatten(params, grads))
+
+    return grads_of
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, tcfg: TrainStepCfg):
+    grads_of = make_grads_of(cfg, tcfg)
 
     def train_step(params, opt_state, step_idx, batch):
         k = tcfg.microbatches

@@ -36,7 +36,7 @@ def inputs() -> dict:
     f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
     B, H, KV, Dh, N = 2, 8, 4, 32, 128
     return dict(q=f(B, 1, H, Dh), k=f(B, N, KV, Dh), v=f(B, N, KV, Dh), r=f(B, 16, 64),
-                x=f(B, N, 64), w=f(8, 16, 16) / 4.0, xm=f(6, 2, 16))
+                x=f(B, N, 64), w=f(8, 16, 16) / 4.0, xm=f(6, 2, 16), gx=f(8, 128))
 
 
 REFERENCE = """
@@ -53,7 +53,24 @@ with jax.set_mesh(mesh):
 pmesh = jax.make_mesh((4,), ('pod',))
 with jax.set_mesh(pmesh):
     gp = gpipe_forward(pmesh, 'pod', lambda p, h: jnp.tanh(h @ p))(a['w'], a['xm'])
-np.savez(sys.argv[2], fd=np.asarray(fd), ring=np.asarray(ring), gp=np.asarray(gp))
+# compressed_psum: the reference test's 20 steps, on Auto axes (under the
+# Explicit axes jax.make_mesh makes by default, its shard_map raises)
+from jax.sharding import AxisType, PartitionSpec as P
+from repro.optim.compression import compressed_psum
+cmesh = jax.make_mesh((8,), ('pod',), axis_types=(AxisType.Auto,))
+def body(xl, err):
+    m, e = compressed_psum(xl[0], err[0], 'pod')
+    return m[None], e[None]
+f = jax.shard_map(body, mesh=cmesh, in_specs=(P('pod'), P('pod')), out_specs=(P('pod'), P('pod')))
+x = jnp.asarray(a['gx'])
+err = jnp.zeros_like(x)
+means, errs = [], []
+for step in range(20):
+    m, err = f(x, err)
+    means.append(np.asarray(m))
+    errs.append(np.asarray(err))
+np.savez(sys.argv[2], fd=np.asarray(fd), ring=np.asarray(ring), gp=np.asarray(gp),
+         psum_mean=np.stack(means), psum_err=np.stack(errs))
 print('REFERENCE-OK')
 """
 
@@ -191,3 +208,40 @@ def _scenario(seed: int, num_pages: int, n_slots: int, mp: int) -> None:
 def test_sharded_arena_history_keeps_the_logical_views(mp):
     for seed in range(8):
         _scenario(seed, 4 + 3 * seed, 1 + seed % 4, mp)
+
+
+def _codes(xf: np.ndarray, new_err: np.ndarray) -> np.ndarray:
+    """The int8 codes a compressed_psum step sent, from its inputs plus
+    error (xf) and the error it kept: xf - codes * scale == new_err, with
+    the scale the shards share."""
+    scale = max(np.float32(np.abs(xf).max()) / np.float32(127.0), np.float32(1e-12))
+    return np.round((xf - new_err) / scale).astype(np.int64)
+
+
+def test_compressed_psum_matches_the_reference(reference):
+    """The reference test's 20 error-feedback steps over 8 shards (row i is
+    shard i's gradient): the codes identical, each step's mean and error
+    buffers within 1e-6, and the reference's drift bound met."""
+    from repro_torch.optim.compression import compressed_psum
+
+    a, ref = reference
+    x = torch.tensor(a["gx"])
+    mesh = _line(8, "pod")
+    xs = shard_along(x, 0, mesh.axis_devices("pod"))
+    errs = [torch.zeros_like(t) for t in xs]
+    acc = torch.zeros(128)
+    true_mean = x.mean(0)
+    for step in range(20):
+        xf = torch.cat([t + e for t, e in zip(xs, errs)]).numpy()
+        ref_xf = a["gx"] + (ref["psum_err"][step - 1] if step else 0.0)
+        means, errs = compressed_psum(xs, errs)
+        got_err = torch.cat(errs).numpy()
+        np.testing.assert_array_equal(_codes(xf, got_err),
+                                      _codes(ref_xf, ref["psum_err"][step]))
+        for m in means:
+            assert np.abs(m[0].numpy() - ref["psum_mean"][step][0]).max() <= 1e-6
+        assert np.abs(got_err - ref["psum_err"][step]).max() <= 1e-6
+        acc = acc + means[0][0]
+    drift = float((acc / 20 - true_mean).abs().max())
+    one = float((means[0][0] - true_mean).abs().max())
+    assert drift < one * 0.5 + 1e-5, (drift, one)

@@ -3,8 +3,8 @@ import with JAX and the JAX package made unimportable, and no JAX module is
 loaded afterwards. Entry points (the engines, the router, the tuner's
 objective, the train, serve and tune launchers) run on the GPU unless told
 otherwise: with no GPU and no explicit device they raise instead of running
-on the CPU; the train launcher refuses a mesh, naming its ROADMAP item
-(A21b)."""
+on the CPU; the train launcher trains over a mesh of the device it is given
+and refuses a mesh it has too few CUDA devices for, naming the count."""
 import dataclasses
 import os
 import subprocess
@@ -35,7 +35,8 @@ for name in ("serving.trace", "serving.prng", "serving.speculative", "models.moe
              "tuning.frontier", "tuning.evolution", "tuning.objectives", "tuning.presets",
              "tuning.energy", "launch.serve", "launch.tune", "launch.mesh",
              "distributed.sharding", "distributed.rules", "distributed.cache_specs",
-             "distributed.collectives", "distributed.pipeline", "serving.sharded"):
+             "distributed.collectives", "distributed.pipeline", "serving.sharded",
+             "launch.dryrun", "launch.input_specs", "train.sharded"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
@@ -94,9 +95,12 @@ def test_train_entry_point_needs_a_gpu_or_an_explicit_device_and_refuses_a_mesh(
 
     args = ["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "1", "--batch", "2",
             "--seq", "8"]
-    for mesh in ("single", "multi"):
-        with pytest.raises(ValueError, match="ROADMAP A21b"):
-            main(args + ["--mesh", mesh, "--device", "cpu"])
+    for mesh, n in (("single", 256), ("multi", 512)):
+        assert main(args + ["--mesh", mesh, "--device", "cpu"]) > 0
+        if torch.cuda.device_count() < n:
+            have = torch.cuda.device_count()
+            with pytest.raises(ValueError, match=rf"needs {n} devices, have {have} "):
+                main(args + ["--mesh", mesh])
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
